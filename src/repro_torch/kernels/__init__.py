@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions."""
+from repro_torch.kernels.ops import (PLAIN, build, gemv, launch_counts,
+                                     paged_decode_attention,
+                                     prefill_attention_paged,
+                                     reset_launch_counts, rmsnorm)
+
+__all__ = ["rmsnorm", "gemv", "paged_decode_attention",
+           "prefill_attention_paged", "PLAIN", "launch_counts",
+           "reset_launch_counts", "build"]

@@ -1,0 +1,62 @@
+"""Paged chunked-prefill attention: the wrapper of
+``csrc/prefill_attention.cu``, its launch count and its plain version.
+
+Replaces the JAX package's Pallas
+``kernels/prefill_attention.py:prefill_attention_paged``.  The CUDA kernel is
+bound by the K/V bytes it streams; ``csrc/prefill_attention.cu`` says how its
+design meets that.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.troop import DEFAULT, LaunchConfig
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import check_paged
+
+#: kernel launches so far (the CPU path and the plain version do not count)
+launches = 0
+
+_ARGTYPES = {"repro_paged_prefill_bf16": [
+    _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
+    _build.I, _build.F, _build.P]}
+
+
+def plain(q, k_pool, v_pool, block_tables, q_offset, length):
+    """The plain PyTorch version: gather, causal softmax, out in q.dtype."""
+    return ref.prefill_attention_paged(q, k_pool, v_pool, block_tables,
+                                       q_offset, length).to(q.dtype)
+
+
+def prefill_attention_paged(q, k_pool, v_pool, block_tables, q_offset,
+                            length, cfg: LaunchConfig = DEFAULT):
+    """Causal chunk attention over a paged KV cache.
+
+    q (B,C,H,hd) — a prefill slab whose row 0 sits at absolute position
+    ``q_offset`` (B,); k_pool/v_pool (P,page,KV,hd); block_tables (B,nblk);
+    ``length`` (B,) = q_offset + valid rows (positions >= length are
+    masked).  Returns (B,C,H,hd) in q.dtype; rows past the valid count are
+    garbage and must be discarded by the caller.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    global launches
+    if q.device.type == "cpu":
+        return plain(q, k_pool, v_pool, block_tables, q_offset, length)
+    if q.device.type != "cuda":
+        raise ValueError(f"prefill_attention_paged: unsupported device "
+                         f"{q.device}")
+    check_paged("prefill_attention_paged", q, k_pool, v_pool, block_tables,
+                q_offset, length)
+    B, C, H, hd = q.shape
+    page, KV = k_pool.shape[1], k_pool.shape[2]
+    out = torch.empty_like(q)
+    lib = _build.library("prefill_attention", _ARGTYPES)
+    err = lib.repro_paged_prefill_bf16(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), q_offset.data_ptr(), length.data_ptr(),
+        out.data_ptr(), B, C, H, KV, hd, page, block_tables.shape[1],
+        cfg.prefill_warps, hd ** -0.5, _build.stream_handle(q.device))
+    _build.check(err, "prefill_attention_paged")
+    launches += 1
+    return out

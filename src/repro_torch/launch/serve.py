@@ -1,0 +1,93 @@
+"""Serving launcher of the port.
+
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --chunked-prefill \\
+        --prefix-cache --kernel-decode [--smoke] [--device cpu]
+
+Serves a seeded trace of requests through the chunked, paged engine and
+prints the engine metrics.  ``--kernel-decode`` routes norms, one-row
+projections and the paged attention through the CUDA kernels (on the CPU
+their plain versions run).  ``--smoke`` uses the reduced config.  The
+default device is the CUDA card; without one the launcher exits with an
+error unless ``--device cpu`` is given.
+"""
+import argparse
+import contextlib
+import json
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced config (tiny widths, 2 layers)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--kernel-decode", action="store_true",
+                    help="route rmsnorm, one-row projections and the paged "
+                         "attention through the CUDA kernels")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="prefill as fixed-size token slabs interleaved with "
+                         "decode (the only prefill the port has so far)")
+    ap.add_argument("--chunk-size", type=int, default=32)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt-prefix KV pages across requests "
+                         "(requires --chunked-prefill)")
+    ap.add_argument("--page-size", type=int, default=None)
+    ap.add_argument("--num-pages", type=int, default=None)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.device import resolve_device
+    from repro_torch.models import modules as M
+    from repro_torch.serve import EngineConfig, Request, build_engine
+
+    if not args.chunked_prefill:
+        raise SystemExit("the port serves with --chunked-prefill only so far "
+                         "(bucketed prefill: ROADMAP queue 1 item 6)")
+    if args.prefix_cache and not args.chunked_prefill:
+        raise SystemExit("--prefix-cache requires --chunked-prefill (a "
+                         "prefix hit resumes prefill mid-prompt)")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(str(e))
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    engine_cfg = EngineConfig(
+        slots=args.slots, cache_len=args.cache_len, backend="paged",
+        page_size=args.page_size, num_pages=args.num_pages,
+        chunked_prefill=True, chunk_size=args.chunk_size,
+        prefix_cache=args.prefix_cache, seed=args.seed,
+        kernel_decode=args.kernel_decode).validate()
+    engine = build_engine(cfg, engine_cfg, device=device, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    top = min(cfg.vocab_size, 1000)
+    system_prompt = rng.integers(1, top, 24) if args.prefix_cache else None
+    for i in range(args.requests):
+        prompt = rng.integers(1, top, int(rng.integers(4, 16)))
+        if system_prompt is not None:       # shared header: exercise reuse
+            prompt = np.concatenate([system_prompt, prompt])
+        engine.submit(Request(rid=i, prompt=prompt.astype(np.int32),
+                              max_new_tokens=args.max_new))
+    routing = (M.kernel_routing() if args.kernel_decode
+               else contextlib.nullcontext())
+    with routing:
+        finished = engine.run_until_drained()
+    m = engine.metrics()
+    print(f"served {len(finished)}/{args.requests} requests in "
+          f"{engine.steps} engine cycles on {device} "
+          f"(backend={engine.backend.name})")
+    print(json.dumps(m, indent=1, default=str))
+    return 0 if len(finished) == args.requests else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

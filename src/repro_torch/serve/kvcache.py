@@ -1,0 +1,418 @@
+"""Paged KV cache: page pools, block tables, refcounted pages, prefix index.
+
+A copy of the paged half of the JAX package's ``serve/kvcache.py`` (which
+imports JAX, so the port keeps its own).  KV lives in fixed-size *pages* of
+a shared pool per layer; per-slot *block tables* map logical block ->
+physical page.  Pages are refcounted: the chunked engine shares common
+prompt prefixes across slots through a radix ``PrefixIndex`` over
+page-granular token runs, and a prompt diverging mid-page copies the
+divergence page once (copy-on-write) before overwriting its tail.  Shared
+pages are read-only by invariant: the engine only writes rows at positions
+>= its prefill offset, which land in freshly allocated (or copied) pages.
+
+The host-side parts (``PageSpec``, ``BlockAllocator``, ``PrefixIndex``, the
+block tables) are plain Python and numpy exactly as in the JAX package, so
+a run of both engines on one trace hands out the same pages.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.troop import sublane
+
+NULL_PAGE = 0          # page 0 is never allocated: idle slots point here
+
+
+class PagedKVCache(NamedTuple):
+    """Paged KV leaf of one attention layer: page pools (P, page, KV, hd),
+    indexed by a per-slot block table that is per-step input
+    (``batch["block_tables"]``) — one table addresses every layer's pool."""
+    k_pool: torch.Tensor
+    v_pool: torch.Tensor
+
+
+@dataclass(frozen=True)
+class PageSpec:
+    """Static paging geometry for one engine."""
+    page_size: int            # tokens per page (a layout granule multiple)
+    num_pages: int            # physical pages per layer pool (incl. null)
+    blocks_per_slot: int      # logical blocks per slot (= ceil(S / page))
+    kv_dtype: str = "bfloat16"  # page-pool storage
+
+    def validate(self):
+        g = sublane(self.kv_dtype)
+        assert self.page_size % g == 0, \
+            f"page_size {self.page_size} not a multiple of the " \
+            f"{g}-row layout granule for {self.kv_dtype} (mechanism D)"
+        assert self.num_pages > NULL_PAGE + 1
+        return self
+
+    @staticmethod
+    def for_engine(slots: int, cache_len: int, page_size: int,
+                   num_pages: Optional[int] = None,
+                   dtype="bfloat16") -> "PageSpec":
+        blocks = -(-cache_len // page_size)
+        pages = num_pages if num_pages is not None else slots * blocks + 1
+        name = str(dtype).replace("torch.", "")
+        return PageSpec(page_size, pages, blocks, name).validate()
+
+
+class BlockAllocator:
+    """Host-side refcounted free list over physical pages [1, num_pages).
+
+    ``alloc`` hands out pages at refcount 1; ``incref`` adds holders
+    (another slot sharing the page, or the prefix index keeping it warm);
+    ``free`` decrefs and returns a page to the free list only when its last
+    holder lets go."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = num_pages
+        self._free: List[int] = list(range(num_pages - 1, NULL_PAGE, -1))
+        self._refs: Dict[int, int] = {}
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def ref(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._refs[p] = 1
+        return pages
+
+    def incref(self, pages: List[int]):
+        for p in pages:
+            assert self._refs.get(p, 0) > 0, f"incref of unheld page {p}"
+            self._refs[p] += 1
+
+    def free(self, pages: List[int]):
+        for p in pages:
+            assert p != NULL_PAGE
+            n = self._refs.get(p, 0)
+            assert n > 0, f"double free of page {p}"
+            if n == 1:
+                del self._refs[p]
+                self._free.append(p)
+            else:
+                self._refs[p] = n - 1
+
+
+class _PrefixNode:
+    """One cached page: ``tokens`` (page_size-tuple) -> physical ``page``."""
+
+    __slots__ = ("tokens", "page", "children", "last_used")
+
+    def __init__(self, tokens, page):
+        self.tokens = tokens
+        self.page = page
+        self.children: Dict[tuple, "_PrefixNode"] = {}
+        self.last_used = 0
+
+
+class PrefixIndex:
+    """Radix tree over page-granular token prefixes -> physical pages.
+
+    Each node is one full page of prompt tokens; a path from the root spells
+    a prompt prefix and yields the refcounted pages holding its KV.  The
+    index holds one reference on every cached page (taken at ``insert``,
+    dropped at eviction), so pages survive their originating request and
+    are evicted LRU-leaf-first only under pool pressure."""
+
+    def __init__(self, page_size: int, allocator: BlockAllocator):
+        self.page_size = page_size
+        self.allocator = allocator
+        self.root = _PrefixNode((), NULL_PAGE)
+        self._clock = 0
+        self._nodes = 0
+        self.hits = 0
+        self.lookups = 0
+        self.evictions = 0
+
+    @property
+    def num_pages(self) -> int:
+        return self._nodes
+
+    def _pages(self, prompt) -> List[tuple]:
+        ps = self.page_size
+        toks = [int(t) for t in prompt]
+        return [tuple(toks[i:i + ps]) for i in range(0, len(toks) - ps + 1,
+                                                     ps)]
+
+    def match(self, prompt):
+        """Longest cached prefix of ``prompt``: (pages, partial).
+
+        ``pages``: physical pages of fully matched leading pages (not yet
+        incref'd).  ``partial``: ``(page, depth)`` when the first unmatched
+        page shares its leading ``depth`` tokens with a cached page — the
+        copy-on-write candidate — else ``None``.  The match leaves at least
+        the prompt's final token to compute."""
+        self.lookups += 1
+        self._clock += 1
+        ps = self.page_size
+        limit = len(prompt) - 1            # tokens allowed to come from cache
+        node, pages, depth = self.root, [], 0
+        for key in self._pages(prompt):
+            if depth + ps > limit:
+                break
+            child = node.children.get(key)
+            if child is None:
+                break
+            child.last_used = self._clock
+            pages.append(child.page)
+            node, depth = child, depth + ps
+        partial = None
+        rest = [int(t) for t in prompt[depth:limit]]
+        if rest:
+            best = 0
+            for key, child in node.children.items():
+                j = 0
+                while j < len(rest) and j < ps and key[j] == rest[j]:
+                    j += 1
+                if j > best:
+                    best, partial = j, (child.page, j)
+                    child.last_used = self._clock
+        if pages or partial:
+            self.hits += 1
+        return pages, partial
+
+    def insert(self, prompt, pages: List[int]):
+        """Register ``prompt``'s leading full pages; the index increfs each
+        page it newly adopts."""
+        self._clock += 1
+        node = self.root
+        for key, page in zip(self._pages(prompt), pages):
+            child = node.children.get(key)
+            if child is None:
+                child = _PrefixNode(key, page)
+                node.children[key] = child
+                self.allocator.incref([page])
+                self._nodes += 1
+            child.last_used = self._clock
+            node = child
+
+    def evict(self, need: int) -> int:
+        """Drop LRU leaf pages held only by the index until ``need`` pages
+        have been freed or nothing more is evictable."""
+        freed = 0
+        while freed < need:
+            victims = []                  # (last_used, parent, key, node)
+            stack = [self.root]
+            while stack:
+                node = stack.pop()
+                for key, child in node.children.items():
+                    if not child.children \
+                            and self.allocator.ref(child.page) == 1:
+                        victims.append((child.last_used, node, key, child))
+                    stack.append(child)
+            if not victims:
+                break
+            victims.sort(key=lambda v: v[0])
+            for _, parent, key, child in victims[:need - freed]:
+                del parent.children[key]
+                self.allocator.free([child.page])
+                self._nodes -= 1
+                self.evictions += 1
+                freed += 1
+        return freed
+
+    def clear(self):
+        """Drop every index-held reference (leaves first, repeatedly)."""
+        while self._nodes and self.evict(self._nodes):
+            pass
+
+
+def copy_page(caches, src: int, dst: int):
+    """Copy physical page ``src`` -> ``dst`` in every layer's pools, in
+    place (the copy-on-write at a mid-page prefix divergence)."""
+    for c in caches:
+        c.k_pool[dst].copy_(c.k_pool[src])
+        c.v_pool[dst].copy_(c.v_pool[src])
+    return caches
+
+
+def kv_row_bytes(cfg, kv_dtype: str) -> int:
+    """Bytes one token-row of KV occupies across all attention layers."""
+    n_attn = sum(1 for (m, _) in cfg.layer_kinds() if m == "attn")
+    itemsize = torch.empty((), dtype=getattr(torch, kv_dtype)).element_size()
+    return n_attn * cfg.num_kv_heads * cfg.head_dim * itemsize * 2
+
+
+class PagedBackend:
+    """Page pool + block tables; pages are layout granules.
+
+    ``num_pages=None`` sizes the pool for full occupancy; smaller values
+    overcommit device memory — admission then *defers* when the pool is
+    exhausted instead of running out of memory."""
+
+    name = "paged"
+
+    def __init__(self, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 prefix_cache: bool = False):
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.kv_dtype: Optional[str] = None     # set by init_caches
+        self.prefix_cache = prefix_cache
+        self.spec: Optional[PageSpec] = None
+        self.prefix_index: Optional[PrefixIndex] = None
+        self._pending_cow: Dict[int, Any] = {}
+        self._shared_tokens = 0
+        self.cow_copies = 0
+
+    def init_caches(self, model, slots: int, cache_len: int):
+        # the KV storage name sets the page granule (the pools themselves
+        # take the model's compute dtype, as in the JAX package); the
+        # model's RuntimeConfig has already refused int8
+        dtype = model.rt.kv_dtype()
+        self.kv_dtype = dtype
+        self.slots = slots
+        self.cache_len = cache_len
+        self.spec = PageSpec.for_engine(slots, cache_len, self.page_size,
+                                        self.num_pages, dtype)
+        self.allocator = BlockAllocator(self.spec.num_pages)
+        self.block_tables = np.full(
+            (slots, self.spec.blocks_per_slot), NULL_PAGE, np.int32)
+        self._slot_pages: Dict[int, List[int]] = {}
+        if self.prefix_cache:
+            self.prefix_index = PrefixIndex(self.spec.page_size,
+                                            self.allocator)
+        self._row_bytes = kv_row_bytes(model.cfg, dtype)
+        return model.init_caches(slots, cache_len, page_spec=self.spec)
+
+    def _pages_needed(self, tokens: int) -> int:
+        return -(-min(tokens, self.cache_len) // self.spec.page_size)
+
+    def check_admissible(self, tokens: int):
+        """Raised at submit time, before anything is reserved."""
+        need = self._pages_needed(tokens)
+        if need > self.spec.num_pages - 1:
+            raise ValueError(
+                f"request needs {need} pages but the pool holds "
+                f"{self.spec.num_pages - 1}: it can never be admitted — "
+                f"raise num_pages or lower prompt_len + max_new_tokens")
+
+    def _alloc_evicting(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` pages, evicting cold prefix-index pages to make
+        room (pages held by live slots are never evicted)."""
+        pages = self.allocator.alloc(n)
+        if pages is None and self.prefix_index is not None:
+            self.prefix_index.evict(n - self.allocator.num_free)
+            pages = self.allocator.alloc(n)
+        return pages
+
+    def reserve(self, slot: int, tokens: int) -> bool:
+        pages = self._alloc_evicting(self._pages_needed(tokens))
+        if pages is None:
+            return False
+        self._slot_pages[slot] = pages
+        self.block_tables[slot] = NULL_PAGE
+        self.block_tables[slot, :len(pages)] = pages
+        return True
+
+    def reserve_with_prefix(self, slot: int, tokens: int,
+                            prompt) -> Optional[int]:
+        """Reserve ``slot`` reusing cached prefix pages of ``prompt``.
+
+        Returns the number of prompt tokens whose KV comes from the cache
+        (the chunked engine starts prefilling at that offset), or ``None``
+        when the pool is exhausted (admission defers).  A mid-page partial
+        match registers a pending copy-on-write the engine applies
+        (``take_cow`` / ``cow_done``) before writing the slot's pages."""
+        if self.prefix_index is None:
+            return 0 if self.reserve(slot, tokens) else None
+        page = self.spec.page_size
+        shared, partial = self.prefix_index.match(prompt)
+        # take the slot's references before any eviction can run
+        self.allocator.incref(shared)
+        cow_src, cow_depth = partial if partial else (None, 0)
+        if cow_src is not None:
+            self.allocator.incref([cow_src])
+        fresh_n = self._pages_needed(tokens) - len(shared)
+        fresh = self._alloc_evicting(fresh_n)
+        if fresh is None:                       # pool pressure: undo, defer
+            self.allocator.free(shared)
+            if cow_src is not None:
+                self.allocator.free([cow_src])
+            return None
+        if cow_src is not None:
+            self._pending_cow[slot] = (cow_src, fresh[0])
+        pages = shared + fresh
+        self._slot_pages[slot] = pages
+        self.block_tables[slot] = NULL_PAGE
+        self.block_tables[slot, :len(pages)] = pages
+        offset = len(shared) * page + cow_depth
+        self._shared_tokens += offset
+        return offset
+
+    def take_cow(self, slot: int):
+        """Pending (src_page, dst_page) copy for ``slot``, or ``None``."""
+        return self._pending_cow.get(slot)
+
+    def cow_done(self, slot: int):
+        """The engine copied the divergence page: drop the source ref."""
+        src, _ = self._pending_cow.pop(slot)
+        self.allocator.free([src])
+        self.cow_copies += 1
+
+    def register_prefix(self, slot: int, prompt):
+        """Index ``slot``'s fully written prompt pages for future reuse."""
+        if self.prefix_index is None:
+            return
+        full = len(prompt) // self.spec.page_size
+        if full:
+            self.prefix_index.insert(prompt, self._slot_pages[slot][:full])
+
+    def release(self, slot: int):
+        if slot in self._pending_cow:           # released before the copy
+            src, _ = self._pending_cow.pop(slot)
+            self.allocator.free([src])
+        pages = self._slot_pages.pop(slot, None)
+        if pages:
+            self.allocator.free(pages)
+        self.block_tables[slot] = NULL_PAGE
+
+    def kv_page_bytes(self) -> Dict[str, int]:
+        """Logical (every block-table entry) vs resident (each physical
+        page once) KV pages and bytes."""
+        sp = self.spec
+        if sp is None:
+            return {"kv_pages_logical": 0, "kv_pages_resident": 0}
+        live = self.block_tables[self.block_tables != NULL_PAGE]
+        page_bytes = sp.page_size * self._row_bytes
+        resident = int(np.unique(live).size)
+        return {"kv_pages_logical": int(live.size),
+                "kv_pages_resident": resident,
+                "kv_page_bytes_logical": int(live.size) * page_bytes,
+                "kv_page_bytes_resident": resident * page_bytes}
+
+    def stats(self) -> Dict[str, Any]:
+        sp = self.spec
+        out = {
+            "backend": self.name,
+            "page_size": sp.page_size if sp else self.page_size,
+            "num_pages": sp.num_pages if sp else self.num_pages,
+            "kv_dtype": sp.kv_dtype if sp else self.kv_dtype,
+            "pages_free": self.allocator.num_free if sp else None,
+            "pages_in_use": (sp.num_pages - 1 - self.allocator.num_free)
+            if sp else None,
+        }
+        out.update(self.kv_page_bytes())
+        if self.prefix_index is not None:
+            out.update({
+                "prefix_lookups": self.prefix_index.lookups,
+                "prefix_hits": self.prefix_index.hits,
+                "prefix_pages_cached": self.prefix_index.num_pages,
+                "prefix_evictions": self.prefix_index.evictions,
+                "prefix_shared_tokens": self._shared_tokens,
+                "cow_copies": self.cow_copies,
+            })
+        return out
