@@ -8,19 +8,23 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each one against its plain PyTorch version at the serving shapes and
 times it, then serves full-width qwen1.5-0.5b (random weights from seed 0)
-through the chunked, paged engine with every kernel on, and checks that the
-path went through the kernels, that the allocator balances and that the
-kernel path's logits agree with the plain path's.  Every phase fails
-loudly.  It prints the card's ``nvidia-smi`` name and power limit, one JSON
-line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+through the chunked, paged engine with every kernel on — once with bf16
+weights and KV pages, once with mx4 weights and int8 KV pages — and checks
+that each path went through its kernels, that the allocator balances and
+that the kernel path's logits agree with the plain path's.  Every phase
+fails loudly.  It prints the card's ``nvidia-smi`` name and power limit,
+one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
+{...}}``.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.  ``--record DIR`` also writes the full record
 (``chip_smoke.json``: nvcc/ptxas output, every timing and engine metric)
-and the profiler trace of the decode window (``decode_trace.json``) to DIR.
+and the profiler traces of the decode windows (``decode_trace.json.gz``,
+``decode_trace_quant.json.gz``) to DIR.
 """
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import statistics
 import subprocess
@@ -37,10 +41,19 @@ BF16_OPS_PER_S = 989e12
 # Kernel vs plain version.  rmsnorm and gemv give bf16/fp32 outputs of order
 # 1: bf16 keeps ~3 significant digits.  The attention outputs are softmax-
 # weighted means of N(0, 1) rows, of order 0.1; their measured errors are
-# 6e-5 to 1e-3, and 4e-3 leaves fourfold headroom above the largest.
+# 6e-5 to 1e-3, and 4e-3 leaves fourfold headroom above the largest.  The
+# kernels of the quantized path take fourfold headroom over their first
+# measured errors (chip call 4 of PR 12, seeded inputs, which reproduce
+# them): the int8-pool decode 6.1e-5 (one bf16 rounding flip; both
+# dequantize in fp32) -> 2.5e-4; mx_qgemv 1.2e-6 and mx_qgemv_swiglu 1.4e-6
+# (fp32 outputs of order 1 from the same dequantized weights — the kernel
+# builds 2^(s - 127) exactly, the plain version as exp((s - 127) ln2) —
+# summed in another order) -> 5e-6 and 6e-6.
 BF16_TOL = 2e-2
 TOL = {"rmsnorm": BF16_TOL, "gemv": BF16_TOL,
-       "paged_decode_attention": 4e-3, "prefill_attention_paged": 4e-3}
+       "paged_decode_attention": 4e-3, "prefill_attention_paged": 4e-3,
+       "paged_decode_attention_int8": 2.5e-4, "mx_qgemv": 5e-6,
+       "mx_qgemv_swiglu": 6e-6}
 ROOT = Path(__file__).resolve().parent
 
 REPLACES = {
@@ -54,7 +67,20 @@ REPLACES = {
     "prefill_attention_paged": (
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
         "src/repro/kernels/prefill_attention.py:185"),
+    "paged_decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:514"),
+    "mx_qgemv": ("src/repro_torch/kernels/csrc/mx_gemv.cu",
+                 "src/repro/quant/kernels.py:352"),
+    "mx_qgemv_swiglu": ("src/repro_torch/kernels/csrc/mx_gemv.cu",
+                        "src/repro/quant/kernels.py:428"),
 }
+# the kernels of each served path: bf16 weights and pages, then mx4 weights
+# and int8 pages (whose main path also runs rmsnorm and, at chunk steps,
+# the read-out through mx_qgemv)
+BF16_PATH = ("rmsnorm", "gemv", "paged_decode_attention",
+             "prefill_attention_paged")
+QUANT_PATH = ("paged_decode_attention_int8", "mx_qgemv", "mx_qgemv_swiglu")
 
 
 def log(*a):
@@ -107,11 +133,13 @@ def time_ms(torch, fns, reps: int = 25, inner: int = 20):
     return device, _event_ms(torch, eager, reps) / inner
 
 
-def timed(torch, kernel, plain, library):
-    """The timing keys of one kernel row (lists of zero-argument calls)."""
-    out = {}
+def timed(torch, kernel, plain, library=None):
+    """The timing keys of one kernel row (lists of zero-argument calls;
+    ``library`` None: no PyTorch call computes the function)."""
+    out = {"library_ms": None, "eager_library_ms": None}
     for key, fns in (("", kernel), ("plain_", plain), ("library_", library)):
-        out[key + "ms"], out["eager_" + key + "ms"] = time_ms(torch, fns)
+        if fns is not None:
+            out[key + "ms"], out["eager_" + key + "ms"] = time_ms(torch, fns)
     return out
 
 
@@ -124,6 +152,8 @@ def copies_for(nbytes: int, cap: int = 64) -> int:
 def kernels_phase(torch, K, dev, rng):
     import numpy as np
     import torch.nn.functional as F
+
+    from repro_torch.quant.tensor import quantize_kv, quantize_mx
 
     def t(a, dtype=torch.bfloat16):
         return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
@@ -267,7 +297,110 @@ def kernels_phase(torch, K, dev, rng):
                     [lambda dv=dv: F.scaled_dot_product_attention(
                         q1s, dv[0], dv[1], attn_mask=m1) for dv in dv1])})
     rows["prefill_attention_paged"] = pre
-    del pools
+
+    # paged decode over int8 pools: the same slots and heads at the int8
+    # page of 32 rows (cache_len 1024 -> 32 blocks per slot)
+    page8, nblk8 = 32, 32
+    P8 = slots * nblk8 + 1
+    pools8 = []
+    for _ in range(copies_for(2 * P8 * page8 * KV * (hd + 2), cap=4)):
+        k8, ks = quantize_kv(t(rng.standard_normal((P8, page8, KV, hd))))
+        v8, vs = quantize_kv(t(rng.standard_normal((P8, page8, KV, hd))))
+        pools8.append((k8, ks, v8, vs))
+    perm8 = rng.permutation(P8 - 1) + 1
+    bt8 = torch.as_tensor(perm8[:slots * nblk8].reshape(slots, nblk8)
+                          .astype(np.int32), device=dev)
+    K8 = K.paged_decode_attention_int8
+    P8F = K.PLAIN["paged_decode_attention_int8"]
+    err = agree("paged_decode_attention_int8", K8(q, *pools8[0], bt8, length),
+                P8F(q, *pools8[0], bt8, length))
+    len_odd8 = torch.as_tensor(np.asarray([1, 5, 33, 64, 100, 111, 160, 300],
+                                          np.int32), device=dev)
+    bt8_odd = bt8[:, :5].contiguous()
+    err_edge = agree("paged_decode_attention_int8 (odd nblk)",
+                     K8(q, *pools8[0], bt8_odd, len_odd8),
+                     P8F(q, *pools8[0], bt8_odd,
+                         torch.clamp(len_odd8, max=5 * page8)))
+    S8 = nblk8 * page8
+    dq_views = []
+    for k8, ks, v8, vs in pools8:        # the pre-dequantized dense view
+        ix = bt8.long()
+        k = (k8[ix].float() * ks[ix].float()).to(torch.bfloat16)
+        v = (v8[ix].float() * vs[ix].float()).to(torch.bfloat16)
+        dq_views.append(tuple(a.reshape(slots, S8, KV, hd).transpose(1, 2)
+                              .contiguous() for a in (k, v)))
+    mask8 = (torch.arange(S8, device=dev)[None, None, None, :]
+             < length[:, None, None, None])
+    bms, by = bound_ms(rows_read * KV * (hd + 2) * 2 + slots * H * hd * 4
+                       + slots * nblk8 * 4, 4 * H * hd * rows_read)
+    rows["paged_decode_attention_int8"] = [{
+        "shape": f"q ({slots}, {H}, {hd}) bf16, int8 pools ({P8}, {page8}, "
+                 f"{KV}, {hd}) + bf16 scale pages, bt ({slots}, {nblk8}), "
+                 f"length {lens.tolist()}",
+        "max_abs_err": max(err, err_edge), "bound_ms": bms, "bound_by": by,
+        "library": "SDPA on the pre-dequantized bf16 dense view",
+        **timed(torch, [lambda p=p: K8(q, *p, bt8, length) for p in pools8],
+                [lambda p=p: P8F(q, *p, bt8, length) for p in pools8],
+                [lambda dv=dv: F.scaled_dot_product_attention(
+                    qs, dv[0], dv[1], attn_mask=mask8) for dv in dq_views])}]
+    del pools, pools8, dq_views
+
+    # MX weights at every one-row projection shape of the quantized path:
+    # fp4 and fp8 at the read-out, fp4 at q/k/v/o and down; no PyTorch call
+    # takes 32-row E8M0 blocks, so the reference is the bf16 gemv kernel of
+    # the same (N, K) (rows["gemv"])
+    gemv_ms = {r["shape"].split(" bf16")[0]: r["ms"] for r in gem}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def mx_weights(K_, N, elem):
+        n = copies_for(K_ * N // (2 if elem == "fp4" else 1))
+        qts = [quantize_mx(torch.randn((K_, N), device=dev, generator=gen)
+                           / np.sqrt(K_), elem=elem) for _ in range(n)]
+        return [(qt.values, qt.scales) for qt in qts]
+
+    mx = []
+    for (N, Kd), elem in (((151936, 1024), "fp4"), ((151936, 1024), "fp8"),
+                          ((1024, 1024), "fp4"), ((1024, 2816), "fp4")):
+        ws = mx_weights(Kd, N, elem)
+        x = t(rng.standard_normal(Kd))
+        err = agree(f"mx_qgemv {elem} {N}x{Kd}", K.mx_qgemv(*ws[0], x),
+                    K.PLAIN["mx_qgemv"](*ws[0], x))
+        code_bytes = N * Kd // (2 if elem == "fp4" else 1)
+        bms, by = bound_ms(code_bytes + N * Kd // 32 + Kd * 2 + N * 4,
+                           2 * N * Kd)
+        mx.append({
+            "shape": f"{elem} codes of W ({Kd}, {N}) + E8M0 ({Kd // 32}, {N})"
+                     f", x ({Kd},) bf16",
+            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+            "library": None,
+            "bf16_gemv_ms": gemv_ms.get(f"w ({N}, {Kd})"),
+            **timed(torch, [lambda w=w: K.mx_qgemv(*w, x) for w in ws],
+                    [lambda w=w: K.PLAIN["mx_qgemv"](*w, x) for w in ws])})
+        del ws
+    rows["mx_qgemv"] = mx
+
+    N, Kd = 2816, 1024                      # gate + up of the MLP
+    gs, us = mx_weights(Kd, N, "fp4"), mx_weights(Kd, N, "fp4")
+    x = t(rng.standard_normal(Kd))
+    err = agree("mx_qgemv_swiglu", K.mx_qgemv_swiglu(*gs[0], *us[0], x),
+                K.PLAIN["mx_qgemv_swiglu"](*gs[0], *us[0], x))
+    wg8, sg8 = mx_weights(Kd, N, "fp8")[0]
+    wu8, su8 = mx_weights(Kd, N, "fp8")[0]
+    err8 = agree("mx_qgemv_swiglu fp8", K.mx_qgemv_swiglu(wg8, sg8, wu8, su8,
+                                                           x),
+                 K.PLAIN["mx_qgemv_swiglu"](wg8, sg8, wu8, su8, x))
+    bms, by = bound_ms(2 * (N * Kd // 2 + N * Kd // 32) + Kd * 2 + N * 4,
+                       4 * N * Kd)
+    ref = gemv_ms.get(f"w ({N}, {Kd})")
+    rows["mx_qgemv_swiglu"] = [{
+        "shape": f"fp4 gate + up W ({Kd}, {N}) + E8M0, x ({Kd},) bf16",
+        "max_abs_err": max(err, err8), "bound_ms": bms, "bound_by": by,
+        "library": None, "bf16_gemv_ms": None if ref is None else 2 * ref,
+        **timed(torch, [lambda g=g, u=u: K.mx_qgemv_swiglu(*g, *u, x)
+                        for g, u in zip(gs, us)],
+                [lambda g=g, u=u: K.PLAIN["mx_qgemv_swiglu"](*g, *u, x)
+                 for g, u in zip(gs, us)])}]
     torch.cuda.synchronize()
     return rows
 
@@ -316,43 +449,63 @@ def check_balanced(engine):
         raise AssertionError("pages leaked after clearing the prefix index")
 
 
-def logits_phase(torch, np, K, M, model_k, model_p, dev, rng):
+def logits_phase(torch, np, K, M, model_k, model_p, dev, rng,
+                 kv_dtype="bfloat16"):
     """One chunk step and one decode step on identical caches: the kernel
     path against the plain path, both bf16, and both against the plain path
-    in fp32 on the same weights.  The two bf16 paths round at different
-    places (the kernels keep fp32 probabilities and fp32 gemv outputs), and
-    over 24 layers that compounds to a few hundredths of the logits' scale,
-    so the criterion is relative to the bf16 noise itself: the kernel path
-    must stay within twice the plain path's distance from fp32.  Returns
-    the errors and the launches of each step."""
+    in fp32 on the same weights (MX weights dequantize in fp32 there).  The
+    two bf16 paths round at different places (the kernels keep fp32
+    probabilities and fp32 gemv outputs), and over 24 layers that compounds
+    to a few hundredths of the logits' scale, so the criterion is relative
+    to the bf16 noise itself: the kernel path must stay within twice the
+    plain path's distance from fp32.  int8 caches (``kv_dtype="int8"``) are
+    the same bytes in all three runs, scale pages and bf16 chunk stage
+    included.  Returns the errors and the launches of each step."""
     import copy
     import dataclasses
 
     from repro_torch.models import RuntimeConfig, build_model
-    from repro_torch.serve import PagedKVCache, PageSpec
+    from repro_torch.serve import ChunkStage, PagedKVCache, PageSpec
     V = model_k.cfg.vocab_size
     model_32 = build_model(
         dataclasses.replace(model_k.cfg, dtype="float32"), RuntimeConfig(),
         params=copy.deepcopy(model_p.params).float(), device=dev)
-    spec = PageSpec.for_engine(2, 256, 16)
+    int8 = kv_dtype == "int8"
+    spec = PageSpec.for_engine(2, 256, 32 if int8 else 16, dtype=kv_dtype)
     nblk = spec.blocks_per_slot
     perm = rng.permutation(spec.num_pages - 1) + 1
     bt = torch.as_tensor(perm[:2 * nblk].reshape(2, nblk).astype(np.int32),
                          device=dev)
-    caches_a = model_k.init_caches(2, 256, page_spec=spec)
+    caches_a = model_k.init_caches(2, 256, page_spec=spec,
+                                   chunk_stage=32 if int8 else 0)
     prompt = rng.integers(1, V, 45).astype(np.int32)
 
     def i32(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=dev)
 
+    def tensors(c):
+        return [c.k_pool, c.v_pool, c.k_scale_pool, c.v_scale_pool,
+                *(c.stage or (None, None))]
+
     def clone_into(dst, src):
         for d, s in zip(dst, src):
-            d.k_pool.copy_(s.k_pool)      # copy_ casts to dst's dtype
-            d.v_pool.copy_(s.v_pool)
+            for a, b in zip(tensors(d), tensors(s)):
+                if a is not None:
+                    a.copy_(b)            # copy_ casts to dst's dtype
 
     def copies(caches, dtype):
-        return [PagedKVCache(c.k_pool.to(dtype, copy=True),
-                             c.v_pool.to(dtype, copy=True)) for c in caches]
+        """bf16 value pools in ``dtype``; int8 pools, scale pages and the
+        bf16 stage as they are."""
+        out = []
+        for c in caches:
+            vd = c.k_pool.dtype if c.quantized else dtype
+            out.append(PagedKVCache(
+                c.k_pool.to(vd, copy=True), c.v_pool.to(vd, copy=True),
+                *(None if a is None else a.clone()
+                  for a in (c.k_scale_pool, c.v_scale_pool)),
+                None if c.stage is None else ChunkStage(c.stage.k.clone(),
+                                                        c.stage.v.clone())))
+        return out
 
     first = {"tokens": i32(prompt[None, :32]), "offset": i32([0]),
              "valid": i32([32]), "block_tables": bt[:1]}
@@ -413,7 +566,8 @@ def logits_phase(torch, np, K, M, model_k, model_p, dev, rng):
     return out
 
 
-def decode_profile(torch, np, M, model_k, ecfg, rng, record):
+def decode_profile(torch, np, M, model_k, ecfg, rng, record,
+                   name="decode_trace.json"):
     """Steady decode of 8 slots on the kernel path: host wall of 10 engine
     cycles, then 10 more under ``torch.profiler`` — the device's busy share
     of that window (union of kernel/copy intervals in the trace) and the
@@ -449,11 +603,12 @@ def decode_profile(torch, np, M, model_k, ecfg, rng, record):
             wall_prof = time.perf_counter() - t0
         eng.run_until_drained()
     with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "decode_trace.json"
+        path = Path(tmp) / name
         prof.export_chrome_trace(str(path))
         trace = path.read_text()
-    if record is not None:
-        (record / "decode_trace.json").write_text(trace)
+    if record is not None:              # gzip: the traces are tens of MB
+        with gzip.open(record / (name + ".gz"), "wt") as f:
+            f.write(trace)
     events = [e for e in json.loads(trace)["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
@@ -510,7 +665,7 @@ def engine_phase(torch, dev, rng, record=None):
     with M.kernel_routing():
         reqs_k, wall = serve(torch, eng, specs, V)
     res["launches"] = K.launch_counts()
-    missing = [k for k, n in res["launches"].items() if n == 0]
+    missing = [k for k in BF16_PATH if res["launches"][k] == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
     res["kernel_path"] = {"wall_s": wall, "metrics": eng.metrics()}
@@ -542,7 +697,7 @@ def engine_phase(torch, dev, rng, record=None):
     with M.kernel_routing():
         _, wall = serve(torch, eng, specs[:2], V)
     res["launches_one_slot"] = K.launch_counts()
-    if not all(res["launches_one_slot"].values()):
+    if not all(res["launches_one_slot"][k] for k in BF16_PATH):
         raise AssertionError(f"one-slot run: {res['launches_one_slot']}")
     res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
     check_balanced(eng)
@@ -582,13 +737,139 @@ def engine_phase(torch, dev, rng, record=None):
     return res
 
 
+def kv_bytes(caches):
+    """Bytes of the KV page pools, scale pages included (the chunk stage
+    apart)."""
+    return sum(a.numel() * a.element_size() for c in caches
+               for a in (c.k_pool, c.v_pool, c.k_scale_pool, c.v_scale_pool)
+               if a is not None)
+
+
+def quant_phase(torch, dev, rng, record=None):
+    """The quantized slice: mx4 weights (quantized after the seed-0 init)
+    and int8 KV pages through the same engine, kernel path against plain
+    path, then one slot (every projection one row: mx_qgemv and the fused
+    mx_qgemv_swiglu)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.models import RuntimeConfig
+    from repro_torch.models import modules as M
+    from repro_torch.quant import quantized_stats
+    from repro_torch.serve import EngineConfig, build_engine
+
+    ecfg = EngineConfig(slots=8, cache_len=1024, backend="paged",
+                        chunked_prefill=True, chunk_size=32,
+                        prefix_cache=True, kv_cache_dtype="int8",
+                        quantize_weights="mx4", kernel_decode=True)
+    t0 = time.perf_counter()
+    eng = build_engine("qwen1.5-0.5b", ecfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    model_k = eng.model
+    model_p = model_k.with_runtime(RuntimeConfig(
+        quantize_weights="mx4", kv_cache_dtype="int8"))
+    V = model_k.cfg.vocab_size
+    res = {"init_s": time.perf_counter() - t0,
+           "page_size": eng.backend.spec.page_size,
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model_k.parameters()),
+           "quantized_stats": quantized_stats(model_k.params),
+           "kv_pool_bytes": kv_bytes(eng.caches),
+           "stage_bytes": sum(2 * c.stage.k.numel() * c.stage.k.element_size()
+                              for c in eng.caches)}
+    if res["page_size"] != 32 or eng.caches[0].stage is None:
+        raise AssertionError("int8 pools need 32-row pages and a stage")
+    specs = make_requests(np, rng, V, 16)
+
+    # this slice's path, 8 slots: int8 decode attention every step
+    K.reset_launch_counts()
+    with M.kernel_routing():
+        reqs_k, wall = serve(torch, eng, specs, V)
+    res["launches"] = K.launch_counts()
+    if res["launches"]["paged_decode_attention_int8"] == 0:
+        raise AssertionError(f"the quantized path never launched the int8 "
+                             f"decode kernel: {res['launches']}")
+    res["kernel_path"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_balanced(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = build_engine(model_p, dataclasses.replace(ecfg,
+                                                    kernel_decode=False))
+    K.reset_launch_counts()
+    reqs_p, wall = serve(torch, eng, specs, V)
+    if any(K.launch_counts().values()):
+        raise AssertionError(f"plain path launched {K.launch_counts()}")
+    res["plain_path"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_balanced(eng)
+    del eng
+    torch.cuda.empty_cache()
+    res["token_agreement"] = sum(
+        a == b for rk, rp in zip(reqs_k, reqs_p)
+        for a, b in zip(rk.out, rp.out)) / sum(len(r.out) for r in reqs_k)
+    res["identical_streams"] = sum(rk.out == rp.out
+                                   for rk, rp in zip(reqs_k, reqs_p))
+
+    # this slice's path, one slot: every new kernel launches
+    eng = build_engine(model_k, dataclasses.replace(ecfg, slots=1))
+    K.reset_launch_counts()
+    with M.kernel_routing():
+        _, wall = serve(torch, eng, specs[:2], V)
+    res["launches_one_slot"] = K.launch_counts()
+    if not all(res["launches_one_slot"][k] for k in QUANT_PATH):
+        raise AssertionError(f"one-slot run: {res['launches_one_slot']}")
+    res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_balanced(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    res.update(logits_phase(torch, np, K, M, model_k, model_p, dev, rng,
+                            kv_dtype="int8"))
+    res["decode_profile"] = decode_profile(
+        torch, np, M, model_k, ecfg, rng, record, "decode_trace_quant.json")
+
+    mk, mp = res["kernel_path"]["metrics"], res["plain_path"]["metrics"]
+    qs = res["quantized_stats"]
+    log(f"  qwen1.5-0.5b full width, mx4 weights + int8 KV: "
+        f"{res['weight_bytes'] / 1e9:.3f} GB weights ({qs['quantized_leaves']}"
+        f" quantized leaves, {qs['quantized_bytes']:,} B, was "
+        f"{qs['quantized_fp32_bytes']:,} B fp32; {qs['raw_bytes']:,} B raw), "
+        f"{res['kv_pool_bytes'] / 1e9:.3f} GB KV pools with scale pages "
+        f"(+ {res['stage_bytes'] / 1e6:.1f} MB bf16 stage)")
+    log(f"  kernel path: {mk['tokens_per_s']:.1f} tok/s, "
+        f"{mk['decode_steps_per_s']:.1f} decode steps/s, "
+        f"{res['kernel_path']['wall_s']:.2f} s wall, launches "
+        f"{res['launches']}")
+    log(f"  plain path:  {mp['tokens_per_s']:.1f} tok/s, "
+        f"{mp['decode_steps_per_s']:.1f} decode steps/s, "
+        f"{res['plain_path']['wall_s']:.2f} s wall")
+    log(f"  greedy token agreement kernel vs plain: "
+        f"{res['token_agreement']:.4f} ({res['identical_streams']}/16 "
+        f"identical streams)")
+    log(f"  one slot: launches {res['launches_one_slot']}")
+    log(f"  chunk step: logits err {res['chunk_logits']}, launches "
+        f"{res['chunk_launches']}")
+    log(f"  decode step: logits err {res['decode_logits']}, launches "
+        f"{res['decode_launches']} (one slot: "
+        f"{res['decode_launches_one_slot']})")
+    prof = res["decode_profile"]
+    log(f"  steady decode, 8 slots: {prof['wall_s'] / 10 * 1e3:.2f} ms host "
+        f"wall per cycle; under the profiler the device is busy "
+        f"{prof['device_busy_share']} of the window")
+    for name, us in prof["top_kernels_us"][:8]:
+        log(f"    {us:10.1f} us  {name}")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,engine",
-                    help="comma list of kernels,engine (default: both)")
+    ap.add_argument("--phases", default="kernels,engine,quant",
+                    help="comma list of kernels,engine,quant (default: all)")
     ap.add_argument("--record", type=Path, default=None, metavar="DIR",
-                    help="also write chip_smoke.json and decode_trace.json "
-                         "to DIR")
+                    help="also write chip_smoke.json and the gzipped "
+                         "decode traces to DIR")
     args = ap.parse_args()
     if args.record is not None:
         args.record.mkdir(parents=True, exist_ok=True)
@@ -631,23 +912,34 @@ def main():
         rows = kernels_phase(torch, K, dev, rng)
         log(f"kernels phase: {time.perf_counter() - t1:.1f} s")
         log("  us per call, device (CUDA graph) / eager (Python launch):")
+
+        def us(v):
+            return "   none" if v is None else f"{v * 1e3:7.2f}"
         for name, rs in rows.items():
             for r in rs:
-                log(f"  {name:23s} kernel {r['ms'] * 1e3:7.2f}/"
-                    f"{r['eager_ms'] * 1e3:7.2f}  plain "
-                    f"{r['plain_ms'] * 1e3:7.2f}/"
-                    f"{r['eager_plain_ms'] * 1e3:7.2f}  library "
-                    f"{r['library_ms'] * 1e3:7.2f}/"
-                    f"{r['eager_library_ms'] * 1e3:7.2f}  bound "
-                    f"{r['bound_ms'] * 1e3:7.2f} ({r['bound_by']})  err "
-                    f"{r['max_abs_err']:.3g}  {r['shape']}")
+                log(f"  {name:27s} kernel {us(r['ms'])}/{us(r['eager_ms'])}"
+                    f"  plain {us(r['plain_ms'])}/{us(r['eager_plain_ms'])}"
+                    f"  library {us(r['library_ms'])}/"
+                    f"{us(r['eager_library_ms'])}  bound "
+                    f"{us(r['bound_ms'])} ({r['bound_by']})  err "
+                    f"{r['max_abs_err']:.3g}  {r['shape']}"
+                    + (f"  [bf16 gemv {us(r['bf16_gemv_ms'])}]"
+                       if r.get("bf16_gemv_ms") else ""))
     launches = {name: None for name in REPLACES}
     if "engine" in phases:
         t1 = time.perf_counter()
         eng = engine_phase(torch, dev, rng, args.record)
         log(f"engine phase: {time.perf_counter() - t1:.1f} s")
-        launches = eng["launches"]
+        launches.update({k: eng["launches"][k] for k in BF16_PATH})
         record["engine"] = eng
+    if "quant" in phases:
+        t1 = time.perf_counter()
+        qeng = quant_phase(torch, dev, rng, args.record)
+        log(f"quantized engine phase: {time.perf_counter() - t1:.1f} s")
+        # this slice's path: the 8-slot run and the one-slot run
+        launches.update({k: qeng["launches"][k]
+                         + qeng["launches_one_slot"][k] for k in QUANT_PATH})
+        record["quant"] = qeng
 
     entries = []
     for name, (src, rep) in REPLACES.items():

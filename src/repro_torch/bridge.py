@@ -10,10 +10,16 @@ axis — and returns the ``nn.ModuleDict`` the port's model reads:
   ``(out, in)`` (the layout ``F.linear`` and the routed ``gemv`` read, so no
   call transposes) and cast once to the compute dtype — the values JAX gets
   from casting the fp32 master weights on every call;
-* norm scales stay fp32; biases and the embedding keep their stored dtype.
+* norm scales stay fp32; biases and the embedding keep their stored dtype;
+* a ``QuantizedTensor`` leaf (MX weights from ``quantize_params``) becomes
+  the port's ``QuantizedTensor`` with the JAX ``(K | K/2, N)`` codes and
+  ``(K/32, N)`` scales byte for byte — no transpose; fp8 codes (ml_dtypes
+  ``float8_e4m3fn``, which ``torch.from_numpy`` does not take) cross as
+  their bytes and are viewed back as ``torch.float8_e4m3fn``.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict, List
 
 import numpy as np
@@ -23,6 +29,22 @@ from torch import nn
 from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.modules import frozen
 from repro_torch.models.transformer import check_supported
+from repro_torch.quant.tensor import QuantizedTensor
+
+
+def _is_quantized(leaf) -> bool:
+    """A JAX ``QuantizedTensor`` (or its unstacked layer), duck-typed."""
+    return hasattr(leaf, "fmt") and hasattr(leaf, "scales")
+
+
+def _quantized(q, device) -> QuantizedTensor:
+    v = np.asarray(q.values)
+    fp8 = v.dtype.name == "float8_e4m3fn"
+    values = _tensor(v.view(np.uint8) if fp8 else v, device)
+    if fp8:
+        values = values.view(torch.float8_e4m3fn)
+    return QuantizedTensor(values, _tensor(q.scales, device), q.bits,
+                           q.group_size, q.axis, q.fmt)
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -31,8 +53,10 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 
 def _dense(p: Dict[str, Any], device, dtype) -> nn.ParameterDict:
-    out = nn.ParameterDict({"w": frozen(
-        _tensor(np.asarray(p["w"]).T, device, dtype).contiguous())})
+    w = p["w"]
+    out = nn.ParameterDict({"w": _quantized(w, device) if _is_quantized(w)
+                            else frozen(_tensor(np.asarray(w).T, device,
+                                                dtype).contiguous())})
     if "b" in p:
         out["b"] = frozen(_tensor(p["b"], device))
     return out
@@ -57,6 +81,11 @@ def _layer(p, device, dtype) -> nn.ModuleDict:
 def _unstack(tree, i: int):
     if isinstance(tree, dict):
         return {k: _unstack(v, i) for k, v in tree.items()}
+    if _is_quantized(tree):
+        return SimpleNamespace(values=np.asarray(tree.values)[i],
+                               scales=np.asarray(tree.scales)[i],
+                               bits=tree.bits, group_size=tree.group_size,
+                               axis=tree.axis, fmt=tree.fmt)
     return np.asarray(tree)[i]
 
 

@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rmsnorm", "gemv", "decode_attention", "prefill_attention")
+SOURCES = ("rmsnorm", "gemv", "decode_attention", "prefill_attention",
+           "mx_gemv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,7 +3,9 @@
 // each with its own causal limit).
 //
 // Layout (the JAX package's, serve/kvcache.py): pools (P, page, KV, HD)
-// bf16; a slot's block-table row maps logical block j -> physical page.
+// bf16, or int8 with bf16 scale pools (P, page, KV, 1) addressed by the
+// same pool row; a slot's block-table row maps logical block j -> physical
+// page.
 // Logical position s of the slot lives at pool row
 // ((bt[s / page] * page + s % page) * KV + kv_head) * HD.
 #pragma once
@@ -14,34 +16,82 @@ namespace repro {
 
 constexpr float kNeg = -1e30f;  // the JAX kernels' mask value (_NEG)
 
-// A warp's V staging tile: 32 positions x one row of HD bf16 values, each
-// row padded by 16 bytes so the 8 lanes of a 16-byte store phase land on
-// distinct shared-memory banks.
-template <int HD>
+// A warp's V staging tile: 32 positions x one row of HD elements of type E,
+// each row padded by 16 bytes so the 8 lanes of a 16-byte store phase land
+// on distinct shared-memory banks; int8 rows carry their dequantization
+// scales after the tile (one fp32 per position).
+template <int HD, typename E>
 struct VStage {
-  static constexpr int stride = HD + 8;         // bf16 elements per row
-  static constexpr int bytes = 32 * stride * 2;
+  static constexpr bool kInt8 = sizeof(E) == 1;
+  static constexpr int stride = HD + 16 / (int)sizeof(E);  // elements
+  static constexpr int rows_bytes = 32 * stride * (int)sizeof(E);
+  static constexpr int bytes = rows_bytes + (kInt8 ? 32 * 4 : 0);
 };
+
+// int8 -> fp32 without the conversion unit (I2F issues at 1/8 of the FMA
+// rate): byte k of ``biased`` (the int8 word XOR 0x80808080, i.e. each
+// value + 128) becomes the low mantissa byte of 2^23, and subtracting
+// 2^23 + 128 leaves the value, exactly.
+__device__ __forceinline__ float biased_byte_to_float(uint32_t biased,
+                                                      int k) {
+  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + k)) -
+         8388736.f;
+}
+
+// 16 int8 values of a K row times the row's scale -> floats (the int8
+// pools' fp32 dequantization, k8 * ks).
+__device__ __forceinline__ void int8x16_to_float(const uint4& u, float* f,
+                                                 float scale) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t b = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      f[4 * i + k] = biased_byte_to_float(b, k) * scale;
+  }
+}
+
+// The N (1, 2 or 4) int8 values at ``p`` (N-byte aligned) -> floats.
+template <int N>
+__device__ __forceinline__ void int8xn_to_float(const int8_t* p, float* f) {
+  uint32_t w;
+  if constexpr (N == 4)
+    w = *reinterpret_cast<const uint32_t*>(p);
+  else if constexpr (N == 2)
+    w = *reinterpret_cast<const uint16_t*>(p);
+  else
+    w = (uint8_t)*p;
+  w ^= 0x80808080u;
+#pragma unroll
+  for (int k = 0; k < N; ++k) f[k] = biased_byte_to_float(w, k);
+}
 
 // Fold positions [0, n) into (m, l, acc): the warp takes 32-position tiles
 // tile0, tile0 + tile_stride, ...; lane t owns position 32 * tile + t: it
 // loads that K row and scores it against q (HD fp32 values in shared
-// memory), and copies that V row into the warp's staging tile ``v_s`` —
-// all of a tile's K and V loads are independent, so they are in flight
-// together.  For the value update lane t owns output dims
-// [t * HD / 32, (t + 1) * HD / 32) and reads the staged rows from shared
-// memory.  Positions >= n are never read, which is the same function as
-// the JAX kernels' full masked walk: a masked score is -1e30 and
-// contributes an exact zero.
-template <int HD>
+// memory), and copies that V row (and, for int8 pools, its scale) into the
+// warp's staging tile ``v_s`` — all of a tile's K and V loads are
+// independent, so they are in flight together.  For the value update lane
+// t owns output dims [t * HD / 32, (t + 1) * HD / 32) and reads the staged
+// rows from shared memory.  Positions >= n are never read, which is the
+// same function as the JAX kernels' full masked walk: a masked score is
+// -1e30 and contributes an exact zero.  int8 pools (E = int8_t) take a
+// bf16 scale per (position, KV head) from ``k_scale`` / ``v_scale`` (P,
+// page, KV, 1) at the same pool row, and dequantize K and V in fp32 before
+// the dot and the value update.
+template <int HD, typename E>
 __device__ __forceinline__ void attend_tiles(
-    const float* q_s, __nv_bfloat16* v_s,
-    const __nv_bfloat16* __restrict__ k_pool,
-    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ bt_row,
-    int page, int KV, int kv_head, int n, int tile0, int tile_stride,
-    float scale, float& m, float& l, float* acc) {
+    const float* q_s, unsigned char* v_s, const E* __restrict__ k_pool,
+    const E* __restrict__ v_pool, const __nv_bfloat16* __restrict__ k_scale,
+    const __nv_bfloat16* __restrict__ v_scale,
+    const int* __restrict__ bt_row, int page, int KV, int kv_head, int n,
+    int tile0, int tile_stride, float scale, float& m, float& l, float* acc) {
+  using Stage = VStage<HD, E>;
   constexpr int DPL = HD / 32;
-  constexpr int VS = VStage<HD>::stride;
+  constexpr int PER16 = 16 / (int)sizeof(E);     // elements per 16 bytes
+  E* v_rows = reinterpret_cast<E*>(v_s);
+  float* v_scl = reinterpret_cast<float*>(v_s + Stage::rows_bytes);
   const int lane = threadIdx.x & 31;
   for (int tile = tile0; tile * 32 < n; tile += tile_stride) {
     const int pos = tile * 32 + lane;
@@ -49,19 +99,28 @@ __device__ __forceinline__ void attend_tiles(
     float s = kNeg;
     if (live) {
       const int pid = bt_row[pos / page];
-      const long long off =
-          (((long long)pid * page + pos % page) * KV + kv_head) * HD;
-      const uint4* kr = reinterpret_cast<const uint4*>(k_pool + off);
-      const uint4* vr = reinterpret_cast<const uint4*>(v_pool + off);
-      uint4* vs = reinterpret_cast<uint4*>(v_s + lane * VS);
+      const long long row = ((long long)pid * page + pos % page) * KV +
+                            kv_head;
+      const uint4* kr = reinterpret_cast<const uint4*>(k_pool + row * HD);
+      const uint4* vr = reinterpret_cast<const uint4*>(v_pool + row * HD);
+      uint4* vs = reinterpret_cast<uint4*>(v_rows + lane * Stage::stride);
+      float ks = 1.f;
+      if constexpr (Stage::kInt8) {
+        ks = __bfloat162float(k_scale[row]);
+        v_scl[lane] = __bfloat162float(v_scale[row]);
+      }
       float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c) {
+      for (int c = 0; c < HD / PER16; ++c) {
         vs[c] = vr[c];
-        float kf[8];
-        bf16x8_to_float(kr[c], kf);
+        float kf[PER16];
+        if constexpr (Stage::kInt8)
+          int8x16_to_float(kr[c], kf, ks);
+        else
+          bf16x8_to_float(kr[c], kf);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) dot = fmaf(q_s[c * 8 + j], kf[j], dot);
+        for (int j = 0; j < PER16; ++j)
+          dot = fmaf(q_s[c * PER16 + j], kf[j], dot);
       }
       s = dot * scale;
     }
@@ -75,10 +134,19 @@ __device__ __forceinline__ void attend_tiles(
     const int cnt = min(32, n - tile * 32);
     for (int t = 0; t < cnt; ++t) {
       const float pt = __shfl_sync(kFull, p, t);
-      const __nv_bfloat16* vrow = v_s + t * VS + lane * DPL;
+      const E* vrow = v_rows + t * Stage::stride + lane * DPL;
+      if constexpr (Stage::kInt8) {
+        const float vsc = v_scl[t];
+        float vf[DPL];
+        int8xn_to_float<DPL>(vrow, vf);
 #pragma unroll
-      for (int d = 0; d < DPL; ++d)
-        acc[d] = fmaf(pt, __bfloat162float(vrow[d]), acc[d]);
+        for (int d = 0; d < DPL; ++d)
+          acc[d] = fmaf(pt, vf[d] * vsc, acc[d]);
+      } else {
+#pragma unroll
+        for (int d = 0; d < DPL; ++d)
+          acc[d] = fmaf(pt, __bfloat162float(vrow[d]), acc[d]);
+      }
     }
     __syncwarp();  // the next tile overwrites v_s
     m = m_new;
@@ -96,11 +164,11 @@ __device__ __forceinline__ void attend_tiles(
 // stored as bf16.  The G query heads of one KV head (GQA) are handled one
 // after another by the same block, so their K/V rows come from L1/L2 after
 // the first head.
-template <int HD, bool SLAB>
+template <int HD, bool SLAB, typename E>
 __global__ void paged_attention_kernel(
-    const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ k_pool,
-    const __nv_bfloat16* __restrict__ v_pool,
+    const __nv_bfloat16* __restrict__ q, const E* __restrict__ k_pool,
+    const E* __restrict__ v_pool, const __nv_bfloat16* __restrict__ k_scale,
+    const __nv_bfloat16* __restrict__ v_scale,
     const int* __restrict__ block_tables, const int* __restrict__ q_offset,
     const int* __restrict__ length, __nv_bfloat16* __restrict__ out, int C,
     int H, int KV, int page, int nblk, float scale) {
@@ -114,9 +182,8 @@ __global__ void paged_attention_kernel(
   // dynamic: V staging [nw][32][VStage::stride], then m[nw], l[nw],
   // acc[nw][HD]
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* v_s =
-      reinterpret_cast<__nv_bfloat16*>(smem) + warp * (VStage<HD>::bytes / 2);
-  float* pm = reinterpret_cast<float*>(smem + nw * VStage<HD>::bytes);
+  unsigned char* v_s = smem + warp * VStage<HD, E>::bytes;
+  float* pm = reinterpret_cast<float*>(smem + nw * VStage<HD, E>::bytes);
   float* pl = pm + nw;
   float* pacc = pm + 2 * nw;
 
@@ -134,8 +201,8 @@ __global__ void paged_attention_kernel(
     float m = kNeg, l = 0.f, acc[DPL];
 #pragma unroll
     for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
-    attend_tiles<HD>(q_s, v_s, k_pool, v_pool, bt_row, page, KV, kvh, n,
-                     warp, nw, scale, m, l, acc);
+    attend_tiles<HD, E>(q_s, v_s, k_pool, v_pool, k_scale, v_scale, bt_row,
+                        page, KV, kvh, n, warp, nw, scale, m, l, acc);
     if (lane == 0) {
       pm[warp] = m;
       pl[warp] = l;
@@ -158,37 +225,39 @@ __global__ void paged_attention_kernel(
   }
 }
 
-template <int HD, bool SLAB>
+template <int HD, bool SLAB, typename E>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
-                         const void* bt, const void* q_offset,
-                         const void* length, void* out, int rows, int C,
-                         int H, int KV, int page, int nblk, int warps,
-                         float scale, cudaStream_t stream) {
+                         const void* ks, const void* vs, const void* bt,
+                         const void* q_offset, const void* length, void* out,
+                         int rows, int C, int H, int KV, int page, int nblk,
+                         int warps, float scale, cudaStream_t stream) {
   const int smem =
-      warps * (VStage<HD>::bytes + (int)sizeof(float) * (2 + HD));
+      warps * (VStage<HD, E>::bytes + (int)sizeof(float) * (2 + HD));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<HD, SLAB>,
+        paged_attention_kernel<HD, SLAB, E>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  paged_attention_kernel<HD, SLAB>
+  paged_attention_kernel<HD, SLAB, E>
       <<<dim3(rows, KV), warps * 32, smem, stream>>>(
-          (const __nv_bfloat16*)q, (const __nv_bfloat16*)kp,
-          (const __nv_bfloat16*)vp, (const int*)bt, (const int*)q_offset,
-          (const int*)length, (__nv_bfloat16*)out, C, H, KV, page, nblk,
-          scale);
+          (const __nv_bfloat16*)q, (const E*)kp, (const E*)vp,
+          (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const int*)bt,
+          (const int*)q_offset, (const int*)length, (__nv_bfloat16*)out, C,
+          H, KV, page, nblk, scale);
   return cudaGetLastError();
 }
 
 // Checks the launch parameters and picks the head-dim instantiation.
-// q_offset is read only for a slab (SLAB).
-template <bool SLAB>
+// q_offset is read only for a slab (SLAB); ks / vs (the scale pools) only
+// for int8 pools (E = int8_t).
+template <bool SLAB, typename E = __nv_bfloat16>
 cudaError_t paged_attention(const void* q, const void* kp, const void* vp,
-                            const void* bt, const void* q_offset,
-                            const void* length, void* out, int B, int C,
-                            int H, int KV, int hd, int page, int nblk,
-                            int warps, float scale, void* stream) {
+                            const void* ks, const void* vs, const void* bt,
+                            const void* q_offset, const void* length,
+                            void* out, int B, int C, int H, int KV, int hd,
+                            int page, int nblk, int warps, float scale,
+                            void* stream) {
   if (B <= 0 || C <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || page <= 0 || nblk <= 0 || warps < 1 ||
       warps > 32)
@@ -197,17 +266,17 @@ cudaError_t paged_attention(const void* q, const void* kp, const void* vp,
   const int rows = B * C;
   switch (hd) {
     case 32:
-      return launch_paged<32, SLAB>(q, kp, vp, bt, q_offset, length, out,
-                                    rows, C, H, KV, page, nblk, warps, scale,
-                                    s);
+      return launch_paged<32, SLAB, E>(q, kp, vp, ks, vs, bt, q_offset,
+                                       length, out, rows, C, H, KV, page,
+                                       nblk, warps, scale, s);
     case 64:
-      return launch_paged<64, SLAB>(q, kp, vp, bt, q_offset, length, out,
-                                    rows, C, H, KV, page, nblk, warps, scale,
-                                    s);
+      return launch_paged<64, SLAB, E>(q, kp, vp, ks, vs, bt, q_offset,
+                                       length, out, rows, C, H, KV, page,
+                                       nblk, warps, scale, s);
     case 128:
-      return launch_paged<128, SLAB>(q, kp, vp, bt, q_offset, length, out,
-                                     rows, C, H, KV, page, nblk, warps,
-                                     scale, s);
+      return launch_paged<128, SLAB, E>(q, kp, vp, ks, vs, bt, q_offset,
+                                        length, out, rows, C, H, KV, page,
+                                        nblk, warps, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

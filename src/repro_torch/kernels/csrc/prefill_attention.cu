@@ -34,7 +34,8 @@ extern "C" cudaError_t repro_paged_prefill_bf16(
     const void* block_tables, const void* q_offset, const void* length,
     void* out, int B, int C, int H, int KV, int hd, int page, int nblk,
     int warps, float scale, void* stream) {
-  return repro::paged_attention<true>(q, k_pool, v_pool, block_tables,
-                                      q_offset, length, out, B, C, H, KV, hd,
-                                      page, nblk, warps, scale, stream);
+  return repro::paged_attention<true>(q, k_pool, v_pool, nullptr, nullptr,
+                                      block_tables, q_offset, length, out, B,
+                                      C, H, KV, hd, page, nblk, warps, scale,
+                                      stream);
 }

@@ -13,28 +13,39 @@ from typing import Dict
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import gemv as _gemv
+from repro_torch.kernels import mx_gemv as _mx
 from repro_torch.kernels import prefill_attention as _pre
 from repro_torch.kernels import rmsnorm as _rms
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention import (paged_decode_attention,
+                                                  paged_decode_attention_int8)
 from repro_torch.kernels.gemv import gemv
+from repro_torch.kernels.mx_gemv import mx_qgemv, mx_qgemv_swiglu
 from repro_torch.kernels.prefill_attention import prefill_attention_paged
 from repro_torch.kernels.rmsnorm import rmsnorm
 
-_MODULES = {"rmsnorm": _rms, "gemv": _gemv,
-            "paged_decode_attention": _dec,
-            "prefill_attention_paged": _pre}
+# kernel name -> (wrapper module, its launch counter, its plain version)
+_KERNELS = {
+    "rmsnorm": (_rms, "launches", "plain"),
+    "gemv": (_gemv, "launches", "plain"),
+    "paged_decode_attention": (_dec, "launches", "plain"),
+    "prefill_attention_paged": (_pre, "launches", "plain"),
+    "paged_decode_attention_int8": (_dec, "int8_launches", "plain_int8"),
+    "mx_qgemv": (_mx, "launches", "plain"),
+    "mx_qgemv_swiglu": (_mx, "swiglu_launches", "plain_swiglu"),
+}
 
 #: the plain version of each kernel, by name
-PLAIN = {name: mod.plain for name, mod in _MODULES.items()}
+PLAIN = {name: getattr(mod, fn) for name, (mod, _, fn) in _KERNELS.items()}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr, _) in _KERNELS.items()}
 
 
 def reset_launch_counts():
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr, _ in _KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def build() -> Dict[str, Dict[str, object]]:
@@ -44,5 +55,6 @@ def build() -> Dict[str, Dict[str, object]]:
 
 
 __all__ = ["rmsnorm", "gemv", "paged_decode_attention",
-           "prefill_attention_paged", "PLAIN", "launch_counts",
+           "prefill_attention_paged", "paged_decode_attention_int8",
+           "mx_qgemv", "mx_qgemv_swiglu", "PLAIN", "launch_counts",
            "reset_launch_counts", "build"]

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.quant.tensor import FP8_DTYPE, dequantize_values
+
 
 def gemv(w, x):
     """w (N,K), x (K,) -> (N,) fp32 accumulation."""
@@ -48,6 +50,40 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, length):
     k = k_pool[bt].reshape(B, nblk * page, KV, hd)
     v = v_pool[bt].reshape(B, nblk * page, KV, hd)
     return decode_attention(q, k, v, length)
+
+
+def paged_decode_attention_int8(q, k_pool, k_scales, v_pool, v_scales,
+                                block_tables, length):
+    """Quantized paged oracle: gather value AND scale pages through the
+    block table, dequantize the logical view in fp32, then the dense
+    decode_attention oracle."""
+    B, nblk = block_tables.shape
+    page, KV, hd = k_pool.shape[1:]
+    bt = block_tables.long()
+    k = k_pool[bt].float() * k_scales[bt].float()
+    v = v_pool[bt].float() * v_scales[bt].float()
+    return decode_attention(q, k.reshape(B, nblk * page, KV, hd),
+                            v.reshape(B, nblk * page, KV, hd), length)
+
+
+def _mx_dequant(wq, scales):
+    """Stored-layout MX dequant: (K | K/2-packed, N) codes + (K/32, N) E8M0
+    -> (K, N) fp32.  fp4 (uint8) vs fp8 (float8_e4m3fn) by dtype."""
+    bits = 8 if wq.dtype == FP8_DTYPE else 4
+    return dequantize_values(wq, scales, axis=-2, bits=bits, fmt="mx")
+
+
+def mx_qgemv(wq, scales, x):
+    """MX GEMV oracle: x (K,) or (B, K) -> (N,) or (B, N), block-exponent
+    dequant then an fp32 product."""
+    return x.float() @ _mx_dequant(wq, scales)
+
+
+def mx_qgemv_swiglu(wg, sg, wu, su, x):
+    """Fused MX swiglu oracle: silu(x.Wg) * (x.Wu), all fp32."""
+    g = mx_qgemv(wg, sg, x)
+    u = mx_qgemv(wu, su, x)
+    return g * torch.sigmoid(g) * u
 
 
 def prefill_attention_paged(q, k_pool, v_pool, block_tables, q_offset,

@@ -1,14 +1,17 @@
 """Serving launcher of the port.
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --chunked-prefill \\
-        --prefix-cache --kernel-decode [--smoke] [--device cpu]
+        --prefix-cache --kernel-decode [--quantize-weights mx4|fp8] \\
+        [--kv-cache-dtype int8] [--smoke] [--device cpu]
 
 Serves a seeded trace of requests through the chunked, paged engine and
 prints the engine metrics.  ``--kernel-decode`` routes norms, one-row
 projections and the paged attention through the CUDA kernels (on the CPU
-their plain versions run).  ``--smoke`` uses the reduced config.  The
-default device is the CUDA card; without one the launcher exits with an
-error unless ``--device cpu`` is given.
+their plain versions run).  ``--quantize-weights`` MX-quantizes the
+projections after the random init; ``--kv-cache-dtype int8`` stores the
+KV pages in int8 with scale pages (32-row pages by default).  ``--smoke``
+uses the reduced config.  The default device is the CUDA card; without one
+the launcher exits with an error unless ``--device cpu`` is given.
 """
 import argparse
 import contextlib
@@ -32,8 +35,18 @@ def main(argv=None):
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share prompt-prefix KV pages across requests "
                          "(requires --chunked-prefill)")
-    ap.add_argument("--page-size", type=int, default=None)
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per page (default: the layout granule — "
+                         "16 for bf16 pools, 32 for --kv-cache-dtype int8)")
     ap.add_argument("--num-pages", type=int, default=None)
+    ap.add_argument("--quantize-weights", choices=("none", "mx4", "fp8"),
+                    default="none",
+                    help="MX-quantize the projection weights (E8M0 32-row "
+                         "block exponents, fp4 or fp8 codes); embeddings, "
+                         "norms and biases stay raw")
+    ap.add_argument("--kv-cache-dtype", choices=("model", "int8"),
+                    default="model",
+                    help="int8: int8 page pools + bf16 scale pages")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
@@ -46,6 +59,7 @@ def main(argv=None):
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.device import resolve_device
     from repro_torch.models import modules as M
+    from repro_torch.quant import quantized_stats
     from repro_torch.serve import EngineConfig, Request, build_engine
 
     if not args.chunked_prefill:
@@ -66,8 +80,16 @@ def main(argv=None):
         page_size=args.page_size, num_pages=args.num_pages,
         chunked_prefill=True, chunk_size=args.chunk_size,
         prefix_cache=args.prefix_cache, seed=args.seed,
-        kernel_decode=args.kernel_decode).validate()
+        kernel_decode=args.kernel_decode,
+        kv_cache_dtype="int8" if args.kv_cache_dtype == "int8" else "",
+        quantize_weights=args.quantize_weights).validate()
     engine = build_engine(cfg, engine_cfg, device=device, seed=args.seed)
+    if args.quantize_weights != "none":
+        qs = quantized_stats(engine.model.params)
+        print(f"quantized {qs['quantized_leaves']} weight leaves "
+              f"({args.quantize_weights}): {qs['quantized_bytes']:,} B "
+              f"(was {qs['quantized_fp32_bytes']:,} B fp32); "
+              f"{qs['raw_bytes']:,} B left raw")
     rng = np.random.default_rng(args.seed)
     top = min(cfg.vocab_size, 1000)
     system_prompt = rng.integers(1, top, 24) if args.prefix_cache else None

@@ -2,9 +2,10 @@
 
 The port of the paged path of ``repro.models.attention``: the plain
 (gathered dense view) path is the reference, and ``use_kernel`` streams the
-pools through the paged CUDA kernels instead.  The page pools are updated in
-place (``index_put_``): that is what JAX's buffer donation does for the
-jitted step, without a second copy of the pools.
+pools through the paged CUDA kernels instead.  The page pools (bf16, or int8
+with scale pages) and the int8 engine's ``ChunkStage`` are updated in place
+(``index_put_`` / ``index_copy_``): that is what JAX's buffer donation does
+for the jitted step, without a second copy of the pools.
 """
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ import torch
 from torch import nn
 
 from repro_torch.models import modules as M
-from repro_torch.serve.kvcache import NULL_PAGE, PagedKVCache, PageSpec
+from repro_torch.quant.tensor import dequantize_kv, quantize_kv
+from repro_torch.serve.kvcache import (NULL_PAGE, ChunkStage, PagedKVCache,
+                                       PageSpec)
 
 
 def attention_init(cfg, *, dtype, generator, device) -> nn.ModuleDict:
@@ -110,36 +113,64 @@ def update_paged_cache_chunk(pool, new, offset, valid, block_tables):
     return pool
 
 
-def gather_paged_kv(cache: PagedKVCache, block_tables):
+def gather_paged_kv(cache: PagedKVCache, block_tables,
+                    dtype=torch.bfloat16):
     """Dense logical view of a paged cache: (B, nblk*page, KV, hd) — the
-    plain path's (and the kernels' oracles') view."""
+    plain path's (and the kernels' oracles') view.  int8 pools are
+    dequantized through their gathered scale pages, in ``dtype``."""
     B, nblk = block_tables.shape
     page, KV, hd = cache.k_pool.shape[1:]
     bt = block_tables.long()
     k = cache.k_pool[bt].reshape(B, nblk * page, KV, hd)
     v = cache.v_pool[bt].reshape(B, nblk * page, KV, hd)
+    if cache.quantized:
+        ks = cache.k_scale_pool[bt].reshape(B, nblk * page, KV, 1)
+        vs = cache.v_scale_pool[bt].reshape(B, nblk * page, KV, 1)
+        return dequantize_kv(k, ks, dtype), dequantize_kv(v, vs, dtype)
     return k, v
+
+
+def _write_rows(cache: PagedKVCache, k_new, v_new, write):
+    """``write(pool, rows)`` for K and V — quantized to int8 rows plus their
+    scale rows (written through the same table entry) for int8 pools."""
+    if cache.quantized:
+        k8, ks = quantize_kv(k_new)
+        v8, vs = quantize_kv(v_new)
+        for pool, rows in ((cache.k_pool, k8), (cache.v_pool, v8),
+                           (cache.k_scale_pool, ks),
+                           (cache.v_scale_pool, vs)):
+            write(pool, rows)
+    else:
+        write(cache.k_pool, k_new)
+        write(cache.v_pool, v_new)
 
 
 def apply_attention_decode_paged(p, cfg, x, cache: PagedKVCache, pos,
                                  dtype, block_tables, use_kernel=False):
     """Single-token decode against a paged cache.  ``use_kernel`` attends
-    through ``kernels.paged_decode_attention`` (the pool is streamed page by
-    page, no dense copy); the default gathers the logical view."""
+    through ``kernels.paged_decode_attention[_int8]`` (the pool is streamed
+    page by page, no dense copy); the default gathers the logical view."""
     assert block_tables is not None, \
         "paged caches need batch['block_tables'] in the decode batch"
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None], dtype)
-    update_paged_cache(cache.k_pool, k_new, pos, block_tables)
-    update_paged_cache(cache.v_pool, v_new, pos, block_tables)
+    _write_rows(cache, k_new, v_new,
+                lambda pool, rows: update_paged_cache(pool, rows, pos,
+                                                      block_tables))
     length = (pos + 1).to(torch.int32)
     if use_kernel:
         from repro_torch.kernels import ops as KO
-        out = KO.paged_decode_attention(
-            q[:, 0].contiguous(), cache.k_pool, cache.v_pool,
-            block_tables, length)[:, None]
+        if cache.quantized:
+            out = KO.paged_decode_attention_int8(
+                q[:, 0].contiguous(), cache.k_pool, cache.k_scale_pool,
+                cache.v_pool, cache.v_scale_pool, block_tables,
+                length)[:, None]
+        else:
+            out = KO.paged_decode_attention(
+                q[:, 0].contiguous(), cache.k_pool, cache.v_pool,
+                block_tables, length)[:, None]
     else:
-        k, v = gather_paged_kv(cache, block_tables)
+        k, v = gather_paged_kv(cache, block_tables, dtype)
         out = attend(q, k, v, causal=False, length=length)
     out = M.apply_dense(p["wo"], out.reshape(B, 1, -1), dtype)
     return out, cache
@@ -147,29 +178,50 @@ def apply_attention_decode_paged(p, cfg, x, cache: PagedKVCache, pos,
 
 def apply_attention_chunk_paged(p, cfg, x, cache: PagedKVCache, offset,
                                 valid, dtype, block_tables,
-                                use_kernel=False):
-    """Chunked-prefill attention against a paged cache (bf16/fp32 pools).
+                                use_kernel=False, stage_base=None):
+    """Chunked-prefill attention against a paged cache.
 
     ``x`` (B, C, d) is one slab of prompt tokens starting at absolute
     position ``offset`` (B,), of which the first ``valid`` (B,) rows are
     real; the slab's KV is written through the block table, then the slab
     attends causally over positions [0, offset + valid) — shared prefix
-    pages included.  Returns (out (B, C, d), cache)."""
+    pages included.  Over int8 pools the prefill kernel is not used: the
+    pages are gathered and dequantized, and the layer's ``ChunkStage``
+    (``cache.stage``) overlays this request's own bf16 rows, positions
+    [``stage_base``, offset + valid) — rows below ``stage_base`` (a shared
+    prefix) predate the request and are read from the pages.  Returns
+    (out (B, C, d), cache)."""
     assert block_tables is not None, \
         "chunked prefill needs batch['block_tables']"
     B, C = x.shape[:2]
     positions = offset.long()[:, None] + torch.arange(C, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions, dtype)
-    update_paged_cache_chunk(cache.k_pool, k_new, offset, valid, block_tables)
-    update_paged_cache_chunk(cache.v_pool, v_new, offset, valid, block_tables)
+    _write_rows(cache, k_new, v_new,
+                lambda pool, rows: update_paged_cache_chunk(
+                    pool, rows, offset, valid, block_tables))
     length = (offset + valid).to(torch.int32)
-    if use_kernel:
+    if use_kernel and not cache.quantized:
         from repro_torch.kernels import ops as KO
         out = KO.prefill_attention_paged(
             q.contiguous(), cache.k_pool, cache.v_pool, block_tables,
             offset.to(torch.int32), length)
     else:
-        k, v = gather_paged_kv(cache, block_tables)
+        k, v = gather_paged_kv(cache, block_tables, dtype)
+        stage = cache.stage
+        if stage is not None:
+            # the whole slab (pad rows too) lands at rows [offset, offset+C)
+            # of the one-slot stage, as JAX's dynamic_update_slice puts it
+            rows = positions[0]
+            stage.k.index_copy_(1, rows, k_new.to(stage.k.dtype))
+            stage.v.index_copy_(1, rows, v_new.to(stage.v.dtype))
+            S = k.shape[1]
+            base = torch.zeros_like(offset) if stage_base is None \
+                else stage_base
+            spos = torch.arange(S, device=x.device)[None, :]
+            use = ((spos >= base.long()[:, None])
+                   & (spos < length.long()[:, None]))[:, :, None, None]
+            k = torch.where(use, stage.k[:, :S].to(k.dtype), k)
+            v = torch.where(use, stage.v[:, :S].to(v.dtype), v)
         out = attend(q, k, v, causal=True,
                      q_offset=offset.long()[:, None, None, None, None],
                      length=length)
@@ -178,10 +230,24 @@ def apply_attention_chunk_paged(p, cfg, x, cache: PagedKVCache, offset,
 
 
 def init_paged_cache(cfg, spec: PageSpec, dtype, device) -> PagedKVCache:
-    """Zeroed page pools for one attention sublayer (shared across slots)."""
-    if spec.kv_dtype == "int8":
-        raise NotImplementedError("int8 KV pages are not ported yet: ROADMAP "
-                                  "queue 1 item 7 (quantization)")
+    """Zeroed page pools for one attention sublayer (shared across slots).
+    ``spec.kv_dtype == "int8"`` allocates int8 value pools plus bf16 scale
+    pages (initialized to one) at the same page indices."""
     shape = (spec.num_pages, spec.page_size, cfg.num_kv_heads, cfg.head_dim)
+    if spec.kv_dtype == "int8":
+        sshape = shape[:-1] + (1,)
+        return PagedKVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.ones(sshape, dtype=torch.bfloat16, device=device),
+            torch.ones(sshape, dtype=torch.bfloat16, device=device))
     return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_chunk_stage(cfg, S: int, device) -> ChunkStage:
+    """The one-slot bf16 stage, ``(1, S, KV, hd)`` (``S`` covers the
+    gathered view plus a full pad chunk)."""
+    shape = (1, S, cfg.num_kv_heads, cfg.head_dim)
+    return ChunkStage(torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                      torch.zeros(shape, dtype=torch.bfloat16, device=device))

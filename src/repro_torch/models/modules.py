@@ -6,7 +6,10 @@ so each function here reads like its counterpart in ``repro.models.modules``.
 Projection weights are stored ``(out, in)`` — the transpose of JAX's
 ``(in, out)`` — already in the compute dtype (``bridge.params_from_numpy``
 and ``init_lm`` cast them once), which is the layout both ``F.linear`` and
-the routed ``gemv`` read.
+the routed ``gemv`` read.  An MX-quantized projection is a
+``QuantizedTensor`` stored as the JAX package stores it, ``(in, out)``
+codes with their E8M0 blocks down the contraction axis, the layout the MX
+kernels walk.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.quant.tensor import QuantizedTensor
 
 # --------------------------------------------------------------------------
 # Kernel routing
@@ -46,6 +51,15 @@ def kernel_routing(enable: bool = True):
 def _gemv_routable(x, w) -> bool:
     """One output row-vector against a 2-D (N, K) weight."""
     return (w.ndim == 2 and x.ndim >= 1 and x.shape[-1] == w.shape[1]
+            and math.prod(x.shape[:-1]) == 1)
+
+
+def _mx_routable(x, w) -> bool:
+    """One row-vector against a 2-D MX-quantized weight whose E8M0 blocks
+    run down the contraction axis — the layout ``mx_qgemv`` walks."""
+    return (isinstance(w, QuantizedTensor) and w.fmt == "mx"
+            and len(w.shape) == 2 and w.axis == -2 and x.ndim >= 1
+            and x.shape[-1] == w.shape[0]
             and math.prod(x.shape[:-1]) == 1)
 
 
@@ -84,7 +98,30 @@ def dense_init(in_dim: int, out_dim: int, *, bias: bool, dtype, generator,
 
 
 def apply_dense(p, x, dtype=None):
+    """The JAX package's order of checks: a routed one-row MX projection
+    streams its codes and scales through ``mx_qgemv``; any other quantized
+    projection dequantizes in fp32, casts to the compute dtype and runs
+    ``x @ w`` (as the JAX package leaves many-row projections to XLA); a
+    raw one runs the routed ``gemv`` (one row) or ``F.linear``."""
     w = p["w"]
+    quantized = isinstance(w, QuantizedTensor)
+    if _KERNEL_ROUTED and quantized and _mx_routable(x, w):
+        from repro_torch.kernels import ops as KO
+        if dtype is not None:
+            x = x.to(dtype)
+        y = KO.mx_qgemv(w.values, w.scales,
+                        x.reshape(-1).contiguous()).to(dtype or x.dtype)
+        if "b" in p:
+            y = y + p["b"].to(y.dtype)
+        return y.reshape(x.shape[:-1] + (w.shape[-1],))
+    if quantized:
+        w = w.dequantize(dtype or x.dtype)                    # (in, out)
+        if dtype is not None:
+            x = x.to(dtype)
+        y = x @ w
+        if "b" in p:
+            y = y + p["b"].to(y.dtype)
+        return y
     if dtype is not None:
         w = w.to(dtype)
         x = x.to(dtype)
@@ -149,8 +186,18 @@ def apply_mlp(p, x, act: str, dtype):
         raise NotImplementedError(
             f"activation {act!r} is not ported yet: ROADMAP queue 1 item 13 "
             f"(other mixers and archs)")
-    h = F.silu(apply_dense(p["wi_gate"], x, dtype)) * \
-        apply_dense(p["wi_up"], x, dtype)
+    wg, wu = p["wi_gate"]["w"], p["wi_up"]["w"]
+    if _KERNEL_ROUTED and _mx_routable(x, wg) and _mx_routable(x, wu) \
+            and "b" not in p["wi_gate"] and "b" not in p["wi_up"]:
+        # fused MX swiglu: gate + up and the silu-gate epilogue in one pass
+        from repro_torch.kernels import ops as KO
+        xk = x.to(dtype) if dtype is not None else x
+        h = KO.mx_qgemv_swiglu(wg.values, wg.scales, wu.values, wu.scales,
+                               xk.reshape(-1).contiguous())
+        h = h.to(dtype or x.dtype).reshape(x.shape[:-1] + (wg.shape[-1],))
+    else:
+        h = F.silu(apply_dense(p["wi_gate"], x, dtype)) * \
+            apply_dense(p["wi_up"], x, dtype)
     return apply_dense(p["wo"], h, dtype)
 
 

@@ -40,10 +40,12 @@ class Model(nn.Module):
         return T.chunk_prefill_step(self.params, self.cfg, self.rt, batch,
                                     caches)
 
-    def init_caches(self, B, S, dtype=None, page_spec=None):
+    def init_caches(self, B, S, dtype=None, page_spec=None,
+                    chunk_stage: int = 0):
         dtype = dtype or dtype_of(self.cfg.dtype)
         return T.init_caches(self.cfg, self.rt, B, S, dtype,
-                             page_spec=page_spec, device=self.device)
+                             page_spec=page_spec, device=self.device,
+                             chunk_stage=chunk_stage)
 
 
 def build_model(cfg, rt: RuntimeConfig = RuntimeConfig(), *,

@@ -28,20 +28,20 @@ class RuntimeConfig:
     cache_dtype: str = "bfloat16"  # KV storage name (sets the page granule)
     paged_kernel_decode: bool = False  # paged attention via the CUDA
     #   kernels (no gathered dense view); default: the plain path
-    quantize_weights: str = "none"
-    kv_cache_dtype: str = ""
+    quantize_weights: str = "none"  # none|mx4|fp8: the weight format tag
+    #   (build_engine quantizes a native init with quant.quantize_params)
+    kv_cache_dtype: str = ""       # "" -> cache_dtype; "int8": int8 page
+    #   pools + scale pages
 
     def kv_dtype(self) -> str:
         """Resolved KV-cache storage dtype (serving alias wins)."""
         return self.kv_cache_dtype or self.cache_dtype
 
     def validate(self) -> "RuntimeConfig":
-        if self.quantize_weights != "none":
-            raise NotImplementedError("quantized weights are not ported yet: "
-                                      "ROADMAP queue 1 item 7 (quantization)")
-        if self.kv_dtype() == "int8":
-            raise NotImplementedError("int8 KV is not ported yet: ROADMAP "
-                                      "queue 1 item 7 (quantization)")
+        if self.quantize_weights not in ("none", "mx4", "fp8"):
+            raise NotImplementedError(
+                f"{self.quantize_weights} weights are not ported yet: "
+                f"ROADMAP queue 1 item 7 (int8/int4 weights)")
         return self
 
 
@@ -105,11 +105,12 @@ def _use_kernel(rt) -> bool:
     return rt.paged_kernel_decode or M.kernel_routed()
 
 
-def _apply_layer_chunk(p, cfg, rt, x, cache, offset, valid, pages, dtype):
+def _apply_layer_chunk(p, cfg, rt, x, cache, offset, valid, stage_base,
+                       pages, dtype):
     h = M.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     o, _ = A.apply_attention_chunk_paged(
         p["mixer"], cfg, h, cache, offset, valid, dtype, block_tables=pages,
-        use_kernel=_use_kernel(rt))
+        use_kernel=_use_kernel(rt), stage_base=stage_base)
     x = x + o
     h = M.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
     return x + M.apply_mlp(p["ffn"], h, cfg.act, dtype)
@@ -133,16 +134,27 @@ def readout(p, cfg, x, dtype):
 # --------------------------------------------------------------------------
 # Caches + entry points
 # --------------------------------------------------------------------------
-def init_caches(cfg, rt, B, S, dtype, page_spec=None,
-                device=None) -> List[PagedKVCache]:
+def init_caches(cfg, rt, B, S, dtype, page_spec=None, device=None,
+                chunk_stage: int = 0) -> List[PagedKVCache]:
     """One ``PagedKVCache`` (page pools shared by every slot) per layer.
-    ``B`` and ``S`` size the pools through ``page_spec``."""
-    if page_spec is None:
+    ``B`` and ``S`` size the pools through ``page_spec``; int8 pools come
+    with scale pages.  ``chunk_stage`` (the chunked engine's chunk size)
+    adds a one-slot bf16 ``ChunkStage`` to each int8 layer, covering the
+    gathered view plus a full pad chunk so the staging write never runs
+    past its end."""
+    paged_int8 = page_spec is not None and page_spec.kv_dtype == "int8"
+    if page_spec is None or (rt.kv_dtype() == "int8" and not paged_int8):
         raise NotImplementedError("dense per-slot caches are not ported yet: "
                                   "ROADMAP queue 1 item 6 (bucketed prefill "
                                   "and dense backend)")
-    return [A.init_paged_cache(cfg, page_spec, dtype, device)
-            for _ in range(cfg.num_layers)]
+    caches = [A.init_paged_cache(cfg, page_spec, dtype, device)
+              for _ in range(cfg.num_layers)]
+    if chunk_stage > 0 and paged_int8:
+        ps = page_spec.page_size
+        S_stage = max(-(-S // ps) * ps, S + chunk_stage)
+        caches = [c._replace(stage=A.init_chunk_stage(cfg, S_stage, device))
+                  for c in caches]
+    return caches
 
 
 @torch.no_grad()
@@ -150,17 +162,20 @@ def chunk_prefill_step(params, cfg, rt, batch, caches):
     """One chunked-prefill slab against the shared paged caches.
 
     batch: tokens (B, C) right-padded; offset (B,) absolute position of
-    token 0; valid (B,) real rows; block_tables (B, nblk).  Returns
-    (last-valid-row logits (B, V), caches) — the logits row only matters on
-    a prompt's final chunk, where its argmax is the first generated token.
+    token 0; valid (B,) real rows; stage_base (B,) first position owned by
+    this request (the shared-prefix length; default 0); block_tables
+    (B, nblk).  Returns (last-valid-row logits (B, V), caches) — the logits
+    row only matters on a prompt's final chunk, where its argmax is the
+    first generated token.
     """
     dtype = dtype_of(cfg.dtype)
     offset, valid = batch["offset"], batch["valid"]
+    stage_base = batch.get("stage_base", torch.zeros_like(offset))
     pages = batch.get("block_tables")
     x = M.apply_embed(params["embed"], batch["tokens"], dtype)
     for p, cache in zip(params["layers"], caches):
-        x = _apply_layer_chunk(p, cfg, rt, x, cache, offset, valid, pages,
-                               dtype)
+        x = _apply_layer_chunk(p, cfg, rt, x, cache, offset, valid,
+                               stage_base, pages, dtype)
     # gather each row's last valid position BEFORE the O(V) read-out
     idx = (valid.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
     last = torch.gather(x, 1, idx)

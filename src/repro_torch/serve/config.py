@@ -3,9 +3,10 @@
 ``EngineConfig`` is a copy of the JAX package's frozen record of every
 scalar engine option, with the same fields and the same ``validate()``
 messages, so a config means the same thing in both packages.  The port's
-``build_engine`` serves the chunked, paged, greedy path; an option that
-needs a part not ported yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+``build_engine`` serves the chunked, paged, greedy path, with bf16 or int8
+KV pages and raw or MX (``mx4`` / ``fp8``) weights; an option that needs a
+part not ported yet raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.
 """
 from __future__ import annotations
 
@@ -97,9 +98,8 @@ class EngineConfig:
              "the dense backend and bucketed prefill: ROADMAP queue 1 item 6"),
             (self.temperature > 0, "temperature sampling: ROADMAP queue 1 "
                                    "item 6 (serving engine)"),
-            (self.kv_cache_dtype == "int8", "int8 KV: ROADMAP queue 1 item 7"),
-            (self.quantize_weights != "none",
-             "quantized weights: ROADMAP queue 1 item 7"),
+            (self.quantize_weights in ("int8", "int4"),
+             "int8/int4 weights: ROADMAP queue 1 item 7"),
             (self.speculate_k > 0, "speculation: ROADMAP queue 1 item 9"),
             (self.tp > 1, "tensor parallelism: ROADMAP queue 1 item 12"),
         ]
@@ -127,9 +127,12 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
     (e.g. ``reduced(get_config(...))``), or a prebuilt ``Model`` (its
     parameters and runtime switches then win — e.g. weights bridged from
     the JAX package).  Otherwise the weights are a random init from
-    ``seed`` made on ``device``: the CUDA card unless ``device="cpu"``."""
+    ``seed`` made on ``device`` (the CUDA card unless ``device="cpu"``),
+    MX-quantized after the init when ``quantize_weights`` is ``"mx4"`` or
+    ``"fp8"``."""
     from repro_torch.configs import get_config
-    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.models import Model, RuntimeConfig, build_model
+    from repro_torch.quant import quantize_params
     from repro_torch.serve.scheduler import ServingEngine
 
     engine_cfg.validate().check_ported()
@@ -137,7 +140,11 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
         model = arch
     else:
         cfg = get_config(arch) if isinstance(arch, str) else arch
-        model = build_model(cfg, RuntimeConfig(
-            paged_kernel_decode=engine_cfg.kernel_decode), device=device,
-            seed=seed)
+        rt = RuntimeConfig(paged_kernel_decode=engine_cfg.kernel_decode,
+                           quantize_weights=engine_cfg.quantize_weights,
+                           kv_cache_dtype=engine_cfg.kv_cache_dtype)
+        model = build_model(cfg, rt, device=device, seed=seed)
+        if engine_cfg.quantize_weights != "none":
+            model = Model(cfg, rt, quantize_params(
+                model.params, fmt=engine_cfg.quantize_weights))
     return ServingEngine(model, engine_cfg)

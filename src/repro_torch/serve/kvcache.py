@@ -27,12 +27,39 @@ from repro_torch.core.troop import sublane
 NULL_PAGE = 0          # page 0 is never allocated: idle slots point here
 
 
+class ChunkStage(NamedTuple):
+    """bf16 staging rows for the one in-flight chunked-prefill slot.
+
+    Only allocated when the page pools are int8: chunk c of a prompt
+    attends over the KV of chunks < c, and reading those rows back through
+    the int8 pages would make chunked prefill diverge from the bucketed
+    engine (which runs the whole prompt in bf16 and quantizes only at
+    storage).  The stage keeps the current request's own prefill rows at
+    bf16, ``(1, S, KV, hd)``, while the int8 pages written alongside stay
+    the decode-time source of truth."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
 class PagedKVCache(NamedTuple):
     """Paged KV leaf of one attention layer: page pools (P, page, KV, hd),
     indexed by a per-slot block table that is per-step input
-    (``batch["block_tables"]``) — one table addresses every layer's pool."""
+    (``batch["block_tables"]``) — one table addresses every layer's pool.
+
+    int8 pools carry *scale pages* beside them: per-(token, head) bf16
+    absmax scales (P, page, KV, 1) addressed by the same block table, and
+    the layer's ``ChunkStage`` when the chunked engine runs over them (the
+    JAX package keeps the stage next to the leaf in the layer's cache
+    entry; here it rides in the leaf)."""
     k_pool: torch.Tensor
     v_pool: torch.Tensor
+    k_scale_pool: Optional[torch.Tensor] = None
+    v_scale_pool: Optional[torch.Tensor] = None
+    stage: Optional[ChunkStage] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale_pool is not None
 
 
 @dataclass(frozen=True)
@@ -232,18 +259,28 @@ class PrefixIndex:
 
 def copy_page(caches, src: int, dst: int):
     """Copy physical page ``src`` -> ``dst`` in every layer's pools, in
-    place (the copy-on-write at a mid-page prefix divergence)."""
+    place (the copy-on-write at a mid-page prefix divergence); the scale
+    pages of int8 pools ride along, so a copied page keeps its value and
+    scale rows coherent."""
     for c in caches:
-        c.k_pool[dst].copy_(c.k_pool[src])
-        c.v_pool[dst].copy_(c.v_pool[src])
+        for pool in (c.k_pool, c.v_pool, c.k_scale_pool, c.v_scale_pool):
+            if pool is not None:
+                pool[dst].copy_(pool[src])
     return caches
 
 
 def kv_row_bytes(cfg, kv_dtype: str) -> int:
-    """Bytes one token-row of KV occupies across all attention layers."""
+    """Bytes one token-row of KV occupies across all attention layers;
+    ``int8`` rows carry their per-(token, head) bf16 scales."""
     n_attn = sum(1 for (m, _) in cfg.layer_kinds() if m == "attn")
-    itemsize = torch.empty((), dtype=getattr(torch, kv_dtype)).element_size()
-    return n_attn * cfg.num_kv_heads * cfg.head_dim * itemsize * 2
+    if kv_dtype == "int8":
+        per_layer = cfg.num_kv_heads * cfg.head_dim * 2      # K + V bytes
+        per_layer += cfg.num_kv_heads * 2 * 2                # bf16 scales
+    else:
+        itemsize = torch.empty((), dtype=getattr(torch, kv_dtype)) \
+            .element_size()
+        per_layer = cfg.num_kv_heads * cfg.head_dim * itemsize * 2
+    return n_attn * per_layer
 
 
 class PagedBackend:
@@ -251,17 +288,26 @@ class PagedBackend:
 
     ``num_pages=None`` sizes the pool for full occupancy; smaller values
     overcommit device memory — admission then *defers* when the pool is
-    exhausted instead of running out of memory."""
+    exhausted instead of running out of memory.
+
+    ``kv_dtype="int8"`` stores pages quantized (per-(token, head) absmax
+    scales in sibling scale pages — same block table, same allocator);
+    left ``None`` it follows the model's ``RuntimeConfig``.  int8 pages
+    are multiples of the 32-row granule.  ``chunk_stage`` (set by the
+    engine): its chunk size, which sizes the bf16 ``ChunkStage`` over int8
+    pools (0: no staging buffer)."""
 
     name = "paged"
 
     def __init__(self, page_size: int = 16,
                  num_pages: Optional[int] = None,
+                 kv_dtype: Optional[str] = None,
                  prefix_cache: bool = False):
         self.page_size = page_size
         self.num_pages = num_pages
-        self.kv_dtype: Optional[str] = None     # set by init_caches
+        self.kv_dtype = kv_dtype       # resolved by init_caches
         self.prefix_cache = prefix_cache
+        self.chunk_stage = 0
         self.spec: Optional[PageSpec] = None
         self.prefix_index: Optional[PrefixIndex] = None
         self._pending_cow: Dict[int, Any] = {}
@@ -269,10 +315,9 @@ class PagedBackend:
         self.cow_copies = 0
 
     def init_caches(self, model, slots: int, cache_len: int):
-        # the KV storage name sets the page granule (the pools themselves
-        # take the model's compute dtype, as in the JAX package); the
-        # model's RuntimeConfig has already refused int8
-        dtype = model.rt.kv_dtype()
+        # the KV storage name sets the page granule; bf16-named pools take
+        # the model's compute dtype, as in the JAX package
+        dtype = self.kv_dtype or model.rt.kv_dtype()
         self.kv_dtype = dtype
         self.slots = slots
         self.cache_len = cache_len
@@ -286,7 +331,8 @@ class PagedBackend:
             self.prefix_index = PrefixIndex(self.spec.page_size,
                                             self.allocator)
         self._row_bytes = kv_row_bytes(model.cfg, dtype)
-        return model.init_caches(slots, cache_len, page_spec=self.spec)
+        return model.init_caches(slots, cache_len, page_spec=self.spec,
+                                 chunk_stage=self.chunk_stage)
 
     def _pages_needed(self, tokens: int) -> int:
         return -(-min(tokens, self.cache_len) // self.spec.page_size)

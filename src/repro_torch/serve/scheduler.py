@@ -74,9 +74,10 @@ class ServingEngine:
 
     def __init__(self, model, config: EngineConfig):
         config.validate().check_ported()
-        self.backend = PagedBackend(page_size=resolve_page_size(config),
-                                    num_pages=config.num_pages,
-                                    prefix_cache=config.prefix_cache)
+        self.backend = PagedBackend(
+            page_size=resolve_page_size(config), num_pages=config.num_pages,
+            kv_dtype="int8" if config.kv_cache_dtype == "int8" else None,
+            prefix_cache=config.prefix_cache)
         self.config = config
         slots, cache_len = config.slots, config.cache_len
         from repro_torch.serve.step import make_chunk_step, make_serve_step
@@ -91,6 +92,10 @@ class ServingEngine:
         self.chunk_size = min(config.chunk_size, cache_len)
         self.chunks_per_step = max(1, config.chunks_per_step)
         self._async = bool(config.async_dispatch)
+        if (self.backend.kv_dtype or model.rt.kv_dtype()) == "int8":
+            # int8 pools: stage this request's own rows in bf16 so a later
+            # chunk never re-reads its predecessors quantized
+            self.backend.chunk_stage = self.chunk_size
         self.caches = self.backend.init_caches(model, slots, cache_len)
         self.kv_dtype = self.backend.kv_dtype
         self._kv_row_bytes = kv_row_bytes(model.cfg, self.kv_dtype)
@@ -106,6 +111,7 @@ class ServingEngine:
         self._prefilling: deque = deque()            # slots mid-prefill
         self._decoding: set = set()                  # slots generating
         self._chunk_off: Dict[int, int] = {}         # next token to prefill
+        self._stage_base: Dict[int, int] = {}        # first non-shared pos
         self._inflight = None
         # metrics
         self.tokens_generated = 0
@@ -187,6 +193,7 @@ class ServingEngine:
             self.shared_tokens += offset
             self.pos[slot] = 0
             self._chunk_off[slot] = offset
+            self._stage_base[slot] = offset
             self._prefilling.append(slot)
 
     def _defer(self, count: bool = True):
@@ -211,6 +218,8 @@ class ServingEngine:
             "tokens": self._dev(tokens),
             "offset": self._dev(np.asarray([off], np.int32)),
             "valid": self._dev(np.asarray([valid], np.int32)),
+            "stage_base": self._dev(np.asarray([self._stage_base[slot]],
+                                               np.int32)),
             "block_tables": self._dev(
                 self.backend.block_tables[slot:slot + 1]),
         }

@@ -8,9 +8,13 @@ runs where only PyTorch is installed:
 
 Tolerance: 2e-2 for rmsnorm and gemv — bf16 inputs and outputs of order 1,
 whose 8-bit mantissa holds ~3 significant digits, summed in other orders by
-the kernel and the plain version.  4e-3 for the two attention kernels —
-their outputs are softmax-weighted means of N(0, 1) rows, of order 0.1, and
-measured errors against the plain version on the card are 6e-5 to 1e-3.
+the kernel and the plain version.  4e-3 for the attention kernels (bf16 and
+int8 pools) — their outputs are softmax-weighted means of N(0, 1) rows, of
+order 0.1, and measured errors against the plain version on the card are
+6e-5 to 1e-3.  MX_TOL for the two MX kernels: fp32 outputs of order 1 from
+the same dequantized weights (the kernel builds 2^(s-127) exactly, the
+plain version as the JAX package does, within ~1e-7 of it), summed in
+another order in fp32.
 """
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops as TK  # noqa: E402
+from repro_torch.quant.tensor import quantize_kv, quantize_mx  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -48,7 +53,16 @@ def paged_case(rng, B, H, KV, hd, page, nblk):
     return q, kp, vp, i32(bt)
 
 
-BF16_TOL, ATTN_TOL = 2e-2, 4e-3
+BF16_TOL, ATTN_TOL, MX_TOL = 2e-2, 4e-3, 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _fp32_matmuls_in_full():
+    """The plain MX versions are fp32 products: no TF32."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def matches_plain(got, want, tol=BF16_TOL):
@@ -118,6 +132,73 @@ def test_prefill_attention_paged(offset, valid, hd):
                   ATTN_TOL)
 
 
+def mx_weight(rng, K, N, elem):
+    """(codes, scales) of an MX-quantized (K, N) fan-in-scaled weight, on
+    the card."""
+    qt = quantize_mx(torch.from_numpy(
+        (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32))
+        .to("cuda"), elem=elem)
+    return qt.values, qt.scales
+
+
+@pytest.mark.parametrize("N,K,elem", [
+    (151936, 1024, "fp4"), (151936, 1024, "fp8"),   # the read-out
+    (1024, 1024, "fp4"), (1024, 2816, "fp4"),       # q/k/v/o, down
+    (1040, 2848, "fp8"),                            # ragged tile, odd split
+    (48, 96, "fp4")])                               # one partial tile
+def test_mx_qgemv(N, K, elem):
+    rng = np.random.default_rng(10)
+    wq, s = mx_weight(rng, K, N, elem)
+    x = bf16(rng.standard_normal(K))
+    before = TK.launch_counts()["mx_qgemv"]
+    matches_plain(TK.mx_qgemv(wq, s, x), TK.PLAIN["mx_qgemv"](wq, s, x),
+                  MX_TOL)
+    assert TK.launch_counts()["mx_qgemv"] == before + 1
+
+
+@pytest.mark.parametrize("N,K,elem", [(2816, 1024, "fp4"),
+                                      (2816, 1024, "fp8"), (48, 96, "fp4")])
+def test_mx_qgemv_swiglu(N, K, elem):
+    rng = np.random.default_rng(11)
+    wg, sg = mx_weight(rng, K, N, elem)
+    wu, su = mx_weight(rng, K, N, elem)
+    x = bf16(rng.standard_normal(K))
+    matches_plain(TK.mx_qgemv_swiglu(wg, sg, wu, su, x),
+                  TK.PLAIN["mx_qgemv_swiglu"](wg, sg, wu, su, x), MX_TOL)
+
+
+def int8_pools(kp, vp):
+    k8, ks = quantize_kv(kp.float())
+    v8, vs = quantize_kv(vp.float())
+    return k8, ks, v8, vs
+
+
+@pytest.mark.parametrize("H,KV,hd,nblk,lengths", [
+    (16, 16, 64, 32, [398, 64, 1, 33]),    # qwen1.5-0.5b geometry, page 32
+    (4, 2, 128, 3, [96, 21, 30, 65]),      # GQA, odd nblk
+    (4, 4, 32, 5, [160, 159, 31, 2]),
+])
+def test_paged_decode_attention_int8(H, KV, hd, nblk, lengths):
+    rng = np.random.default_rng(12)
+    q, kp, vp, bt = paged_case(rng, 4, H, KV, hd, 32, nblk)
+    args = (q, *int8_pools(kp, vp), bt, i32(lengths))
+    before = TK.launch_counts()["paged_decode_attention_int8"]
+    matches_plain(TK.paged_decode_attention_int8(*args),
+                  TK.PLAIN["paged_decode_attention_int8"](*args), ATTN_TOL)
+    assert TK.launch_counts()["paged_decode_attention_int8"] == before + 1
+
+
+def test_paged_decode_int8_idle_slot_reads_null_page():
+    rng = np.random.default_rng(13)
+    q, kp, vp, bt = paged_case(rng, 2, 16, 16, 64, 32, 4)
+    bt[1] = 0
+    args = (q, *int8_pools(kp, vp), bt, i32([100, 77]))
+    got = TK.paged_decode_attention_int8(*args)
+    matches_plain(got[:1], TK.PLAIN["paged_decode_attention_int8"](*args)[:1],
+                  ATTN_TOL)
+    assert torch.isfinite(got.float()).all()
+
+
 def test_wrapper_raises_instead_of_falling_back():
     x = torch.ones((4, 64), dtype=torch.float32, device="cuda")
     with pytest.raises(ValueError, match="bf16"):
@@ -128,3 +209,11 @@ def test_wrapper_raises_instead_of_falling_back():
     xs = torch.ones(1032, dtype=torch.bfloat16, device="cuda")[1:1025]
     with pytest.raises(ValueError, match="aligned"):
         TK.gemv(torch.ones((8, 1024), dtype=torch.bfloat16, device="cuda"), xs)
+    rng = np.random.default_rng(14)
+    wq, s = mx_weight(rng, 64, 48, "fp4")
+    with pytest.raises(ValueError, match="K % 32"):     # x of the wrong K
+        TK.mx_qgemv(wq, s, bf16(rng.standard_normal(96)))
+    q, kp, vp, bt = paged_case(rng, 1, 4, 4, 32, 32, 2)
+    with pytest.raises(ValueError, match="int8"):       # bf16 pools
+        TK.paged_decode_attention_int8(q, kp, kp[..., :1], vp, vp[..., :1],
+                                       bt, i32([5]))

@@ -167,7 +167,7 @@ def test_engine_config_validate_matches_jax(kw):
     dict(),                                              # dense backend
     dict(backend="paged"),                               # bucketed prefill
     dict(backend="paged", chunked_prefill=True, temperature=0.7),
-    dict(backend="paged", chunked_prefill=True, kv_cache_dtype="int8"),
+    dict(backend="paged", chunked_prefill=True, quantize_weights="int4"),
     dict(backend="paged", chunked_prefill=True, quantize_weights="int8"),
     dict(backend="paged", chunked_prefill=True, tp=2),
 ])
@@ -195,13 +195,19 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, capsys):
     assert build_model(cfg, device="cpu").device.type == "cpu"
 
 
-def test_launcher_smoke_on_cpu(capsys):
+@pytest.mark.parametrize("quant", [[], ["--quantize-weights", "mx4",
+                                       "--kv-cache-dtype", "int8"]])
+def test_launcher_smoke_on_cpu(capsys, quant):
     rc = launcher.main(["--arch", "qwen1.5-0.5b", "--smoke",
                         "--chunked-prefill", "--prefix-cache",
                         "--kernel-decode", "--device", "cpu",
-                        "--requests", "4", "--max-new", "4"])
+                        "--requests", "4", "--max-new", "4", *quant])
     assert rc == 0
-    assert "served 4/4 requests" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "served 4/4 requests" in out
+    if quant:
+        assert "quantized 15 weight leaves (mx4)" in out
+        assert '"kv_dtype": "int8"' in out and '"page_size": 32' in out
 
 
 def _imported_modules(path: Path):
