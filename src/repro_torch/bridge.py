@@ -11,6 +11,10 @@ axis — and returns the ``nn.ModuleDict`` the port's model reads:
   call transposes) and cast once to the compute dtype — the values JAX gets
   from casting the fp32 master weights on every call;
 * norm scales stay fp32; biases and the embedding keep their stored dtype;
+* a MoE block: the router stays fp32 (``(E, d)``: the JAX package applies
+  it in fp32), raw expert stacks go from ``(E, in, out)`` to ``(E, out,
+  in)`` in the compute dtype, the shared expert and its gate are dense
+  projections as above;
 * a ``QuantizedTensor`` leaf (MX weights from ``quantize_params``) becomes
   the port's ``QuantizedTensor`` with the JAX ``(K | K/2, N)`` codes and
   ``(K/32, N)`` scales byte for byte — no transpose; fp8 codes (ml_dtypes
@@ -62,6 +66,28 @@ def _dense(p: Dict[str, Any], device, dtype) -> nn.ParameterDict:
     return out
 
 
+def _stack(p: Dict[str, Any], device, dtype) -> nn.ParameterDict:
+    """An expert stack: (E, in, out) -> (E, out, in), or MX carried."""
+    w = p["w"]
+    return nn.ParameterDict({"w": _quantized(w, device) if _is_quantized(w)
+                             else frozen(_tensor(np.asarray(w).transpose(
+                                 0, 2, 1), device, dtype).contiguous())})
+
+
+def _moe(p: Dict[str, Any], device, dtype) -> nn.ModuleDict:
+    out = nn.ModuleDict({"router": _dense(p["router"], device,
+                                          torch.float32)})
+    for k in ("wi_up", "wi_gate", "wo"):
+        if k in p:
+            out[k] = _stack(p[k], device, dtype)
+    if "shared" in p:
+        out["shared"] = nn.ModuleDict({k: _dense(v, device, dtype)
+                                       for k, v in p["shared"].items()})
+    if "shared_gate" in p:
+        out["shared_gate"] = _dense(p["shared_gate"], device, dtype)
+    return out
+
+
 def _norm(p, device) -> nn.ParameterDict:
     return nn.ParameterDict({"scale": frozen(
         _tensor(p["scale"], device, torch.float32))})
@@ -73,8 +99,9 @@ def _layer(p, device, dtype) -> nn.ModuleDict:
         "mixer": nn.ModuleDict({k: _dense(p["mixer"][k], device, dtype)
                                 for k in ("wq", "wk", "wv", "wo")}),
         "norm2": _norm(p["norm2"], device),
-        "ffn": nn.ModuleDict({k: _dense(v, device, dtype)
-                              for k, v in p["ffn"].items()}),
+        "ffn": (_moe(p["ffn"], device, dtype) if "router" in p["ffn"] else
+                nn.ModuleDict({k: _dense(v, device, dtype)
+                               for k, v in p["ffn"].items()})),
     })
 
 

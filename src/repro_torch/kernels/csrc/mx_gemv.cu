@@ -3,18 +3,28 @@
 // even k in the low nibble) or fp8 e4m3 ((K, N)), with one uint8 E8M0 scale
 // 2^(s - 127) per 32-row block of a column ((K/32, N)).  The fused SwiGLU
 // variant streams a gate and an up weight against the same x and writes
-// g * sigmoid(g) * u.
+// g * sigmoid(g) * u.  The grouped variant takes a stack of E such weights
+// ((E, K | K/2, N) codes, (E, K/32, N) scales), topk rows xs (topk, K) and
+// expert ids (topk,) int32 on the device, and writes y[t] = xs[t] .
+// dequant(W[ids[t]]) for each row t: the MoE experts' routed projections.
 //
 // Replaces: src/repro/quant/kernels.py `mx_qgemv` (`_mx_gemv_2d`: (block_k,
 //   block_n) code tiles and their E8M0 rows DMA'd in lockstep, nibble
 //   unpack + exp2 dequant in VMEM, fp32 accumulator committed at the last
-//   K step) and `mx_qgemv_swiglu` (`_mx_swiglu_kernel`: the same walk over
+//   K step), `mx_qgemv_swiglu` (`_mx_swiglu_kernel`: the same walk over
 //   two weight streams, one x block, the silu-gate epilogue on the
-//   committed accumulators).
+//   committed accumulators) and `grouped_expert_qgemv` (`_grouped_kernel`:
+//   a (row, column tile, K step) grid whose code and scale BlockSpecs are
+//   indexed by the scalar-prefetched expert ids, so only the selected
+//   experts' tiles are DMA'd).
 // Bound on the H100: bytes.  The codes are read once (K N / 2 bytes for
 //   fp4, K N for fp8) plus K N / 32 scale bytes, for 2 K N operations:
 //   ~4 operations per byte, far below the ridge.  At the read-out shape
 //   (K = 1024, N = 151936, fp4) that is 83 MB, ~24.9 us at 3.35 TB/s.
+//   The grouped variant reads only the topk selected slices: for
+//   qwen2-moe-a2.7b's experts (top-4 of 60, 2048 -> 1408 or 1408 -> 2048)
+//   4 x 1.53 MB of fp4 codes and scales, ~1.83 us at 3.35 TB/s, which is
+//   below the launch latency: the kernel is a latency chain, not a stream.
 // Design: the stored layout is contiguous along N, so lanes own columns:
 //   a lane owns 16 consecutive columns and reads one 16-byte chunk of a
 //   code row per load (a warp reads 512 contiguous bytes of the row), plus
@@ -34,7 +44,16 @@
 //   kernel measured no faster at 1024 x 1024 and slower at 2816 x 1024,
 //   where a cluster holds at most 8 splits.)  The E8M0 scale is built as
 //   the float bits s << 23 (s = 0 is 2^-127, a subnormal).  N must be a
-//   multiple of 16 and K of 32 (the wrapper checks).
+//   multiple of 16 and K of 32 (the wrapper checks).  The grouped variant
+//   is the same walk with a third grid axis over the topk rows: each block
+//   reads its row's expert id from device memory itself (where the TPU
+//   kernel had it scalar-prefetched) and offsets its code and scale
+//   pointers by id x (K/pack x N) and id x (K/32 x N); x, y and the split
+//   workspace are offset by the row.  The split count counts the rows too
+//   (tiles x splits x rows blocks), so four 1408-column rows of 3 tiles
+//   (the last one ragged: its lanes past N load nothing) split K 8 ways;
+//   the second pass adds the splits in order, as for one row.  Repeated
+//   ids are two rows reading the same slice.
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
@@ -118,11 +137,13 @@ __device__ __forceinline__ float silu_gate(float g, float u) {
   return g * (1.f / (1.f + expf(-g))) * u;
 }
 
-// grid (column tiles, ksplit); block kWarps warps.  Block (t, z) covers
-// columns [t * kTile, (t + 1) * kTile) and the 32-row blocks [z * kbs,
-// min((z + 1) * kbs, K / 32)).  SWIGLU: two streams (gate w0, up w1).
-// ksplit == 1 writes y (with the epilogue); otherwise the partial sums go
-// to work[z][N] (and work[ksplit + z][N] for up).
+// grid (column tiles, ksplit, rows); block kWarps warps.  Block (t, z, r)
+// covers columns [t * kTile, (t + 1) * kTile) and the 32-row blocks
+// [z * kbs, min((z + 1) * kbs, K / 32)) of row r.  SWIGLU: two streams
+// (gate w0, up w1).  ids (grouped, one stream): row r reads the weight
+// ids[r] of the stack.  ksplit == 1 writes y (with the epilogue);
+// otherwise the partial sums go to work[r][z][N] (and work[r][ksplit +
+// z][N] for up).
 template <int BITS, bool SWIGLU>
 __global__ void __launch_bounds__(kWarps * 32)
     mx_gemv_kernel(const uint8_t* __restrict__ w0,
@@ -130,10 +151,20 @@ __global__ void __launch_bounds__(kWarps * 32)
                    const uint8_t* __restrict__ w1,
                    const uint8_t* __restrict__ s1,
                    const __nv_bfloat16* __restrict__ x, float* __restrict__ y,
-                   float* __restrict__ work, int N, int K, int kbs) {
+                   float* __restrict__ work, const int* __restrict__ ids,
+                   int N, int K, int kbs) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float fp4[16];
   const int nkb = K / kBlockRows;
+  const int r = blockIdx.z;
+  if (ids != nullptr) {
+    const size_t e = (size_t)__ldg(ids + r);
+    w0 += e * (size_t)(BITS == 4 ? K / 2 : K) * N;
+    s0 += e * (size_t)nkb * N;
+  }
+  x += (size_t)r * K;
+  y += (size_t)r * N;
+  work += (size_t)r * (SWIGLU ? 2 : 1) * gridDim.y * N;
   const int kb0 = blockIdx.y * kbs, kb1 = min(nkb, kb0 + kbs);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col = blockIdx.x * kTile + lane * kCols;
@@ -179,12 +210,15 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// y[n] = sum over the ksplit partials (in split order), then the epilogue.
+// y[n] = sum over the ksplit partials (in split order), then the epilogue;
+// grid (column blocks, rows).
 template <bool SWIGLU>
 __global__ void mx_reduce_kernel(const float* __restrict__ work,
                                  float* __restrict__ y, int N, int ksplit) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
+  work += (size_t)blockIdx.y * (SWIGLU ? 2 : 1) * ksplit * N;
+  y += (size_t)blockIdx.y * N;
   float g = 0.f, u = 0.f;
   for (int z = 0; z < ksplit; ++z) {
     g += work[(size_t)z * N + n];
@@ -195,8 +229,9 @@ __global__ void mx_reduce_kernel(const float* __restrict__ work,
 
 template <int BITS, bool SWIGLU>
 cudaError_t launch(const void* w0, const void* s0, const void* w1,
-                   const void* s1, const void* x, void* y, void* work, int N,
-                   int K, int ksplit, cudaStream_t stream) {
+                   const void* s1, const void* x, void* y, void* work,
+                   const void* ids, int rows, int N, int K, int ksplit,
+                   cudaStream_t stream) {
   const int nkb = K / kBlockRows;
   const int kbs = (nkb + ksplit - 1) / ksplit;
   const int tiles = (N + kTile - 1) / kTile;
@@ -208,39 +243,39 @@ cudaError_t launch(const void* w0, const void* s0, const void* w1,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3(tiles, ksplit), kWarps * 32, smem, stream>>>(
+  kern<<<dim3(tiles, ksplit, rows), kWarps * 32, smem, stream>>>(
       (const uint8_t*)w0, (const uint8_t*)s0, (const uint8_t*)w1,
       (const uint8_t*)s1, (const __nv_bfloat16*)x, (float*)y, (float*)work,
-      N, K, kbs);
+      (const int*)ids, N, K, kbs);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || ksplit == 1) return e;
-  mx_reduce_kernel<SWIGLU><<<(N + 255) / 256, 256, 0, stream>>>(
+  mx_reduce_kernel<SWIGLU><<<dim3((N + 255) / 256, rows), 256, 0, stream>>>(
       (const float*)work, (float*)y, N, ksplit);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* w0, const void* s0, const void* w1,
                      const void* s1, const void* x, void* y, void* work,
-                     int N, int K, int bits, int ksplit, bool swiglu,
-                     void* stream) {
-  if (N <= 0) return cudaSuccess;
+                     const void* ids, int rows, int N, int K, int bits,
+                     int ksplit, bool swiglu, void* stream) {
+  if (N <= 0 || rows <= 0) return cudaSuccess;
   const int nkb = K / kBlockRows;
   if (K <= 0 || K % kBlockRows || N % kCols || ksplit < 1 || ksplit > nkb ||
-      (bits != 4 && bits != 8))
+      rows > 65535 || (bits != 4 && bits != 8) || (swiglu && ids))
     return cudaErrorInvalidValue;
   // every split must own at least one block of rows
   if ((ksplit - 1) * ((nkb + ksplit - 1) / ksplit) >= nkb)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bits == 4)
-    return swiglu ? launch<4, true>(w0, s0, w1, s1, x, y, work, N, K,
-                                    ksplit, s)
-                  : launch<4, false>(w0, s0, w1, s1, x, y, work, N, K,
-                                     ksplit, s);
-  return swiglu ? launch<8, true>(w0, s0, w1, s1, x, y, work, N, K, ksplit,
-                                  s)
-                : launch<8, false>(w0, s0, w1, s1, x, y, work, N, K, ksplit,
-                                   s);
+    return swiglu ? launch<4, true>(w0, s0, w1, s1, x, y, work, ids, rows,
+                                    N, K, ksplit, s)
+                  : launch<4, false>(w0, s0, w1, s1, x, y, work, ids, rows,
+                                     N, K, ksplit, s);
+  return swiglu ? launch<8, true>(w0, s0, w1, s1, x, y, work, ids, rows, N,
+                                  K, ksplit, s)
+                : launch<8, false>(w0, s0, w1, s1, x, y, work, ids, rows, N,
+                                   K, ksplit, s);
 }
 
 }  // namespace
@@ -252,8 +287,8 @@ extern "C" cudaError_t repro_mx_gemv(const void* w, const void* s,
                                      const void* x, void* y, void* work,
                                      int N, int K, int bits, int ksplit,
                                      void* stream) {
-  return dispatch(w, s, nullptr, nullptr, x, y, work, N, K, bits, ksplit,
-                  false, stream);
+  return dispatch(w, s, nullptr, nullptr, x, y, work, nullptr, 1, N, K,
+                  bits, ksplit, false, stream);
 }
 
 // The fused SwiGLU: gate (wg, sg) and up (wu, su) as above, y = silu(x.Wg)
@@ -264,6 +299,20 @@ extern "C" cudaError_t repro_mx_gemv_swiglu(const void* wg, const void* sg,
                                             void* work, int N, int K,
                                             int bits, int ksplit,
                                             void* stream) {
-  return dispatch(wg, sg, wu, su, x, y, work, N, K, bits, ksplit, true,
-                  stream);
+  return dispatch(wg, sg, wu, su, x, y, work, nullptr, 1, N, K, bits,
+                  ksplit, true, stream);
+}
+
+// The grouped expert GEMV: w (E, K/2 | K, N) uint8 codes, s (E, K/32, N)
+// uint8 E8M0, xs (rows, K) bf16, ids (rows,) int32 expert ids in [0, E)
+// on the device, y (rows, N) fp32; work (rows, ksplit, N) fp32 when ksplit
+// > 1.  All 16-byte aligned, N % 16 == 0, K % 32 == 0.
+extern "C" cudaError_t repro_mx_gemv_grouped(const void* w, const void* s,
+                                             const void* xs, const void* ids,
+                                             void* y, void* work, int rows,
+                                             int N, int K, int bits,
+                                             int ksplit, void* stream) {
+  if (ids == nullptr) return cudaErrorInvalidValue;
+  return dispatch(w, s, nullptr, nullptr, xs, y, work, ids, rows, N, K,
+                  bits, ksplit, false, stream);
 }

@@ -19,7 +19,8 @@ from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels.decode_attention import (paged_decode_attention,
                                                   paged_decode_attention_int8)
 from repro_torch.kernels.gemv import gemv
-from repro_torch.kernels.mx_gemv import mx_qgemv, mx_qgemv_swiglu
+from repro_torch.kernels.mx_gemv import (grouped_expert_qgemv, mx_qgemv,
+                                         mx_qgemv_swiglu)
 from repro_torch.kernels.prefill_attention import prefill_attention_paged
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -32,6 +33,7 @@ _KERNELS = {
     "paged_decode_attention_int8": (_dec, "int8_launches", "plain_int8"),
     "mx_qgemv": (_mx, "launches", "plain"),
     "mx_qgemv_swiglu": (_mx, "swiglu_launches", "plain_swiglu"),
+    "grouped_expert_qgemv": (_mx, "grouped_launches", "plain_grouped"),
 }
 
 #: the plain version of each kernel, by name
@@ -56,5 +58,5 @@ def build() -> Dict[str, Dict[str, object]]:
 
 __all__ = ["rmsnorm", "gemv", "paged_decode_attention",
            "prefill_attention_paged", "paged_decode_attention_int8",
-           "mx_qgemv", "mx_qgemv_swiglu", "PLAIN", "launch_counts",
-           "reset_launch_counts", "build"]
+           "mx_qgemv", "mx_qgemv_swiglu", "grouped_expert_qgemv", "PLAIN",
+           "launch_counts", "reset_launch_counts", "build"]

@@ -86,6 +86,17 @@ def mx_qgemv_swiglu(wg, sg, wu, su, x):
     return g * torch.sigmoid(g) * u
 
 
+def grouped_expert_qgemv(wq, scales, xs, expert_ids):
+    """Grouped MX expert oracle: take the selected experts' codes and
+    scales (E8M0 blocks along K), dequantize them in fp32, then one fp32
+    product per (row, expert): xs (topk, K), expert_ids (topk,) ->
+    (topk, N)."""
+    ids = expert_ids.long()
+    sel = wq.view(torch.uint8).index_select(0, ids).view(wq.dtype)
+    w = _mx_dequant(sel, scales.index_select(0, ids))      # (topk, K, N)
+    return torch.einsum("tk,tkn->tn", xs.float(), w)
+
+
 def prefill_attention_paged(q, k_pool, v_pool, block_tables, q_offset,
                             length):
     """Chunked-prefill paged-attention oracle: gather the block table to

@@ -1,8 +1,9 @@
 """Serving launcher of the port.
 
-    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --chunked-prefill \\
-        --prefix-cache --kernel-decode [--quantize-weights mx4|fp8] \\
-        [--kv-cache-dtype int8] [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b|qwen2-moe-a2.7b \\
+        --chunked-prefill --prefix-cache --kernel-decode \\
+        [--quantize-weights mx4|fp8] [--kv-cache-dtype int8] [--smoke] \\
+        [--device cpu]
 
 Serves a seeded trace of requests through the chunked, paged engine and
 prints the engine metrics.  ``--kernel-decode`` routes norms, one-row
@@ -19,8 +20,10 @@ import json
 
 
 def main(argv=None):
+    from repro_torch.configs import ARCH_IDS
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (tiny widths, 2 layers)")
     ap.add_argument("--device", default=None,
@@ -41,9 +44,10 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=None)
     ap.add_argument("--quantize-weights", choices=("none", "mx4", "fp8"),
                     default="none",
-                    help="MX-quantize the projection weights (E8M0 32-row "
-                         "block exponents, fp4 or fp8 codes); embeddings, "
-                         "norms and biases stay raw")
+                    help="MX-quantize the projection weights and MoE "
+                         "expert stacks (E8M0 32-row block exponents, fp4 "
+                         "or fp8 codes); embeddings, norms, biases and MoE "
+                         "routers stay raw")
     ap.add_argument("--kv-cache-dtype", choices=("model", "int8"),
                     default="model",
                     help="int8: int8 page pools + bf16 scale pages")

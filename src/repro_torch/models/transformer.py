@@ -18,13 +18,14 @@ from torch import nn
 from repro_torch.core.device import dtype_of
 from repro_torch.models import attention as A
 from repro_torch.models import modules as M
+from repro_torch.models import moe as MOE
 from repro_torch.serve.kvcache import PagedKVCache
 
 
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Static runtime switches: the JAX package's fields that the serving
-    path reads (training, MoE and MLA switches come with their items)."""
+    path reads (training and MLA switches come with their items)."""
     cache_dtype: str = "bfloat16"  # KV storage name (sets the page granule)
     paged_kernel_decode: bool = False  # paged attention via the CUDA
     #   kernels (no gathered dense view); default: the plain path
@@ -47,15 +48,19 @@ class RuntimeConfig:
 
 def check_supported(cfg):
     """The port runs decoder-only stacks of GQA attention with RoPE, RMSNorm
-    and a SwiGLU MLP, read out through an untied ``lm_head``."""
+    and a SwiGLU MLP or a qwen2-moe MoE (SwiGLU experts and a shared SwiGLU
+    expert behind a sigmoid gate), read out through an untied
+    ``lm_head``."""
     why = None
+    mo = cfg.moe
     if cfg.encoder_decoder:
         why = "queue 1 item 13 (encoder-decoder)"
     elif cfg.attention != "gqa":
         why = "queue 1 item 13 (MLA)"
-    elif cfg.moe is not None:
-        why = "queue 1 item 8 (MoE)"
-    elif any(k != ("attn", "mlp") for k in cfg.layer_kinds()):
+    elif mo is not None and not (mo.shared_d_ff and mo.shared_expert_gate):
+        why = "queue 1 item 13 (MoE without a gated shared expert)"
+    elif any(k not in (("attn", "mlp"), ("attn", "moe"))
+             for k in cfg.layer_kinds()):
         why = "queue 1 item 13 (other mixers)"
     elif cfg.frontend != "none":
         why = "queue 1 item 13 (vision frontend)"
@@ -74,19 +79,21 @@ def check_supported(cfg):
 # --------------------------------------------------------------------------
 def init_lm(cfg, *, generator: torch.Generator, device) -> nn.ModuleDict:
     """Random parameters with the JAX package's scales: truncated normals
-    (fan-in scaled projections, unit-scale embedding), unit norm scales,
-    zero biases.  Projection weights are stored (out, in) in the compute
-    dtype; the embedding, norm scales and biases stay fp32."""
+    (fan-in scaled projections and expert stacks, unit-scale embedding),
+    unit norm scales, zero biases.  Projection weights are stored (out, in)
+    and expert stacks (E, out, in), in the compute dtype; the embedding,
+    norm scales, biases and MoE routers stay fp32."""
     check_supported(cfg)
     dtype = dtype_of(cfg.dtype)
     kw = dict(dtype=dtype, generator=generator, device=device)
     layers = nn.ModuleList()
-    for _ in range(cfg.num_layers):
+    for _, ffn in cfg.layer_kinds():
         layers.append(nn.ModuleDict({
             "norm1": M.norm_init(cfg.d_model, device=device),
             "mixer": A.attention_init(cfg, **kw),
             "norm2": M.norm_init(cfg.d_model, device=device),
-            "ffn": M.mlp_init(cfg.d_model, cfg.d_ff, **kw),
+            "ffn": (MOE.moe_init(cfg, **kw) if ffn == "moe"
+                    else M.mlp_init(cfg.d_model, cfg.d_ff, **kw)),
         }))
     return nn.ModuleDict({
         "embed": M.embed_init(cfg.vocab_size, cfg.d_model,
@@ -105,15 +112,22 @@ def _use_kernel(rt) -> bool:
     return rt.paged_kernel_decode or M.kernel_routed()
 
 
+def _apply_ffn(p, cfg, rt, x, dtype):
+    """The layer's MLP, or its MoE (a ffn that holds a ``router``); the
+    serving steps drop the MoE aux loss, as the JAX decode path does."""
+    h = M.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+    if "router" in p["ffn"]:
+        return x + MOE.apply_moe(p["ffn"], cfg, h, dtype=dtype)
+    return x + M.apply_mlp(p["ffn"], h, cfg.act, dtype)
+
+
 def _apply_layer_chunk(p, cfg, rt, x, cache, offset, valid, stage_base,
                        pages, dtype):
     h = M.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
     o, _ = A.apply_attention_chunk_paged(
         p["mixer"], cfg, h, cache, offset, valid, dtype, block_tables=pages,
         use_kernel=_use_kernel(rt), stage_base=stage_base)
-    x = x + o
-    h = M.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
-    return x + M.apply_mlp(p["ffn"], h, cfg.act, dtype)
+    return _apply_ffn(p, cfg, rt, x + o, dtype)
 
 
 def _apply_layer_decode(p, cfg, rt, x, cache, pos, pages, dtype):
@@ -121,9 +135,7 @@ def _apply_layer_decode(p, cfg, rt, x, cache, pos, pages, dtype):
     o, _ = A.apply_attention_decode_paged(
         p["mixer"], cfg, h, cache, pos, dtype, block_tables=pages,
         use_kernel=_use_kernel(rt))
-    x = x + o
-    h = M.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
-    return x + M.apply_mlp(p["ffn"], h, cfg.act, dtype)
+    return _apply_ffn(p, cfg, rt, x + o, dtype)
 
 
 def readout(p, cfg, x, dtype):

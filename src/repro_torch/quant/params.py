@@ -1,13 +1,17 @@
 """``quantize_params``: MX-quantize the projection weights of a parameter
 tree by path policy (the JAX package's ``quant/params.py``, MX formats).
 
-The policy is the JAX package's: the ``w`` leaves of the dense projections
-applied through ``modules.apply_dense`` (attention q/k/v/o, the MLP halves,
-the ``lm_head``) quantize; embeddings, norms and biases stay raw.  The
-port's projections are stored ``(out, in)``; a quantized one is stored as
-the JAX package stores it, ``(in, out)`` with the E8M0 blocks running down
-the contraction axis (``axis=-2``), so the codes are the JAX package's byte
-for byte and the MX kernels walk them without a transpose.
+The policy is the JAX package's MX policy: the ``w`` leaves of the dense
+projections applied through ``modules.apply_dense`` (attention q/k/v/o, the
+MLP halves, the ``lm_head``) quantize, and so do the MoE expert stacks
+``wi_up`` / ``wi_gate`` / ``wo`` (the JAX package's policy flip: its int
+formats keep expert stacks raw, MX quantizes them for the grouped expert
+kernel); embeddings, norms, biases, MoE routers and ``shared_gate`` stay
+raw.  The port's projections are stored ``(out, in)`` (expert stacks
+``(E, out, in)``); a quantized one is stored as the JAX package stores it,
+``(in, out)`` (``(E, in, out)``) with the E8M0 blocks running down the
+contraction axis (``axis=-2``), so the codes are the JAX package's byte for
+byte and the MX kernels walk them without a transpose.
 """
 from __future__ import annotations
 
@@ -53,7 +57,8 @@ def quantize_params(params: nn.Module, *, fmt: str) -> nn.Module:
         if isinstance(node, nn.ParameterDict):
             out = nn.ParameterDict()
             for k, v in node.items():
-                out[k] = quantize_mx(v.detach().T, elem=elem, axis=-2) \
+                out[k] = quantize_mx(v.detach().transpose(-2, -1),
+                                     elem=elem, axis=-2) \
                     if default_policy(keys + (k,), v) else v
             return out
         if isinstance(node, nn.ModuleDict):

@@ -4,16 +4,10 @@ A copy of what the port needs from the JAX package's ``quant/tensor.py``
 (which imports JAX): absmax int8 quantization (the KV-page layout), MX
 microscaling (per-32-row-block E8M0 shared exponents with fp4 e2m1 or fp8
 e4m3 element codes) and their inverses.  The codes and scales are the JAX
-package's byte for byte, which needs three of XLA's CPU conventions to be
-spelled out here (ROADMAP §3 lists the inputs where they still differ):
-
-* ``jnp.log2(x)`` is ``log(x) * 1.44269502`` in fp32 (XLA folds the
-  division by ``log(2)`` into that multiply); the exact ``floor(log2)``
-  differs from it just below some powers of two.
-* ``jnp.exp2(n)`` is ``exp(n * 0.693147182)`` in fp32, which is not an exact
-  power of two for most integers ``n``; MX quantization scales its blocks
-  by that factor and ``e8m0_decode`` returns it.
-* ``jnp.digitize(x, bins)`` is ``torch.bucketize(x, bins, right=True)``.
+package's byte for byte: ``floor(log2)`` and ``exp2`` are XLA's CPU
+conventions (``repro_torch.core.xla_cpu``; ROADMAP §3 lists the inputs
+where they still differ), and ``jnp.digitize(x, bins)`` is
+``torch.bucketize(x, bins, right=True)``.
 """
 from __future__ import annotations
 
@@ -23,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.troop import sublane
+from repro_torch.core.xla_cpu import exp2, floor_log2
 
 # storage is always int8; MX codes are uint8 (fp4 packs two per byte)
 STORAGE_DTYPE = torch.int8
@@ -37,28 +32,12 @@ _FP4_MIDPOINTS = (0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0)
 #: e2m1 code -> value (bit 3 sign, bits 2:1 exponent, bit 0 mantissa)
 FP4_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
               -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0)
-_LN2 = 0.693147182            # fp32 log(2), the factor of XLA's exp2
-_INV_LN2 = 1.44269502         # fp32 1/log(2), the factor of XLA's log2
 
 
 def granule() -> int:
     """Layout granule (rows) of the int8 storage dtype: MX blocks and int8
     KV pages tile in multiples of it."""
     return sublane("int8")
-
-
-# The constants multiply as Python scalars: torch rounds them to fp32 first,
-# and a function that builds no tensor from host data can be captured in a
-# CUDA graph.
-def exp2(n: torch.Tensor) -> torch.Tensor:
-    """``jnp.exp2`` of fp32 ``n`` as the JAX package computes it."""
-    return torch.exp(n.float() * _LN2)
-
-
-def _floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.floor(jnp.log2(x))`` of fp32 ``x`` as the JAX package computes
-    it."""
-    return torch.floor(torch.log(x) * _INV_LN2)
 
 
 # --------------------------------------------------------------------------
@@ -224,7 +203,7 @@ def quantize_mx(x: torch.Tensor, *, elem: str = "fp4", axis: int = -2,
     blocks = xm.reshape(xm.shape[:-1] + (K // g, g))
     amax = blocks.abs().amax(dim=-1)
     e = torch.where(amax > 0.0,
-                    _floor_log2(torch.clamp(amax, min=1e-38)) - _MX_EMAX[elem],
+                    floor_log2(torch.clamp(amax, min=1e-38)) - _MX_EMAX[elem],
                     -float(E8M0_BIAS))
     e = torch.clamp(e, -E8M0_BIAS, E8M0_BIAS)
     scales = (e + E8M0_BIAS).to(torch.uint8)
@@ -286,6 +265,6 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
 
 
 __all__ = ["QuantizedTensor", "granule", "fp4_encode", "fp4_decode",
-           "pack_fp4", "unpack_fp4", "e8m0_decode", "exp2", "absmax_scales",
+           "pack_fp4", "unpack_fp4", "e8m0_decode", "absmax_scales",
            "quantize", "quantize_mx", "dequantize", "dequantize_values",
            "quantize_kv", "dequantize_kv", "FP4_VALUES", "E8M0_BIAS"]

@@ -11,10 +11,11 @@ whose 8-bit mantissa holds ~3 significant digits, summed in other orders by
 the kernel and the plain version.  4e-3 for the attention kernels (bf16 and
 int8 pools) — their outputs are softmax-weighted means of N(0, 1) rows, of
 order 0.1, and measured errors against the plain version on the card are
-6e-5 to 1e-3.  MX_TOL for the two MX kernels: fp32 outputs of order 1 from
-the same dequantized weights (the kernel builds 2^(s-127) exactly, the
+6e-5 to 1e-3.  MX_TOL for the three MX kernels: fp32 outputs of order 1
+from the same dequantized weights (the kernel builds 2^(s-127) exactly, the
 plain version as the JAX package does, within ~1e-7 of it), summed in
-another order in fp32.
+another order in fp32.  F32_TOL for the fp32 gemv (the MoE router): fp32
+inputs and outputs of order 1, summed in another order in fp32.
 """
 import numpy as np
 import pytest
@@ -53,7 +54,7 @@ def paged_case(rng, B, H, KV, hd, page, nblk):
     return q, kp, vp, i32(bt)
 
 
-BF16_TOL, ATTN_TOL, MX_TOL = 2e-2, 4e-3, 1e-3
+BF16_TOL, ATTN_TOL, MX_TOL, F32_TOL = 2e-2, 4e-3, 1e-3, 1e-4
 
 
 @pytest.fixture(autouse=True)
@@ -91,8 +92,39 @@ def test_gemv(N, K):
     matches_plain(TK.gemv(w, x), TK.PLAIN["gemv"](w, x))
 
 
+@pytest.mark.parametrize("N,K", [(60, 2048),          # the MoE router
+                                 (151936, 1024), (33, 100)])
+def test_gemv_f32(N, K):
+    rng = np.random.default_rng(15)
+    w = torch.as_tensor(rng.standard_normal((N, K)) / np.sqrt(K),
+                        dtype=torch.float32, device="cuda")
+    x = torch.as_tensor(rng.standard_normal(K), dtype=torch.float32,
+                        device="cuda")
+    before = TK.launch_counts()["gemv"]
+    matches_plain(TK.gemv(w, x), TK.PLAIN["gemv"](w, x), F32_TOL)
+    assert TK.launch_counts()["gemv"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,K", [(1408, 2048), (2048, 1408)])
+def test_gemv_picks_one_matrix_of_a_stack(N, K, dtype):
+    """The bf16 routed MoE path: the expert id stays on the device."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    w = (torch.randn((6, N, K), device="cuda", generator=g)
+         / np.sqrt(K)).to(dtype)
+    x = torch.randn(K, device="cuda", generator=g).to(dtype)
+    for e in (0, 5, 3):
+        ix = i32([e])
+        got = TK.gemv(w, x, ix)
+        matches_plain(got, TK.PLAIN["gemv"](w[e], x),
+                      BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+        matches_plain(got, TK.PLAIN["gemv"](w, x, ix),
+                      BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+
+
 @pytest.mark.parametrize("H,KV,hd,nblk,lengths", [
     (16, 16, 64, 64, [424, 40, 1, 17]),    # qwen1.5-0.5b geometry
+    (16, 16, 128, 64, [424, 40, 1, 17]),   # qwen2-moe-a2.7b geometry
     (4, 2, 128, 3, [48, 21, 30, 33]),      # GQA (2 heads per KV head), odd nblk
     (4, 4, 32, 5, [80, 79, 64, 2]),
 ])
@@ -119,7 +151,8 @@ def test_paged_decode_idle_slot_reads_null_page():
 
 
 @pytest.mark.parametrize("offset,valid,hd", [(0, 32, 64), (224, 32, 64),
-                                             (7, 5, 64), (40, 32, 128)])
+                                             (7, 5, 64), (40, 32, 128),
+                                             (224, 32, 128), (7, 5, 128)])
 def test_prefill_attention_paged(offset, valid, hd):
     rng = np.random.default_rng(8)
     _, kp, vp, bt = paged_case(rng, 1, 16, 16, hd, 16, 16)
@@ -167,6 +200,38 @@ def test_mx_qgemv_swiglu(N, K, elem):
                   TK.PLAIN["mx_qgemv_swiglu"](wg, sg, wu, su, x), MX_TOL)
 
 
+def mx_stack(E, K, N, elem, seed):
+    """(codes, scales) of an MX-quantized (E, K, N) stack of fan-in-scaled
+    expert weights, made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qt = quantize_mx(torch.randn((E, K, N), device="cuda", generator=g)
+                     / np.sqrt(K), elem=elem, axis=-2)
+    return qt.values, qt.scales
+
+
+@pytest.mark.parametrize("ids", [[7, 0, 59, 31], [12, 12, 3, 12]])
+@pytest.mark.parametrize("N,K,elem", [
+    (1408, 2048, "fp4"), (2048, 1408, "fp4"),       # up/gate, down
+    (1408, 2048, "fp8"), (2048, 1408, "fp8"),
+    (48, 96, "fp4")])                               # one partial tile
+def test_grouped_expert_qgemv(N, K, elem, ids):
+    """qwen2-moe-a2.7b's experts (60, top-4); 1408 columns leave the last
+    512-column tile ragged; repeated ids read one slice twice."""
+    wq, s = mx_stack(60, K, N, elem, seed=17)
+    rng = np.random.default_rng(18)
+    xs = bf16(rng.standard_normal((len(ids), K)))
+    ix = i32(ids)
+    before = TK.launch_counts()["grouped_expert_qgemv"]
+    got = TK.grouped_expert_qgemv(wq, s, xs, ix)
+    assert got.shape == (len(ids), N) and got.dtype == torch.float32
+    matches_plain(got, TK.PLAIN["grouped_expert_qgemv"](wq, s, xs, ix),
+                  MX_TOL)
+    assert TK.launch_counts()["grouped_expert_qgemv"] == before + 1
+    for t, e in enumerate(ids):               # row t is mx_qgemv of expert e
+        matches_plain(got[t], TK.PLAIN["mx_qgemv"](wq[e], s[e], xs[t]),
+                      MX_TOL)
+
+
 def int8_pools(kp, vp):
     k8, ks = quantize_kv(kp.float())
     v8, vs = quantize_kv(vp.float())
@@ -175,6 +240,7 @@ def int8_pools(kp, vp):
 
 @pytest.mark.parametrize("H,KV,hd,nblk,lengths", [
     (16, 16, 64, 32, [398, 64, 1, 33]),    # qwen1.5-0.5b geometry, page 32
+    (16, 16, 128, 32, [398, 64, 1, 33]),   # qwen2-moe-a2.7b geometry
     (4, 2, 128, 3, [96, 21, 30, 65]),      # GQA, odd nblk
     (4, 4, 32, 5, [160, 159, 31, 2]),
 ])
@@ -217,3 +283,17 @@ def test_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="int8"):       # bf16 pools
         TK.paged_decode_attention_int8(q, kp, kp[..., :1], vp, vp[..., :1],
                                        bt, i32([5]))
+    w32 = torch.ones((8, 102), dtype=torch.float32, device="cuda")
+    with pytest.raises(ValueError, match="K % 4"):      # fp32: 4-float loads
+        TK.gemv(w32, torch.ones(102, dtype=torch.float32, device="cuda"))
+    with pytest.raises(ValueError, match="both bf16"):  # mixed dtypes
+        TK.gemv(w32[:, :100].contiguous(),
+                torch.ones(100, dtype=torch.bfloat16, device="cuda"))
+    ws, ss = mx_stack(4, 64, 48, "fp4", seed=19)
+    xs = bf16(rng.standard_normal((2, 64)))
+    with pytest.raises(ValueError, match="int32 ids"):  # int64 ids
+        TK.grouped_expert_qgemv(ws, ss, xs, i32([1, 3]).long())
+    with pytest.raises(ValueError, match="bf16 x"):     # fp32 rows
+        TK.grouped_expert_qgemv(ws, ss, xs.float(), i32([1, 3]))
+    with pytest.raises(ValueError, match="stacked"):    # one weight, no stack
+        TK.grouped_expert_qgemv(ws[0], ss[0], xs, i32([1, 3]))

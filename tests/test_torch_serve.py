@@ -8,6 +8,7 @@ identical and the port's allocator must balance after drain.
 """
 import ast
 import dataclasses
+import re
 from pathlib import Path
 
 import numpy as np
@@ -30,7 +31,7 @@ from repro.serve.scheduler import Request as JaxRequest  # noqa: E402
 from repro.serve.scheduler import ServingEngine as JaxEngine  # noqa: E402
 from repro.serve.step import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import _NOT_PORTED, get_config, reduced  # noqa
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import modules as TM  # noqa: E402
@@ -176,9 +177,24 @@ def test_unported_options_raise_naming_roadmap(kw):
         EngineConfig(**kw).validate().check_ported()
 
 
-def test_unported_arch_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen2-moe-a2.7b")
+NO_SHARED_EXPERT = "qwen2-moe-a2.7b without its shared expert"
+
+
+@pytest.mark.parametrize("arch", sorted(_NOT_PORTED) + [NO_SHARED_EXPERT])
+def test_unported_arch_raises_naming_roadmap(arch):
+    """Every JAX-package arch id the port does not serve yet raises naming
+    its ROADMAP item, and so does a MoE of another shape than qwen2-moe's."""
+    if arch != NO_SHARED_EXPERT:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP {re.escape(_NOT_PORTED[arch])}"):
+            get_config(arch)
+        return
+    cfg = reduced(get_config("qwen2-moe-a2.7b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_shared_experts=0, shared_d_ff=0,
+        shared_expert_gate=False))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+        build_model(cfg, device="cpu")
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, capsys):
@@ -195,18 +211,35 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, capsys):
     assert build_model(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("quant", [[], ["--quantize-weights", "mx4",
-                                       "--kv-cache-dtype", "int8"]])
-def test_launcher_smoke_on_cpu(capsys, quant):
-    rc = launcher.main(["--arch", "qwen1.5-0.5b", "--smoke",
+def launcher_smoke(capsys, arch, quant):
+    rc = launcher.main(["--arch", arch, "--smoke",
                         "--chunked-prefill", "--prefix-cache",
                         "--kernel-decode", "--device", "cpu",
                         "--requests", "4", "--max-new", "4", *quant])
     assert rc == 0
-    out = capsys.readouterr().out
+    return capsys.readouterr().out
+
+
+QUANT = [[], ["--quantize-weights", "mx4", "--kv-cache-dtype", "int8"]]
+
+
+@pytest.mark.parametrize("quant", QUANT)
+def test_launcher_smoke_on_cpu(capsys, quant):
+    out = launcher_smoke(capsys, "qwen1.5-0.5b", quant)
     assert "served 4/4 requests" in out
     if quant:
         assert "quantized 15 weight leaves (mx4)" in out
+        assert '"kv_dtype": "int8"' in out and '"page_size": 32' in out
+
+
+@pytest.mark.parametrize("quant", QUANT)
+def test_moe_launcher_smoke_on_cpu(capsys, quant):
+    """Per layer q/k/v/o, three expert stacks and the shared expert's three
+    quantize (router and shared gate stay raw), + lm_head."""
+    out = launcher_smoke(capsys, "qwen2-moe-a2.7b", quant)
+    assert "served 4/4 requests" in out
+    if quant:
+        assert "quantized 21 weight leaves (mx4)" in out
         assert '"kv_dtype": "int8"' in out and '"page_size": 32' in out
 
 
