@@ -20,11 +20,18 @@ axis — and returns the ``nn.ModuleDict`` the port's model reads:
   ``(K/32, N)`` scales byte for byte — no transpose; fp8 codes (ml_dtypes
   ``float8_e4m3fn``, which ``torch.from_numpy`` does not take) cross as
   their bytes and are viewed back as ``torch.float8_e4m3fn``.
+
+``params_from_numpy(..., trainable=True)`` makes the training masters
+instead: every leaf fp32 (projections ``(out, in)``), requiring grad.
+``opt_state_from_numpy`` carries a JAX ``OptState`` (step, mu, nu, each
+moment tree shaped like the parameters) into the port's ``OptState``, its
+moments unstacked and transposed like the weights and keyed by the port's
+parameter names.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,7 +39,7 @@ from torch import nn
 
 from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.modules import frozen
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import check_supported, check_trainable
 from repro_torch.quant.tensor import QuantizedTensor
 
 
@@ -132,12 +139,19 @@ def _layers(groups: List[List[Dict[str, Any]]]) -> List[Dict[str, Any]]:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device: DeviceLike = None,
-                      dtype=None) -> nn.ModuleDict:
+                      dtype=None, trainable: bool = False) -> nn.ModuleDict:
     """The JAX tree (numpy leaves) of ``cfg`` as the port's parameters on
     ``device`` (the CUDA card unless ``device="cpu"``), projections in
-    ``dtype`` (default: ``cfg.dtype``)."""
+    ``dtype`` (default: ``cfg.dtype``).  ``trainable``: fp32 masters that
+    require grad, every leaf fp32 (``dtype`` must be None or fp32)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if trainable:
+        if dtype not in (None, torch.float32, "float32"):
+            raise ValueError(f"trainable masters are fp32, not {dtype}")
+        check_trainable(cfg)
+        return params_from_numpy(tree, cfg, dev,
+                                 dtype=torch.float32).requires_grad_(True)
     dt = dtype_of(dtype or cfg.dtype)
     layers = _layers(tree["groups"])
     assert len(layers) == cfg.num_layers, (len(layers), cfg.num_layers)
@@ -150,3 +164,22 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device: DeviceLike = None,
     if "lm_head" in tree:
         p["lm_head"] = _dense(tree["lm_head"], dev, dt)
     return p
+
+
+def opt_state_from_numpy(state, cfg, device: DeviceLike = None):
+    """A JAX ``OptState`` (``step``, ``mu``, ``nu``; ``nu`` None for Lion
+    and SGD-m) with numpy leaves -> the port's ``optim.OptState`` on
+    ``device``: step an int32 0-d tensor, each moment a dict from the
+    port's parameter name to an fp32 tensor shaped like the parameter."""
+    from repro_torch.optim.adamw import OptState
+    dev = resolve_device(device)
+
+    def moments(tree) -> Optional[Dict[str, torch.Tensor]]:
+        if tree is None:
+            return None
+        p = params_from_numpy(tree, cfg, dev, dtype=torch.float32)
+        return {k: v.detach() for k, v in p.named_parameters()}
+
+    step = torch.tensor(np.asarray(state.step), dtype=torch.int32,
+                        device=dev)           # a copy: the optimizer adds to it
+    return OptState(step, moments(state.mu), moments(state.nu))

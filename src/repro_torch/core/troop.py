@@ -3,8 +3,9 @@
 The JAX package's ``TroopConfig`` (``repro/core/troop.py``) shapes Pallas
 grids for the TPU: two decoupled DMA streams, block sizes that tile the
 (8, 128) layout.  On Hopper the same intent is a handful of launch
-parameters — threads and warps per block — that the kernel wrappers read
-from ``LaunchConfig`` (the CUDA entry points refuse values out of range).
+parameters — threads and warps per block, block sizes, the fused AdamW's
+two streams — that the kernel wrappers read from ``LaunchConfig`` (the CUDA
+entry points refuse values out of range).
 Nothing here is tuned yet: the defaults are the simple first designs each
 kernel's source describes.
 """
@@ -21,6 +22,8 @@ class LaunchConfig:
     gemv_warps: int = 8             # one warp per output row
     decode_warps: int = 4           # warps splitting one (slot, KV head)
     prefill_warps: int = 4          # warps splitting one (slab row, KV head)
+    adamw_streams: int = 1          # 2: each block takes one chunk from each
+    #   contiguous half of a tensor (the JAX kernel's decoupled streams)
 
 
 DEFAULT = LaunchConfig()

@@ -12,12 +12,14 @@ from typing import Dict
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import gemv as _gemv
 from repro_torch.kernels import mx_gemv as _mx
 from repro_torch.kernels import prefill_attention as _pre
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels.decode_attention import (paged_decode_attention,
                                                   paged_decode_attention_int8)
+from repro_torch.kernels.fused_adamw import fused_adamw
 from repro_torch.kernels.gemv import gemv
 from repro_torch.kernels.mx_gemv import (grouped_expert_qgemv, mx_qgemv,
                                          mx_qgemv_swiglu)
@@ -34,6 +36,7 @@ _KERNELS = {
     "mx_qgemv": (_mx, "launches", "plain"),
     "mx_qgemv_swiglu": (_mx, "swiglu_launches", "plain_swiglu"),
     "grouped_expert_qgemv": (_mx, "grouped_launches", "plain_grouped"),
+    "fused_adamw": (_adamw, "launches", "plain"),
 }
 
 #: the plain version of each kernel, by name
@@ -58,5 +61,6 @@ def build() -> Dict[str, Dict[str, object]]:
 
 __all__ = ["rmsnorm", "gemv", "paged_decode_attention",
            "prefill_attention_paged", "paged_decode_attention_int8",
-           "mx_qgemv", "mx_qgemv_swiglu", "grouped_expert_qgemv", "PLAIN",
-           "launch_counts", "reset_launch_counts", "build"]
+           "mx_qgemv", "mx_qgemv_swiglu", "grouped_expert_qgemv",
+           "fused_adamw", "PLAIN", "launch_counts", "reset_launch_counts",
+           "build"]

@@ -23,6 +23,20 @@ def rmsnorm(x, scale, eps=1e-6):
     return (xf * r * scale.float()).to(x.dtype)
 
 
+def fused_adamw(p, g, mu, nu, *, lr, b1, b2, eps, wd, bc1, bc2):
+    """One AdamW step: (p', mu', nu'), fp32 math, p' in p.dtype.  The
+    hyper-parameters may be Python floats or 0-d fp32 tensors (the kernel's
+    plain version passes tensors, so that ``1 - b1`` rounds in fp32 as in
+    the kernel)."""
+    g = g.float()
+    mu = b1 * mu + (1 - b1) * g
+    nu = b2 * nu + (1 - b2) * g * g
+    upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+    p32 = p.float()
+    p32 = p32 - lr * (upd + wd * p32)
+    return p32.to(p.dtype), mu, nu
+
+
 def decode_attention(q, k, v, length):
     """q (B,H,hd); k,v (B,S,KV,hd); length (B,) valid prefix. -> (B,H,hd) fp32.
 

@@ -1,6 +1,9 @@
-"""GQA attention (RoPE, qkv bias) against the paged KV cache.
+"""GQA attention (RoPE, qkv bias): full sequence, and against the paged KV
+cache.
 
-The port of the paged path of ``repro.models.attention``: the plain
+The port of the full-sequence and paged paths of
+``repro.models.attention``.  Training attends with ``attend`` over the
+whole sequence, as the JAX package does.  On the paged path the plain
 (gathered dense view) path is the reference, and ``use_kernel`` streams the
 pools through the paged CUDA kernels instead.  The page pools (bf16, or int8
 with scale pages) and the int8 engine's ``ChunkStage`` are updated in place
@@ -68,6 +71,14 @@ def _project_qkv(p, cfg, x, positions, dtype):
     q = M.apply_rope(q, positions, cfg.rope_theta)   # check_supported: rope
     k = M.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def apply_attention(p, cfg, x, *, positions, dtype, causal=True):
+    """Full-sequence (training) self-attention over x (B, T, d)."""
+    q, k, v = _project_qkv(p, cfg, x, positions, dtype)
+    out = attend(q, k, v, causal=causal)
+    B, T = x.shape[:2]
+    return M.apply_dense(p["wo"], out.reshape(B, T, -1), dtype)
 
 
 def update_paged_cache(pool, new, pos, block_tables):

@@ -13,15 +13,20 @@ from repro_torch.models.transformer import RuntimeConfig
 
 class Model(nn.Module):
     """A config, its runtime switches and its parameters (``params``, an
-    ``nn.ModuleDict`` with the JAX package's keys), with the serving entry
-    points of the JAX ``Model`` facade.  ``.to(device)`` moves the
-    parameters."""
+    ``nn.ModuleDict`` with the JAX package's keys), with the serving and
+    training entry points of the JAX ``Model`` facade.  A ``trainable``
+    model holds fp32 masters that require grad (the JAX package's
+    ``param_dtype``) and casts them to the compute dtype inside every
+    layer; a serving model holds frozen weights cast once.  ``.to(device)``
+    moves the parameters."""
 
-    def __init__(self, cfg, rt: RuntimeConfig, params: nn.ModuleDict):
+    def __init__(self, cfg, rt: RuntimeConfig, params: nn.ModuleDict,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.rt = rt.validate()
         self.params = params
+        self.trainable = trainable
 
     @property
     def device(self) -> torch.device:
@@ -30,7 +35,17 @@ class Model(nn.Module):
     def with_runtime(self, rt: RuntimeConfig) -> "Model":
         """The same parameters under other runtime switches (e.g. the plain
         path beside the kernel path)."""
-        return Model(self.cfg, rt, self.params)
+        return Model(self.cfg, rt, self.params, self.trainable)
+
+    def init(self, seed: int = 0) -> nn.ModuleDict:
+        """Fresh parameters from ``seed`` on the model's device, of the
+        kind it holds (fp32 masters that require grad for a trainable
+        model), as ``build_model`` makes them."""
+        return _init(self.cfg, self.device, seed, self.trainable)
+
+    def train_logits(self, batch):
+        """(logits (B, T, V), aux) of the full causal forward."""
+        return T.train_logits(self.params, self.cfg, self.rt, batch)
 
     def decode_step(self, batch, caches):
         return T.decode_step(self.params, self.cfg, self.rt, batch, caches)
@@ -48,16 +63,27 @@ class Model(nn.Module):
                              chunk_stage=chunk_stage)
 
 
+def _init(cfg, dev, seed, trainable) -> nn.ModuleDict:
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if not trainable:
+        return T.init_lm(cfg, generator=g, device=dev)
+    T.check_trainable(cfg)
+    return T.init_lm(cfg, generator=g, device=dev,
+                     dtype=cfg.param_dtype).requires_grad_(True)
+
+
 def build_model(cfg, rt: RuntimeConfig = RuntimeConfig(), *,
                 params: Optional[nn.ModuleDict] = None,
-                device: DeviceLike = None, seed: int = 0) -> Model:
+                device: DeviceLike = None, seed: int = 0,
+                trainable: bool = False) -> Model:
     """``params`` (e.g. from ``bridge.params_from_numpy``) or a seeded random
-    init made on ``device`` — the CUDA card unless ``device="cpu"``."""
+    init made on ``device`` — the CUDA card unless ``device="cpu"``.
+    ``trainable``: the init makes fp32 masters that require grad (bridged
+    ``params`` must be made so: ``params_from_numpy(..., trainable=True)``)."""
     dev = resolve_device(device)
     if params is None:
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
-        params = T.init_lm(cfg, generator=g, device=dev)
+        params = _init(cfg, dev, seed, trainable)
     else:
         T.check_supported(cfg)
-    return Model(cfg, rt, params).to(dev)
+    return Model(cfg, rt, params, trainable).to(dev)

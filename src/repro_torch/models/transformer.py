@@ -1,19 +1,25 @@
-"""Decoder-LM assembly: per-layer modules, paged caches, the serving steps.
+"""Decoder-LM assembly: per-layer modules, paged caches, the serving steps
+and the training forward.
 
-The port of the attention-only, paged part of ``repro.models.transformer``.
-The JAX package stacks the layers of a group over a leading axis and runs
-them with ``lax.scan``; here every layer is its own entry of an
-``nn.ModuleList`` and a Python loop runs them eagerly.  Two entry points:
+The port of the attention-only part of ``repro.models.transformer``.  The
+JAX package stacks the layers of a group over a leading axis and runs them
+with ``lax.scan``; here every layer is its own entry of an ``nn.ModuleList``
+and a Python loop runs them eagerly.  Three entry points:
 ``chunk_prefill_step`` (one prompt slab) and ``decode_step`` (one token per
-slot), both against shared ``PagedKVCache`` pools that they update in place.
+slot), both against shared ``PagedKVCache`` pools that they update in
+place, and ``train_logits`` (the full-sequence causal forward, with the
+JAX package's remat modes as activation checkpoints).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.device import dtype_of
 from repro_torch.models import attention as A
@@ -25,7 +31,9 @@ from repro_torch.serve.kvcache import PagedKVCache
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Static runtime switches: the JAX package's fields that the serving
-    path reads (training and MLA switches come with their items)."""
+    and training paths read (MLA and MoE-group switches come with their
+    items)."""
+    remat: str = "dots"            # none | dots | full (training forward)
     cache_dtype: str = "bfloat16"  # KV storage name (sets the page granule)
     paged_kernel_decode: bool = False  # paged attention via the CUDA
     #   kernels (no gathered dense view); default: the plain path
@@ -33,6 +41,7 @@ class RuntimeConfig:
     #   (build_engine quantizes a native init with quant.quantize_params)
     kv_cache_dtype: str = ""       # "" -> cache_dtype; "int8": int8 page
     #   pools + scale pages
+    loss_chunk: int = 0            # 0 = unchunked softmax xent
 
     def kv_dtype(self) -> str:
         """Resolved KV-cache storage dtype (serving alias wins)."""
@@ -43,6 +52,13 @@ class RuntimeConfig:
             raise NotImplementedError(
                 f"{self.quantize_weights} weights are not ported yet: "
                 f"ROADMAP queue 1 item 7 (int8/int4 weights)")
+        if self.remat == "dots_tp":
+            raise NotImplementedError(
+                "remat='dots_tp' saves tensor-parallel outputs: not ported "
+                "yet — ROADMAP queue 1 item 12 (tensor parallel)")
+        if self.remat not in ("none", "dots", "full"):
+            raise ValueError(f"remat must be none, dots or full; got "
+                             f"{self.remat!r}")
         return self
 
 
@@ -77,14 +93,16 @@ def check_supported(cfg):
 # --------------------------------------------------------------------------
 # Init
 # --------------------------------------------------------------------------
-def init_lm(cfg, *, generator: torch.Generator, device) -> nn.ModuleDict:
+def init_lm(cfg, *, generator: torch.Generator, device,
+            dtype=None) -> nn.ModuleDict:
     """Random parameters with the JAX package's scales: truncated normals
     (fan-in scaled projections and expert stacks, unit-scale embedding),
     unit norm scales, zero biases.  Projection weights are stored (out, in)
-    and expert stacks (E, out, in), in the compute dtype; the embedding,
-    norm scales, biases and MoE routers stay fp32."""
+    and expert stacks (E, out, in), in ``dtype`` (default: the compute
+    dtype; fp32 for the training masters); the embedding, norm scales,
+    biases and MoE routers stay fp32."""
     check_supported(cfg)
-    dtype = dtype_of(cfg.dtype)
+    dtype = dtype_of(dtype or cfg.dtype)
     kw = dict(dtype=dtype, generator=generator, device=device)
     layers = nn.ModuleList()
     for _, ffn in cfg.layer_kinds():
@@ -141,6 +159,72 @@ def _apply_layer_decode(p, cfg, rt, x, cache, pos, pages, dtype):
 def readout(p, cfg, x, dtype):
     x = M.apply_norm(p["final_norm"], x, cfg.norm, cfg.norm_eps)
     return M.apply_dense(p["lm_head"], x, dtype)
+
+
+# --------------------------------------------------------------------------
+# Training forward
+# --------------------------------------------------------------------------
+# remat="dots": the JAX package's ``checkpoint_dots`` policy — the outputs
+# of matrix products are saved, everything else is recomputed in backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _apply_layer_train(p, cfg, x, positions, dtype):
+    h = M.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
+    x = x + A.apply_attention(p["mixer"], cfg, h, positions=positions,
+                              dtype=dtype)
+    h = M.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + M.apply_mlp(p["ffn"], h, cfg.act, dtype)
+
+
+def embed_inputs(params, cfg, batch, dtype):
+    """Token embeddings (check_supported: RoPE archs, no frontend)."""
+    return M.apply_embed(params["embed"], batch["tokens"], dtype)
+
+
+def run_layers(params, cfg, rt, x, positions, dtype):
+    """Every layer in order, each under the ``rt.remat`` checkpoint: none,
+    "full" (only the layer's input is kept) or "dots" (matrix-product
+    outputs kept, the rest recomputed)."""
+    for p in params["layers"]:
+        if rt.remat == "none":
+            x = _apply_layer_train(p, cfg, x, positions, dtype)
+        elif rt.remat == "full":
+            x = checkpoint(_apply_layer_train, p, cfg, x, positions, dtype,
+                           use_reentrant=False)
+        else:
+            x = checkpoint(_apply_layer_train, p, cfg, x, positions, dtype,
+                           use_reentrant=False,
+                           context_fn=functools.partial(
+                               create_selective_checkpoint_contexts,
+                               _save_dots))
+    return x
+
+
+def check_trainable(cfg):
+    if any(ffn == "moe" for _, ffn in cfg.layer_kinds()):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training needs the router's aux load-balancing "
+            f"loss and routing groups: not ported yet — ROADMAP queue 1 "
+            f"item 14 (training stack)")
+
+
+def train_logits(params, cfg, rt, batch):
+    """batch: tokens (B, T).  Returns (logits (B, T, V) in the compute
+    dtype, aux), aux the fp32 zero of a dense model."""
+    check_trainable(cfg)
+    dtype = dtype_of(cfg.dtype)
+    x = embed_inputs(params, cfg, batch, dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = run_layers(params, cfg, rt, x, positions, dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return readout(params, cfg, x, dtype), aux
 
 
 # --------------------------------------------------------------------------

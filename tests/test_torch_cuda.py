@@ -15,7 +15,11 @@ order 0.1, and measured errors against the plain version on the card are
 from the same dequantized weights (the kernel builds 2^(s-127) exactly, the
 plain version as the JAX package does, within ~1e-7 of it), summed in
 another order in fp32.  F32_TOL for the fp32 gemv (the MoE router): fp32
-inputs and outputs of order 1, summed in another order in fp32.
+inputs and outputs of order 1, summed in another order in fp32.  ADAM_TOL
+for the fused AdamW: the kernel rounds each of the plain version's fp32
+operations on its own, in the same order, so the two may differ only where
+PyTorch's elementwise kernels round otherwise (an fp32 ulp of values of
+order 1); a bf16 master keeps ~3 significant digits.
 """
 import numpy as np
 import pytest
@@ -55,6 +59,7 @@ def paged_case(rng, B, H, KV, hd, page, nblk):
 
 
 BF16_TOL, ATTN_TOL, MX_TOL, F32_TOL = 2e-2, 4e-3, 1e-3, 1e-4
+ADAM_TOL = 1e-6
 
 
 @pytest.fixture(autouse=True)
@@ -297,3 +302,94 @@ def test_wrapper_raises_instead_of_falling_back():
         TK.grouped_expert_qgemv(ws, ss, xs.float(), i32([1, 3]))
     with pytest.raises(ValueError, match="stacked"):    # one weight, no stack
         TK.grouped_expert_qgemv(ws[0], ss[0], xs, i32([1, 3]))
+
+
+def adam_leaf(rng, sizes, dtype):
+    """One leaf's lists (p, g, mu, nu) and the seven hyper-parameters."""
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.asarray(a, np.float32)).to("cuda", dt)
+    ps = [t(rng.standard_normal(n), dtype) for n in sizes]
+    gs = [t(0.1 * rng.standard_normal(n), dtype) for n in sizes]
+    mus = [t(0.01 * rng.standard_normal(n)) for n in sizes]
+    nus = [t(1e-4 * rng.random(n)) for n in sizes]
+    hyper = t([1e-3, 0.9, 0.95, 1e-8, 0.1, 1 - 0.9 ** 3, 1 - 0.95 ** 3])
+    return ps, gs, mus, nus, hyper
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes", [[1000], [3, 1, 4097, 5000, 8],
+                                   [2816 * 1024 // 16 + 5] * 24])
+def test_fused_adamw(streams, dtype, sizes):
+    """Odd sizes (scalar tails, tensors smaller than a vector) and a
+    24-tensor table (one stacked leaf of qwen1.5-0.5b) in one launch."""
+    from repro_torch.core.troop import LaunchConfig
+    rng = np.random.default_rng(20)
+    ps, gs, mus, nus, hyper = adam_leaf(rng, sizes, dtype)
+    want = [[a.clone() for a in xs] for xs in (ps, mus, nus)]
+    TK.PLAIN["fused_adamw"](*want[:1], gs, *want[1:], hyper)
+    before = TK.launch_counts()["fused_adamw"]
+    TK.fused_adamw(ps, gs, mus, nus, hyper,
+                   cfg=LaunchConfig(adamw_streams=streams))
+    assert TK.launch_counts()["fused_adamw"] == before + 1
+    tol = BF16_TOL if dtype == torch.bfloat16 else ADAM_TOL
+    for got, exp in zip((ps, mus, nus), want):
+        for a, b in zip(got, exp):
+            matches_plain(a, b, tol if got is ps else ADAM_TOL)
+
+
+def test_fused_adamw_splits_a_long_leaf_and_refuses_misalignment():
+    rng = np.random.default_rng(21)
+    ps, gs, mus, nus, hyper = adam_leaf(rng, [64] * 40, torch.float32)
+    before = TK.launch_counts()["fused_adamw"]
+    TK.fused_adamw(ps, gs, mus, nus, hyper)
+    assert TK.launch_counts()["fused_adamw"] == before + 2     # 32 + 8
+    torch.cuda.synchronize()
+    view = torch.zeros(65, device="cuda")[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        TK.fused_adamw([view], [gs[0]], [mus[0]], [nus[0]], hyper)
+    with pytest.raises(ValueError, match="both fp32 or both bf16"):
+        TK.fused_adamw([ps[0]], [gs[0].to(torch.bfloat16)], [mus[0]],
+                       [nus[0]], hyper)
+
+
+def test_fused_adamw_routes_by_the_parameters_device():
+    """CUDA parameters launch the kernel or raise, whatever device the
+    hyper-parameters are on: a CPU ``hyper`` is refused, not run through
+    the plain version on the card."""
+    rng = np.random.default_rng(22)
+    ps, gs, mus, nus, hyper = adam_leaf(rng, [1000], torch.float32)
+    before = TK.launch_counts()["fused_adamw"]
+    with pytest.raises(ValueError, match="hyper"):
+        TK.fused_adamw(ps, gs, mus, nus, hyper.cpu())
+    assert TK.launch_counts()["fused_adamw"] == before
+
+
+def test_train_step_makes_no_host_sync():
+    """A fused training step of the reduced qwen1.5-0.5b on the card: one
+    kernel launch per JAX leaf (15), and nothing that synchronizes the host
+    with the device."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import make_train_step
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    model = build_model(cfg, RuntimeConfig(remat="dots"), device="cuda",
+                        trainable=True)
+    step, opt = make_train_step(model, OptConfig(fused=True))
+    state = opt.init(model.params)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=4))
+    batch = to_device(data.batch_at(0), model.device)
+    _, state, _ = step(model.params, state, batch)        # warm up
+    batch = to_device(data.batch_at(1), model.device)
+    torch.cuda.synchronize()
+    before = TK.launch_counts()["fused_adamw"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, state, metrics = step(model.params, state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert TK.launch_counts()["fused_adamw"] == before + 15
+    assert int(state.step) == 2 and np.isfinite(float(metrics["loss"]))

@@ -255,6 +255,9 @@ def test_port_imports_nothing_of_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    walked = {f.parent.name for f in files}
+    assert {"optim", "train", "data", "checkpoint", "ft",
+            "launch"} <= walked          # the training stack is covered
     bad = [(f.name, m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []
