@@ -7,7 +7,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each one against its plain PyTorch version at the serving and
-training shapes and times it, then serves through the chunked, paged engine with every kernel
+training shapes and times it, runs the tuner (``repro_torch.tune``) over
+every ported kernel on an empty cache of its own, then again from that
+cache, and builds an engine that carries the winners, then serves through
+the chunked, paged engine (on an empty cache: the default launch
+parameters) with every kernel
 on, random weights from seed 0: full-width qwen1.5-0.5b with bf16 weights
 and KV pages and with mx4 weights and int8 KV pages, then full-width
 qwen2-moe-a2.7b (60 experts, top-4, a gated shared expert) in the same two
@@ -25,8 +29,8 @@ Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.  ``--record DIR`` also writes the full record
 (``chip_smoke.json``: nvcc/ptxas output, every timing and engine metric)
 and the profiler traces of the decode windows and of two training steps
-(``*trace*.json.gz``) to DIR.  ``--phases`` runs a subset (kernels, engine,
-quant, moe, train).
+(``*trace*.json.gz``) to DIR.  ``--phases`` runs a subset (kernels, tune,
+engine, quant, moe, train).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import contextlib
 import gzip
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -73,7 +78,12 @@ F32_OPS_PER_S = 67e12
 # same order: its first measured error (its first run on an NVIDIA H100
 # 80GB HBM3 at 700 W, every leaf shape, streams 1 and 2, fp32 and bf16
 # masters; PERF.md §6) was 0, and fourfold that is 0 — the kernel must
-# give its plain version's bits.
+# give its plain version's bits.  So must axpy: it rounds its plain
+# version's fp32 multiply and add each on its own (no fused multiply-add).
+# dotp sums the same fp32 products in another order: its gate is 1e-5 of
+# sum |x_i y_i| (the row's "tolerance" is that bound, in absolute units).
+# The batched gemv has gemv's gate; the dense decode attention the paged
+# decode's first gate (bf16 outputs of order 0.1, single rounding flips).
 BF16_TOL = 2e-2
 TOL = {"rmsnorm": BF16_TOL, "gemv": BF16_TOL, "gemv_f32": 3e-6,
        "paged_decode_attention": 4e-3, "prefill_attention_paged": 4e-3,
@@ -82,7 +92,9 @@ TOL = {"rmsnorm": BF16_TOL, "gemv": BF16_TOL, "gemv_f32": 3e-6,
        "paged_decode_attention hd=128": 2.5e-4,
        "prefill_attention_paged hd=128": 4e-3,
        "paged_decode_attention_int8 hd=128": 8e-3,
-       "fused_adamw": 0.0, "fused_adamw bf16": 0.0}
+       "fused_adamw": 0.0, "fused_adamw bf16": 0.0,
+       "axpy": 0.0, "dotp": 1e-5, "batched_gemv": BF16_TOL,
+       "decode_attention": 4e-3}
 ROOT = Path(__file__).resolve().parent
 
 REPLACES = {
@@ -107,7 +119,26 @@ REPLACES = {
                              "src/repro/quant/kernels.py:511"),
     "fused_adamw": ("src/repro_torch/kernels/csrc/fused_adamw.cu",
                     "src/repro/kernels/fused_adamw.py:64"),
+    "dotp": ("src/repro_torch/kernels/csrc/dotp.cu",
+             "src/repro/kernels/dotp.py:69"),
+    "axpy": ("src/repro_torch/kernels/csrc/axpy.cu",
+             "src/repro/kernels/axpy.py:52"),
+    "batched_gemv": ("src/repro_torch/kernels/csrc/gemv.cu",
+                     "src/repro/kernels/ops.py:43"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:96"),
 }
+# the kernels of the tuner's path (the tune phase): every registered,
+# ported kernel is tuned and then launched through its dispatching entry
+# point, and the unregistered batched gemv through its own
+TUNE_PATH = ("rmsnorm", "gemv", "paged_decode_attention",
+             "prefill_attention_paged", "paged_decode_attention_int8",
+             "mx_qgemv", "mx_qgemv_swiglu", "grouped_expert_qgemv",
+             "fused_adamw", "dotp", "axpy", "decode_attention",
+             "batched_gemv")
+# a tuned fraction of the roofline above this is a measuring fault (inputs
+# read from L2, or a wrong cost model)
+MAX_FRACTION = 1.05
 # the kernels of each served path: bf16 weights and pages, then mx4 weights
 # and int8 pages (whose main path also runs rmsnorm and, at chunk steps,
 # the read-out through mx_qgemv)
@@ -709,8 +740,295 @@ def kernels_phase(torch, K, dev, rng):
     rows["grouped_expert_qgemv"] = grp
     del stacks
     rows["fused_adamw"] = adamw_rows(torch, K, dev, gen)
+    rows.update(paper_rows(torch, K, F, agree, dev, randn))
     torch.cuda.synchronize()
     return rows
+
+
+def sdpa_decode(torch, F, q, k, v, mask):
+    """The library yardstick of dense decode attention: one
+    ``scaled_dot_product_attention`` call on q (B,H,1,hd) and the cache's
+    (B,KV,S,hd) views, GQA inside the call, the length as a boolean
+    mask."""
+    return F.scaled_dot_product_attention(
+        q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=q.shape[1] != k.shape[2])
+
+
+def paper_rows(torch, K, F, agree, dev, randn):
+    """The kernels of the tuner's slice at their shapes: dotp and axpy at
+    the registry's full size (2^20 bf16) and past the L2 (2^27 bf16, 256 MB
+    an operand), each from its default config; the batched gemv at
+    (2048, 4096) for 1, 2, 4 and 8 rows and at qwen1.5-0.5b's read-out
+    (151936, 1024) for 8; the dense decode attention at kernel_bench's
+    (B=4, H=16, KV=8, hd=128, S=4096) and qwen1.5-0.5b's 8 slots (H = KV =
+    16, hd=64, S=1024)."""
+    rows = {"dotp": [], "axpy": [], "batched_gemv": [],
+            "decode_attention": []}
+    for n in (1 << 20, 1 << 27):
+        pairs = [(randn(n), randn(n)) for _ in range(copies_for(4 * n))]
+        x, y = pairs[0]
+        got, want = K.dotp(x, y), K.PLAIN["dotp"](x, y)
+        bound = TOL["dotp"] * (x.float() * y.float()).abs().sum().item()
+        err = abs(got.item() - want.item())
+        again = K.dotp(x, y)
+        if err > bound or not math.isfinite(got.item()) \
+                or not torch.equal(got, again):
+            raise AssertionError(f"dotp n={n}: kernel disagrees with its "
+                                 f"plain version ({err} > {bound}) or with "
+                                 f"itself ({got.item()} vs {again.item()})")
+        bms, by = bound_ms(4 * n + 4, 2 * n)
+        rows["dotp"].append({
+            "shape": f"x, y ({n},) bf16", "max_abs_err": err,
+            "tolerance": bound, "bound_ms": bms, "bound_by": by,
+            "library": "torch.dot",
+            **timed(torch, [lambda p=p: K.dotp(*p) for p in pairs],
+                    [lambda p=p: K.PLAIN["dotp"](*p) for p in pairs],
+                    [lambda p=p: torch.dot(*p) for p in pairs])})
+        err = agree(f"axpy n={n}", K.axpy(1.5, x, y),
+                    K.PLAIN["axpy"](1.5, x, y))
+        bms, by = bound_ms(6 * n, 2 * n)
+        rows["axpy"].append({
+            "shape": f"a fp32, x, y ({n},) bf16 -> ({n},) bf16",
+            "max_abs_err": err, "tolerance": TOL["axpy"], "bound_ms": bms,
+            "bound_by": by, "library": "torch.add(y, x, alpha=a)",
+            **timed(torch, [lambda p=p: K.axpy(1.5, *p) for p in pairs],
+                    [lambda p=p: K.PLAIN["axpy"](1.5, *p) for p in pairs],
+                    [lambda p=p: torch.add(p[1], p[0], alpha=1.5)
+                     for p in pairs])})
+        del pairs, x, y
+        torch.cuda.empty_cache()
+
+    for (N, Kd), B in (((2048, 4096), 1), ((2048, 4096), 2),
+                       ((2048, 4096), 4), ((2048, 4096), 8),
+                       ((151936, 1024), 8)):
+        ws = [randn(N, Kd, scale=Kd ** -0.5)
+              for _ in range(copies_for(N * Kd * 2))]
+        xs = randn(B, Kd)
+        err = agree(f"batched_gemv B={B} {N}x{Kd}", K.batched_gemv(ws[0], xs),
+                    K.PLAIN["batched_gemv"](ws[0], xs))
+        bms, by = bound_ms(2 * N * Kd + 2 * B * Kd + 4 * B * N, 2 * B * N * Kd)
+        rows["batched_gemv"].append({
+            "shape": f"w ({N}, {Kd}) bf16, xs ({B}, {Kd}) bf16",
+            "max_abs_err": err, "tolerance": TOL["batched_gemv"],
+            "bound_ms": bms, "bound_by": by, "library": "F.linear",
+            **timed(torch, [lambda w=w: K.batched_gemv(w, xs) for w in ws],
+                    [lambda w=w: K.PLAIN["batched_gemv"](w, xs) for w in ws],
+                    [lambda w=w: F.linear(xs, w) for w in ws])})
+        del ws
+        torch.cuda.empty_cache()
+
+    for B, H, KV, hd, S in ((4, 16, 8, 128, 4096), (8, 16, 16, 64, 1024)):
+        caches = [(randn(B, S, KV, hd), randn(B, S, KV, hd))
+                  for _ in range(copies_for(4 * B * S * KV * hd))]
+        q = randn(B, H, hd)
+        length = torch.full((B,), S, dtype=torch.int32, device=dev)
+        k, v = caches[0]
+        err = agree(f"decode_attention B={B} H={H} KV={KV} hd={hd} S={S}",
+                    K.decode_attention(q, k, v, length),
+                    K.PLAIN["decode_attention"](q, k, v, length))
+        q4 = q[:, :, None]
+        mask = (torch.arange(S, device=dev)[None, :]
+                < length[:, None])[:, None, None]          # (B, 1, 1, S)
+        bms, by = bound_ms(4 * B * S * KV * hd + 4 * B * H * hd,
+                           4 * B * H * S * hd)
+        rows["decode_attention"].append({
+            "shape": f"q ({B}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) bf16, "
+                     f"full length",
+            "max_abs_err": err, "tolerance": TOL["decode_attention"],
+            "bound_ms": bms, "bound_by": by,
+            "library": "scaled_dot_product_attention (length mask)",
+            **timed(torch,
+                    [lambda c=c: K.decode_attention(q, *c, length)
+                     for c in caches],
+                    [lambda c=c: K.PLAIN["decode_attention"](q, *c, length)
+                     for c in caches],
+                    [lambda c=c: sdpa_decode(torch, F, q4, *c, mask)
+                     for c in caches])})
+        del caches, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------------- tune
+# the qwen1.5-0.5b engine of the engine phase, whose decode-path configs
+# the tune phase tunes at the engine's own shapes
+TUNE_ENGINE = dict(slots=8, cache_len=1024, backend="paged",
+                   chunked_prefill=True, chunk_size=32, prefix_cache=True,
+                   kernel_decode=True)
+# qwen1.5-0.5b's training leaves (fp32 masters), flat: the embedding, the
+# stacked MLP and q weights and the stacked biases
+ADAMW_LEAVES = {"embedding": 151936 * 1024, "stacked MLP": 24 * 2816 * 1024,
+                "stacked q": 24 * 1024 * 1024, "stacked biases": 24 * 1024}
+
+
+def tune_points(torch, tune, dev):
+    """(label, kernel, args, kwargs) of every point the phase tunes: each
+    registered, ported kernel at its registry's full-size example; the
+    qwen1.5-0.5b engine's decode-path kernels at the shapes its
+    ``tuned_kernel_configs`` looks up; the fused AdamW at the four training
+    leaves."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.kvcache import PageSpec
+    from repro_torch.tune.registry import seeded
+
+    points = []
+    for name in TUNE_PATH:
+        if name in tune.REGISTRY:
+            args, kw = tune.REGISTRY[name].example(small=False, device=dev)
+            points.append((f"{name} (registry example)", name, args, kw))
+    cfg = get_config("qwen1.5-0.5b")
+    B, S = TUNE_ENGINE["slots"], TUNE_ENGINE["cache_len"]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d, V, C = cfg.d_model, cfg.vocab_size, TUNE_ENGINE["chunk_size"]
+    spec = PageSpec.for_engine(B, S, 16)
+    P, nblk = spec.num_pages, spec.blocks_per_slot
+    pools = (seeded(1, (P, 16, KV, hd), device=dev),
+             seeded(2, (P, 16, KV, hd), device=dev))
+    rng = np.random.default_rng(3)
+    bt = torch.as_tensor((rng.permutation(P - 1)[:B * nblk] + 1).reshape(
+        B, nblk).astype(np.int32), device=dev)
+    full = torch.full((B,), S, dtype=torch.int32, device=dev)
+    one = torch.ones((1,), dtype=torch.int32, device=dev)
+    q = seeded(0, (B, H, hd), device=dev)
+    engine = "qwen1.5-0.5b engine"
+    points += [
+        (f"paged_decode_attention ({engine})", "paged_decode_attention",
+         (q, *pools, bt, full), {}),
+        (f"prefill_attention_paged ({engine}, last slab)",
+         "prefill_attention_paged",
+         (seeded(4, (1, C, H, hd), device=dev), *pools, bt[:1].contiguous(),
+          one * (S - C), one * S), {}),
+        (f"gemv ({engine} read-out)", "gemv",
+         (seeded(5, (V, d), device=dev, scale=d ** -0.5),
+          seeded(6, (d,), device=dev)), {}),
+        (f"rmsnorm ({engine})", "rmsnorm",
+         (seeded(7, (B, d), device=dev),
+          seeded(8, (d,), torch.float32, device=dev)), {}),
+        (f"decode_attention ({engine}, dense)", "decode_attention",
+         (q, seeded(9, (B, S, KV, hd), device=dev),
+          seeded(10, (B, S, KV, hd), device=dev), full), {}),
+    ]
+    hyper = torch.tensor([1e-3, 0.9, 0.95, 1e-8, 0.1, 0.1, 0.1],
+                         dtype=torch.float32).to(dev)
+    for leaf, n in ADAMW_LEAVES.items():
+        p = seeded(11, (n,), torch.float32, device=dev)
+        g = seeded(12, (n,), torch.float32, device=dev, scale=0.1)
+        points.append((f"fused_adamw ({leaf} leaf, {n:,} fp32)",
+                       "fused_adamw",
+                       (p, g, torch.zeros_like(p), torch.zeros_like(p)),
+                       {"hyper": hyper}))
+    return points
+
+
+def tune_phase(torch, dev):
+    """The tuner's path (``repro_torch.tune``) on a cache of its own that
+    starts empty: tune every point of ``tune_points`` (enumerate -> analytic
+    prune -> device time of the survivors -> cache), launch each kernel
+    once through its dispatching entry point (no config: the tuned one)
+    and the batched gemv through its own, then tune every point again —
+    each must now come from the cache, with no timing, and the same
+    winner; no fraction of the roofline may exceed MAX_FRACTION.  Then
+    build the qwen1.5-0.5b paged engine on that cache and check that it
+    carries the winners of its shapes.  The counts are zeroed before the
+    first pass and read after the dispatches: the tuner's path."""
+    import dataclasses
+    import os
+
+    import repro_torch.kernels as KD
+    from repro_torch import tune
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve import EngineConfig, build_engine
+
+    prev = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(tmp) / "tune.json")
+        try:
+            cache = tune.default_cache()
+            if len(cache):
+                raise AssertionError("the tune phase's cache is not empty")
+            points = tune_points(torch, tune, dev)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            first = [tune.tune(name, *args, kernel_kwargs=kw, keep=4,
+                               iters=3, cache=cache)
+                     for _, name, args, kw in points]
+            tune_s = time.perf_counter() - t0
+            for _, name, args, kw in points:
+                getattr(KD, name)(*args, **kw)
+            w = next(args[0] for _, name, args, _ in points if name == "gemv")
+            KD.batched_gemv(w, torch.ones((8, w.shape[1]), dtype=w.dtype,
+                                          device=dev))
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+            t0 = time.perf_counter()
+            second = [tune.tune(name, *args, kernel_kwargs=kw, cache=cache)
+                      for _, name, args, kw in points]
+            cached_s = time.perf_counter() - t0
+            rows = []
+            for (label, name, _, _), a, b in zip(points, first, second):
+                spec = tune.REGISTRY[name]
+                knobs = {k: getattr(a.best, k) for k in spec.space}
+                rows.append({
+                    "point": label, "kernel": name, "key": a.key,
+                    "winner": knobs, "predicted": a.predicted,
+                    "fraction": a.fraction, "measured_us":
+                        None if a.measured_s is None else a.measured_s * 1e6,
+                    "roofline_us": a.roofline_s * 1e6,
+                    "timings_run": a.timings_run,
+                    "cached": {"from_cache": b.from_cache,
+                               "timings_run": b.timings_run,
+                               "same_winner": b.best == a.best},
+                    "candidates": [
+                        {"knobs": {k: getattr(c.cfg, k) for k in spec.space},
+                         "predicted": c.predicted, "measured_s": c.measured_s,
+                         "fraction": c.achieved, "error": c.error}
+                        for c in a.candidates]})
+                if a.from_cache or a.timings_run < 1 or a.measured_s is None:
+                    raise AssertionError(f"{label}: nothing was timed "
+                                         f"({a.timings_run} timings)")
+                if not (b.from_cache and b.timings_run == 0
+                        and b.best == a.best):
+                    raise AssertionError(f"{label}: the second pass did not "
+                                         f"come from the cache: {b}")
+                if not 0 < a.fraction <= MAX_FRACTION:
+                    raise AssertionError(f"{label}: fraction of the roofline"
+                                         f" {a.fraction} outside (0, "
+                                         f"{MAX_FRACTION}]")
+            missing = [k for k in TUNE_PATH if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"the tuner's path never launched "
+                                     f"{missing}")
+            eng = build_engine("qwen1.5-0.5b", EngineConfig(**TUNE_ENGINE),
+                               device=dev)
+            carried = eng.serve_step.troop_configs
+            checked = {}
+            for (label, name, _, _), a, row in zip(points, first, rows):
+                if "engine" in label:
+                    if carried[name] != a.best:
+                        raise AssertionError(
+                            f"the engine carries {carried[name]} for {name},"
+                            f" not the tuned {a.best}")
+                    checked[name] = row["winner"]
+            launch = dataclasses.asdict(eng.serve_step.launch)
+            for name, knobs in checked.items():
+                if name != "decode_attention" and any(
+                        launch[k] != v for k, v in knobs.items()):
+                    raise AssertionError(f"the engine launches {launch}, "
+                                         f"not {name}'s winner {knobs}")
+            del eng
+            torch.cuda.empty_cache()
+        finally:
+            if prev is None:
+                os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_TUNE_CACHE"] = prev
+    return {"rows": rows, "launches": launches, "tune_s": tune_s,
+            "cached_s": cached_s, "engine_configs": checked,
+            "engine_launch": launch}
 
 
 # ----------------------------------------------------------------- engine
@@ -1055,7 +1373,7 @@ def engine_phase(torch, dev, rng, record=None):
 
     import numpy as np
 
-    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as K
     from repro_torch.configs import get_config
     from repro_torch.models import RuntimeConfig, build_model
     from repro_torch.models import modules as M
@@ -1177,7 +1495,7 @@ def quant_phase(torch, dev, rng, record=None):
 
     import numpy as np
 
-    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as K
     from repro_torch.models import RuntimeConfig
     from repro_torch.models import modules as M
     from repro_torch.quant import quantized_stats
@@ -1334,7 +1652,7 @@ def moe_phase(torch, dev, rng, fmt, record=None):
     import numpy as np
     from torch import nn
 
-    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as K
     from repro_torch.models import Model, RuntimeConfig
     from repro_torch.models import modules as M
     from repro_torch.quant import quantized_stats
@@ -1497,7 +1815,7 @@ def train_phase(torch, dev, rng, record=None):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as K
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM, to_device
     from repro_torch.ft import FailureInjector
@@ -1718,8 +2036,8 @@ def train_phase(torch, dev, rng, record=None):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,engine,quant,moe,train",
-                    help="comma list of kernels,engine,quant,moe,train "
+    ap.add_argument("--phases", default="kernels,tune,engine,quant,moe,train",
+                    help="comma list of kernels,tune,engine,quant,moe,train "
                          "(default: all)")
     ap.add_argument("--record", type=Path, default=None, metavar="DIR",
                     help="also write chip_smoke.json and the gzipped "
@@ -1737,8 +2055,13 @@ def main():
         sys.exit(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}"
                  " — run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    # every engine of the run reads a tune cache that stays empty, so its
+    # kernels launch with the defaults; the tune phase uses one of its own
+    cache_dir = tempfile.TemporaryDirectory()
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(cache_dir.name)
+                                               / "empty.json")
     import numpy as np
-    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1787,9 +2110,29 @@ def main():
                        f"{us(r['eager_four_bf16_gemv_ms'])}]"
                        if "four_mx_qgemv_ms" in r else ""))
     # launches on the main paths: each run with the counts zeroed before it
-    # and read after it (the engine's 8-slot run; the quantized, MoE bf16
-    # and MoE mx4 paths' 8-slot and one-slot runs; the fused training run)
+    # and read after it (the tuner's path; the engine's 8-slot run; the
+    # quantized, MoE bf16 and MoE mx4 paths' 8-slot and one-slot runs; the
+    # fused training run)
     runs = {}
+    if "tune" in phases:
+        t1 = time.perf_counter()
+        tn = tune_phase(torch, dev)
+        log(f"tune phase: {time.perf_counter() - t1:.1f} s (tuning "
+            f"{tn['tune_s']:.1f} s, the same points from the cache "
+            f"{tn['cached_s'] * 1e3:.1f} ms)")
+        for r in tn["rows"]:
+            meas = r["measured_us"]
+            log(f"  {r['point']:58s} winner {r['winner'] or '(no knobs)'}  "
+                f"predicted {r['predicted']:.3f}  fraction "
+                f"{r['fraction']:.4f}  {meas:.2f} us (bound "
+                f"{r['roofline_us']:.2f})  timings_run {r['timings_run']}"
+                f"  cached {r['cached']['from_cache']} "
+                f"(timings_run {r['cached']['timings_run']})")
+        log(f"  engine launches with {tn['engine_launch']}")
+        runs["tune"] = tn["launches"]
+        record["tune"] = tn
+        del tn
+        torch.cuda.empty_cache()
     if "engine" in phases:
         t1 = time.perf_counter()
         eng = engine_phase(torch, dev, rng, args.record)

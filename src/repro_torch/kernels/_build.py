@@ -12,6 +12,7 @@ module is imported, so the package imports on a host without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,7 +24,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rmsnorm", "gemv", "decode_attention", "prefill_attention",
-           "mx_gemv", "fused_adamw")
+           "mx_gemv", "fused_adamw", "dotp", "axpy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -113,6 +114,26 @@ def check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device``."""
+    import torch
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def resident_blocks(device, threads: int) -> int:
+    """Blocks of ``threads`` threads that the card's SMs hold at once (2048
+    threads and 32 blocks an SM on Hopper): the grid of a kernel whose
+    blocks stride over their work."""
+    return sm_count(device) * max(1, min(32, 2048 // threads))
 
 
 def stream_handle(device) -> int:

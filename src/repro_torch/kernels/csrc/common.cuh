@@ -1,4 +1,5 @@
-// Helpers shared by the port's kernels: warp reductions and bf16 unpacking.
+// Helpers shared by the port's kernels: warp reductions, bf16 unpacking and
+// 16-byte vector loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,5 +32,29 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
     f[2 * i + 1] = t.y;
   }
 }
+
+// One 16-byte vector of T -> floats: 8 bf16 or 4 fp32.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int n = 8;
+  __device__ __forceinline__ static void load(const uint4& u, float* f) {
+    bf16x8_to_float(u, f);
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int n = 4;
+  __device__ __forceinline__ static void load(const uint4& u, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(&u);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+};
 
 }  // namespace repro

@@ -1,6 +1,7 @@
 // GEMV: y (N,) fp32 = W (N, K) . x (K,), fp32 accumulation; W and x both
 // bf16 (the projections) or both fp32 (the MoE router).  Optionally W is
-// one matrix of a stack (E, N, K) picked by a device-resident index.
+// one matrix of a stack (E, N, K) picked by a device-resident index.  A
+// batched entry takes B <= 16 rows of x at once (below).
 //
 // Replaces: src/repro/kernels/gemv.py `gemv` (the Pallas kernel that streams
 //   W as (block_n, block_k) tiles, two K halves in flight, into an fp32
@@ -26,33 +27,26 @@
 //   A (1024, 1024) projection has only 1024 rows = 128 blocks of 8 warps,
 //   which fills at most one block per SM of the 132: the small projections
 //   leave most of the card idle (kept simple here; split-K comes later).
+//
+// Batched entry: Y (B, N) fp32 = xs (B, K) . W^T for B <= 16 rows of bf16
+//   xs (replaces src/repro/kernels/ops.py `batched_gemv`, a vmap of the
+//   Pallas gemv over the rows, which streams W once per row).  Still bound
+//   by the bytes of W: 2 N K + 2 B K + 4 B N bytes for 2 B N K operations,
+//   at most B / 2 operations per byte.  Each block first copies xs into
+//   shared memory (B K bf16, at most 227 KB), then each warp takes R W rows
+//   at a time (4, or 2 for B > 8; 1 when W has too few rows to fill the
+//   card that way), reads them once with 16-byte loads and
+//   dots them with all B rows of xs, keeping R x B fp32 accumulators in
+//   registers, so W's bytes are read once whatever B is, and each xs
+//   vector read from shared memory and converted serves R rows.  The blocks
+//   stride over the rows (at most what the SMs hold at once), so the copy
+//   of xs is paid once a block, not once a row.  For B = 1 each sum is
+//   taken in gemv's order.
 #include "common.cuh"
 
 namespace {
 
-// One 16-byte vector of T -> floats.
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ __forceinline__ static void load(const uint4& u, float* f) {
-    repro::bf16x8_to_float(u, f);
-  }
-};
-
-template <>
-struct Vec<float> {
-  static constexpr int n = 4;
-  __device__ __forceinline__ static void load(const uint4& u, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(&u);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-};
+using repro::Vec;
 
 template <typename T>
 __global__ void gemv_kernel(const T* __restrict__ w, const T* __restrict__ x,
@@ -92,7 +86,125 @@ cudaError_t launch(const void* w, const void* x, const void* index, void* y,
   return cudaGetLastError();
 }
 
+// Each warp takes R rows of W at a time: per 16-byte step it loads the R
+// rows' vectors, then converts each row of xs' vector once and uses it for
+// all R rows (so the shared-memory reads and conversions of xs are 1 / R
+// per W byte).
+template <int MAXB, int R>
+__global__ void batched_gemv_kernel(const __nv_bfloat16* __restrict__ w,
+                                    const __nv_bfloat16* __restrict__ xs,
+                                    float* __restrict__ y, int N, int K,
+                                    int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* xs_s = reinterpret_cast<uint4*>(smem);
+  const int nvec = K / 8;
+  const uint4* xg = reinterpret_cast<const uint4*>(xs);
+  for (int i = threadIdx.x; i < B * nvec; i += blockDim.x) xs_s[i] = xg[i];
+  __syncthreads();
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int row0 = (blockIdx.x * warps + (threadIdx.x >> 5)) * R; row0 < N;
+       row0 += gridDim.x * warps * R) {
+    const uint4* wr[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      wr[r] = reinterpret_cast<const uint4*>(
+          w + (size_t)min(row0 + r, N - 1) * K);
+    float acc[R][MAXB];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int b = 0; b < MAXB; ++b) acc[r][b] = 0.f;
+    for (int i = lane; i < nvec; i += 32) {
+      float wf[R][8];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        repro::bf16x8_to_float(__ldcs(wr[r] + i), wf[r]);
+#pragma unroll
+      for (int b = 0; b < MAXB; ++b) {
+        if (b < B) {
+          float xf[8];
+          repro::bf16x8_to_float(xs_s[b * nvec + i], xf);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[r][b] = fmaf(wf[r][j], xf[j], acc[r][b]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int b = 0; b < MAXB; ++b) {
+        if (b < B) {
+          const float s = repro::warp_sum(acc[r][b]);
+          if (lane == 0 && row0 + r < N) y[(size_t)b * N + row0 + r] = s;
+        }
+      }
+    }
+  }
+}
+
+// rows of W a warp takes at a time when the rows are many (the
+// accumulators are R x MAXB registers); one when they are few, so the grid
+// still fills the card
+template <int MAXB>
+constexpr int kRows = MAXB >= 16 ? 2 : 4;
+
+template <int MAXB, int R>
+cudaError_t launch_batched(const void* w, const void* xs, void* y, int N,
+                           int K, int B, int warps, int blocks,
+                           cudaStream_t stream) {
+  const int smem = B * K * 2;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        batched_gemv_kernel<MAXB, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  batched_gemv_kernel<MAXB, R><<<blocks, warps * 32, smem, stream>>>(
+      (const __nv_bfloat16*)w, (const __nv_bfloat16*)xs, (float*)y, N, K, B);
+  return cudaGetLastError();
+}
+
+template <int MAXB>
+cudaError_t launch_rows(const void* w, const void* xs, void* y, int N, int K,
+                        int B, int warps, int rows, int blocks,
+                        cudaStream_t stream) {
+  if (rows == 1)
+    return launch_batched<MAXB, 1>(w, xs, y, N, K, B, warps, blocks, stream);
+  if (rows == kRows<MAXB>)
+    return launch_batched<MAXB, kRows<MAXB>>(w, xs, y, N, K, B, warps,
+                                             blocks, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// w (N, K) row-major bf16, xs (B, K) bf16 with 1 <= B <= 16, y (B, N)
+// fp32; K % 8 == 0, B K 2 bytes of shared memory at most 227 KB, w and xs
+// 16-byte aligned (the wrapper checks); ``rows`` W rows a warp at a time (1,
+// or 4 for B <= 8 and 2 above); ``blocks`` stride over the rows.
+extern "C" cudaError_t repro_batched_gemv_bf16(const void* w, const void* xs,
+                                               void* y, int N, int K, int B,
+                                               int warps, int rows,
+                                               int blocks, void* stream) {
+  if (N <= 0) return cudaSuccess;
+  if (warps < 1 || warps > 32 || K % 8 != 0 || B < 1 || B > 16 ||
+      blocks < 1 || B * K * 2 > 227 * 1024)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B == 1)
+    return launch_rows<1>(w, xs, y, N, K, B, warps, rows, blocks, s);
+  if (B == 2)
+    return launch_rows<2>(w, xs, y, N, K, B, warps, rows, blocks, s);
+  if (B <= 4)
+    return launch_rows<4>(w, xs, y, N, K, B, warps, rows, blocks, s);
+  if (B <= 8)
+    return launch_rows<8>(w, xs, y, N, K, B, warps, rows, blocks, s);
+  return launch_rows<16>(w, xs, y, N, K, B, warps, rows, blocks, s);
+}
 
 // w (N, K) row-major, or a stack (E, N, K) with index -> one int32 expert
 // id on the device (null: no stack); x (K,); y (N,) fp32.  bf16: K % 8 ==

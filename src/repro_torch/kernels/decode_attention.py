@@ -1,28 +1,38 @@
-"""Paged decode attention over bf16 or int8 page pools: the wrappers of
-``csrc/decode_attention.cu``, their launch counts and their plain versions.
+"""Decode attention over bf16 or int8 page pools and over a dense bf16
+cache: the wrappers of ``csrc/decode_attention.cu``, their launch counts,
+their plain versions and their registry entries.
 
 Replace the JAX package's Pallas
-``kernels/decode_attention.py:paged_decode_attention`` and
-``paged_decode_attention_int8``.  The CUDA kernels are bound by the K/V
-bytes they stream; ``csrc/decode_attention.cu`` says how their design meets
-that.
+``kernels/decode_attention.py:paged_decode_attention``,
+``paged_decode_attention_int8``, ``decode_attention_stats`` and
+``decode_attention``.  The CUDA kernels are bound by the K/V bytes they
+stream; ``csrc/decode_attention.cu`` says how their design meets that.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.troop import DEFAULT, LaunchConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.quant.tensor import quantize_kv
+from repro_torch.tune.registry import itemsize, meta, seeded, troop_kernel
 
 #: kernel launches so far (the CPU path and the plain versions do not count)
 launches = 0
 int8_launches = 0
+dense_launches = 0
+
+# the JAX kernels' mask value (``_NEG``): a masked score, and the running
+# max of a row that has seen no valid position
+NEG = -1e30
 
 _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = {
     "repro_paged_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
     "repro_paged_decode_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "repro_decode_stats_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
 }
 
 
@@ -136,3 +146,207 @@ def paged_decode_attention_int8(q, k_pool, k_scales, v_pool, v_scales,
     _build.check(err, "paged_decode_attention_int8")
     int8_launches += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# Dense cache: unnormalized partials, then the normalized output
+# --------------------------------------------------------------------------
+def plain_stats(q, k, v, length, s_offset: int = 0):
+    """The plain PyTorch version of ``decode_attention_stats``: fp32 (acc
+    (B,KV,G,hd), m (B,KV,G,1), l (B,KV,G,1)); a row with no valid position
+    gives acc = 0, l = 0, m = -1e30."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) * (hd ** -0.5)
+    n = torch.clamp(length.long() - s_offset, min=0)
+    mask = (torch.arange(S, device=q.device)[None, None, None, :]
+            >= n[:, None, None, None])
+    s = s.masked_fill(mask, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    return acc, m, l
+
+
+def _normalize(q, acc, l):
+    B, H, hd = q.shape
+    return (acc / torch.clamp(l, min=1e-30)).reshape(B, H, hd).to(q.dtype)
+
+
+def plain_dense(q, k, v, length):
+    """The plain PyTorch version of ``decode_attention``: (B,H,hd) in
+    q.dtype."""
+    acc, _, l = plain_stats(q, k, v, length)
+    return _normalize(q, acc, l)
+
+
+def split_count(rows: int, S: int, sms: int) -> int:
+    """Chunks of S a dense decode splits into: enough (rows x chunks) blocks
+    for about two an SM, each chunk at least 256 positions."""
+    return max(1, min(-(-2 * sms // rows), -(-S // 256)))
+
+
+def decode_attention_stats(q, k, v, length, cfg: LaunchConfig = DEFAULT,
+                           s_offset: int = 0):
+    """Flash-decode partials over a dense KV cache: q (B,H,hd); k, v
+    (B,S,KV,hd); length (B,) int32, of which the positions [0, max(length
+    - s_offset, 0)) of this cache are valid (``s_offset``: where this
+    shard of a split-S cache starts).  Returns fp32 (acc (B,KV,G,hd),
+    m (B,KV,G,1), l (B,KV,G,1)), unnormalized, for ``lse_combine``.
+
+    The kernel splits S into ``split_count`` chunks, one block per (slot,
+    query head, chunk); in a block ``cfg.streams`` warp groups walk
+    contiguous parts of the chunk side by side, ``cfg.block_k / 128`` warps
+    a group, each with ``cfg.unroll`` tiles of 32 positions in flight.  A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16 q, k, v, hd in 32/64/128, H % KV == 0, contiguous) or raises."""
+    global dense_launches
+    if q.device.type == "cpu":
+        return plain_stats(q, k, v, length, s_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_stats: unsupported device "
+                         f"{q.device}")
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    dev = q.device
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and k.dim() == 4 and k.shape == v.shape and k.shape[0] == B
+            and k.shape[3] == hd and hd in (32, 64, 128) and H % KV == 0
+            and length.dtype == torch.int32 and length.shape == (B,)
+            and all(t.device == dev and t.is_contiguous()
+                    for t in (q, k, v, length))
+            and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"decode_attention_stats kernel takes contiguous bf16 q (B, H, "
+            f"hd), k and v (B, S, KV, hd in 32/64/128) and int32 length "
+            f"(B,) on one device; got q {tuple(q.shape)} {q.dtype}, k "
+            f"{tuple(k.shape)} {k.dtype}, length {tuple(length.shape)} "
+            f"{length.dtype}")
+    G = H // KV
+    acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
+    nsplit = split_count(B * H, S, _build.sm_count(dev))
+    part = torch.empty((B * H * nsplit, hd + 2), dtype=torch.float32,
+                       device=dev) if nsplit > 1 else None
+    lib = _build.library("decode_attention", _ARGTYPES)
+    err = lib.repro_decode_stats_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        None if part is None else part.data_ptr(), B, S, H, KV, hd,
+        int(s_offset), cfg.streams, cfg.unroll, cfg.block_k, nsplit,
+        hd ** -0.5, _build.stream_handle(dev))
+    _build.check(err, "decode_attention_stats")
+    dense_launches += 1
+    return acc, m, l
+
+
+def decode_attention(q, k, v, length, cfg: LaunchConfig = DEFAULT):
+    """q (B,H,hd); k, v (B,S,KV,hd); length (B,) valid prefix -> (B,H,hd)
+    in q.dtype: ``decode_attention_stats`` normalized here, outside the
+    kernel, as the JAX package normalizes outside its ``pallas_call`` (a
+    row with no valid position gives 0)."""
+    acc, _, l = decode_attention_stats(q, k, v, length, cfg)
+    return _normalize(q, acc, l)
+
+
+# --------------------------------------------------------------------------
+# registry entries (the JAX package's cost models and example shapes)
+# --------------------------------------------------------------------------
+def _example(small: bool = True, device=None):
+    B, H, KV, hd, S = (2, 4, 2, 128, 512) if small else (4, 16, 8, 128, 4096)
+    q = seeded(0, (B, H, hd), device=device)
+    k = seeded(1, (B, S, KV, hd), device=device)
+    v = seeded(2, (B, S, KV, hd), device=device)
+    length = torch.full((B,), S, dtype=torch.int32, device=q.device)
+    return (q, k, v, length), {}
+
+
+def _paged_example(small: bool = True, device=None):
+    B, H, KV, hd, page, nblk = (2, 4, 2, 128, 16, 4) if small \
+        else (4, 16, 8, 128, 16, 16)
+    P = 1 + B * nblk
+    q = seeded(0, (B, H, hd), device=device)
+    k_pool = seeded(1, (P, page, KV, hd), device=device)
+    v_pool = seeded(2, (P, page, KV, hd), device=device)
+    # permuted tables: physically scattered pages, logically contiguous
+    perm = np.random.default_rng(0).permutation(P - 1) + 1
+    bt = torch.as_tensor(perm[:B * nblk].reshape(B, nblk).astype(np.int32),
+                         device=q.device)
+    length = torch.as_tensor(
+        np.asarray([max(1, nblk * page - 5 * i) for i in range(B)],
+                   np.int32), device=q.device)
+    return (q, k_pool, v_pool, bt, length), {}
+
+
+def _paged_int8_example(small: bool = True, device=None):
+    (q, k_pool, v_pool, bt, length), _ = _paged_example(small, device)
+    k8, ks = quantize_kv(k_pool)
+    v8, vs = quantize_kv(v_pool)
+    return (q, k8, ks, v8, vs, bt, length), {}
+
+
+def _paged_streamed(q, kp, vp, bt, ln):
+    """Per-slot page traffic (nblk pages each for k and v), not pool size."""
+    view = (q.shape[0], bt.shape[1] * kp.shape[1], kp.shape[2], kp.shape[3])
+    return [meta(view, kp.dtype), meta(view, vp.dtype), q, q, bt]
+
+
+def _paged_int8_streamed(q, kp, ks, vp, vs, bt, ln):
+    B, nblk, page, KV, hd = (q.shape[0], bt.shape[1], kp.shape[1],
+                             kp.shape[2], kp.shape[3])
+    view = (B, nblk * page, KV, hd)
+    sview = (B, nblk * page, KV, 1)
+    return [meta(view, kp.dtype), meta(view, vp.dtype),
+            meta(sview, ks.dtype), meta(sview, vs.dtype), q, q, bt]
+
+
+#: ``decode_attention`` through the tune registry
+decode_attention_tuned = troop_kernel(
+    "decode_attention",
+    flops=lambda q, k, v, ln: (4.0 * q.shape[0] * q.shape[1]
+                               * k.shape[1] * k.shape[3]),
+    bytes=lambda q, k, v, ln: (
+        k.shape[0] * k.shape[1] * k.shape[2] * k.shape[3]
+        * (itemsize(k) + itemsize(v))
+        + q.shape[0] * q.shape[1] * q.shape[2] * 2 * itemsize(q)),
+    streamed=lambda q, k, v, ln: [k, v, q, q],   # cache + q in + q-like out
+    space={"streams": (1, 2), "unroll": (1, 2), "block_k": (256, 512)},
+    ref="decode_attention", example=_example)(decode_attention)
+
+#: ``paged_decode_attention`` through the tune registry
+paged_decode_attention_tuned = troop_kernel(
+    "paged_decode_attention",
+    flops=lambda q, kp, vp, bt, ln: (4.0 * q.shape[0] * q.shape[1]
+                                     * bt.shape[1] * kp.shape[1]
+                                     * q.shape[2]),
+    bytes=lambda q, kp, vp, bt, ln: (
+        q.shape[0] * bt.shape[1] * kp.shape[1] * kp.shape[2] * kp.shape[3]
+        * (itemsize(kp) + itemsize(vp))
+        + q.shape[0] * q.shape[1] * q.shape[2] * 2 * itemsize(q)
+        + bt.shape[0] * bt.shape[1] * itemsize(bt)),
+    streamed=_paged_streamed,
+    space={"decode_warps": (2, 4, 8)},
+    ref="paged_decode_attention",
+    example=_paged_example)(paged_decode_attention)
+
+#: ``paged_decode_attention_int8`` through the tune registry
+paged_decode_attention_int8_tuned = troop_kernel(
+    "paged_decode_attention_int8",
+    flops=lambda q, kp, ks, vp, vs, bt, ln: (
+        4.0 * q.shape[0] * q.shape[1] * bt.shape[1] * kp.shape[1]
+        * q.shape[2]),
+    # per-slot page traffic at quantized width + scale pages + q io + table
+    bytes=lambda q, kp, ks, vp, vs, bt, ln: (
+        q.shape[0] * bt.shape[1] * kp.shape[1] * kp.shape[2] * kp.shape[3]
+        * (itemsize(kp) + itemsize(vp))
+        + q.shape[0] * bt.shape[1] * kp.shape[1] * kp.shape[2]
+        * (itemsize(ks) + itemsize(vs))
+        + q.shape[0] * q.shape[1] * q.shape[2] * 2 * itemsize(q)
+        + bt.shape[0] * bt.shape[1] * itemsize(bt)),
+    streamed=_paged_int8_streamed,
+    space={"decode_warps": (2, 4, 8)},
+    ref="paged_decode_attention_int8",
+    example=_paged_int8_example)(paged_decode_attention_int8)

@@ -1,5 +1,5 @@
-"""Fused AdamW: the wrapper of ``csrc/fused_adamw.cu``, its launch count and
-its plain version.
+"""Fused AdamW: the wrapper of ``csrc/fused_adamw.cu``, its launch count,
+its plain version and its registry entry.
 
 Replaces the JAX package's Pallas ``kernels/fused_adamw.py:fused_adamw``.
 The CUDA kernel is bound by bytes (p, g, mu and nu read once, p, mu and nu
@@ -18,6 +18,8 @@ import torch
 from repro_torch.core.troop import DEFAULT, LaunchConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
+                                       troop_kernel)
 
 #: kernel launches so far (the CPU path and the plain version do not count)
 launches = 0
@@ -110,3 +112,35 @@ def fused_adamw(params: Sequence[torch.Tensor], grads, mus, nus, hyper,
                                     stream)
         _build.check(err, "fused_adamw")
         launches += 1
+
+
+def fused_adamw_leaf(p, g, mu, nu, *, hyper, cfg: LaunchConfig = DEFAULT):
+    """One tensor through ``fused_adamw`` in place, the JAX kernel's
+    positional arguments (p, g, mu, nu): the registry's calling convention.
+    Returns (p, mu, nu), updated."""
+    fused_adamw([p], [g], [mu], [nu], hyper, cfg=cfg)
+    return p, mu, nu
+
+
+def _example(small: bool = True, device=None):
+    n = 4096 if small else 1 << 20
+    p = seeded(0, (n,), torch.float32, device=device)
+    g = seeded(1, (n,), torch.float32, device=device)
+    hyper = torch.tensor([1e-3, 0.9, 0.95, 1e-8, 0.1, 0.1, 0.1],
+                         dtype=torch.float32).to(p.device)
+    return (p, g, torch.zeros_like(p), torch.zeros_like(p)), {"hyper": hyper}
+
+
+#: ``fused_adamw`` through the tune registry (the JAX package's cost model;
+#: ``tune.measure`` runs it on copies, never on the caller's state)
+fused_adamw_tuned = troop_kernel(
+    "fused_adamw",
+    flops=lambda p, g, mu, nu: 12.0 * numel(p),
+    # one pass: read (p, g, mu, nu), write (p', mu', nu'); moments fp32
+    bytes=lambda p, g, mu, nu: numel(p) * (2 * itemsize(p) + itemsize(g)
+                                           + 4 * 4),
+    streamed=lambda p, g, mu, nu: [p, p, g] + [
+        meta(p.shape, torch.float32)] * 4,
+    #   p in + p' out + g in + (mu, nu) fp32 in/out
+    space={"adamw_streams": (1, 2)},
+    ref="fused_adamw", example=_example)(fused_adamw_leaf)

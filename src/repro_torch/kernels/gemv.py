@@ -1,10 +1,11 @@
-"""GEMV: the wrapper of ``csrc/gemv.cu``, its launch count and its plain
-version.
+"""GEMV and the batched GEMV: the wrappers of ``csrc/gemv.cu``, their
+launch counts, their plain versions and ``gemv``'s registry entry.
 
-Replaces the JAX package's Pallas ``kernels/gemv.py:gemv``, in bf16 (the
+Replace the JAX package's Pallas ``kernels/gemv.py:gemv``, in bf16 (the
 projections) and fp32 (the MoE router, which the JAX package applies in
-fp32).  The CUDA kernel is bound by the bytes of W; ``csrc/gemv.cu`` says
-how its design meets that.
+fp32), and ``kernels/ops.py:batched_gemv`` (a vmap of that kernel over a few
+rows; not registered with the tuner, as in JAX).  The CUDA kernels are
+bound by the bytes of W; ``csrc/gemv.cu`` says how their design meets that.
 """
 from __future__ import annotations
 
@@ -13,13 +14,20 @@ import torch
 from repro_torch.core.troop import DEFAULT, LaunchConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.tune.registry import itemsize, meta, seeded, troop_kernel
 
 #: kernel launches so far (the CPU path and the plain version do not count)
 launches = 0
+batched_launches = 0
 
 _ARGS = [_build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
          _build.I, _build.P]
-_ARGTYPES = {"repro_gemv_bf16": _ARGS, "repro_gemv_f32": _ARGS}
+_ARGTYPES = {"repro_gemv_bf16": _ARGS, "repro_gemv_f32": _ARGS,
+             "repro_batched_gemv_bf16": [_build.P] * 3 + [_build.I] * 6
+             + [_build.P]}
+#: rows of xs one batched launch takes (``MAXB`` in the source)
+MAX_BATCH = 16
+_SMEM = 227 * 1024
 # elements per 16-byte load, by dtype
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
 
@@ -73,3 +81,67 @@ def gemv(w, x, index=None, cfg: LaunchConfig = DEFAULT):
     _build.check(err, "gemv")
     launches += 1
     return y
+
+
+def plain_batched(w, xs):
+    """The plain PyTorch version of ``batched_gemv``: (B, N) fp32."""
+    return ref.batched_gemv(w, xs)
+
+
+def batched_gemv(w, xs, cfg: LaunchConfig = DEFAULT):
+    """w (N, K), xs (B, K) -> (B, N) fp32: ``gemv`` of every row of xs,
+    reading W once for all of them.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16 w and xs, 1 <= B <= 16, K % 8 == 0, B * K * 2 bytes of xs in
+    shared memory, contiguous and 16-byte aligned) or raises."""
+    global batched_launches
+    if w.device.type == "cpu":
+        return plain_batched(w, xs)
+    if w.device.type != "cuda":
+        raise ValueError(f"batched_gemv: unsupported device {w.device}")
+    N, K = w.shape if w.dim() == 2 else (-1, -1)
+    B = xs.shape[0] if xs.dim() == 2 else -1
+    if (w.dtype != torch.bfloat16 or xs.dtype != w.dtype or w.dim() != 2
+            or xs.shape != (B, K) or not 1 <= B <= MAX_BATCH
+            or B * K * 2 > _SMEM or xs.device != w.device
+            or not w.is_contiguous() or not xs.is_contiguous() or K % 8
+            or w.data_ptr() % 16 or xs.data_ptr() % 16):
+        raise ValueError(
+            f"batched_gemv kernel takes contiguous, 16-byte aligned bf16 w "
+            f"(N, K) and xs (B, K) on one device with K % 8 == 0, 1 <= B <= "
+            f"{MAX_BATCH} and B * K * 2 <= {_SMEM} bytes; got w "
+            f"{tuple(w.shape)} {w.dtype}, xs {tuple(xs.shape)} {xs.dtype}")
+    warps, sms = cfg.gemv_warps, _build.sm_count(w.device)
+    # W rows a warp takes at a time: several when that still gives every
+    # SM two blocks' worth of rows, else one
+    rows = 2 if B > 8 else 4
+    if N < 2 * sms * warps * rows:
+        rows = 1
+    per_sm = max(1, min(2048 // (warps * 32), _SMEM // (B * K * 2)))
+    blocks = max(1, min(-(-N // (warps * rows)), sms * per_sm))
+    y = torch.empty((B, N), dtype=torch.float32, device=w.device)
+    lib = _build.library("gemv", _ARGTYPES)
+    err = lib.repro_batched_gemv_bf16(w.data_ptr(), xs.data_ptr(),
+                                      y.data_ptr(), N, K, B, warps, rows,
+                                      blocks, _build.stream_handle(w.device))
+    _build.check(err, "batched_gemv")
+    batched_launches += 1
+    return y
+
+
+def _example(small: bool = True, device=None):
+    N, K = (128, 512) if small else (2048, 4096)
+    return (seeded(0, (N, K), device=device),
+            seeded(1, (K,), device=device)), {}
+
+
+#: ``gemv`` through the tune registry (the JAX package's cost model)
+gemv_tuned = troop_kernel(
+    "gemv",
+    flops=lambda w, x: 2.0 * w.shape[0] * w.shape[1],
+    bytes=lambda w, x: (w.shape[0] * w.shape[1] * itemsize(w)
+                        + w.shape[1] * itemsize(x) + w.shape[0] * 4),
+    streamed=lambda w, x: [w, x, meta((w.shape[0],), torch.float32)],
+    space={"gemv_warps": (4, 8, 16)},
+    ref="gemv", example=_example)(gemv)

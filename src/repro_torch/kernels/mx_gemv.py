@@ -1,6 +1,6 @@
 """MX GEMV, the fused MX SwiGLU and the grouped MX expert GEMV: the
-wrappers of ``csrc/mx_gemv.cu``, their launch counts and their plain
-versions.
+wrappers of ``csrc/mx_gemv.cu``, their launch counts, their plain versions
+and their registry entries.
 
 Replace the JAX package's Pallas ``quant/kernels.py:mx_qgemv``,
 ``quant/kernels.py:mx_qgemv_swiglu`` and
@@ -12,11 +12,17 @@ kernel.  The CUDA kernels are bound by the code and scale bytes they read;
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from repro_torch.core.troop import DEFAULT, LaunchConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
-from repro_torch.quant.tensor import FP8_DTYPE
+from repro_torch.quant.tensor import FP8_DTYPE, quantize_mx
+from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
+                                       troop_kernel)
 
 #: kernel launches so far (the CPU path and the plain versions do not count)
 launches = 0
@@ -87,8 +93,7 @@ def ksplit(N: int, K: int, sms: int, rows: int = 1) -> int:
 def _splits(dev, N, K, rows, streams):
     """(ksplit, workspace): the split partials, one row per split, weight
     stream and x row."""
-    ks = ksplit(N, K, torch.cuda.get_device_properties(dev)
-                .multi_processor_count, rows)
+    ks = ksplit(N, K, _build.sm_count(dev), rows)
     work = torch.empty((rows * streams * ks, N) if ks > 1 else (1,),
                        dtype=torch.float32, device=dev)
     return ks, work
@@ -176,3 +181,107 @@ def grouped_expert_qgemv(wq, scales, xs, ids):
     _build.check(err, "grouped_expert_qgemv")
     grouped_launches += 1
     return y
+
+
+# --------------------------------------------------------------------------
+# registry entries (the JAX package's cost models and example shapes)
+# --------------------------------------------------------------------------
+def _untuned(fn):
+    """``fn`` under the registry's calling convention: it takes a ``cfg``
+    and reads no knob of it (the MX kernels size their K split from the
+    shape and the card), so each of their spaces is the one default."""
+    @functools.wraps(fn)
+    def call(*args, cfg: LaunchConfig = DEFAULT):
+        return fn(*args)
+    return call
+
+
+def _mx_weight(seed, shape, elem, device):
+    qt = quantize_mx(seeded(seed, shape, torch.float32, device=device),
+                     elem=elem, axis=-2)
+    return qt.values, qt.scales
+
+
+def _mx_example(small: bool = True, device=None, elem: str = "fp4",
+                batch: int = 0):
+    N, K = (128, 512) if small else (2048, 4096)
+    wq, s = _mx_weight(0, (K, N), elem, device)
+    x = seeded(1, (batch, K) if batch else (K,), device=device)
+    return (wq, s, x), {}
+
+
+def _mx_qgemv_bytes(wq, s, x):
+    K = x.shape[-1]
+    B = x.shape[0] if len(x.shape) == 2 else 1
+    return (numel(wq) * itemsize(wq) + numel(s) * itemsize(s)
+            + B * K * itemsize(x) + B * wq.shape[-1] * 4)
+
+
+def _mx_qgemv_streamed(wq, s, x):
+    out = (x.shape[0], wq.shape[-1]) if len(x.shape) == 2 \
+        else (wq.shape[-1],)
+    return [wq, s, x, meta(out, torch.float32)]
+
+
+def _mx_swiglu_example(small: bool = True, device=None, elem: str = "fp4"):
+    N, K = (128, 512) if small else (2048, 4096)
+    wg, sg = _mx_weight(0, (K, N), elem, device)
+    wu, su = _mx_weight(1, (K, N), elem, device)
+    return (wg, sg, wu, su, seeded(2, (K,), device=device)), {}
+
+
+def _mx_swiglu_bytes(wg, sg, wu, su, x):
+    return (numel(wg) * itemsize(wg) + numel(sg) * itemsize(sg)
+            + numel(wu) * itemsize(wu) + numel(su) * itemsize(su)
+            + x.shape[-1] * itemsize(x) + wg.shape[-1] * 4)
+
+
+def _mx_swiglu_streamed(wg, sg, wu, su, x):
+    return [wg, sg, wu, su, x, meta((wg.shape[-1],), torch.float32)]
+
+
+def _grouped_example(small: bool = True, device=None, elem: str = "fp4"):
+    E, topk = 4, 2
+    N, K = (128, 512) if small else (1408, 2048)
+    wq, s = _mx_weight(0, (E, K, N), elem, device)
+    xs = seeded(1, (topk, K), device=device)
+    ids = torch.as_tensor(np.asarray([1, 3][:topk], np.int32),
+                          device=xs.device)
+    return (wq, s, xs, ids), {}
+
+
+def _grouped_bytes(wq, s, xs, ids):
+    topk, K = xs.shape
+    # gathered traffic: top-k expert slices of the stacked weights/scales,
+    # not the whole pool
+    return (topk * wq.shape[1] * wq.shape[2] * itemsize(wq)
+            + topk * s.shape[1] * s.shape[2] * itemsize(s)
+            + topk * K * itemsize(xs) + topk * wq.shape[-1] * 4)
+
+
+def _grouped_streamed(wq, s, xs, ids):
+    topk = xs.shape[0]
+    return [meta((topk,) + tuple(wq.shape[1:]), wq.dtype),
+            meta((topk,) + tuple(s.shape[1:]), s.dtype),
+            xs, meta((topk, wq.shape[-1]), torch.float32)]
+
+
+#: the MX kernels through the tune registry
+mx_qgemv_tuned = troop_kernel(
+    "mx_qgemv",
+    flops=lambda wq, s, x: 2.0 * wq.shape[-1] * x.shape[-1],
+    bytes=_mx_qgemv_bytes, streamed=_mx_qgemv_streamed, space={},
+    ref="mx_qgemv", example=_mx_example)(_untuned(mx_qgemv))
+mx_qgemv_swiglu_tuned = troop_kernel(
+    "mx_qgemv_swiglu",
+    flops=lambda wg, sg, wu, su, x: 4.0 * wg.shape[-1] * x.shape[-1],
+    bytes=_mx_swiglu_bytes, streamed=_mx_swiglu_streamed, space={},
+    ref="mx_qgemv_swiglu",
+    example=_mx_swiglu_example)(_untuned(mx_qgemv_swiglu))
+grouped_expert_qgemv_tuned = troop_kernel(
+    "grouped_expert_qgemv",
+    flops=lambda wq, s, xs, ids: 2.0 * xs.shape[0] * wq.shape[-1]
+    * xs.shape[-1],
+    bytes=_grouped_bytes, streamed=_grouped_streamed, space={},
+    ref="grouped_expert_qgemv",
+    example=_grouped_example)(_untuned(grouped_expert_qgemv))

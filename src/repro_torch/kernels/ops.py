@@ -1,8 +1,12 @@
-"""Public kernel API of the port.
+"""The raw kernel API of the port.
 
-Every function here launches a CUDA kernel written for Hopper on a CUDA
-tensor and runs its plain PyTorch version on a CPU tensor; the plain
-versions and the oracles are in ``ref.py``.  ``launch_counts`` /
+Every kernel function here launches a CUDA kernel written for Hopper on a
+CUDA tensor and runs its plain PyTorch version on a CPU tensor; the plain
+versions and the oracles are in ``ref.py``.  Each takes its launch
+parameters as ``cfg`` (default ``LaunchConfig()``): the model path calls
+these with the configs its engine resolved at build, and the tuner times
+them.  ``repro_torch.kernels`` exports the registry-dispatching wrappers
+of the same kernels (no ``cfg``: the tuned one).  ``launch_counts`` /
 ``reset_launch_counts`` read and zero the per-kernel launch counters, which
 is how a run shows that its path went through the kernels.
 """
@@ -10,17 +14,26 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import _build
+from repro_torch.kernels import axpy as _axpy
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import dotp as _dotp
 from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import gemv as _gemv
 from repro_torch.kernels import mx_gemv as _mx
 from repro_torch.kernels import prefill_attention as _pre
 from repro_torch.kernels import rmsnorm as _rms
-from repro_torch.kernels.decode_attention import (paged_decode_attention,
+from repro_torch.kernels import unported  # noqa: F401  (registers the rest)
+from repro_torch.kernels.axpy import axpy
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_stats,
+                                                  paged_decode_attention,
                                                   paged_decode_attention_int8)
+from repro_torch.kernels.dotp import dotp
 from repro_torch.kernels.fused_adamw import fused_adamw
-from repro_torch.kernels.gemv import gemv
+from repro_torch.kernels.gemv import batched_gemv, gemv
 from repro_torch.kernels.mx_gemv import (grouped_expert_qgemv, mx_qgemv,
                                          mx_qgemv_swiglu)
 from repro_torch.kernels.prefill_attention import prefill_attention_paged
@@ -37,6 +50,10 @@ _KERNELS = {
     "mx_qgemv_swiglu": (_mx, "swiglu_launches", "plain_swiglu"),
     "grouped_expert_qgemv": (_mx, "grouped_launches", "plain_grouped"),
     "fused_adamw": (_adamw, "launches", "plain"),
+    "dotp": (_dotp, "launches", "plain"),
+    "axpy": (_axpy, "launches", "plain"),
+    "batched_gemv": (_gemv, "batched_launches", "plain_batched"),
+    "decode_attention": (_dec, "dense_launches", "plain_dense"),
 }
 
 #: the plain version of each kernel, by name
@@ -53,6 +70,22 @@ def reset_launch_counts():
         setattr(mod, attr, 0)
 
 
+def lse_combine(partials):
+    """Combine split-S decode partials [(acc, m, l), ...] -> (B,KV,G,hd)
+    fp32: the associative log-sum-exp combine of the JAX package's
+    ``kernels/ops.py:lse_combine`` (plain PyTorch; with the cache sharded
+    over S each shard's ``decode_attention_stats`` gives one partial).  A
+    row no partial saw (l = 0 everywhere) gives 0."""
+    acc, m, l = partials[0]
+    for acc2, m2, l2 in partials[1:]:
+        m_new = torch.maximum(m, m2)
+        a1, a2 = torch.exp(m - m_new), torch.exp(m2 - m_new)
+        acc = acc * a1 + acc2 * a2
+        l = l * a1 + l2 * a2
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
 def build() -> Dict[str, Dict[str, object]]:
     """Compile every kernel now (normally done at first use); returns the
     per-source build log, empty when the libraries were already built."""
@@ -62,5 +95,6 @@ def build() -> Dict[str, Dict[str, object]]:
 __all__ = ["rmsnorm", "gemv", "paged_decode_attention",
            "prefill_attention_paged", "paged_decode_attention_int8",
            "mx_qgemv", "mx_qgemv_swiglu", "grouped_expert_qgemv",
-           "fused_adamw", "PLAIN", "launch_counts", "reset_launch_counts",
-           "build"]
+           "fused_adamw", "dotp", "axpy", "batched_gemv",
+           "decode_attention", "decode_attention_stats", "lse_combine",
+           "PLAIN", "launch_counts", "reset_launch_counts", "build"]

@@ -1,5 +1,6 @@
 """Paged chunked-prefill attention: the wrapper of
-``csrc/prefill_attention.cu``, its launch count and its plain version.
+``csrc/prefill_attention.cu``, its launch count, its plain version and its
+registry entry.
 
 Replaces the JAX package's Pallas
 ``kernels/prefill_attention.py:prefill_attention_paged``.  The CUDA kernel is
@@ -8,12 +9,14 @@ design meets that.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.troop import DEFAULT, LaunchConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import check_paged
+from repro_torch.tune.registry import itemsize, meta, seeded, troop_kernel
 
 #: kernel launches so far (the CPU path and the plain version do not count)
 launches = 0
@@ -60,3 +63,42 @@ def prefill_attention_paged(q, k_pool, v_pool, block_tables, q_offset,
     _build.check(err, "prefill_attention_paged")
     launches += 1
     return out
+
+
+def _example(small: bool = True, device=None):
+    B, C, H, KV, hd, page, nblk = (2, 16, 4, 2, 128, 16, 4) if small \
+        else (4, 64, 16, 8, 128, 16, 16)
+    P = 1 + B * nblk
+    q = seeded(0, (B, C, H, hd), device=device)
+    k_pool = seeded(1, (P, page, KV, hd), device=device)
+    v_pool = seeded(2, (P, page, KV, hd), device=device)
+    perm = np.random.default_rng(0).permutation(P - 1) + 1
+    bt = torch.as_tensor(perm[:B * nblk].reshape(B, nblk).astype(np.int32),
+                         device=q.device)
+    # slab b starts mid-sequence (a prefix-cache hit) and fills to length
+    q_offset = torch.as_tensor(np.arange(B, dtype=np.int32) * 7,
+                               device=q.device)
+    return (q, k_pool, v_pool, bt, q_offset, q_offset + C), {}
+
+
+def _streamed(q, kp, vp, bt, off, ln):
+    """Per-slot page traffic + the slab in/out + the table."""
+    view = (q.shape[0], bt.shape[1] * kp.shape[1], kp.shape[2], kp.shape[3])
+    return [meta(view, kp.dtype), meta(view, vp.dtype), q, q, bt]
+
+
+#: ``prefill_attention_paged`` through the tune registry (the JAX
+#: package's cost model)
+prefill_attention_paged_tuned = troop_kernel(
+    "prefill_attention_paged",
+    flops=lambda q, kp, vp, bt, off, ln: (
+        4.0 * q.shape[0] * q.shape[1] * q.shape[2] * q.shape[3]
+        * bt.shape[1] * kp.shape[1]),
+    bytes=lambda q, kp, vp, bt, off, ln: (
+        q.shape[0] * bt.shape[1] * kp.shape[1] * kp.shape[2] * kp.shape[3]
+        * (itemsize(kp) + itemsize(vp))
+        + 2 * q.shape[0] * q.shape[1] * q.shape[2] * q.shape[3] * itemsize(q)
+        + bt.shape[0] * bt.shape[1] * itemsize(bt)),
+    streamed=_streamed,
+    space={"prefill_warps": (2, 4, 8)},
+    ref="prefill_attention_paged", example=_example)(prefill_attention_paged)

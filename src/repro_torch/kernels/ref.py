@@ -12,9 +12,24 @@ import torch
 from repro_torch.quant.tensor import FP8_DTYPE, dequantize_values
 
 
+def dotp(x, y):
+    """x, y (K,) -> 0-d fp32: the fp32 sum of the fp32 products."""
+    return torch.sum(x.float() * y.float())
+
+
+def axpy(a, x, y):
+    """a * x + y in fp32 (a multiply, then an add), in y's dtype."""
+    return (a * x.float() + y.float()).to(y.dtype)
+
+
 def gemv(w, x):
     """w (N,K), x (K,) -> (N,) fp32 accumulation."""
     return torch.mv(w.float(), x.float())
+
+
+def batched_gemv(w, xs):
+    """w (N,K), xs (B,K) -> (B,N): one fp32 gemv per row of xs."""
+    return xs.float() @ w.float().t()
 
 
 def rmsnorm(x, scale, eps=1e-6):

@@ -1,5 +1,5 @@
-"""RMSNorm: the wrapper of ``csrc/rmsnorm.cu``, its launch count and its
-plain version.
+"""RMSNorm: the wrapper of ``csrc/rmsnorm.cu``, its launch count, its plain
+version and its registry entry.
 
 Replaces the JAX package's Pallas ``kernels/rmsnorm.py:rmsnorm``.  The CUDA
 kernel is bound by bytes (one read and one write of x); ``csrc/rmsnorm.cu``
@@ -12,6 +12,7 @@ import torch
 from repro_torch.core.troop import DEFAULT, LaunchConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.tune.registry import itemsize, seeded, troop_kernel
 
 #: kernel launches so far (the CPU path and the plain version do not count)
 launches = 0
@@ -56,3 +57,20 @@ def rmsnorm(x, scale, eps: float = 1e-6, cfg: LaunchConfig = DEFAULT):
     _build.check(err, "rmsnorm")
     launches += 1
     return out
+
+
+def _example(small: bool = True, device=None):
+    T, d = (8, 256) if small else (256, 4096)
+    return (seeded(0, (T, d), device=device),
+            seeded(1, (d,), torch.float32, device=device)), {}
+
+
+#: ``rmsnorm`` through the tune registry (the JAX package's cost model)
+rmsnorm_tuned = troop_kernel(
+    "rmsnorm",
+    flops=lambda x, s, *a: 4.0 * x.shape[0] * x.shape[1],
+    bytes=lambda x, s, *a: (2 * x.shape[0] * x.shape[1] * itemsize(x)
+                            + x.shape[1] * itemsize(s)),
+    streamed=lambda x, s, *a: [x, s, x],     # x in, scale, x-shaped out
+    space={"rmsnorm_threads": (64, 128, 256)},
+    ref="rmsnorm", example=_example)(rmsnorm)

@@ -175,11 +175,11 @@ def apply_attention_decode_paged(p, cfg, x, cache: PagedKVCache, pos,
             out = KO.paged_decode_attention_int8(
                 q[:, 0].contiguous(), cache.k_pool, cache.k_scale_pool,
                 cache.v_pool, cache.v_scale_pool, block_tables,
-                length)[:, None]
+                length, cfg=M.launch_config())[:, None]
         else:
             out = KO.paged_decode_attention(
                 q[:, 0].contiguous(), cache.k_pool, cache.v_pool,
-                block_tables, length)[:, None]
+                block_tables, length, cfg=M.launch_config())[:, None]
     else:
         k, v = gather_paged_kv(cache, block_tables, dtype)
         out = attend(q, k, v, causal=False, length=length)
@@ -215,7 +215,7 @@ def apply_attention_chunk_paged(p, cfg, x, cache: PagedKVCache, offset,
         from repro_torch.kernels import ops as KO
         out = KO.prefill_attention_paged(
             q.contiguous(), cache.k_pool, cache.v_pool, block_tables,
-            offset.to(torch.int32), length)
+            offset.to(torch.int32), length, cfg=M.launch_config())
     else:
         k, v = gather_paged_kv(cache, block_tables, dtype)
         stage = cache.stage

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.troop import DEFAULT, LaunchConfig
 from repro_torch.quant.tensor import QuantizedTensor
 
 # --------------------------------------------------------------------------
@@ -33,8 +34,32 @@ from repro_torch.quant.tensor import QuantizedTensor
 _KERNEL_ROUTED = False
 
 
+# The launch parameters of the routed kernels: the configs a serving
+# engine resolved from the tune cache when it was built, set around each of
+# its steps (``kernel_launch``); the defaults otherwise.  Read once per
+# launch, so the model path makes no tune-cache lookup.
+_LAUNCH = DEFAULT
+
+
 def kernel_routed() -> bool:
     return _KERNEL_ROUTED
+
+
+def launch_config() -> LaunchConfig:
+    """The ``LaunchConfig`` the routed kernels launch with now."""
+    return _LAUNCH
+
+
+@contextlib.contextmanager
+def kernel_launch(cfg: LaunchConfig):
+    """Launch the routed kernels with ``cfg`` inside the block."""
+    global _LAUNCH
+    prev = _LAUNCH
+    _LAUNCH = cfg
+    try:
+        yield
+    finally:
+        _LAUNCH = prev
 
 
 @contextlib.contextmanager
@@ -67,7 +92,7 @@ def _routed_gemv(w_nk, x, dtype):
     """Dispatch the gemv kernel on an (N, K) weight; returns (N,) in dtype
     (the kernel's fp32 output cast once, as in the JAX package)."""
     from repro_torch.kernels import ops as KO
-    return KO.gemv(w_nk, x.reshape(-1).contiguous()).to(dtype)
+    return KO.gemv(w_nk, x.reshape(-1).contiguous(), cfg=_LAUNCH).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -161,7 +186,7 @@ def apply_norm(p, x, kind: str, eps: float = 1e-6):
         from repro_torch.kernels import ops as KO
         d = x.shape[-1]
         return KO.rmsnorm(x.reshape(-1, d).contiguous(), p["scale"],
-                          eps=eps).reshape(x.shape)
+                          eps=eps, cfg=_LAUNCH).reshape(x.shape)
     dtype = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)

@@ -196,11 +196,12 @@ def _apply_moe_routed(p, cfg, x, *, dtype):
         y = torch.sum(top_p[:, None] * yk, dim=0).to(dtype)
     else:
         y = torch.zeros((d,), dtype=dtype, device=x.device)
+        launch = M.launch_config()
         for j in range(k):
             e = ids[j:j + 1]
-            up = KO.gemv(wu, xv, e)
-            h = F.silu(KO.gemv(wg, xv, e)) * up
-            yj = KO.gemv(wo, h.to(dtype), e)
+            up = KO.gemv(wu, xv, e, cfg=launch)
+            h = F.silu(KO.gemv(wg, xv, e, cfg=launch)) * up
+            yj = KO.gemv(wo, h.to(dtype), e, cfg=launch)
             y = y + top_p[j].to(dtype) * yj.to(dtype)
     return _add_shared(p, cfg, x, y.reshape(B, T, d), dtype)
 

@@ -129,11 +129,15 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
     the JAX package).  Otherwise the weights are a random init from
     ``seed`` made on ``device`` (the CUDA card unless ``device="cpu"``),
     MX-quantized after the init when ``quantize_weights`` is ``"mx4"`` or
-    ``"fp8"``."""
+    ``"fp8"``.  The engine's kernels launch with the configs
+    ``serve.step.tuned_kernel_configs`` resolves from the tune cache at the
+    engine's shapes (``serve_step.troop_configs``); an empty cache gives
+    the defaults."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, RuntimeConfig, build_model
     from repro_torch.quant import quantize_params
     from repro_torch.serve.scheduler import ServingEngine
+    from repro_torch.serve.step import tuned_kernel_configs
 
     engine_cfg.validate().check_ported()
     if hasattr(arch, "decode_step"):          # prebuilt Model
@@ -147,4 +151,10 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
         if engine_cfg.quantize_weights != "none":
             model = Model(cfg, rt, quantize_params(
                 model.params, fmt=engine_cfg.quantize_weights))
-    return ServingEngine(model, engine_cfg)
+    # the decode-path kernels' tuned launch parameters, resolved once here
+    # (as the JAX factory does); the engine's steps launch with them
+    configs = tuned_kernel_configs(
+        model.cfg, engine_cfg.slots, engine_cfg.cache_len,
+        page_size=resolve_page_size(engine_cfg),
+        num_pages=engine_cfg.num_pages, chunk_size=engine_cfg.chunk_size)
+    return ServingEngine(model, engine_cfg, troop_configs=configs)

@@ -70,9 +70,12 @@ class Request:
 class ServingEngine:
     """Slot-based continuous batching with chunked prefill over a
     ``PagedBackend`` shaped by ``config``.  ``model`` is a
-    ``repro_torch.models.Model``; the engine runs on the model's device."""
+    ``repro_torch.models.Model``; the engine runs on the model's device.
+    ``troop_configs`` (``serve.step.tuned_kernel_configs``, which
+    ``build_engine`` resolves) sets the kernels' launch parameters; without
+    them they launch with ``LaunchConfig()``."""
 
-    def __init__(self, model, config: EngineConfig):
+    def __init__(self, model, config: EngineConfig, troop_configs=None):
         config.validate().check_ported()
         self.backend = PagedBackend(
             page_size=resolve_page_size(config), num_pages=config.num_pages,
@@ -80,10 +83,15 @@ class ServingEngine:
             prefix_cache=config.prefix_cache)
         self.config = config
         slots, cache_len = config.slots, config.cache_len
-        from repro_torch.serve.step import make_chunk_step, make_serve_step
-        self.chunk_step = make_chunk_step(model)
+        from repro_torch.serve.step import (launch_config, make_chunk_step,
+                                            make_serve_step)
+        launch = launch_config(
+            troop_configs, self.backend.kv_dtype or model.rt.kv_dtype())
+        self.chunk_step = make_chunk_step(model, launch)
         self.serve_step = make_serve_step(model,
-                                          temperature=config.temperature)
+                                          temperature=config.temperature,
+                                          troop_configs=troop_configs,
+                                          launch=launch)
 
         self.model = model
         self.device = model.device

@@ -19,7 +19,12 @@ inputs and outputs of order 1, summed in another order in fp32.  ADAM_TOL
 for the fused AdamW: the kernel rounds each of the plain version's fp32
 operations on its own, in the same order, so the two may differ only where
 PyTorch's elementwise kernels round otherwise (an fp32 ulp of values of
-order 1); a bf16 master keeps ~3 significant digits.
+order 1); a bf16 master keeps ~3 significant digits.  axpy is held to 0
+error: it rounds its plain version's fp32 multiply and add each on its own.
+dotp at 1e-5 of sum |x_i y_i|: the same fp32 products summed in another
+order.  The dense decode partials at ATTN_TOL after normalizing (as the
+paged kernels), the running max m at 1e-5 (fp32 dot products summed in
+another order), the sum l at 1e-4 relative.
 """
 import numpy as np
 import pytest
@@ -393,3 +398,129 @@ def test_train_step_makes_no_host_sync():
         torch.cuda.set_sync_debug_mode("default")
     assert TK.launch_counts()["fused_adamw"] == before + 15
     assert int(state.step) == 2 and np.isfinite(float(metrics["loss"]))
+
+
+# ------------------------------------------------------- the fifth slice
+SHAPES = [(1 << 12, 1, 256), (3 * 4096 + 8, 2, 512), (1 << 16, 4, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("n,unroll,block_k", SHAPES)
+def test_axpy_gives_the_plain_bits(dtype, streams, n, unroll, block_k):
+    from repro_torch.core.troop import LaunchConfig
+    rng = np.random.default_rng(30)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(
+        "cuda", dtype)
+    y = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(
+        "cuda", dtype)
+    cfg = LaunchConfig(streams=streams, unroll=unroll, block_k=block_k)
+    got = TK.axpy(1.7, x, y, cfg=cfg)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, TK.PLAIN["axpy"](1.7, x, y))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("n,unroll,block_k", SHAPES)
+def test_dotp_is_deterministic(dtype, streams, n, unroll, block_k):
+    from repro_torch.core.troop import LaunchConfig
+    rng = np.random.default_rng(31)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(
+        "cuda", dtype)
+    y = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(
+        "cuda", dtype)
+    cfg = LaunchConfig(streams=streams, unroll=unroll, block_k=block_k)
+    a, b = TK.dotp(x, y, cfg=cfg), TK.dotp(x, y, cfg=cfg)
+    torch.cuda.synchronize()
+    assert a.shape == () and a.dtype == torch.float32
+    assert torch.equal(a, b)                        # run to run, same bits
+    bound = 1e-5 * (x.float() * y.float()).abs().sum().item()
+    assert abs(a.item() - TK.PLAIN["dotp"](x, y).item()) <= bound
+
+
+@pytest.mark.parametrize("streams,unroll,block_k", [(1, 1, 256), (2, 1, 512),
+                                                    (2, 2, 256), (1, 4, 128)])
+@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (16, 16, 64), (4, 2, 32)])
+def test_decode_attention_stats(streams, unroll, block_k, H, KV, hd):
+    """A row with no valid position (length <= s_offset) gives acc = 0,
+    l = 0, m = -1e30; the others match the plain version."""
+    from repro_torch.core.troop import LaunchConfig
+    rng = np.random.default_rng(32)
+    B, S, off = 3, 512, 100
+    q = bf16(rng.standard_normal((B, H, hd)))
+    k = bf16(rng.standard_normal((B, S, KV, hd)))
+    v = bf16(rng.standard_normal((B, S, KV, hd)))
+    length = i32([off, 300, S + off])               # 0, 200, 512 valid
+    cfg = LaunchConfig(streams=streams, unroll=unroll, block_k=block_k)
+    acc, m, l = TK.decode_attention_stats(q, k, v, length, cfg, s_offset=off)
+    want = TK._dec.plain_stats(q, k, v, length, s_offset=off)
+    torch.cuda.synchronize()
+    assert torch.equal(acc[0], torch.zeros_like(acc[0]))
+    assert torch.equal(l[0], torch.zeros_like(l[0]))
+    assert (m[0] == -1e30).all()
+    torch.testing.assert_close(m[1:], want[1][1:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l[1:], want[2][1:], rtol=1e-4, atol=1e-4)
+    norm = (acc / l.clamp(min=1e-30))[1:]
+    want_norm = (want[0] / want[2].clamp(min=1e-30))[1:]
+    torch.testing.assert_close(norm, want_norm, rtol=ATTN_TOL, atol=ATTN_TOL)
+    out = TK.decode_attention(q, k, v, length - off, cfg)
+    matches_plain(out, TK.PLAIN["decode_attention"](q, k, v, length - off),
+                  ATTN_TOL)
+
+
+@pytest.mark.parametrize("B", [1, 2, 5, 16])
+@pytest.mark.parametrize("N,K", [(2048, 4096), (1000, 1024), (64, 5632)])
+def test_batched_gemv(B, N, K):
+    """Every row of xs against W read once; one row gives gemv's bits (the
+    same per-lane order)."""
+    rng = np.random.default_rng(33)
+    w = bf16(rng.standard_normal((N, K)) / np.sqrt(K))
+    xs = bf16(rng.standard_normal((B, K)))
+    got = TK.batched_gemv(w, xs)
+    assert got.shape == (B, N) and got.dtype == torch.float32
+    matches_plain(got, TK.PLAIN["batched_gemv"](w, xs))
+    if B == 1:
+        assert torch.equal(got[0], TK.gemv(w, xs[0].contiguous()))
+
+
+def test_new_kernels_raise_instead_of_falling_back():
+    x = torch.ones(100, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="K % 8"):
+        TK.dotp(x, x)
+    with pytest.raises(ValueError, match="Python number"):
+        TK.axpy(torch.tensor(1.0, device="cuda"), x[:96], x[:96])
+    w = torch.ones((8, 1024), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="B <= 16"):
+        TK.batched_gemv(w, torch.ones((17, 1024), dtype=torch.bfloat16,
+                                      device="cuda"))
+    q = torch.ones((1, 4, 96), dtype=torch.bfloat16, device="cuda")
+    kv = torch.ones((1, 64, 2, 96), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="32/64/128"):
+        TK.decode_attention_stats(q, kv, kv, i32([64]))
+
+
+def test_tune_then_cached_on_the_card(tmp_path):
+    """tune -> cache -> dispatch on the card: the second call resolves from
+    the cache without timing, and the dispatching entry point launches
+    with the winner."""
+    import repro_torch.kernels as K
+    from repro_torch import tune
+    cache = tune.TuneCache(str(tmp_path / "cache.json"))
+    for name in ("dotp", "axpy", "decode_attention", "gemv"):
+        args, kw = tune.REGISTRY[name].example(small=True, device="cuda")
+        res = tune.tune(name, *args, kernel_kwargs=kw, keep=2, iters=2,
+                        cache=cache)
+        assert not res.from_cache and res.timings_run >= 1
+        assert 0 < res.fraction <= 1.05, (name, res.fraction)
+        again = tune.tune(name, *args, kernel_kwargs=kw, cache=cache)
+        assert again.from_cache and again.timings_run == 0
+        assert again.best == res.best
+        assert tune.get_tuned(name, *args, cache=cache) == res.best
+        assert res.key.endswith(f"|cuda:{torch.cuda.get_device_name()}")
+    x, y = tune.REGISTRY["dotp"].example(small=True, device="cuda")[0]
+    best = tune.get_tuned("dotp", x, y, cache=cache)
+    before = TK.launch_counts()["dotp"]
+    got = tune.REGISTRY["dotp"].fn(x, y, cfg=best)
+    assert torch.equal(K.dotp(x, y, best), got)
+    assert TK.launch_counts()["dotp"] == before + 2

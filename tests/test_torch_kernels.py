@@ -146,3 +146,159 @@ def test_wrapper_raises_off_cpu_without_kernel(name):
             TK.rmsnorm(x, torch.empty(64, device="meta"))
         else:
             TK.gemv(x, torch.empty(64, device="meta"))
+
+
+# ------------------------------------------------- the paper's three kernels
+STREAMS = [TroopConfig(streams=1, interpret=True),
+           TroopConfig(streams=2, interpret=True)]
+
+
+@pytest.mark.parametrize("cfg", STREAMS, ids=["streams1", "streams2"])
+@pytest.mark.parametrize("n,dtype", [(4096, "float32"), (65536, "bfloat16"),
+                                     (4096, "bfloat16")])
+def test_dotp_plain_matches_jax(n, dtype, cfg):
+    """The same fp32 products summed in another order: |delta| within 1e-5
+    of sum |x_i y_i|."""
+    rng = np.random.default_rng(5)
+    (xj, xt), (yj, yt) = (both(rng.standard_normal(n), dtype)
+                          for _ in range(2))
+    got = TK.dotp(xt, yt)
+    assert got.shape == () and got.dtype == torch.float32
+    bound = 1e-5 * float((xt.float() * yt.float()).abs().sum())
+    for want in (JR.dotp(xj, yj), JK.dotp(xj, yj, cfg)):
+        assert abs(float(got) - float(want)) <= bound
+
+
+def ulps(got, want, scale, dtype):
+    """|got - want| in units of the last place of ``dtype`` at ``scale``."""
+    g, w, s = (np.asarray(a, np.float64) for a in (got, want, scale))
+    eps = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}[dtype]
+    spacing = eps * 2.0 ** np.floor(np.log2(np.maximum(np.abs(s), 1e-30)))
+    return np.abs(g - w) / spacing
+
+
+@pytest.mark.parametrize("cfg", STREAMS, ids=["streams1", "streams2"])
+@pytest.mark.parametrize("n,dtype", [(4096, "float32"), (65536, "bfloat16")])
+def test_axpy_plain_matches_jax(n, dtype, cfg, record_property):
+    """Expected bit-equal (one fp32 multiply and one add, then a rounding
+    to y's dtype); held to one ulp of the output dtype at the operands'
+    scale, max(|a x|, |y|, |a x + y|), with the count of differing elements
+    reported: the interpret-mode Pallas kernel contracts the two into one
+    fused multiply-add, which differs from two roundings by up to half an
+    ulp of a x — many ulps of the result where a x + y cancels."""
+    rng = np.random.default_rng(6)
+    (xj, xt), (yj, yt) = (both(rng.standard_normal(n), dtype)
+                          for _ in range(2))
+    got = TK.axpy(1.7, xt, yt)
+    assert got.dtype == yt.dtype and got.shape == (n,)
+    g = got.float().numpy()
+    xf, yf = xt.float().numpy(), yt.float().numpy()
+    for name, want in (("ref", JR.axpy(1.7, xj, yj)),
+                       ("pallas", JK.axpy(1.7, xj, yj, cfg))):
+        w = np.asarray(want, np.float32)
+        differing = int(np.sum(g != w))
+        record_property(f"differing_{name}", differing)
+        scale = np.maximum(np.maximum(np.abs(1.7 * xf), np.abs(yf)),
+                           np.abs(w))
+        assert ulps(g, w, scale, dtype).max() <= 1, (name, differing)
+
+
+@pytest.mark.parametrize("B,N,K,dtype", [(3, 64, 256, "float32"),
+                                         (8, 48, 352, "float32"),
+                                         (16, 32, 2816, "bfloat16")])
+def test_batched_gemv_plain_matches_jax(B, N, K, dtype):
+    """gemv of every row: test_gemv_plain_matches_jax's tolerance."""
+    rng = np.random.default_rng(7)
+    wj, wt = both(rng.standard_normal((N, K)) / np.sqrt(K), dtype)
+    xj, xt = both(rng.standard_normal((B, K)), dtype)
+    got = TK.batched_gemv(wt, xt)
+    assert got.dtype == torch.float32 and got.shape == (B, N)
+    close(got, JK.batched_gemv(wj, xj, INTERPRET), dtype)
+    for b in range(B):
+        close(got[b], JR.gemv(wj, xj[b]), dtype)
+
+
+# ------------------------------------------------- dense decode attention
+def dense_case(rng, B, H, KV, hd, S, dtype):
+    return [both(rng.standard_normal(shape), dtype)
+            for shape in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+@pytest.mark.parametrize("cfg", STREAMS, ids=["streams1", "streams2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_stats_plain_matches_jax(dtype, cfg):
+    """Partials against the interpret-mode Pallas kernel: acc / l / out
+    within 1e-5 in fp32 (as the paged decode test in bf16) on the rows that
+    see a position; on rows with length <= s_offset m is exactly -1e30 in
+    both, and the port's acc and l are 0 (the JAX kernel's masked walk
+    sums exp(0) = 1 per masked position there instead)."""
+    rng = np.random.default_rng(8)
+    B, H, KV, hd, S, off = 4, 8, 2, 32, 256, 64
+    (qj, qt), (kj, kt), (vj, vt) = dense_case(rng, B, H, KV, hd, S, dtype)
+    ln = np.asarray([off, 20, 150, S + off], np.int32)   # 0, 0, 86, 256
+    acc, m, l = TK.decode_attention_stats(qt, kt, vt, torch.from_numpy(ln),
+                                          s_offset=off)
+    G = H // KV
+    assert acc.shape == (B, KV, G, hd) and m.shape == l.shape == (B, KV, G, 1)
+    assert all(t.dtype == torch.float32 for t in (acc, m, l))
+    jacc, jm, jl = (np.asarray(t, np.float32) for t in JK.decode_attention_stats(
+        qj, kj, vj, jnp.asarray(ln), cfg, s_offset=off))
+    empty = ln <= off
+    assert (m[torch.from_numpy(empty)] == np.float32(-1e30)).all()
+    assert (jm[empty] == np.float32(-1e30)).all()
+    assert not acc[torch.from_numpy(empty)].any()
+    assert not l[torch.from_numpy(empty)].any()
+    live = ~empty
+    close(m[torch.from_numpy(live)], jm[live], dtype)
+    close(l[torch.from_numpy(live)], jl[live], dtype)
+    close(acc[torch.from_numpy(live)], jacc[live], dtype)
+    out = TK.decode_attention(qt, kt, vt, torch.from_numpy(ln - off))
+    assert out.dtype == qt.dtype and out.shape == (B, H, hd)
+    assert not out[torch.from_numpy(empty)].float().any()
+    jout = np.asarray(JK.decode_attention(qj, kj, vj,
+                                          jnp.asarray(ln - off), cfg),
+                      np.float32)
+    close(out[torch.from_numpy(live)], jout[live], dtype)
+    close(out[torch.from_numpy(live)],
+          np.asarray(JR.decode_attention(qj, kj, vj, jnp.asarray(ln - off)),
+                     np.float32)[live], dtype)
+
+
+def test_decode_stats_lse_combine_split_s():
+    """Two halves through decode_attention_stats and lse_combine equal the
+    whole, as tests/test_kernels.py holds the JAX kernel (and a row that
+    only the first half sees, and one no half sees, combine to the whole
+    and to 0)."""
+    rng = np.random.default_rng(9)
+    B, H, KV, hd, S = 3, 8, 4, 64, 512
+    (qj, qt), (kj, kt), (vj, vt) = dense_case(rng, B, H, KV, hd, S,
+                                              "float32")
+    ln = np.asarray([200, 512, 0], np.int32)
+    lt = torch.from_numpy(ln)
+    half = S // 2
+    parts = [TK.decode_attention_stats(qt, kt[:, i * half:(i + 1) * half],
+                                       vt[:, i * half:(i + 1) * half], lt,
+                                       s_offset=i * half) for i in range(2)]
+    got = TK.lse_combine(parts).reshape(B, H, hd)
+    whole = TK.decode_attention(qt, kt, vt, lt)
+    torch.testing.assert_close(got, whole, rtol=2e-4, atol=2e-4)
+    want = np.asarray(JR.decode_attention(qj, kj, vj, jnp.asarray(ln)),
+                      np.float32)
+    close(got[:2], want[:2], "float32")
+    assert not got[2].any()                       # 0, not NaN
+
+
+def test_lse_combine_matches_jax():
+    """The combine itself, on the same partials, as JAX's."""
+    rng = np.random.default_rng(10)
+    parts = []
+    for i in range(3):
+        acc = rng.standard_normal((2, 2, 3, 16)).astype(np.float32)
+        m = rng.standard_normal((2, 2, 3, 1)).astype(np.float32)
+        l = rng.random((2, 2, 3, 1)).astype(np.float32) + 0.5
+        parts.append((acc, m, l))
+    got = TK.lse_combine([tuple(torch.from_numpy(a) for a in p)
+                          for p in parts])
+    want = JK.lse_combine([tuple(jnp.asarray(a) for a in p) for p in parts])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
