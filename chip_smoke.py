@@ -11,13 +11,14 @@ training shapes and times it, runs the tuner (``repro_torch.tune``) over
 every ported kernel on an empty cache of its own, then again from that
 cache, and builds an engine that carries the winners, then serves through
 the chunked, paged engine (on an empty cache: the default launch
-parameters) with every kernel
-on, random weights from seed 0: full-width qwen1.5-0.5b with bf16 weights
-and KV pages and with mx4 weights and int8 KV pages, then full-width
-qwen2-moe-a2.7b (60 experts, top-4, a gated shared expert) in the same two
-formats, then trains full-width qwen1.5-0.5b (fp32 masters, bf16 compute)
-for a few steps through the fused AdamW kernel, against a run with the
-plain optimizer, and checks a failure's restore on a 4-layer cut.  It
+parameters) with every kernel on, random weights from seed 0: full-width
+qwen1.5-0.5b with bf16 weights and KV pages, with mx4 weights and int8 KV
+pages, with int8 weights and bf16 pages and with int4 weights and int8
+pages (int weights dequantize in the graph, as in the JAX package), then
+full-width qwen2-moe-a2.7b (60 experts, top-4, a gated shared expert) in
+bf16 and in mx4 + int8 pages, then trains full-width qwen1.5-0.5b (fp32
+masters, bf16 compute) for a few steps through the fused AdamW kernel,
+against a run with the plain optimizer, and checks a failure's restore on a 4-layer cut.  It
 checks that each path went through its kernels (for the MoE, the exact
 launches of a one-slot decode step; for training, one launch per leaf of
 the JAX parameter tree per step), that the allocator balances, that the
@@ -84,6 +85,14 @@ F32_OPS_PER_S = 67e12
 # sum |x_i y_i| (the row's "tolerance" is that bound, in absolute units).
 # The batched gemv has gemv's gate; the dense decode attention the paged
 # decode's first gate (bf16 outputs of order 0.1, single rounding flips).
+# The int slice's kernels take fourfold headroom over their first measured
+# errors (their first run through these checks on an NVIDIA H100 80GB HBM3
+# at 700 W, seeded inputs; PERF.md §6): qgemv 9.8e-7 -> 4e-6, batched_qgemv
+# 3.3e-6 -> 1.4e-5 and batched_mx_qgemv 7.2e-7 -> 3e-6 (fp32 outputs of
+# order 1 from the same dequantized weights, summed in another order), the
+# int8 dense decode 1.2e-4 -> 5e-4 (bf16 outputs, single rounding flips).
+# qgemv's int4 row at the registry's (2048, 4096), added later, first
+# measured 8.3e-7 (under the first 9.8e-7): the same gate holds it.
 BF16_TOL = 2e-2
 TOL = {"rmsnorm": BF16_TOL, "gemv": BF16_TOL, "gemv_f32": 3e-6,
        "paged_decode_attention": 4e-3, "prefill_attention_paged": 4e-3,
@@ -94,7 +103,8 @@ TOL = {"rmsnorm": BF16_TOL, "gemv": BF16_TOL, "gemv_f32": 3e-6,
        "paged_decode_attention_int8 hd=128": 8e-3,
        "fused_adamw": 0.0, "fused_adamw bf16": 0.0,
        "axpy": 0.0, "dotp": 1e-5, "batched_gemv": BF16_TOL,
-       "decode_attention": 4e-3}
+       "decode_attention": 4e-3, "qgemv": 4e-6, "batched_qgemv": 1.4e-5,
+       "batched_mx_qgemv": 3e-6, "decode_attention_int8": 5e-4}
 ROOT = Path(__file__).resolve().parent
 
 REPLACES = {
@@ -127,6 +137,15 @@ REPLACES = {
                      "src/repro/kernels/ops.py:43"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:96"),
+    "qgemv": ("src/repro_torch/kernels/csrc/qgemv.cu",
+              "src/repro/quant/kernels.py:174"),
+    "batched_qgemv": ("src/repro_torch/kernels/csrc/qgemv.cu",
+                      "src/repro/quant/kernels.py:191"),
+    "batched_mx_qgemv": ("src/repro_torch/kernels/csrc/mx_gemv.cu",
+                         "src/repro/quant/kernels.py:367"),
+    "decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:354"),
 }
 # the kernels of the tuner's path (the tune phase): every registered,
 # ported kernel is tuned and then launched through its dispatching entry
@@ -135,16 +154,37 @@ TUNE_PATH = ("rmsnorm", "gemv", "paged_decode_attention",
              "prefill_attention_paged", "paged_decode_attention_int8",
              "mx_qgemv", "mx_qgemv_swiglu", "grouped_expert_qgemv",
              "fused_adamw", "dotp", "axpy", "decode_attention",
-             "batched_gemv")
+             "batched_gemv", "qgemv", "batched_qgemv", "batched_mx_qgemv",
+             "decode_attention_int8")
+# the kernels whose tuned knobs an engine's steps launch with (bf16 pages;
+# ``serve.step.launch_config``): the engine also carries the tuned configs
+# of the other decode-path names (dense decode, int8 dense decode, qgemv),
+# which its path does not launch
+ENGINE_LAUNCHED = ("gemv", "rmsnorm", "paged_decode_attention",
+                   "prefill_attention_paged")
 # a tuned fraction of the roofline above this is a measuring fault (inputs
 # read from L2, or a wrong cost model)
 MAX_FRACTION = 1.05
-# the kernels of each served path: bf16 weights and pages, then mx4 weights
-# and int8 pages (whose main path also runs rmsnorm and, at chunk steps,
-# the read-out through mx_qgemv)
+# the kernels of each served path: bf16 weights and pages, then the
+# quantized qwen1.5-0.5b runs, each (weights, KV pages, kernels its 8-slot
+# run must launch, kernels its one-slot run must launch, kernels it must
+# not launch): mx4 + int8 pages (whose main path also runs rmsnorm and,
+# at chunk steps, the read-out through mx_qgemv); int8 weights + bf16
+# pages and int4 + int8 pages, whose projections, read-out included,
+# dequantize in the graph as in the JAX package (over int8 pages the slab
+# attends through the gathered view, not the prefill kernel)
 BF16_PATH = ("rmsnorm", "gemv", "paged_decode_attention",
              "prefill_attention_paged")
 QUANT_PATH = ("paged_decode_attention_int8", "mx_qgemv", "mx_qgemv_swiglu")
+INT_NEVER = ("gemv", "mx_qgemv", "mx_qgemv_swiglu", "qgemv",
+             "batched_qgemv")
+QUANT_RUNS = {
+    "mx4": ("mx4", "int8", ("paged_decode_attention_int8",), QUANT_PATH, ()),
+    "int8": ("int8", "", BF16_PATH[:1] + BF16_PATH[2:],
+             BF16_PATH[:1] + BF16_PATH[2:], INT_NEVER),
+    "int4": ("int4", "int8", ("rmsnorm", "paged_decode_attention_int8"),
+             ("rmsnorm", "paged_decode_attention_int8"), INT_NEVER),
+}
 # the MoE paths (qwen2-moe-a2.7b): every kernel of the bf16 path, and of the
 # mx4 + int8 path, launches in its one-slot run; the 8-slot runs take the
 # gather path for the experts and launch the rest
@@ -741,6 +781,7 @@ def kernels_phase(torch, K, dev, rng):
     del stacks
     rows["fused_adamw"] = adamw_rows(torch, K, dev, gen)
     rows.update(paper_rows(torch, K, F, agree, dev, randn))
+    rows.update(int_rows(torch, K, F, agree, dev, gen, rows))
     torch.cuda.synchronize()
     return rows
 
@@ -850,6 +891,119 @@ def paper_rows(torch, K, F, agree, dev, randn):
     return rows
 
 
+def int_rows(torch, K, F, agree, dev, gen, rows):
+    """The kernels of the int slice at their shapes: ``qgemv`` (int8 and
+    int4) at the qwen1.5-0.5b read-out (151936, 1024) and at the registry's
+    (2048, 4096), the shapes the tune phase tunes; ``batched_qgemv`` int8 at the read-out for 8
+    rows and the registry's (2048, 4096) for 4; ``batched_mx_qgemv`` fp4 at
+    the read-out (1024 -> 151936) for 8 rows and the registry's (4096 ->
+    2048) for 4; ``decode_attention_int8`` at the qwen1.5-0.5b engine's
+    dense shape (8 slots x 1024 x 16 KV heads x 64) and the registry's (B=4,
+    H=16, KV=8, hd=128, S=4096), full length.  Weights are fan-in scaled
+    (outputs of order 1), groups of 128 along K.  No PyTorch call takes
+    int8/int4 codes with 128-wide absmax groups or E8M0 blocks: the GEMV
+    rows give the bf16 gemv / batched gemv of the same shape instead
+    (``rows``); the int8 decode's yardstick is SDPA on the dequantized
+    view with a length mask."""
+    from repro_torch.quant.tensor import quantize, quantize_kv, quantize_mx
+    out = {"qgemv": [], "batched_qgemv": [], "batched_mx_qgemv": [],
+           "decode_attention_int8": []}
+    gemv_ms = {r["shape"].split(" bf16")[0]: r["ms"] for r in rows["gemv"]
+               if "experts" not in r["shape"]}
+    bgemv_ms = {r["shape"]: r["ms"] for r in rows["batched_gemv"]}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    for (N, Kd), bits, B in (((151936, 1024), 8, 0), ((151936, 1024), 4, 0),
+                             ((2048, 4096), 8, 0), ((2048, 4096), 4, 0),
+                             ((151936, 1024), 8, 8), ((2048, 4096), 8, 4)):
+        code_bytes = N * Kd * bits // 8
+        ws = []
+        for _ in range(copies_for(code_bytes)):
+            qt = quantize(randn(N, Kd, scale=Kd ** -0.5), bits=bits,
+                          group_size=128, axis=-1)
+            ws.append((qt.values, qt.scales))
+        name = "batched_qgemv" if B else "qgemv"
+        x = randn(B, Kd).bfloat16() if B else randn(Kd).bfloat16()
+        fn, plain = getattr(K, name), K.PLAIN[name]
+        err = agree(f"{name} int{bits} B={B} {N}x{Kd}",
+                    fn(*ws[0], x, bits=bits), plain(*ws[0], x, bits=bits))
+        rows_ = max(B, 1)
+        bms, by = bound_ms(code_bytes + N * (Kd // 128) * 4
+                           + rows_ * Kd * 2 + rows_ * N * 4,
+                           2 * rows_ * N * Kd)
+        ref = (bgemv_ms.get(f"w ({N}, {Kd}) bf16, xs ({B}, {Kd}) bf16") if B
+               else gemv_ms.get(f"w ({N}, {Kd})"))
+        out[name].append({
+            "shape": f"int{bits} codes of W ({N}, {Kd}) + fp32 scales ({N}, "
+                     f"{Kd // 128}), x ({f'{B}, ' if B else ''}{Kd},) bf16",
+            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+            "tolerance": TOL[name], "library": None, "bf16_gemv_ms": ref,
+            **timed(torch, [lambda w=w: fn(*w, x, bits=bits) for w in ws],
+                    [lambda w=w: plain(*w, x, bits=bits) for w in ws])})
+        del ws
+        torch.cuda.empty_cache()
+
+    for (N, Kd), B in (((151936, 1024), 8), ((2048, 4096), 4)):
+        n = copies_for(Kd * N // 2)
+        ws = []
+        for _ in range(n):
+            qt = quantize_mx(randn(Kd, N, scale=Kd ** -0.5), elem="fp4")
+            ws.append((qt.values, qt.scales))
+        xs = randn(B, Kd).bfloat16()
+        fn, plain = K.batched_mx_qgemv, K.PLAIN["batched_mx_qgemv"]
+        err = agree(f"batched_mx_qgemv fp4 B={B} {Kd}->{N}", fn(*ws[0], xs),
+                    plain(*ws[0], xs))
+        bms, by = bound_ms(Kd * N // 2 + Kd * N // 32 + B * Kd * 2
+                           + B * N * 4, 2 * B * N * Kd)
+        out["batched_mx_qgemv"].append({
+            "shape": f"fp4 codes of W ({Kd}, {N}) + E8M0 ({Kd // 32}, {N}), "
+                     f"xs ({B}, {Kd}) bf16",
+            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+            "tolerance": TOL["batched_mx_qgemv"], "library": None,
+            "bf16_gemv_ms": bgemv_ms.get(f"w ({N}, {Kd}) bf16, xs ({B}, "
+                                         f"{Kd}) bf16"),
+            **timed(torch, [lambda w=w: fn(*w, xs) for w in ws],
+                    [lambda w=w: plain(*w, xs) for w in ws])})
+        del ws
+        torch.cuda.empty_cache()
+
+    for B, H, KV, hd, S in ((8, 16, 16, 64, 1024), (4, 16, 8, 128, 4096)):
+        caches = []
+        for _ in range(copies_for(2 * B * S * KV * (hd + 2))):
+            k8, ks = quantize_kv(randn(B, S, KV, hd).bfloat16())
+            v8, vs = quantize_kv(randn(B, S, KV, hd).bfloat16())
+            caches.append((k8, ks, v8, vs))
+        q = randn(B, H, hd).bfloat16()
+        length = torch.full((B,), S, dtype=torch.int32, device=dev)
+        fn, plain = K.decode_attention_int8, K.PLAIN["decode_attention_int8"]
+        err = agree(f"decode_attention_int8 B={B} H={H} KV={KV} hd={hd} "
+                    f"S={S}", fn(q, *caches[0], length),
+                    plain(q, *caches[0], length))
+        dq = [((k8.float() * ks.float()).bfloat16(),
+               (v8.float() * vs.float()).bfloat16())
+              for k8, ks, v8, vs in caches]
+        q4 = q[:, :, None]
+        mask = (torch.arange(S, device=dev)[None, :]
+                < length[:, None])[:, None, None]
+        bms, by = bound_ms(2 * B * S * KV * (hd + 2) + 4 * B * H * hd,
+                           4 * B * H * S * hd)
+        out["decode_attention_int8"].append({
+            "shape": f"q ({B}, {H}, {hd}) bf16, int8 k/v ({B}, {S}, {KV}, "
+                     f"{hd}) + bf16 scales, full length",
+            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+            "tolerance": TOL["decode_attention_int8"],
+            "library": "SDPA on the dequantized bf16 view (length mask)",
+            **timed(torch, [lambda c=c: fn(q, *c, length) for c in caches],
+                    [lambda c=c: plain(q, *c, length) for c in caches],
+                    [lambda d=d: sdpa_decode(torch, F, q4, *d, mask)
+                     for d in dq])})
+        del caches, dq
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------- tune
 # the qwen1.5-0.5b engine of the engine phase, whose decode-path configs
 # the tune phase tunes at the engine's own shapes
@@ -874,11 +1028,15 @@ def tune_points(torch, tune, dev):
     from repro_torch.serve.kvcache import PageSpec
     from repro_torch.tune.registry import seeded
 
+    from repro_torch.quant.tensor import quantize, quantize_kv
+
     points = []
     for name in TUNE_PATH:
         if name in tune.REGISTRY:
             args, kw = tune.REGISTRY[name].example(small=False, device=dev)
             points.append((f"{name} (registry example)", name, args, kw))
+    args, kw = tune.REGISTRY["qgemv"].example(small=False, device=dev, bits=4)
+    points.append(("qgemv int4 (registry example)", "qgemv", args, kw))
     cfg = get_config("qwen1.5-0.5b")
     B, S = TUNE_ENGINE["slots"], TUNE_ENGINE["cache_len"]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -911,6 +1069,21 @@ def tune_points(torch, tune, dev):
          (q, seeded(9, (B, S, KV, hd), device=dev),
           seeded(10, (B, S, KV, hd), device=dev), full), {}),
     ]
+    # the int slice's names at the keys the engine's tuned_kernel_configs
+    # looks up: int8 codes of the read-out in groups of 128, and the dense
+    # decode over an int8 cache
+    w = next(a[0] for label, n, a, _ in points
+             if n == "gemv" and "engine" in label)
+    qt = quantize(w.float(), bits=8, group_size=128, axis=-1)
+    k8, ks = quantize_kv(seeded(9, (B, S, KV, hd), device=dev))
+    v8, vs = quantize_kv(seeded(10, (B, S, KV, hd), device=dev))
+    points += [
+        (f"qgemv int8 ({engine} read-out)", "qgemv",
+         (qt.values, qt.scales, seeded(6, (d,), device=dev)), {}),
+        (f"decode_attention_int8 ({engine}, dense)", "decode_attention_int8",
+         (q, k8, ks, v8, vs, full), {}),
+    ]
+    del qt
     hyper = torch.tensor([1e-3, 0.9, 0.95, 1e-8, 0.1, 0.1, 0.1],
                          dtype=torch.float32).to(dev)
     for leaf, n in ADAMW_LEAVES.items():
@@ -1015,7 +1188,7 @@ def tune_phase(torch, dev):
                     checked[name] = row["winner"]
             launch = dataclasses.asdict(eng.serve_step.launch)
             for name, knobs in checked.items():
-                if name != "decode_attention" and any(
+                if name in ENGINE_LAUNCHED and any(
                         launch[k] != v for k, v in knobs.items()):
                     raise AssertionError(f"the engine launches {launch}, "
                                          f"not {name}'s winner {knobs}")
@@ -1444,6 +1617,7 @@ def engine_phase(torch, dev, rng, record=None):
     res.update(logits_phase(torch, np, K, M, model_k, model_p, dev, rng))
     res["decode_profile"] = decode_profile(torch, np, M, model_k, ecfg, rng,
                                             record)
+    res["embed_us"] = embed_us(torch, M, model_k, dev, ecfg.slots)
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     mk, mp = res["kernel_path"]["metrics"], res["plain_path"]["metrics"]
@@ -1475,7 +1649,27 @@ def engine_phase(torch, dev, rng, record=None):
         f"{prof['device_busy_share']} of the window")
     for name, us in prof["top_kernels_us"][:6]:
         log(f"    {us:10.1f} us  {name}")
+    log(f"  embedding of one decode step's {ecfg.slots} ids, device us: "
+        f"{res['embed_us']}")
     return res
+
+
+def embed_us(torch, M, model, dev, slots):
+    """Device us of one decode step's embedding (``slots`` ids) from the
+    fp32 table: as the serving path does it (gather the rows, then cast)
+    and as the JAX package does it (cast the whole table, then gather)."""
+    import torch.nn.functional as F
+
+    p = model.params["embed"]
+    ids = torch.randint(0, p["table"].shape[0], (slots, 1), device=dev)
+    with torch.no_grad():
+        gather_cast = time_ms(
+            torch, [lambda: M.apply_embed(p, ids, torch.bfloat16)])[0]
+        cast_gather = time_ms(
+            torch, [lambda: F.embedding(ids, p["table"].bfloat16())],
+            reps=10, inner=4)[0]
+    return {"gather_then_cast": gather_cast * 1e3,
+            "cast_then_gather": cast_gather * 1e3}
 
 
 def kv_bytes(caches):
@@ -1486,11 +1680,12 @@ def kv_bytes(caches):
                if a is not None)
 
 
-def quant_phase(torch, dev, rng, record=None):
-    """The quantized slice: mx4 weights (quantized after the seed-0 init)
-    and int8 KV pages through the same engine, kernel path against plain
-    path, then one slot (every projection one row: mx_qgemv and the fused
-    mx_qgemv_swiglu)."""
+def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
+    """A quantized qwen1.5-0.5b slice (``QUANT_RUNS[fmt]``: weights
+    quantized after the seed-0 init, and the pool type) through the same
+    engine, kernel path against plain path, then one slot (every
+    projection one row: for mx4 mx_qgemv and the fused mx_qgemv_swiglu;
+    int weights dequantize in the graph at any row count)."""
     import dataclasses
 
     import numpy as np
@@ -1501,37 +1696,45 @@ def quant_phase(torch, dev, rng, record=None):
     from repro_torch.quant import quantized_stats
     from repro_torch.serve import EngineConfig, build_engine
 
+    weights, kv, path8, path1, never = QUANT_RUNS[fmt]
     ecfg = EngineConfig(slots=8, cache_len=1024, backend="paged",
                         chunked_prefill=True, chunk_size=32,
-                        prefix_cache=True, kv_cache_dtype="int8",
-                        quantize_weights="mx4", kernel_decode=True)
+                        prefix_cache=True, kv_cache_dtype=kv,
+                        quantize_weights=weights, kernel_decode=True)
     t0 = time.perf_counter()
     eng = build_engine("qwen1.5-0.5b", ecfg, device=dev, seed=0)
     torch.cuda.synchronize()
     model_k = eng.model
     model_p = model_k.with_runtime(RuntimeConfig(
-        quantize_weights="mx4", kv_cache_dtype="int8"))
+        quantize_weights=weights, kv_cache_dtype=kv))
     V = model_k.cfg.vocab_size
-    res = {"init_s": time.perf_counter() - t0,
+    res = {"format": f"{weights} weights, {kv or 'bf16'} pages",
+           "init_s": time.perf_counter() - t0,
            "page_size": eng.backend.spec.page_size,
            "weight_bytes": sum(p.numel() * p.element_size()
                                for p in model_k.parameters()),
            "quantized_stats": quantized_stats(model_k.params),
            "kv_pool_bytes": kv_bytes(eng.caches),
            "stage_bytes": sum(2 * c.stage.k.numel() * c.stage.k.element_size()
-                              for c in eng.caches)}
-    if res["page_size"] != 32 or eng.caches[0].stage is None:
+                              for c in eng.caches if c.stage is not None)}
+    if kv == "int8" and (res["page_size"] != 32
+                         or eng.caches[0].stage is None):
         raise AssertionError("int8 pools need 32-row pages and a stage")
+
+    def check_path(name, launches, want):
+        missing = [k for k in want if launches[k] == 0]
+        extra = [k for k in never if launches[k]]
+        if missing or extra:
+            raise AssertionError(f"{fmt} {name}: never launched {missing}, "
+                                 f"launched {extra}: {launches}")
     specs = make_requests(np, rng, V, DENSE_REQUESTS)
 
-    # this slice's path, 8 slots: int8 decode attention every step
+    # this slice's path, 8 slots
     K.reset_launch_counts()
     with M.kernel_routing():
         reqs_k, wall = serve(torch, eng, specs, V)
     res["launches"] = K.launch_counts()
-    if res["launches"]["paged_decode_attention_int8"] == 0:
-        raise AssertionError(f"the quantized path never launched the int8 "
-                             f"decode kernel: {res['launches']}")
+    check_path("8-slot run", res["launches"], path8)
     res["kernel_path"] = {"wall_s": wall, "metrics": eng.metrics()}
     check_balanced(eng)
     del eng
@@ -1553,32 +1756,34 @@ def quant_phase(torch, dev, rng, record=None):
     res["identical_streams"] = sum(rk.out == rp.out
                                    for rk, rp in zip(reqs_k, reqs_p))
 
-    # this slice's path, one slot: every new kernel launches
+    # this slice's path, one slot
     eng = build_engine(model_k, dataclasses.replace(ecfg, slots=1))
     K.reset_launch_counts()
     with M.kernel_routing():
         _, wall = serve(torch, eng, specs[:2], V)
     res["launches_one_slot"] = K.launch_counts()
-    if not all(res["launches_one_slot"][k] for k in QUANT_PATH):
-        raise AssertionError(f"one-slot run: {res['launches_one_slot']}")
+    check_path("one-slot run", res["launches_one_slot"], path1)
     res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
     check_balanced(eng)
     del eng
     torch.cuda.empty_cache()
 
     res.update(logits_phase(torch, np, K, M, model_k, model_p, dev, rng,
-                            kv_dtype="int8"))
+                            kv_dtype=kv or "bfloat16"))
     res["decode_profile"] = decode_profile(
-        torch, np, M, model_k, ecfg, rng, record, "decode_trace_quant.json")
+        torch, np, M, model_k, ecfg, rng, record,
+        "decode_trace_quant.json" if fmt == "mx4"
+        else f"decode_trace_{fmt}.json")
 
     mk, mp = res["kernel_path"]["metrics"], res["plain_path"]["metrics"]
     qs = res["quantized_stats"]
-    log(f"  qwen1.5-0.5b full width, mx4 weights + int8 KV: "
+    log(f"  qwen1.5-0.5b full width, {res['format']}: "
         f"{res['weight_bytes'] / 1e9:.3f} GB weights ({qs['quantized_leaves']}"
         f" quantized leaves, {qs['quantized_bytes']:,} B, was "
         f"{qs['quantized_fp32_bytes']:,} B fp32; {qs['raw_bytes']:,} B raw), "
-        f"{res['kv_pool_bytes'] / 1e9:.3f} GB KV pools with scale pages "
-        f"(+ {res['stage_bytes'] / 1e6:.1f} MB bf16 stage)")
+        f"{res['kv_pool_bytes'] / 1e9:.3f} GB KV pools"
+        + (f" with scale pages (+ {res['stage_bytes'] / 1e6:.1f} MB bf16 "
+           f"stage)" if kv else ""))
     log(f"  kernel path: {mk['tokens_per_s']:.1f} tok/s, "
         f"{mk['decode_steps_per_s']:.1f} decode steps/s, "
         f"{res['kernel_path']['wall_s']:.2f} s wall, launches "
@@ -1681,9 +1886,10 @@ def moe_phase(torch, dev, rng, fmt, record=None):
         res["quantized_stats"] = quantized_stats(model_k.params)
     # every 8-slot decode and chunk step of the mx4 path dequantizes all 72
     # expert stacks in the graph (~12.5 G codes), ~1 s a step: fewer,
-    # shorter requests there
-    n_req, max_new = (4, 8) if quant else (8, 16)
-    specs = make_requests(np, rng, V, n_req, max_new, longest=200)
+    # shorter requests there (prompts of 40..96 tokens after the shared 24,
+    # cut from 40..200 to keep the whole run near 600 s with the int runs)
+    n_req, max_new, longest = (4, 8, 96) if quant else (8, 16, 200)
+    specs = make_requests(np, rng, V, n_req, max_new, longest=longest)
 
     # the main path, 8 slots: the experts take the gather path
     K.reset_launch_counts()
@@ -2083,11 +2289,12 @@ def main():
                         for k, v in build_log.items()}}
 
     rng = np.random.default_rng(0)
-    rows = {}
+    rows, phase_s = {}, {}
     if "kernels" in phases:
         t1 = time.perf_counter()
         rows = kernels_phase(torch, K, dev, rng)
-        log(f"kernels phase: {time.perf_counter() - t1:.1f} s")
+        phase_s["kernels"] = time.perf_counter() - t1
+        log(f"kernels phase: {phase_s['kernels']:.1f} s")
         log("  us per call, device (CUDA graph) / eager (Python launch):")
 
         def us(v):
@@ -2117,7 +2324,8 @@ def main():
     if "tune" in phases:
         t1 = time.perf_counter()
         tn = tune_phase(torch, dev)
-        log(f"tune phase: {time.perf_counter() - t1:.1f} s (tuning "
+        phase_s["tune"] = time.perf_counter() - t1
+        log(f"tune phase: {phase_s['tune']:.1f} s (tuning "
             f"{tn['tune_s']:.1f} s, the same points from the cache "
             f"{tn['cached_s'] * 1e3:.1f} ms)")
         for r in tn["rows"]:
@@ -2136,23 +2344,29 @@ def main():
     if "engine" in phases:
         t1 = time.perf_counter()
         eng = engine_phase(torch, dev, rng, args.record)
-        log(f"engine phase: {time.perf_counter() - t1:.1f} s")
+        phase_s["engine"] = time.perf_counter() - t1
+        log(f"engine phase: {phase_s['engine']:.1f} s")
         runs["qwen1.5 bf16"] = eng["launches"]
         record["engine"] = eng
         del eng
     if "quant" in phases:
-        t1 = time.perf_counter()
-        qeng = quant_phase(torch, dev, rng, args.record)
-        log(f"quantized engine phase: {time.perf_counter() - t1:.1f} s")
-        runs["qwen1.5 mx4"] = qeng["launches"]
-        runs["qwen1.5 mx4 one slot"] = qeng["launches_one_slot"]
-        record["quant"] = qeng
-        del qeng
+        for fmt in QUANT_RUNS:
+            t1 = time.perf_counter()
+            qeng = quant_phase(torch, dev, rng, args.record, fmt)
+            phase_s[f"quant {fmt}"] = time.perf_counter() - t1
+            log(f"quantized engine phase ({qeng['format']}): "
+                f"{phase_s[f'quant {fmt}']:.1f} s")
+            runs[f"qwen1.5 {fmt}"] = qeng["launches"]
+            runs[f"qwen1.5 {fmt} one slot"] = qeng["launches_one_slot"]
+            record["quant" if fmt == "mx4" else f"quant_{fmt}"] = qeng
+            del qeng
+            torch.cuda.empty_cache()
     if "moe" in phases:
         for fmt in ("bf16", "mx4"):
             t1 = time.perf_counter()
             moe = moe_phase(torch, dev, rng, fmt, args.record)
-            log(f"MoE {fmt} engine phase: {time.perf_counter() - t1:.1f} s")
+            phase_s[f"moe {fmt}"] = time.perf_counter() - t1
+            log(f"MoE {fmt} engine phase: {phase_s[f'moe {fmt}']:.1f} s")
             runs[f"qwen2-moe {fmt}"] = moe["launches"]
             runs[f"qwen2-moe {fmt} one slot"] = moe["launches_one_slot"]
             record[f"moe_{fmt}"] = moe
@@ -2161,13 +2375,15 @@ def main():
     if "train" in phases:
         t1 = time.perf_counter()
         tr = train_phase(torch, dev, rng, args.record)
-        log(f"train phase: {time.perf_counter() - t1:.1f} s")
+        phase_s["train"] = time.perf_counter() - t1
+        log(f"train phase: {phase_s['train']:.1f} s")
         runs["qwen1.5 train"] = tr["launches"]
         record["train"] = tr
         del tr
     launches = {name: (sum(r[name] for r in runs.values()) if runs
                        else None) for name in REPLACES}
     record["launches_by_run"] = runs
+    record["phase_s"] = phase_s
 
     entries = []
     for name, (src, rep) in REPLACES.items():

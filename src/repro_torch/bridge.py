@@ -15,11 +15,13 @@ axis — and returns the ``nn.ModuleDict`` the port's model reads:
   it in fp32), raw expert stacks go from ``(E, in, out)`` to ``(E, out,
   in)`` in the compute dtype, the shared expert and its gate are dense
   projections as above;
-* a ``QuantizedTensor`` leaf (MX weights from ``quantize_params``) becomes
-  the port's ``QuantizedTensor`` with the JAX ``(K | K/2, N)`` codes and
-  ``(K/32, N)`` scales byte for byte — no transpose; fp8 codes (ml_dtypes
-  ``float8_e4m3fn``, which ``torch.from_numpy`` does not take) cross as
-  their bytes and are viewed back as ``torch.float8_e4m3fn``.
+* a ``QuantizedTensor`` leaf (from ``quantize_params``) becomes the port's
+  ``QuantizedTensor`` with the JAX codes and scales byte for byte and its
+  ``bits``, ``group_size``, ``axis`` and ``fmt`` — no transpose: int8 or
+  packed int4 ``(K | K/2, N)`` codes with ``(K/g, N)`` fp32 scales, or MX
+  ``(K | K/2, N)`` codes with ``(K/32, N)`` E8M0 scales; fp8 codes
+  (ml_dtypes ``float8_e4m3fn``, which ``torch.from_numpy`` does not take)
+  cross as their bytes and are viewed back as ``torch.float8_e4m3fn``.
 
 ``params_from_numpy(..., trainable=True)`` makes the training masters
 instead: every leaf fp32 (projections ``(out, in)``), requiring grad.

@@ -6,10 +6,14 @@ grids for the TPU: two decoupled DMA streams, block sizes that tile the
 parameters — threads and warps per block, block sizes, the fused AdamW's
 two streams — that the kernel wrappers read from ``LaunchConfig`` (the CUDA
 entry points refuse values out of range).  ``dotp``, ``axpy`` and the dense
-``decode_attention`` read the JAX package's own knobs, under its names and
-with its defaults (``streams``, ``unroll``, ``block_k``; ``block_n`` and
-``scrambled_layout`` only feed the tuner's analytic predictor, as in JAX),
-so ``repro_torch.tune`` ranks their candidates as the JAX tuner does.  The
+``decode_attention`` (bf16 and int8) read the JAX package's own knobs, under
+its names and with its defaults (``streams``, ``unroll``, ``block_k``;
+``block_n`` and ``scrambled_layout`` only feed the tuner's analytic
+predictor, as in JAX), so ``repro_torch.tune`` ranks their candidates as the
+JAX tuner does.  The quantized GEMVs ``qgemv`` / ``batched_qgemv`` read
+``block_n`` (threads a block) and ``unroll`` (W rows a warp), and
+``batched_mx_qgemv`` ``block_n`` and ``unroll`` (columns a lane); their
+``streams`` and ``block_k`` feed only the predictor.  The
 defaults are the simple first designs each kernel's source describes; an
 empty tune cache launches exactly these.
 """
@@ -31,7 +35,9 @@ class LaunchConfig:
     # the JAX TroopConfig's knobs (dotp, axpy, dense decode_attention)
     streams: int = 2                # contiguous halves walked side by side
     unroll: int = 1                 # 16-byte loads in flight per thread
-    block_n: int = 256              # predictor only (output-tile rows)
+    block_n: int = 256              # threads a block of qgemv,
+    #   batched_qgemv and batched_mx_qgemv; elsewhere predictor only
+    #   (output-tile rows)
     block_k: int = 512              # elements per block-step of one stream
     scrambled_layout: bool = True   # predictor only (pre-tiled weights)
 

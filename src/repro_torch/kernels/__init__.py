@@ -8,7 +8,8 @@ behaves like the raw kernel; call it *without* one and the best tuned
 config for (kernel, shapes, dtype, backend) is resolved from the
 persistent tune cache (the default config on a miss).  ``batched_gemv``,
 ``decode_attention_stats`` and ``lse_combine`` are not registered (as in
-JAX) and take the default config; the names not ported yet raise
+JAX) and take the default config; the names not ported yet
+(``flash_attention``, ``wkv6``, ``mamba_scan``) raise
 ``NotImplementedError``.  The raw kernels (the ``fused_adamw`` there takes
 a whole leaf of tensors), their plain versions (``PLAIN``), the launch
 counters and ``build`` are in ``repro_torch.kernels.ops``; the model path
@@ -20,6 +21,7 @@ from repro_torch.kernels.ops import (PLAIN, batched_gemv, build,
                                      lse_combine, reset_launch_counts)
 from repro_torch.kernels.axpy import axpy_tuned as axpy
 from repro_torch.kernels.decode_attention import (
+    decode_attention_int8_tuned as decode_attention_int8,
     decode_attention_tuned as decode_attention,
     paged_decode_attention_int8_tuned as paged_decode_attention_int8,
     paged_decode_attention_tuned as paged_decode_attention)
@@ -27,15 +29,15 @@ from repro_torch.kernels.dotp import dotp_tuned as dotp
 from repro_torch.kernels.fused_adamw import fused_adamw_tuned as fused_adamw
 from repro_torch.kernels.gemv import gemv_tuned as gemv
 from repro_torch.kernels.mx_gemv import (
+    batched_mx_qgemv_tuned as batched_mx_qgemv,
     grouped_expert_qgemv_tuned as grouped_expert_qgemv,
     mx_qgemv_swiglu_tuned as mx_qgemv_swiglu, mx_qgemv_tuned as mx_qgemv)
 from repro_torch.kernels.prefill_attention import (
     prefill_attention_paged_tuned as prefill_attention_paged)
+from repro_torch.kernels.qgemv import batched_qgemv_tuned as batched_qgemv
+from repro_torch.kernels.qgemv import qgemv_tuned as qgemv
 from repro_torch.kernels.rmsnorm import rmsnorm_tuned as rmsnorm
-from repro_torch.kernels.unported import (batched_mx_qgemv, batched_qgemv,
-                                          decode_attention_int8,
-                                          flash_attention, mamba_scan,
-                                          qgemv, wkv6)
+from repro_torch.kernels.unported import flash_attention, mamba_scan, wkv6
 from repro_torch.tune.cache import get_tuned
 from repro_torch.tune.registry import REGISTRY
 

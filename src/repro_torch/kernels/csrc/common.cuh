@@ -1,5 +1,5 @@
-// Helpers shared by the port's kernels: warp reductions, bf16 unpacking and
-// 16-byte vector loads.
+// Helpers shared by the port's kernels: warp reductions, bf16 and int8
+// unpacking and 16-byte vector loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +31,16 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
+}
+
+// int8 -> fp32 without the conversion unit (I2F issues at 1/8 of the FMA
+// rate): byte k of ``biased`` (the int8 word XOR 0x80808080, i.e. each
+// value + 128) becomes the low mantissa byte of 2^23, and subtracting
+// 2^23 + 128 leaves the value, exactly.
+__device__ __forceinline__ float biased_byte_to_float(uint32_t biased,
+                                                      int k) {
+  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + k)) -
+         8388736.f;
 }
 
 // One 16-byte vector of T -> floats: 8 bf16 or 4 fp32.

@@ -63,6 +63,20 @@
 //   combine of such partials gives 0, not NaN (the JAX kernel's all-masked
 //   row instead sums exp(0) = 1 per masked position; the two agree
 //   wherever a row has a valid position).
+//
+// The int8 stats entry replaces src/repro/kernels/decode_attention.py
+//   `decode_attention_int8` (the same (slot, S-block) grid over an int8
+//   cache (B, S, KV, hd) with per-(position, KV head) bf16 scales (B, S,
+//   KV, 1), each value block and its scale block DMA'd side by side and
+//   dequantized in VMEM; normalized outside the kernel).
+// Bound on the H100: bytes — B x S x KV x (hd + 2) x 2 bytes of int8 K and
+//   V with their scales, for 4 x B x H x S x hd operations.
+// Design: the dense walk above with int8 rows (16 values a 16-byte load;
+//   an hd = 64 row is 4 loads), each row's scale read at the same row
+//   index of the scale cache and staged beside its V row, K and V
+//   dequantized in fp32 before the dot and the value update (attend_tiles,
+//   as for the int8 page pools); the same splits, combine and empty-row
+//   convention.
 #include "paged_attention.cuh"
 
 namespace {
@@ -73,14 +87,16 @@ namespace {
 // l[nw], acc[nw][HD].  With one split the block writes acc / m / l of row
 // o; else its partial goes to ``part`` (rows o * nsplit + split of HD + 2
 // floats: acc, then m, then l).
-template <int HD, int U>
+// E = int8_t: k, v int8 with bf16 scales ks, vs (B, S, KV, 1).
+template <int HD, int U, typename E>
 __global__ void dense_stats_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ length,
+    const __nv_bfloat16* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const __nv_bfloat16* __restrict__ ks,
+    const __nv_bfloat16* __restrict__ vs, const int* __restrict__ length,
     float* __restrict__ acc_out, float* __restrict__ m_out,
     float* __restrict__ l_out, float* __restrict__ part, int S, int H,
     int KV, int s_offset, int streams, int chunk, float scale) {
-  using Stage = repro::VStage<HD, __nv_bfloat16>;
+  using Stage = repro::VStage<HD, E>;
   constexpr int DPL = HD / 32;
   const int o = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
   const int b = o / H, h = o % H;
@@ -111,8 +127,8 @@ __global__ void dense_stats_kernel(
   float m = repro::kNeg, l = 0.f, acc[DPL];
 #pragma unroll
   for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
-  repro::attend_tiles<HD, __nv_bfloat16, U>(
-      q_s, v_s, k, v, nullptr, nullptr,
+  repro::attend_tiles<HD, E, U>(
+      q_s, v_s, k, v, ks, vs,
       repro::DenseIndex{(long long)b * S, KV, kvh}, begin, end, warp % per,
       per, scale, m, l, acc);
   if (lane == 0) {
@@ -171,27 +187,30 @@ __global__ void dense_combine_kernel(const float* __restrict__ part,
   }
 }
 
-template <int HD, int U>
+template <int HD, int U, typename E>
 cudaError_t launch_dense(const void* q, const void* k, const void* v,
-                         const void* length, void* acc, void* m, void* l,
-                         void* part, int B, int S, int H, int KV,
-                         int s_offset, int streams, int warps, int nsplit,
-                         float scale, cudaStream_t stream) {
-  using Stage = repro::VStage<HD, __nv_bfloat16>;
+                         const void* ks, const void* vs, const void* length,
+                         void* acc, void* m, void* l, void* part, int B,
+                         int S, int H, int KV, int s_offset, int streams,
+                         int warps, int nsplit, float scale,
+                         cudaStream_t stream) {
+  using Stage = repro::VStage<HD, E>;
   const int smem = warps * (U * Stage::bytes + (int)sizeof(float) * (2 + HD));
-  if (smem > 227 * 1024 - HD * 4) return cudaErrorInvalidValue;  // + q_s
-  if (smem > 48 * 1024) {
+  // the static q_s (HD floats) counts against both limits
+  if (smem + HD * 4 > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem + HD * 4 > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_stats_kernel<HD, U>,
+        dense_stats_kernel<HD, U, E>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const int chunk = ((S + nsplit - 1) / nsplit + 31) / 32 * 32;
-  dense_stats_kernel<HD, U><<<dim3(B * H, nsplit), warps * 32, smem,
-                              stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)length, (float*)acc, (float*)m,
-      (float*)l, (float*)part, S, H, KV, s_offset, streams, chunk, scale);
+  dense_stats_kernel<HD, U, E><<<dim3(B * H, nsplit), warps * 32, smem,
+                                 stream>>>(
+      (const __nv_bfloat16*)q, (const E*)k, (const E*)v,
+      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const int*)length,
+      (float*)acc, (float*)m, (float*)l, (float*)part, S, H, KV, s_offset,
+      streams, chunk, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
   dense_combine_kernel<HD><<<B * H, HD, 0, stream>>>(
@@ -199,25 +218,61 @@ cudaError_t launch_dense(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, typename E>
 cudaError_t dense_unroll(const void* q, const void* k, const void* v,
-                         const void* length, void* acc, void* m, void* l,
-                         void* part, int B, int S, int H, int KV,
-                         int s_offset, int streams, int warps, int unroll,
-                         int nsplit, float scale, cudaStream_t s) {
+                         const void* ks, const void* vs, const void* length,
+                         void* acc, void* m, void* l, void* part, int B,
+                         int S, int H, int KV, int s_offset, int streams,
+                         int warps, int unroll, int nsplit, float scale,
+                         cudaStream_t s) {
   switch (unroll) {
     case 1:
-      return launch_dense<HD, 1>(q, k, v, length, acc, m, l, part, B, S, H,
-                                 KV, s_offset, streams, warps, nsplit, scale,
-                                 s);
+      return launch_dense<HD, 1, E>(q, k, v, ks, vs, length, acc, m, l, part,
+                                    B, S, H, KV, s_offset, streams, warps,
+                                    nsplit, scale, s);
     case 2:
-      return launch_dense<HD, 2>(q, k, v, length, acc, m, l, part, B, S, H,
-                                 KV, s_offset, streams, warps, nsplit, scale,
-                                 s);
+      return launch_dense<HD, 2, E>(q, k, v, ks, vs, length, acc, m, l, part,
+                                    B, S, H, KV, s_offset, streams, warps,
+                                    nsplit, scale, s);
     case 4:
-      return launch_dense<HD, 4>(q, k, v, length, acc, m, l, part, B, S, H,
-                                 KV, s_offset, streams, warps, nsplit, scale,
-                                 s);
+      return launch_dense<HD, 4, E>(q, k, v, ks, vs, length, acc, m, l, part,
+                                    B, S, H, KV, s_offset, streams, warps,
+                                    nsplit, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Checks the launch parameters and picks the head-dim instantiation of the
+// dense walk over elements E.
+template <typename E>
+cudaError_t dense_stats(const void* q, const void* k, const void* v,
+                        const void* ks, const void* vs, const void* length,
+                        void* acc, void* m, void* l, void* part, int B, int S,
+                        int H, int KV, int hd, int s_offset, int streams,
+                        int unroll, int block_k, int nsplit, float scale,
+                        void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (S <= 0 || KV <= 0 || H % KV != 0 || (streams != 1 && streams != 2) ||
+      block_k < 128 || block_k % 128 != 0 || nsplit < 1 ||
+      (nsplit > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const int warps = streams * (block_k / 128);
+  if (warps > 32) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hd) {
+    case 32:
+      return dense_unroll<32, E>(q, k, v, ks, vs, length, acc, m, l, part, B,
+                                 S, H, KV, s_offset, streams, warps, unroll,
+                                 nsplit, scale, s);
+    case 64:
+      return dense_unroll<64, E>(q, k, v, ks, vs, length, acc, m, l, part, B,
+                                 S, H, KV, s_offset, streams, warps, unroll,
+                                 nsplit, scale, s);
+    case 128:
+      return dense_unroll<128, E>(q, k, v, ks, vs, length, acc, m, l, part,
+                                  B, S, H, KV, s_offset, streams, warps,
+                                  unroll, nsplit, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -262,28 +317,21 @@ extern "C" cudaError_t repro_decode_stats_bf16(
     void* acc, void* m, void* l, void* part, int B, int S, int H, int KV,
     int hd, int s_offset, int streams, int unroll, int block_k, int nsplit,
     float scale, void* stream) {
-  if (B <= 0) return cudaSuccess;
-  if (S <= 0 || KV <= 0 || H % KV != 0 || (streams != 1 && streams != 2) ||
-      block_k < 128 || block_k % 128 != 0 || nsplit < 1 ||
-      (nsplit > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
-  const int warps = streams * (block_k / 128);
-  if (warps > 32) return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 32:
-      return dense_unroll<32>(q, k, v, length, acc, m, l, part, B, S, H, KV,
-                              s_offset, streams, warps, unroll, nsplit, scale,
-                              s);
-    case 64:
-      return dense_unroll<64>(q, k, v, length, acc, m, l, part, B, S, H, KV,
-                              s_offset, streams, warps, unroll, nsplit, scale,
-                              s);
-    case 128:
-      return dense_unroll<128>(q, k, v, length, acc, m, l, part, B, S, H, KV,
-                               s_offset, streams, warps, unroll, nsplit,
-                               scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dense_stats<__nv_bfloat16>(q, k, v, nullptr, nullptr, length, acc,
+                                    m, l, part, B, S, H, KV, hd, s_offset,
+                                    streams, unroll, block_k, nsplit, scale,
+                                    stream);
+}
+
+// As above over an int8 cache: k, v (B, S, KV, hd) int8 and bf16 scales
+// ks, vs (B, S, KV, 1).
+extern "C" cudaError_t repro_decode_stats_int8(
+    const void* q, const void* k, const void* ks, const void* v,
+    const void* vs, const void* length, void* acc, void* m, void* l,
+    void* part, int B, int S, int H, int KV, int hd, int s_offset,
+    int streams, int unroll, int block_k, int nsplit, float scale,
+    void* stream) {
+  return dense_stats<int8_t>(q, k, v, ks, vs, length, acc, m, l, part, B, S,
+                             H, KV, hd, s_offset, streams, unroll, block_k,
+                             nsplit, scale, stream);
 }

@@ -54,6 +54,26 @@
 //   (the last one ragged: its lanes past N load nothing) split K 8 ways;
 //   the second pass adds the splits in order, as for one row.  Repeated
 //   ids are two rows reading the same slice.
+//
+// Batched variant: Y (B, N) fp32 = xs (B, K) bf16 . dequant(W) for
+//   1 <= B <= 16 rows of x against one MX weight.  Replaces
+//   src/repro/quant/kernels.py `batched_mx_qgemv` (`_mx_gemv_2d` with the
+//   batch on the sublane dimension of the x and output blocks, so the code
+//   and scale tiles stream once whatever B is).  Bound: bytes, as above
+//   (the same codes and scales, plus B K 2 + 4 B N bytes of xs and Y, for
+//   2 B N K operations).  Design: the same (K, N) column walk and split-K
+//   reduce, with xs (B rows of the block's K range, fp32) in shared
+//   memory.  A lane owns C columns (16 for B <= 2, fewer as B grows, so
+//   the B x C fp32 accumulators stay within 32 registers; `unroll` 2
+//   doubles C where that is still at most 16) and reads C bytes of a code
+//   row per load.  Per 32-row block it builds its C E8M0 factors once,
+//   dequantizes each code once (code x factor, fp32, as the JAX
+//   `_mx_dequant` and unlike the one-row walk, which scales block sums)
+//   and adds its product with each of the B rows of x (fma) to that row's
+//   accumulators, so every code byte is read and decoded once for all B
+//   rows.  The warps of a block (4 or 8, `block_n` / 32) split the block's
+//   K range and merge through shared memory; the split partials go to a
+//   workspace (B, ksplit, N) that `mx_reduce_kernel` adds in split order.
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
@@ -227,6 +247,226 @@ __global__ void mx_reduce_kernel(const float* __restrict__ work,
   y[n] = SWIGLU ? silu_gate(g, u) : g;
 }
 
+// Columns a lane owns in the batched walk for a batch bucket MAXB and
+// `unroll` U: 16 U / MAXB, clamped to [2, 16] (`repro_mx_batched_tile`
+// gives the wrapper the tile width this makes).
+__host__ __device__ constexpr int batch_cols(int maxb, int u) {
+  return 16 * u / maxb > 16 ? 16 : (16 * u / maxb < 2 ? 2 : 16 * u / maxb);
+}
+
+// B's bucket: the batch size the batched kernel is compiled for.
+constexpr int batch_bucket(int B) {
+  return B <= 1 ? 1 : B <= 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16;
+}
+
+template <int C>
+struct Chunk;  // the load type of C bytes
+template <>
+struct Chunk<16> {
+  using T = uint4;
+};
+template <>
+struct Chunk<8> {
+  using T = uint2;
+};
+template <>
+struct Chunk<4> {
+  using T = unsigned int;
+};
+template <>
+struct Chunk<2> {
+  using T = unsigned short;
+};
+
+// C bytes at p (C-byte aligned), read once (L1 bypassed).
+template <int C>
+__device__ __forceinline__ void load_bytes(const uint8_t* p, uint8_t* out) {
+  using T = typename Chunk<C>::T;
+  const T v = __ldcs(reinterpret_cast<const T*>(p));
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
+#pragma unroll
+  for (int j = 0; j < C; ++j) out[j] = b[j];
+}
+
+// grid (column tiles of 32 C, ksplit); block `warps` warps.  Block (t, z)
+// covers the tile's columns and the 32-row blocks [z kbs, min((z + 1) kbs,
+// K / 32)) for all B rows of xs.  Shared memory: xs of the block's K range
+// [B][kbs * 32] fp32, then the warps' partials [warps][B][tile].
+template <int BITS, int MAXB, int U>
+__global__ void mx_batched_kernel(const uint8_t* __restrict__ w,
+                                  const uint8_t* __restrict__ s,
+                                  const __nv_bfloat16* __restrict__ xs,
+                                  float* __restrict__ y,
+                                  float* __restrict__ work, int N, int K,
+                                  int B, int kbs) {
+  constexpr int C = batch_cols(MAXB, U);
+  constexpr int kTileB = 32 * C;
+  constexpr int kRows = BITS == 4 ? kBlockRows / 2 : kBlockRows;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float fp4[16];
+  const int nkb = K / kBlockRows;
+  const int kb0 = blockIdx.y * kbs, kb1 = min(nkb, kb0 + kbs);
+  const int nk = (kb1 - kb0) * kBlockRows;
+  const int xstride = kbs * kBlockRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int col = blockIdx.x * kTileB + lane * C;
+  float* xsh = smem;                                  // [B][xstride]
+  float* red = smem + B * xstride;                    // [nw][B][kTileB]
+  if (threadIdx.x < 16) fp4[threadIdx.x] = kFp4[threadIdx.x];
+  for (int i = threadIdx.x; i < B * nk; i += blockDim.x) {
+    const int b = i / nk, k = i - b * nk;
+    xsh[b * xstride + k] =
+        __bfloat162float(xs[(size_t)b * K + kb0 * kBlockRows + k]);
+  }
+  __syncthreads();
+
+  float acc[MAXB][C];
+#pragma unroll
+  for (int b = 0; b < MAXB; ++b)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[b][j] = 0.f;
+  if (col < N) {
+    for (int kb = kb0 + warp; kb < kb1; kb += nw) {
+      uint8_t sb[C];
+      load_bytes<C>(s + (size_t)kb * N + col, sb);
+      float sc[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) sc[j] = e8m0(sb[j]);
+      const uint8_t* codes = w + (size_t)kb * kRows * N + col;
+      const float* xk = xsh + (kb - kb0) * kBlockRows;
+#pragma unroll 2
+      for (int r = 0; r < kRows; ++r) {
+        uint8_t cb[C];
+        load_bytes<C>(codes + (size_t)r * N, cb);
+        if constexpr (BITS == 4) {
+          float lo[C], hi[C];
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            lo[j] = fp4[cb[j] & 15] * sc[j];
+            hi[j] = fp4[cb[j] >> 4] * sc[j];
+          }
+#pragma unroll
+          for (int b = 0; b < MAXB; ++b) {
+            if (b < B) {
+              // x[2r], x[2r + 1] in one (broadcast) 8-byte read
+              const float2 x01 = *reinterpret_cast<const float2*>(
+                  xk + b * xstride + 2 * r);
+#pragma unroll
+              for (int j = 0; j < C; ++j) {
+                acc[b][j] = fmaf(x01.x, lo[j], acc[b][j]);
+                acc[b][j] = fmaf(x01.y, hi[j], acc[b][j]);
+              }
+            }
+          }
+        } else {
+          float wv[C];
+#pragma unroll
+          for (int j = 0; j < C / 2; ++j) {
+            const __nv_fp8x2_storage_t pair = (__nv_fp8x2_storage_t)(
+                cb[2 * j] | ((unsigned)cb[2 * j + 1] << 8));
+            const float2 f = __half22float2(
+                __half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
+            wv[2 * j] = f.x * sc[2 * j];
+            wv[2 * j + 1] = f.y * sc[2 * j + 1];
+          }
+#pragma unroll
+          for (int b = 0; b < MAXB; ++b) {
+            if (b < B) {
+              const float x0 = xk[b * xstride + r];
+#pragma unroll
+              for (int j = 0; j < C; ++j)
+                acc[b][j] = fmaf(x0, wv[j], acc[b][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < MAXB; ++b) {
+    if (b < B) {
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        red[(warp * B + b) * kTileB + lane * C + j] = acc[b][j];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < B * kTileB; i += blockDim.x) {
+    const int b = i / kTileB, c = i - b * kTileB;
+    const int n = blockIdx.x * kTileB + c;
+    if (n >= N) continue;
+    float v = 0.f;
+    for (int wi = 0; wi < nw; ++wi) v += red[(wi * B + b) * kTileB + c];
+    if (gridDim.y == 1)
+      y[(size_t)b * N + n] = v;
+    else
+      work[((size_t)b * gridDim.y + blockIdx.y) * N + n] = v;
+  }
+}
+
+template <int BITS, int MAXB, int U>
+cudaError_t launch_batched(const void* w, const void* s, const void* xs,
+                           void* y, void* work, int N, int K, int B,
+                           int ksplit, int warps, cudaStream_t stream) {
+  constexpr int tile = 32 * batch_cols(MAXB, U);
+  const int nkb = K / kBlockRows;
+  const int kbs = (nkb + ksplit - 1) / ksplit;
+  const int smem =
+      (B * kbs * kBlockRows + warps * B * tile) * (int)sizeof(float);
+  // the static fp4 table (64 bytes) counts against the 48 KB default too
+  if (smem + 64 > 227 * 1024) return cudaErrorInvalidValue;
+  auto kern = mx_batched_kernel<BITS, MAXB, U>;
+  if (smem + 64 > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<dim3((N + tile - 1) / tile, ksplit), warps * 32, smem, stream>>>(
+      (const uint8_t*)w, (const uint8_t*)s, (const __nv_bfloat16*)xs,
+      (float*)y, (float*)work, N, K, B, kbs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || ksplit == 1) return e;
+  mx_reduce_kernel<false><<<dim3((N + 255) / 256, B), 256, 0, stream>>>(
+      (const float*)work, (float*)y, N, ksplit);
+  return cudaGetLastError();
+}
+
+template <int BITS, int MAXB>
+cudaError_t batched_unroll(const void* w, const void* s, const void* xs,
+                           void* y, void* work, int N, int K, int B,
+                           int ksplit, int warps, int unroll,
+                           cudaStream_t stream) {
+  if (unroll == 1)
+    return launch_batched<BITS, MAXB, 1>(w, s, xs, y, work, N, K, B, ksplit,
+                                         warps, stream);
+  if (unroll == 2)
+    return launch_batched<BITS, MAXB, 2>(w, s, xs, y, work, N, K, B, ksplit,
+                                         warps, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int BITS>
+cudaError_t batched_bucket(const void* w, const void* s, const void* xs,
+                           void* y, void* work, int N, int K, int B,
+                           int ksplit, int warps, int unroll,
+                           cudaStream_t st) {
+  if (B == 1)
+    return batched_unroll<BITS, 1>(w, s, xs, y, work, N, K, B, ksplit, warps,
+                                   unroll, st);
+  if (B == 2)
+    return batched_unroll<BITS, 2>(w, s, xs, y, work, N, K, B, ksplit, warps,
+                                   unroll, st);
+  if (B <= 4)
+    return batched_unroll<BITS, 4>(w, s, xs, y, work, N, K, B, ksplit, warps,
+                                   unroll, st);
+  if (B <= 8)
+    return batched_unroll<BITS, 8>(w, s, xs, y, work, N, K, B, ksplit, warps,
+                                   unroll, st);
+  return batched_unroll<BITS, 16>(w, s, xs, y, work, N, K, B, ksplit, warps,
+                                  unroll, st);
+}
+
 template <int BITS, bool SWIGLU>
 cudaError_t launch(const void* w0, const void* s0, const void* w1,
                    const void* s1, const void* x, void* y, void* work,
@@ -315,4 +555,37 @@ extern "C" cudaError_t repro_mx_gemv_grouped(const void* w, const void* s,
   if (ids == nullptr) return cudaErrorInvalidValue;
   return dispatch(w, s, nullptr, nullptr, xs, y, work, ids, rows, N, K,
                   bits, ksplit, false, stream);
+}
+
+// The batched MX GEMV: w (K/2 | K, N) uint8 codes, s (K/32, N) uint8 E8M0,
+// xs (B, K) bf16 with 1 <= B <= 16, y (B, N) fp32; work (B, ksplit, N)
+// fp32 when ksplit > 1.  warps 4 or 8 a block, unroll 1 or 2 (columns a
+// lane: batch_cols).  All 16-byte aligned, N % 16 == 0, K % 32 == 0.
+extern "C" cudaError_t repro_mx_gemv_batched(const void* w, const void* s,
+                                             const void* xs, void* y,
+                                             void* work, int N, int K, int B,
+                                             int bits, int ksplit, int warps,
+                                             int unroll, void* stream) {
+  if (N <= 0) return cudaSuccess;
+  const int nkb = K / kBlockRows;
+  if (K <= 0 || K % kBlockRows || N % kCols || B < 1 || B > 16 ||
+      ksplit < 1 || ksplit > nkb || (warps != 4 && warps != 8) ||
+      (bits != 4 && bits != 8) || (ksplit > 1 && work == nullptr))
+    return cudaErrorInvalidValue;
+  if ((ksplit - 1) * ((nkb + ksplit - 1) / ksplit) >= nkb)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bits == 4)
+    return batched_bucket<4>(w, s, xs, y, work, N, K, B, ksplit, warps,
+                             unroll, st);
+  return batched_bucket<8>(w, s, xs, y, work, N, K, B, ksplit, warps, unroll,
+                           st);
+}
+
+// Output columns one block of the batched MX GEMV covers for B rows and
+// `unroll` (0 when either is out of range): the wrapper's split-K count
+// tiles N by it.
+extern "C" int repro_mx_batched_tile(int B, int unroll) {
+  if (B < 1 || B > 16 || (unroll != 1 && unroll != 2)) return 0;
+  return 32 * batch_cols(batch_bucket(B), unroll);
 }

@@ -28,16 +28,6 @@ struct VStage {
   static constexpr int bytes = rows_bytes + (kInt8 ? 32 * 4 : 0);
 };
 
-// int8 -> fp32 without the conversion unit (I2F issues at 1/8 of the FMA
-// rate): byte k of ``biased`` (the int8 word XOR 0x80808080, i.e. each
-// value + 128) becomes the low mantissa byte of 2^23, and subtracting
-// 2^23 + 128 leaves the value, exactly.
-__device__ __forceinline__ float biased_byte_to_float(uint32_t biased,
-                                                      int k) {
-  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + k)) -
-         8388736.f;
-}
-
 // 16 int8 values of a K row times the row's scale -> floats (the int8
 // pools' fp32 dequantization, k8 * ks).
 __device__ __forceinline__ void int8x16_to_float(const uint4& u, float* f,

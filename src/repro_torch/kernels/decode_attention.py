@@ -1,12 +1,13 @@
-"""Decode attention over bf16 or int8 page pools and over a dense bf16
-cache: the wrappers of ``csrc/decode_attention.cu``, their launch counts,
-their plain versions and their registry entries.
+"""Decode attention over bf16 or int8 page pools and over a dense bf16 or
+int8 cache: the wrappers of ``csrc/decode_attention.cu``, their launch
+counts, their plain versions and their registry entries.
 
 Replace the JAX package's Pallas
 ``kernels/decode_attention.py:paged_decode_attention``,
-``paged_decode_attention_int8``, ``decode_attention_stats`` and
-``decode_attention``.  The CUDA kernels are bound by the K/V bytes they
-stream; ``csrc/decode_attention.cu`` says how their design meets that.
+``paged_decode_attention_int8``, ``decode_attention_stats``,
+``decode_attention`` and ``decode_attention_int8``.  The CUDA kernels are
+bound by the K/V bytes they stream; ``csrc/decode_attention.cu`` says how
+their design meets that.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.tune.registry import itemsize, meta, seeded, troop_kernel
 launches = 0
 int8_launches = 0
 dense_launches = 0
+dense_int8_launches = 0
 
 # the JAX kernels' mask value (``_NEG``): a masked score, and the running
 # max of a row that has seen no valid position
@@ -33,6 +35,7 @@ _ARGTYPES = {
     "repro_paged_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
     "repro_paged_decode_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
     "repro_decode_stats_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "repro_decode_stats_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
 }
 
 
@@ -208,22 +211,10 @@ def decode_attention_stats(q, k, v, length, cfg: LaunchConfig = DEFAULT,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_stats: unsupported device "
                          f"{q.device}")
+    _check_dense("decode_attention_stats", q, k, v, length, torch.bfloat16)
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     dev = q.device
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and k.dim() == 4 and k.shape == v.shape and k.shape[0] == B
-            and k.shape[3] == hd and hd in (32, 64, 128) and H % KV == 0
-            and length.dtype == torch.int32 and length.shape == (B,)
-            and all(t.device == dev and t.is_contiguous()
-                    for t in (q, k, v, length))
-            and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0):
-        raise ValueError(
-            f"decode_attention_stats kernel takes contiguous bf16 q (B, H, "
-            f"hd), k and v (B, S, KV, hd in 32/64/128) and int32 length "
-            f"(B,) on one device; got q {tuple(q.shape)} {q.dtype}, k "
-            f"{tuple(k.shape)} {k.dtype}, length {tuple(length.shape)} "
-            f"{length.dtype}")
     G = H // KV
     acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
     m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
@@ -241,6 +232,77 @@ def decode_attention_stats(q, k, v, length, cfg: LaunchConfig = DEFAULT,
     _build.check(err, "decode_attention_stats")
     dense_launches += 1
     return acc, m, l
+
+
+def plain_dense_int8(q, k8, k_scale, v8, v_scale, length):
+    """The plain PyTorch version of ``decode_attention_int8``: the int8
+    cache dequantized in fp32, then ``plain_dense`` ((B,H,hd) in q.dtype;
+    a row with no valid position gives 0)."""
+    return plain_dense(q, k8.float() * k_scale.float(),
+                       v8.float() * v_scale.float(), length)
+
+
+def _check_dense(name, q, k, v, length, dtype, scales=()):
+    B, H, hd = q.shape
+    dev = q.device
+    sshape = tuple(k.shape[:3]) + (1,)
+    if not (q.dtype == torch.bfloat16 and k.dtype == v.dtype == dtype
+            and k.dim() == 4 and k.shape == v.shape and k.shape[0] == B
+            and k.shape[3] == hd and hd in (32, 64, 128)
+            and H % k.shape[2] == 0
+            and length.dtype == torch.int32 and length.shape == (B,)
+            and all(s.dtype == torch.bfloat16 and s.shape == sshape
+                    for s in scales)
+            and all(t.device == dev and t.is_contiguous()
+                    for t in (q, k, v, length, *scales))
+            and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0):
+        what = "" if not scales else f" with bf16 scales {sshape}"
+        raise ValueError(
+            f"{name} kernel takes contiguous bf16 q (B, H, hd), {dtype} k "
+            f"and v (B, S, KV, hd in 32/64/128){what} and int32 length "
+            f"(B,) on one device; got q {tuple(q.shape)} {q.dtype}, k "
+            f"{tuple(k.shape)} {k.dtype}, length {tuple(length.shape)} "
+            f"{length.dtype}")
+
+
+def decode_attention_int8(q, k8, k_scale, v8, v_scale, length,
+                          cfg: LaunchConfig = DEFAULT):
+    """q (B,H,hd); k8, v8 (B,S,KV,hd) int8 with per-(position, KV head)
+    bf16 scales k_scale, v_scale (B,S,KV,1); length (B,) int32 valid
+    prefix -> (B,H,hd) in q.dtype.  The kernel is ``decode_attention``'s
+    split-S walk over the int8 cache, K and V dequantized in fp32 (the same
+    knobs), normalized here; a row with no valid position gives 0.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    global dense_int8_launches
+    if q.device.type == "cpu":
+        return plain_dense_int8(q, k8, k_scale, v8, v_scale, length)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_int8: unsupported device "
+                         f"{q.device}")
+    _check_dense("decode_attention_int8", q, k8, v8, length, torch.int8,
+                 (k_scale, v_scale))
+    B, H, hd = q.shape
+    S, KV = k8.shape[1], k8.shape[2]
+    dev = q.device
+    G = H // KV
+    acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
+    nsplit = split_count(B * H, S, _build.sm_count(dev))
+    part = torch.empty((B * H * nsplit, hd + 2), dtype=torch.float32,
+                       device=dev) if nsplit > 1 else None
+    lib = _build.library("decode_attention", _ARGTYPES)
+    err = lib.repro_decode_stats_int8(
+        q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
+        v_scale.data_ptr(), length.data_ptr(), acc.data_ptr(), m.data_ptr(),
+        l.data_ptr(), None if part is None else part.data_ptr(), B, S, H, KV,
+        hd, 0, cfg.streams, cfg.unroll, cfg.block_k, nsplit, hd ** -0.5,
+        _build.stream_handle(dev))
+    _build.check(err, "decode_attention_int8")
+    dense_int8_launches += 1
+    return _normalize(q, acc, l)
 
 
 def decode_attention(q, k, v, length, cfg: LaunchConfig = DEFAULT):
@@ -262,6 +324,15 @@ def _example(small: bool = True, device=None):
     v = seeded(2, (B, S, KV, hd), device=device)
     length = torch.full((B,), S, dtype=torch.int32, device=q.device)
     return (q, k, v, length), {}
+
+
+def _int8_example(small: bool = True, device=None):
+    """The JAX ``_int8_example``: the dense example's cache through
+    ``quantize_kv``."""
+    (q, k, v, length), _ = _example(small, device)
+    k8, ks = quantize_kv(k)
+    v8, vs = quantize_kv(v)
+    return (q, k8, ks, v8, vs, length), {}
 
 
 def _paged_example(small: bool = True, device=None):
@@ -315,6 +386,24 @@ decode_attention_tuned = troop_kernel(
     streamed=lambda q, k, v, ln: [k, v, q, q],   # cache + q in + q-like out
     space={"streams": (1, 2), "unroll": (1, 2), "block_k": (256, 512)},
     ref="decode_attention", example=_example)(decode_attention)
+
+#: ``decode_attention_int8`` through the tune registry (the JAX space:
+#: one stream)
+decode_attention_int8_tuned = troop_kernel(
+    "decode_attention_int8",
+    flops=lambda q, k8, ks, v8, vs, ln: (4.0 * q.shape[0] * q.shape[1]
+                                         * k8.shape[1] * k8.shape[3]),
+    # the scale tensors are streamed too (one row per cache row)
+    bytes=lambda q, k8, ks, v8, vs, ln: (
+        k8.shape[0] * k8.shape[1] * k8.shape[2] * k8.shape[3]
+        * (itemsize(k8) + itemsize(v8))
+        + k8.shape[0] * k8.shape[1] * k8.shape[2]
+        * (itemsize(ks) + itemsize(vs))
+        + q.shape[0] * q.shape[1] * q.shape[2] * 2 * itemsize(q)),
+    streamed=lambda q, k8, ks, v8, vs, ln: [k8, v8, ks, vs, q, q],
+    space={"streams": (1,), "unroll": (1, 2), "block_k": (256, 512)},
+    default=LaunchConfig(streams=1), ref="decode_attention_int8",
+    example=_int8_example)(decode_attention_int8)
 
 #: ``paged_decode_attention`` through the tune registry
 paged_decode_attention_tuned = troop_kernel(

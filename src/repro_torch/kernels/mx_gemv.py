@@ -1,14 +1,15 @@
-"""MX GEMV, the fused MX SwiGLU and the grouped MX expert GEMV: the
-wrappers of ``csrc/mx_gemv.cu``, their launch counts, their plain versions
-and their registry entries.
+"""MX GEMV, its batched form, the fused MX SwiGLU and the grouped MX expert
+GEMV: the wrappers of ``csrc/mx_gemv.cu``, their launch counts, their plain
+versions and their registry entries.
 
 Replace the JAX package's Pallas ``quant/kernels.py:mx_qgemv``,
-``quant/kernels.py:mx_qgemv_swiglu`` and
-``quant/kernels.py:grouped_expert_qgemv``.  The weights keep the JAX layout,
-``(K | K/2, N)`` codes (fp4 packed along K in uint8, or float8_e4m3fn) and
-``(K/32, N)`` uint8 E8M0 scales, with a leading expert axis for the grouped
-kernel.  The CUDA kernels are bound by the code and scale bytes they read;
-``csrc/mx_gemv.cu`` says how their design meets that.
+``quant/kernels.py:batched_mx_qgemv``, ``quant/kernels.py:mx_qgemv_swiglu``
+and ``quant/kernels.py:grouped_expert_qgemv``.  The weights keep the JAX
+layout, ``(K | K/2, N)`` codes (fp4 packed along K in uint8, or
+float8_e4m3fn) and ``(K/32, N)`` uint8 E8M0 scales, with a leading expert
+axis for the grouped kernel.  The CUDA kernels are bound by the code and
+scale bytes they read; ``csrc/mx_gemv.cu`` says how their design meets
+that.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
 
 #: kernel launches so far (the CPU path and the plain versions do not count)
 launches = 0
+batched_launches = 0
 swiglu_launches = 0
 grouped_launches = 0
 
@@ -34,13 +36,22 @@ _ARGTYPES = {
     "repro_mx_gemv": [_P] * 5 + [_I] * 4 + [_P],
     "repro_mx_gemv_swiglu": [_P] * 7 + [_I] * 4 + [_P],
     "repro_mx_gemv_grouped": [_P] * 6 + [_I] * 5 + [_P],
+    "repro_mx_gemv_batched": [_P] * 5 + [_I] * 7 + [_P],
+    "repro_mx_batched_tile": [_I] * 2,
 }
+#: rows of xs one batched launch takes
+MAX_BATCH = 16
 _TILE, _WARPS, _BLOCK = 512, 8, 32      # mirror kTile, kWarps, kBlockRows
 
 
 def plain(wq, scales, x):
     """The plain PyTorch version: (N,) fp32."""
     return ref.mx_qgemv(wq, scales, x)
+
+
+def plain_batched(wq, scales, xs):
+    """The plain PyTorch version of ``batched_mx_qgemv``: (B, N) fp32."""
+    return ref.batched_mx_qgemv(wq, scales, xs)
 
 
 def plain_swiglu(wg, sg, wu, su, x):
@@ -53,10 +64,10 @@ def plain_grouped(wq, scales, xs, ids):
     return ref.grouped_expert_qgemv(wq, scales, xs, ids)
 
 
-def _check(name, wq, scales, x, stack=False):
+def _check(name, wq, scales, x, stack=False, rows=False):
     """(N, K, bits) of a contiguous, aligned MX weight (or, ``stack``, a
-    stack of them and one row of ``x`` per selected weight) the kernel
-    takes."""
+    stack of them and one row of ``x`` per selected weight; ``rows``, rows
+    of ``x`` against one weight) the kernel takes."""
     lead = wq.shape[:1] if stack else ()
     N, K = wq.shape[-1], x.shape[-1]
     bits = 8 if wq.dtype == FP8_DTYPE else 4
@@ -65,7 +76,7 @@ def _check(name, wq, scales, x, stack=False):
           and scales.dtype == torch.uint8
           and scales.shape == lead + (K // _BLOCK, N) and K % _BLOCK == 0
           and N % 16 == 0 and x.dtype == torch.bfloat16
-          and x.dim() == 1 + stack
+          and x.dim() == 1 + (stack or rows)
           and all(t.device == wq.device and t.is_contiguous()
                   and t.data_ptr() % 16 == 0 for t in (wq, scales, x)))
     if not ok:
@@ -73,19 +84,21 @@ def _check(name, wq, scales, x, stack=False):
         raise ValueError(
             f"{name} kernel takes contiguous, 16-byte aligned MX codes "
             f"{what}K/2 uint8 | K fp8, N), uint8 E8M0 scales {what}K/32, N) "
-            f"and bf16 x {'(rows, K)' if stack else '(K,)'} on one device "
+            f"and bf16 x {'(rows, K)' if stack or rows else '(K,)'} on one "
+            f"device "
             f"with K % 32 == 0 and N % 16 == 0; got codes "
             f"{tuple(wq.shape)} {wq.dtype}, scales {tuple(scales.shape)} "
             f"{scales.dtype}, x {tuple(x.shape)} {x.dtype}")
     return N, K, bits
 
 
-def ksplit(N: int, K: int, sms: int, rows: int = 1) -> int:
-    """Blocks per 512-column tile (of each of ``rows`` rows) along K:
+def ksplit(N: int, K: int, sms: int, rows: int = 1, tile: int = _TILE,
+           warps: int = _WARPS) -> int:
+    """Blocks per ``tile``-column tile (of each of ``rows`` rows) along K:
     enough tiles x splits x rows to give every SM a block, while each split
-    keeps a 32-row block per warp."""
+    keeps a 32-row block per warp (``warps`` a block)."""
     nkb = K // _BLOCK
-    want = max(1, min(-(-sms // (rows * -(-N // _TILE))), nkb // _WARPS))
+    want = max(1, min(-(-sms // (rows * -(-N // tile))), nkb // warps))
     per = -(-nkb // want)
     return -(-nkb // per)               # every split owns >= 1 block
 
@@ -124,6 +137,43 @@ def mx_qgemv(wq, scales, x):
     lib = _build.library("mx_gemv", _ARGTYPES)
     y = _launch(lib.repro_mx_gemv, "mx_qgemv", (wq, scales), x, N, K, bits)
     launches += 1
+    return y
+
+
+def batched_mx_qgemv(wq, scales, xs, cfg: LaunchConfig = DEFAULT):
+    """Y (B, N) fp32 = xs (B, K) . dequant(wq, scales): ``mx_qgemv`` of
+    every row of xs, reading the codes once for all of them.
+    ``cfg.block_n`` / 32 warps a block (4 or 8), ``cfg.unroll`` 2 doubles
+    the columns a lane owns where the registers allow.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (1 <= B <= 16) or raises."""
+    global batched_launches
+    if wq.device.type == "cpu":
+        return plain_batched(wq, scales, xs)
+    if wq.device.type != "cuda":
+        raise ValueError(f"batched_mx_qgemv: unsupported device {wq.device}")
+    N, K, bits = _check("batched_mx_qgemv", wq, scales, xs, rows=True)
+    B = xs.shape[0]
+    warps, unroll = cfg.block_n // 32, cfg.unroll
+    if not 1 <= B <= MAX_BATCH or warps not in (4, 8) or unroll not in (1, 2):
+        raise ValueError(f"batched_mx_qgemv kernel takes 1 <= rows <= "
+                         f"{MAX_BATCH}, block_n 128 or 256 and unroll 1 or "
+                         f"2; got rows {B}, block_n {cfg.block_n}, unroll "
+                         f"{unroll}")
+    dev = xs.device
+    lib = _build.library("mx_gemv", _ARGTYPES)
+    ks = ksplit(N, K, _build.sm_count(dev), 1,
+                lib.repro_mx_batched_tile(B, unroll), warps)
+    work = torch.empty((B * ks, N) if ks > 1 else (1,), dtype=torch.float32,
+                       device=dev)
+    y = torch.empty((B, N), dtype=torch.float32, device=dev)
+    err = lib.repro_mx_gemv_batched(
+        wq.data_ptr(), scales.data_ptr(), xs.data_ptr(), y.data_ptr(),
+        work.data_ptr(), N, K, B, bits, ks, warps, unroll,
+        _build.stream_handle(dev))
+    _build.check(err, "batched_mx_qgemv")
+    batched_launches += 1
     return y
 
 
@@ -272,6 +322,17 @@ mx_qgemv_tuned = troop_kernel(
     flops=lambda wq, s, x: 2.0 * wq.shape[-1] * x.shape[-1],
     bytes=_mx_qgemv_bytes, streamed=_mx_qgemv_streamed, space={},
     ref="mx_qgemv", example=_mx_example)(_untuned(mx_qgemv))
+batched_mx_qgemv_tuned = troop_kernel(
+    "batched_mx_qgemv",
+    flops=lambda wq, s, xs: 2.0 * xs.shape[0] * wq.shape[-1] * xs.shape[-1],
+    bytes=_mx_qgemv_bytes, streamed=_mx_qgemv_streamed,
+    # the JAX quantized GEMVs' space: ``block_n`` / 32 warps a block and
+    # ``unroll`` (columns a lane) move the kernel; ``streams`` and
+    # ``block_k`` feed only the predictor
+    space={"streams": (1, 2), "unroll": (1, 2), "block_n": (128, 256),
+           "block_k": (256, 512)},
+    ref="batched_mx_qgemv",
+    example=functools.partial(_mx_example, batch=4))(batched_mx_qgemv)
 mx_qgemv_swiglu_tuned = troop_kernel(
     "mx_qgemv_swiglu",
     flops=lambda wg, sg, wu, su, x: 4.0 * wg.shape[-1] * x.shape[-1],

@@ -24,19 +24,23 @@ from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import gemv as _gemv
 from repro_torch.kernels import mx_gemv as _mx
 from repro_torch.kernels import prefill_attention as _pre
+from repro_torch.kernels import qgemv as _q
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import unported  # noqa: F401  (registers the rest)
 from repro_torch.kernels.axpy import axpy
 from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_int8,
                                                   decode_attention_stats,
                                                   paged_decode_attention,
                                                   paged_decode_attention_int8)
 from repro_torch.kernels.dotp import dotp
 from repro_torch.kernels.fused_adamw import fused_adamw
 from repro_torch.kernels.gemv import batched_gemv, gemv
-from repro_torch.kernels.mx_gemv import (grouped_expert_qgemv, mx_qgemv,
+from repro_torch.kernels.mx_gemv import (batched_mx_qgemv,
+                                         grouped_expert_qgemv, mx_qgemv,
                                          mx_qgemv_swiglu)
 from repro_torch.kernels.prefill_attention import prefill_attention_paged
+from repro_torch.kernels.qgemv import batched_qgemv, qgemv
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 # kernel name -> (wrapper module, its launch counter, its plain version)
@@ -54,6 +58,11 @@ _KERNELS = {
     "axpy": (_axpy, "launches", "plain"),
     "batched_gemv": (_gemv, "batched_launches", "plain_batched"),
     "decode_attention": (_dec, "dense_launches", "plain_dense"),
+    "qgemv": (_q, "launches", "plain"),
+    "batched_qgemv": (_q, "batched_launches", "plain_batched"),
+    "batched_mx_qgemv": (_mx, "batched_launches", "plain_batched"),
+    "decode_attention_int8": (_dec, "dense_int8_launches",
+                              "plain_dense_int8"),
 }
 
 #: the plain version of each kernel, by name
@@ -97,4 +106,6 @@ __all__ = ["rmsnorm", "gemv", "paged_decode_attention",
            "mx_qgemv", "mx_qgemv_swiglu", "grouped_expert_qgemv",
            "fused_adamw", "dotp", "axpy", "batched_gemv",
            "decode_attention", "decode_attention_stats", "lse_combine",
+           "qgemv", "batched_qgemv", "batched_mx_qgemv",
+           "decode_attention_int8",
            "PLAIN", "launch_counts", "reset_launch_counts", "build"]

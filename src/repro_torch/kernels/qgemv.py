@@ -1,0 +1,172 @@
+"""The quantized GEMV and its batched form: the wrappers of
+``csrc/qgemv.cu``, their launch counts, their plain versions and their
+registry entries.
+
+Replace the JAX package's Pallas ``quant/kernels.py:qgemv`` and
+``quant/kernels.py:batched_qgemv``.  The weight keeps the JAX kernels'
+layout, ``(N, K)`` absmax int8 codes or ``(N, K/2)`` int4 codes packed two a
+byte along K, with ``(N, K/g)`` fp32 scales; ``bits`` says which, as in the
+JAX package (it is never inferred from the shapes).  These kernels take the
+registry's and the tuner's operands: the engine's int weights are stored
+``(K, N)`` and dequantize in the graph, as in the JAX package.  The CUDA
+kernel is bound by the code and scale bytes; ``csrc/qgemv.cu`` says how its
+design meets that.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core.troop import DEFAULT, LaunchConfig
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+from repro_torch.quant.tensor import quantize
+from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
+                                       troop_kernel)
+
+#: kernel launches so far (the CPU path and the plain versions do not count)
+launches = 0
+batched_launches = 0
+
+_P, _I = _build.P, _build.I
+_ARGTYPES = {"repro_qgemv": [_P] * 4 + [_I] * 8 + [_P]}
+#: rows of xs one launch takes
+MAX_BATCH = 16
+_SMEM = 227 * 1024
+
+
+def plain(wq, scales, x, *, bits: int = 8):
+    """The plain PyTorch version of ``qgemv``: (N,) fp32."""
+    return ref.qgemv(wq, scales, x, bits=bits)
+
+
+def plain_batched(wq, scales, xs, *, bits: int = 8):
+    """The plain PyTorch version of ``batched_qgemv``: (B, N) fp32."""
+    return ref.batched_qgemv(wq, scales, xs, bits=bits)
+
+
+def _launch(name, wq, scales, xs, bits, cfg):
+    """Y (B, N) fp32 from the kernel, after the checks it needs."""
+    N = wq.shape[0] if wq.dim() == 2 else -1
+    B, K = xs.shape if xs.dim() == 2 else (-1, -1)
+    vec = 32 if bits == 4 else 16
+    G = scales.shape[1] if scales.dim() == 2 else -1
+    if (bits not in (8, 4) or wq.dtype != torch.int8 or wq.dim() != 2
+            or wq.shape[1] != (K // 2 if bits == 4 else K)
+            or scales.dtype != torch.float32 or scales.shape != (N, G)
+            or xs.dtype != torch.bfloat16 or not 1 <= B <= MAX_BATCH
+            or K % vec or G < 1 or K % G or (K // G) % vec
+            or B * K * 2 > _SMEM
+            or not all(t.device == wq.device and t.is_contiguous()
+                       for t in (wq, scales, xs))
+            or wq.data_ptr() % 16 or xs.data_ptr() % 16):
+        raise ValueError(
+            f"{name} kernel takes contiguous, 16-byte aligned int8 codes "
+            f"(N, K) (bits=8) or packed int4 (N, K/2) (bits=4), fp32 scales "
+            f"(N, G) with whole {vec}-code vectors in each of the G groups, "
+            f"and bf16 x with 1 <= rows <= {MAX_BATCH} and rows * K * 2 <= "
+            f"{_SMEM} bytes, on one device; got codes {tuple(wq.shape)} "
+            f"{wq.dtype}, scales {tuple(scales.shape)} {scales.dtype}, x "
+            f"{tuple(xs.shape)} {xs.dtype}, bits {bits}")
+    warps, rows = cfg.block_n // 32, cfg.unroll
+    if not 1 <= warps <= 32 or rows not in (1, 2, 4):
+        raise ValueError(f"{name}: block_n {cfg.block_n} (32 threads a "
+                         f"warp, up to 32 warps) and unroll {cfg.unroll} "
+                         f"(W rows a warp: 1, 2 or 4) out of range")
+    sms = _build.sm_count(wq.device)
+    per_sm = max(1, min(2048 // (warps * 32), _SMEM // (B * K * 2)))
+    blocks = max(1, min(-(-N // (warps * rows)), sms * per_sm))
+    y = torch.empty((B, N), dtype=torch.float32, device=wq.device)
+    lib = _build.library("qgemv", _ARGTYPES)
+    err = lib.repro_qgemv(wq.data_ptr(), scales.data_ptr(), xs.data_ptr(),
+                          y.data_ptr(), N, K, G, B, bits, warps, rows, blocks,
+                          _build.stream_handle(wq.device))
+    _build.check(err, name)
+    return y
+
+
+def qgemv(wq, scales, x, cfg: LaunchConfig = DEFAULT, *, bits: int = 8):
+    """y (N,) fp32 = dequant(wq, scales) . x for codes wq (N, K) int8
+    (``bits=8``) or (N, K/2) packed int4 (``bits=4``), scales (N, K/g) fp32
+    and x (K,).  ``cfg.block_n`` / 32 warps a block, ``cfg.unroll`` W rows
+    a warp.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16 x) or raises."""
+    global launches
+    if wq.device.type == "cpu":
+        return plain(wq, scales, x, bits=bits)
+    if wq.device.type != "cuda":
+        raise ValueError(f"qgemv: unsupported device {wq.device}")
+    if x.dim() != 1:
+        raise ValueError(f"qgemv kernel takes one row x (K,); got "
+                         f"{tuple(x.shape)} (batched_qgemv takes rows)")
+    y = _launch("qgemv", wq, scales, x[None], bits, cfg)
+    launches += 1
+    return y.reshape(-1)
+
+
+def batched_qgemv(wq, scales, xs, cfg: LaunchConfig = DEFAULT, *,
+                  bits: int = 8):
+    """Y (B, N) fp32 = xs (B, K) . dequant(wq, scales)^T: ``qgemv`` of every
+    row of xs, reading the codes once for all of them.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16 xs, 1 <= B <= 16) or raises."""
+    global batched_launches
+    if wq.device.type == "cpu":
+        return plain_batched(wq, scales, xs, bits=bits)
+    if wq.device.type != "cuda":
+        raise ValueError(f"batched_qgemv: unsupported device {wq.device}")
+    y = _launch("batched_qgemv", wq, scales, xs, bits, cfg)
+    batched_launches += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# registry entries (the JAX package's cost models and example shapes)
+# --------------------------------------------------------------------------
+# the JAX quantized GEMVs' space: ``block_n`` / 32 warps a block and
+# ``unroll`` W rows a warp move the CUDA kernels; ``streams`` and
+# ``block_k`` feed only the predictor
+_QSPACE = {"streams": (1, 2), "unroll": (1, 2),
+           "block_n": (128, 256), "block_k": (256, 512)}
+
+
+def _q_example(small: bool = True, device=None, batch: int = 0,
+               bits: int = 8):
+    """The JAX ``_example``: (N, K) seeded weights quantized along K in
+    groups of 128, x (K,) or xs (batch, K) bf16; ``bits=4`` passes
+    ``bits`` as the kernel's keyword."""
+    N, K = (128, 512) if small else (2048, 4096)
+    qt = quantize(seeded(0, (N, K), torch.float32, device=device), bits=bits,
+                  group_size=128, axis=-1)
+    x = seeded(1, (batch, K) if batch else (K,), device=device)
+    return (qt.values, qt.scales, x), ({} if bits == 8 else {"bits": bits})
+
+
+def _qgemv_bytes(wq, s, x):
+    K = x.shape[-1]
+    B = x.shape[0] if len(x.shape) == 2 else 1
+    return (numel(wq) * itemsize(wq) + numel(s) * itemsize(s)
+            + B * K * itemsize(x) + B * wq.shape[0] * 4)
+
+
+def _qgemv_streamed(wq, s, x):
+    out = (x.shape[0], wq.shape[0]) if len(x.shape) == 2 else (wq.shape[0],)
+    return [wq, s, x, meta(out, torch.float32)]
+
+
+#: the quantized GEMVs through the tune registry
+qgemv_tuned = troop_kernel(
+    "qgemv",
+    flops=lambda wq, s, x: 2.0 * wq.shape[0] * x.shape[0],
+    bytes=_qgemv_bytes, streamed=_qgemv_streamed, space=_QSPACE,
+    key_kwargs=("bits",), ref="qgemv", example=_q_example)(qgemv)
+batched_qgemv_tuned = troop_kernel(
+    "batched_qgemv",
+    flops=lambda wq, s, xs: 2.0 * xs.shape[0] * wq.shape[0] * xs.shape[1],
+    bytes=_qgemv_bytes, streamed=_qgemv_streamed, space=_QSPACE,
+    key_kwargs=("bits",), ref="batched_qgemv",
+    example=functools.partial(_q_example, batch=4))(batched_qgemv)

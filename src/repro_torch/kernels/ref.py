@@ -32,6 +32,20 @@ def batched_gemv(w, xs):
     return xs.float() @ w.float().t()
 
 
+def qgemv(wq, scales, x, *, bits: int = 8):
+    """Fused-dequant GEMV oracle: grouped dequant along K in fp32, then an
+    fp32 product: wq (N, K | K/2-packed), scales (N, K/g), x (K,) or
+    (B, K) -> (N,) or (B, N).  ``bits`` is explicit (4 = nibble-packed
+    along K), never inferred."""
+    w = dequantize_values(wq, scales, axis=-1, bits=bits)
+    return x.float() @ w.t()
+
+
+def batched_qgemv(wq, scales, xs, *, bits: int = 8):
+    """xs (B, K) -> (B, N): the same oracle."""
+    return qgemv(wq, scales, xs, bits=bits)
+
+
 def rmsnorm(x, scale, eps=1e-6):
     xf = x.float()
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
@@ -70,6 +84,15 @@ def decode_attention(q, k, v, length):
     return out.reshape(B, H, hd)
 
 
+def decode_attention_int8(q, k8, k_scale, v8, v_scale, length):
+    """Quantized flash-decode oracle: dequantize the int8 cache (values x
+    per-(token, head) scale, fp32), then the dense decode_attention
+    oracle."""
+    k = k8.float() * k_scale.float()
+    v = v8.float() * v_scale.float()
+    return decode_attention(q, k, v, length)
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, length):
     """Paged flash-decode oracle: gather the block table to the dense
     logical view, then the dense decode_attention oracle."""
@@ -106,6 +129,11 @@ def mx_qgemv(wq, scales, x):
     """MX GEMV oracle: x (K,) or (B, K) -> (N,) or (B, N), block-exponent
     dequant then an fp32 product."""
     return x.float() @ _mx_dequant(wq, scales)
+
+
+def batched_mx_qgemv(wq, scales, xs):
+    """xs (B, K) -> (B, N): the MX GEMV oracle on every row."""
+    return mx_qgemv(wq, scales, xs)
 
 
 def mx_qgemv_swiglu(wg, sg, wu, su, x):

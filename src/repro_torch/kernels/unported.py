@@ -9,20 +9,10 @@ ports them.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from repro_torch.core.troop import LaunchConfig
-from repro_torch.kernels.mx_gemv import (_mx_example, _mx_qgemv_bytes,
-                                         _mx_qgemv_streamed)
-from repro_torch.quant.tensor import quantize, quantize_kv
 from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
                                        troop_kernel)
-
-# the JAX quantized GEMVs' space
-_QSPACE = {"streams": (1, 2), "unroll": (1, 2),
-           "block_n": (128, 256), "block_k": (256, 512)}
 
 
 def _not_ported(name: str, jax_fn: str):
@@ -32,34 +22,6 @@ def _not_ported(name: str, jax_fn: str):
             f"ROADMAP item 11 (the remaining TPU kernels)")
     fn.__name__ = name
     return fn
-
-
-def _q_example(small: bool = True, device=None, batch: int = 0):
-    N, K = (128, 512) if small else (2048, 4096)
-    qt = quantize(seeded(0, (N, K), torch.float32, device=device), bits=8,
-                  group_size=128, axis=-1)
-    x = seeded(1, (batch, K) if batch else (K,), device=device)
-    return (qt.values, qt.scales, x), {}
-
-
-def _qgemv_bytes(wq, s, x):
-    K = x.shape[-1]
-    B = x.shape[0] if len(x.shape) == 2 else 1
-    return (numel(wq) * itemsize(wq) + numel(s) * itemsize(s)
-            + B * K * itemsize(x) + B * wq.shape[0] * 4)
-
-
-def _qgemv_streamed(wq, s, x):
-    out = (x.shape[0], wq.shape[0]) if len(x.shape) == 2 else (wq.shape[0],)
-    return [wq, s, x, meta(out, torch.float32)]
-
-
-def _int8_example(small: bool = True, device=None):
-    from repro_torch.kernels.decode_attention import _example
-    (q, k, v, length), _ = _example(small, device)
-    k8, ks = quantize_kv(k)
-    v8, vs = quantize_kv(v)
-    return (q, k8, ks, v8, vs, length), {}
 
 
 def _flash_example(small: bool = True, device=None):
@@ -95,45 +57,6 @@ def _mamba_example(small: bool = True, device=None):
     s0 = torch.zeros((b, di, ds), device=x.device)
     return (x, dt, B, C, A, D, s0), {}
 
-
-qgemv = troop_kernel(
-    "qgemv",
-    flops=lambda wq, s, x: 2.0 * wq.shape[0] * x.shape[0],
-    bytes=_qgemv_bytes, streamed=_qgemv_streamed, space=_QSPACE,
-    key_kwargs=("bits",), example=_q_example,
-)(_not_ported("qgemv", "quant/kernels.py:174 qgemv"))
-
-batched_qgemv = troop_kernel(
-    "batched_qgemv",
-    flops=lambda wq, s, xs: 2.0 * xs.shape[0] * wq.shape[0] * xs.shape[1],
-    bytes=_qgemv_bytes, streamed=_qgemv_streamed, space=_QSPACE,
-    key_kwargs=("bits",),
-    example=functools.partial(_q_example, batch=4),
-)(_not_ported("batched_qgemv", "quant/kernels.py:191 batched_qgemv"))
-
-batched_mx_qgemv = troop_kernel(
-    "batched_mx_qgemv",
-    flops=lambda wq, s, xs: 2.0 * xs.shape[0] * wq.shape[-1] * xs.shape[-1],
-    bytes=_mx_qgemv_bytes, streamed=_mx_qgemv_streamed, space=_QSPACE,
-    example=functools.partial(_mx_example, batch=4),
-)(_not_ported("batched_mx_qgemv", "quant/kernels.py:367 batched_mx_qgemv"))
-
-decode_attention_int8 = troop_kernel(
-    "decode_attention_int8",
-    flops=lambda q, k8, ks, v8, vs, ln: (4.0 * q.shape[0] * q.shape[1]
-                                         * k8.shape[1] * k8.shape[3]),
-    # the scale tensors are streamed too (one row per cache row)
-    bytes=lambda q, k8, ks, v8, vs, ln: (
-        k8.shape[0] * k8.shape[1] * k8.shape[2] * k8.shape[3]
-        * (itemsize(k8) + itemsize(v8))
-        + k8.shape[0] * k8.shape[1] * k8.shape[2]
-        * (itemsize(ks) + itemsize(vs))
-        + q.shape[0] * q.shape[1] * q.shape[2] * 2 * itemsize(q)),
-    streamed=lambda q, k8, ks, v8, vs, ln: [k8, v8, ks, vs, q, q],
-    space={"streams": (1,), "unroll": (1, 2), "block_k": (256, 512)},
-    default=LaunchConfig(streams=1), example=_int8_example,
-)(_not_ported("decode_attention_int8",
-              "kernels/decode_attention.py:354 decode_attention_int8"))
 
 flash_attention = troop_kernel(
     "flash_attention",

@@ -2,17 +2,20 @@
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b|qwen2-moe-a2.7b \\
         --chunked-prefill --prefix-cache --kernel-decode \\
-        [--quantize-weights mx4|fp8] [--kv-cache-dtype int8] [--smoke] \\
-        [--device cpu]
+        [--quantize-weights int8|int4|mx4|fp8] [--quantize-group-size G] \\
+        [--kv-cache-dtype int8] [--smoke] [--device cpu]
 
 Serves a seeded trace of requests through the chunked, paged engine and
 prints the engine metrics.  ``--kernel-decode`` routes norms, one-row
 projections and the paged attention through the CUDA kernels (on the CPU
-their plain versions run).  ``--quantize-weights`` MX-quantizes the
-projections after the random init; ``--kv-cache-dtype int8`` stores the
-KV pages in int8 with scale pages (32-row pages by default).  ``--smoke``
-uses the reduced config.  The default device is the CUDA card; without one
-the launcher exits with an error unless ``--device cpu`` is given.
+their plain versions run).  ``--quantize-weights`` quantizes the
+projections after the random init: absmax int8 / int4 in groups of
+``--quantize-group-size`` rows (dequantized in the graph, as the JAX
+package does), or MX (through the MX kernels); ``--kv-cache-dtype int8``
+stores the KV pages in int8 with scale pages (32-row pages by default).
+``--smoke`` uses the reduced config.  The default device is the CUDA card;
+without one the launcher exits with an error unless ``--device cpu`` is
+given.
 """
 import argparse
 import contextlib
@@ -42,12 +45,18 @@ def main(argv=None):
                     help="tokens per page (default: the layout granule — "
                          "16 for bf16 pools, 32 for --kv-cache-dtype int8)")
     ap.add_argument("--num-pages", type=int, default=None)
-    ap.add_argument("--quantize-weights", choices=("none", "mx4", "fp8"),
+    ap.add_argument("--quantize-weights",
+                    choices=("none", "int8", "int4", "mx4", "fp8"),
                     default="none",
-                    help="MX-quantize the projection weights and MoE "
-                         "expert stacks (E8M0 32-row block exponents, fp4 "
-                         "or fp8 codes); embeddings, norms, biases and MoE "
-                         "routers stay raw")
+                    help="int8|int4: absmax-quantize the projection weights "
+                         "(fp32 scales per group of --quantize-group-size "
+                         "rows; MoE expert stacks stay raw); mx4|fp8: "
+                         "MX-quantize them and the MoE expert stacks (E8M0 "
+                         "32-row block exponents, fp4 or fp8 codes); "
+                         "embeddings, norms, biases and MoE routers stay raw")
+    ap.add_argument("--quantize-group-size", type=int, default=128,
+                    help="scale group along K for --quantize-weights "
+                         "int8|int4 (multiple of the 32-row layout granule)")
     ap.add_argument("--kv-cache-dtype", choices=("model", "int8"),
                     default="model",
                     help="int8: int8 page pools + bf16 scale pages")
@@ -86,7 +95,8 @@ def main(argv=None):
         prefix_cache=args.prefix_cache, seed=args.seed,
         kernel_decode=args.kernel_decode,
         kv_cache_dtype="int8" if args.kv_cache_dtype == "int8" else "",
-        quantize_weights=args.quantize_weights).validate()
+        quantize_weights=args.quantize_weights,
+        quantize_group_size=args.quantize_group_size).validate()
     engine = build_engine(cfg, engine_cfg, device=device, seed=args.seed)
     if args.quantize_weights != "none":
         qs = quantized_stats(engine.model.params)
@@ -94,6 +104,9 @@ def main(argv=None):
               f"({args.quantize_weights}): {qs['quantized_bytes']:,} B "
               f"(was {qs['quantized_fp32_bytes']:,} B fp32); "
               f"{qs['raw_bytes']:,} B left raw")
+        if args.quantize_weights in ("int8", "int4"):
+            print("int weights dequantize in the graph (no qgemv dispatch; "
+                  "as in the JAX package)")
     rng = np.random.default_rng(args.seed)
     top = min(cfg.vocab_size, 1000)
     system_prompt = rng.integers(1, top, 24) if args.prefix_cache else None

@@ -167,7 +167,15 @@ def embed_init(vocab: int, d: int, *, generator, device) -> nn.ParameterDict:
 
 
 def apply_embed(p, ids, dtype):
-    return F.embedding(ids.long(), p["table"]).to(dtype)
+    """The rows of ``ids`` in ``dtype``.  The JAX package casts the whole
+    table and then gathers, so the gradient rows of a repeated id add in
+    ``dtype``; a table that takes a gradient does the same here.  Otherwise
+    (serving) the rows are gathered first and cast: the same values,
+    without a cast of the whole table."""
+    table = p["table"]
+    if table.requires_grad and torch.is_grad_enabled():
+        return F.embedding(ids.long(), table.to(dtype))
+    return F.embedding(ids.long(), table).to(dtype)
 
 
 # --------------------------------------------------------------------------

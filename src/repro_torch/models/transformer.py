@@ -37,7 +37,8 @@ class RuntimeConfig:
     cache_dtype: str = "bfloat16"  # KV storage name (sets the page granule)
     paged_kernel_decode: bool = False  # paged attention via the CUDA
     #   kernels (no gathered dense view); default: the plain path
-    quantize_weights: str = "none"  # none|mx4|fp8: the weight format tag
+    quantize_weights: str = "none"  # none|int8|int4|mx4|fp8: the weight
+    #   format tag
     #   (build_engine quantizes a native init with quant.quantize_params)
     kv_cache_dtype: str = ""       # "" -> cache_dtype; "int8": int8 page
     #   pools + scale pages
@@ -48,10 +49,10 @@ class RuntimeConfig:
         return self.kv_cache_dtype or self.cache_dtype
 
     def validate(self) -> "RuntimeConfig":
-        if self.quantize_weights not in ("none", "mx4", "fp8"):
-            raise NotImplementedError(
-                f"{self.quantize_weights} weights are not ported yet: "
-                f"ROADMAP queue 1 item 7 (int8/int4 weights)")
+        if self.quantize_weights not in ("none", "int8", "int4", "mx4",
+                                         "fp8"):
+            raise ValueError(f"quantize_weights must be one of none|int8|"
+                             f"int4|mx4|fp8, got {self.quantize_weights!r}")
         if self.remat == "dots_tp":
             raise NotImplementedError(
                 "remat='dots_tp' saves tensor-parallel outputs: not ported "

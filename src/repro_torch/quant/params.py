@@ -1,17 +1,19 @@
-"""``quantize_params``: MX-quantize the projection weights of a parameter
-tree by path policy (the JAX package's ``quant/params.py``, MX formats).
+"""``quantize_params``: quantize the projection weights of a parameter
+tree by path policy (the JAX package's ``quant/params.py``): absmax int8 or
+int4 (``fmt="int"``) or MX (``fmt="mx4"`` / ``"fp8"``).
 
-The policy is the JAX package's MX policy: the ``w`` leaves of the dense
-projections applied through ``modules.apply_dense`` (attention q/k/v/o, the
-MLP halves, the ``lm_head``) quantize, and so do the MoE expert stacks
-``wi_up`` / ``wi_gate`` / ``wo`` (the JAX package's policy flip: its int
-formats keep expert stacks raw, MX quantizes them for the grouped expert
-kernel); embeddings, norms, biases, MoE routers and ``shared_gate`` stay
-raw.  The port's projections are stored ``(out, in)`` (expert stacks
-``(E, out, in)``); a quantized one is stored as the JAX package stores it,
-``(in, out)`` (``(E, in, out)``) with the E8M0 blocks running down the
-contraction axis (``axis=-2``), so the codes are the JAX package's byte for
-byte and the MX kernels walk them without a transpose.
+The policy is the JAX package's: the ``w`` leaves of the dense projections
+applied through ``modules.apply_dense`` (attention q/k/v/o, the MLP halves,
+the ``lm_head``) quantize; embeddings, norms, biases, MoE routers and
+``shared_gate`` stay raw.  The MoE expert stacks ``wi_up`` / ``wi_gate`` /
+``wo`` stay raw under ``fmt="int"`` and quantize under MX (the JAX
+package's policy flip: the grouped expert kernel reads MX stacks).  The
+port's projections are stored ``(out, in)`` (expert stacks ``(E, out,
+in)``); a quantized one is stored as the JAX package stores it, ``(in,
+out)`` (``(E, in, out)``) with its scale groups (int: ``group_size`` rows;
+MX: 32-row E8M0 blocks) running down the contraction axis (``axis=-2``),
+so the codes are the JAX package's byte for byte and carry across the
+bridge unchanged.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
-from repro_torch.quant.tensor import QuantizedTensor, quantize_mx
+from repro_torch.quant.tensor import (QuantizedTensor, granule, quantize,
+                                      quantize_mx)
 
 # dense projections that every model applies via modules.apply_dense
 QUANTIZE_KEYS = frozenset({
@@ -42,27 +45,49 @@ def default_policy(keys: Tuple[str, ...], leaf) -> bool:
             and leaf.is_floating_point())
 
 
-def quantize_params(params: nn.Module, *, fmt: str) -> nn.Module:
+def quantize_params(params: nn.Module, *, bits: int = 8,
+                    group_size: int = 128, fmt: str = "int") -> nn.Module:
     """The tree ``params`` with each ``default_policy``-selected ``w`` leaf
-    replaced by its ``QuantizedTensor`` (``fmt="mx4"``: fp4 e2m1 codes,
-    ``"fp8"``: e4m3 codes; E8M0 scales per 32-row block either way), for
-    one device (the JAX package's ``tp=1``).  The raw leaves are shared
-    with ``params``, which is left as it was."""
-    if fmt not in ("mx4", "fp8"):
-        raise NotImplementedError(f"fmt {fmt!r}: int8/int4 weights are not "
-                                  f"ported yet — ROADMAP queue 1 item 7")
-    elem = "fp4" if fmt == "mx4" else "fp8"
+    replaced by its ``QuantizedTensor``, for one device (the JAX package's
+    ``tp=1``).  ``fmt="int"``: absmax int8 (``bits=8``) or int4 (``bits=4``,
+    two values a byte along the contraction axis; a leaf whose contraction
+    extent is odd stays int8) in groups of ``group_size`` rows, a multiple
+    of the int8 layout granule, with fp32 scales; MoE expert stacks stay
+    raw.  ``fmt="mx4"`` / ``"fp8"``: fp4 e2m1 / e4m3 codes with E8M0
+    scales per 32-row block (``bits`` and ``group_size`` are not read),
+    expert stacks included.  The raw leaves are shared with ``params``,
+    which is left as it was."""
+    if fmt not in ("int", "mx4", "fp8"):
+        raise ValueError(f"fmt must be int|mx4|fp8: {fmt}")
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if group_size % granule():
+        raise ValueError(
+            f"group_size {group_size} not a multiple of the {granule()}-row "
+            f"int8 layout granule")
+    mx = fmt != "int"
 
-    def visit(keys, node):
+    def quantized(v):
+        w = v.detach().transpose(-2, -1)                  # (in, out)
+        if mx:
+            return quantize_mx(w, elem="fp4" if fmt == "mx4" else "fp8",
+                               axis=-2)
+        # int4 packs pairs along the contraction axis: odd extents stay int8
+        b = bits if (bits == 8 or w.shape[-2] % 2 == 0) else 8
+        return quantize(w, bits=b, group_size=group_size, axis=-2)
+
+    def visit(keys, node, experts=False):
         if isinstance(node, nn.ParameterDict):
             out = nn.ParameterDict()
             for k, v in node.items():
-                out[k] = quantize_mx(v.detach().transpose(-2, -1),
-                                     elem=elem, axis=-2) \
-                    if default_policy(keys + (k,), v) else v
+                out[k] = quantized(v) if default_policy(keys + (k,), v) \
+                    and not (experts and not mx) else v
             return out
         if isinstance(node, nn.ModuleDict):
-            return nn.ModuleDict({k: visit(keys + (k,), v)
+            # a dict that holds a router is a MoE block: its direct
+            # projection dicts are the stacked expert weights
+            moe = "router" in node
+            return nn.ModuleDict({k: visit(keys + (k,), v, moe)
                                   for k, v in node.items()})
         if isinstance(node, nn.ModuleList):
             return nn.ModuleList([visit(keys + (str(i),), v)

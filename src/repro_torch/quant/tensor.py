@@ -1,10 +1,11 @@
 """QuantizedTensor and the quantize / dequantize primitives of the port.
 
 A copy of what the port needs from the JAX package's ``quant/tensor.py``
-(which imports JAX): absmax int8 quantization (the KV-page layout), MX
-microscaling (per-32-row-block E8M0 shared exponents with fp4 e2m1 or fp8
-e4m3 element codes) and their inverses.  The codes and scales are the JAX
-package's byte for byte: ``floor(log2)`` and ``exp2`` are XLA's CPU
+(which imports JAX): absmax int8 and int4 quantization (int4 packs two
+values per byte along the grouped axis; the int8 KV-page layout is the
+one-group case), MX microscaling (per-32-row-block E8M0 shared exponents
+with fp4 e2m1 or fp8 e4m3 element codes) and their inverses.  The codes
+and scales are the JAX package's byte for byte: ``floor(log2)`` and ``exp2`` are XLA's CPU
 conventions (``repro_torch.core.xla_cpu``; ROADMAP §3 lists the inputs
 where they still differ), and ``jnp.digitize(x, bins)`` is
 ``torch.bucketize(x, bins, right=True)``.
@@ -38,6 +39,13 @@ def granule() -> int:
     """Layout granule (rows) of the int8 storage dtype: MX blocks and int8
     KV pages tile in multiples of it."""
     return sublane("int8")
+
+
+def _qmax(bits: int) -> int:
+    """The largest absmax code: 127 for int8, 7 for int4."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    return 127 if bits == 8 else 7
 
 
 # --------------------------------------------------------------------------
@@ -82,6 +90,31 @@ def unpack_fp4(packed: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return out.movedim(-1, axis).contiguous()
 
 
+def pack_int4(q: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Pack int8-held int4 values (range [-7, 7]) two per byte along
+    ``axis`` (even index -> low nibble, odd -> high).  The extent must be
+    even."""
+    qm = q.movedim(axis, -1)
+    K = qm.shape[-1]
+    if K % 2:
+        raise ValueError(f"int4 packing needs an even extent, got {K}")
+    pairs = qm.reshape(qm.shape[:-1] + (K // 2, 2)).to(torch.int8)
+    lo = pairs[..., 0] & 0x0F
+    hi = pairs[..., 1] << 4                  # wraps mod 256: the nibble
+    return (lo | hi).movedim(-1, axis).contiguous()
+
+
+def unpack_int4(packed: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of ``pack_int4``: (..., K/2) int8 -> (..., K) int8 values,
+    each nibble sign-extended by an arithmetic shift."""
+    pm = packed.movedim(axis, -1).to(torch.int8)
+    lo = (pm << 4) >> 4
+    hi = pm >> 4
+    out = torch.stack([lo, hi], dim=-1)
+    out = out.reshape(pm.shape[:-1] + (2 * pm.shape[-1],))
+    return out.movedim(-1, axis).contiguous()
+
+
 def e8m0_decode(scales: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 E8M0 biased exponents -> scale factors 2^(s - 127)."""
     return exp2(scales.float() - E8M0_BIAS).to(dtype)
@@ -122,7 +155,7 @@ class QuantizedTensor(nn.Module):
     def shape(self):
         """Logical (unpacked) shape."""
         s = list(self.codes.shape)
-        if self.bits == 4:
+        if self.bits == 4 and self.axis is not None:
             s[self.axis] *= 2
         return tuple(s)
 
@@ -141,17 +174,16 @@ class QuantizedTensor(nn.Module):
 
 def absmax_scales(x: torch.Tensor, *, bits: int = 8, group_size=None,
                   axis: Optional[int] = -1, eps: float = 1e-8):
-    """Absmax calibration: per-group max(|x|) / 127 (floored at ``eps``).
+    """Absmax calibration: per-group max(|x|) / qmax (127 for int8, 7 for
+    int4; floored at ``eps``).
 
     ``axis=None`` -> one scalar scale; otherwise groups of ``group_size``
     along ``axis`` (``None`` or a non-dividing size makes one group per
     row).  Returns (fp32 scales, effective group size)."""
-    if bits != 8:
-        raise NotImplementedError("int4 is not ported yet: ROADMAP queue 1 "
-                                  "item 7 (int8/int4 weights)")
+    q = _qmax(bits)
     xf = x.float().abs()
     if axis is None:
-        return torch.clamp(xf.max() / 127, min=eps), 0
+        return torch.clamp(xf.max() / q, min=eps), 0
     ax = axis if axis < 0 else axis - x.dim()
     K = x.shape[ax]
     g = group_size or K
@@ -159,28 +191,32 @@ def absmax_scales(x: torch.Tensor, *, bits: int = 8, group_size=None,
         g = K
     xm = xf.movedim(ax, -1)
     amax = xm.reshape(xm.shape[:-1] + (K // g, g)).amax(dim=-1)
-    return torch.clamp(amax / 127, min=eps).movedim(-1, ax), g
+    return torch.clamp(amax / q, min=eps).movedim(-1, ax), g
 
 
 def quantize(x: torch.Tensor, *, bits: int = 8, group_size=None,
              axis: Optional[int] = -1, eps: float = 1e-8,
              scale_dtype=torch.float32) -> QuantizedTensor:
-    """Absmax-quantize ``x`` to int8 (clipped to [-127, 127]), rounding
-    with the fp32 scales and storing them as ``scale_dtype``."""
+    """Absmax-quantize ``x``, rounding with the fp32 scales and storing
+    them as ``scale_dtype``: int8 clips to [-127, 127]; int4 to [-7, 7]
+    and packs two values a byte along ``axis`` (the extent must be
+    even)."""
+    qmax = _qmax(bits)
     scales, g = absmax_scales(x, bits=bits, group_size=group_size,
                               axis=axis, eps=eps)
     xf = x.float()
     if axis is None:
-        q = torch.clamp(torch.round(xf / scales), -127, 127)
+        q = torch.clamp(torch.round(xf / scales), -qmax, qmax)
         return QuantizedTensor(q.to(STORAGE_DTYPE), scales.to(scale_dtype),
-                               8, 0, None)
+                               bits, 0, None)
     ax = axis if axis < 0 else axis - x.dim()
     xm = xf.movedim(ax, -1)
     sm = scales.movedim(ax, -1)
     q = xm.reshape(xm.shape[:-1] + (sm.shape[-1], g)) / sm[..., None]
-    q = torch.clamp(torch.round(q), -127, 127).to(STORAGE_DTYPE)
-    return QuantizedTensor(q.reshape(xm.shape).movedim(-1, ax).contiguous(),
-                           scales.to(scale_dtype), 8, g, ax)
+    q = torch.clamp(torch.round(q), -qmax, qmax).to(STORAGE_DTYPE)
+    q = q.reshape(xm.shape).movedim(-1, ax)
+    q = pack_int4(q, axis=ax) if bits == 4 else q.contiguous()
+    return QuantizedTensor(q, scales.to(scale_dtype), bits, g, ax)
 
 
 def quantize_mx(x: torch.Tensor, *, elem: str = "fp4", axis: int = -2,
@@ -225,7 +261,8 @@ def dequantize_values(values: torch.Tensor, scales: torch.Tensor, *,
                       fmt: str = "int", dtype=torch.float32) -> torch.Tensor:
     """Values times their group's scale, computed in fp32, returned in
     ``dtype``: the inverse of ``quantize`` / ``quantize_mx`` (up to
-    rounding) on the raw (values, scales) pair."""
+    rounding) on the raw (values, scales) pair; ``bits=4`` unpacks the
+    nibbles along ``axis`` first."""
     if axis is None:
         return (values.float() * scales.float()).to(dtype)
     if fmt == "mx":
@@ -233,7 +270,7 @@ def dequantize_values(values: torch.Tensor, scales: torch.Tensor, *,
             else values.float()
         sm = e8m0_decode(scales.movedim(axis, -1))
     else:
-        v = values
+        v = unpack_int4(values, axis=axis) if bits == 4 else values
         sm = scales.movedim(axis, -1).float()
     vm = v.movedim(axis, -1).float()
     K, n = vm.shape[-1], sm.shape[-1]
@@ -265,6 +302,7 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
 
 
 __all__ = ["QuantizedTensor", "granule", "fp4_encode", "fp4_decode",
-           "pack_fp4", "unpack_fp4", "e8m0_decode", "absmax_scales",
+           "pack_fp4", "unpack_fp4", "pack_int4", "unpack_int4",
+           "e8m0_decode", "absmax_scales",
            "quantize", "quantize_mx", "dequantize", "dequantize_values",
            "quantize_kv", "dequantize_kv", "FP4_VALUES", "E8M0_BIAS"]

@@ -4,9 +4,9 @@
 scalar engine option, with the same fields and the same ``validate()``
 messages, so a config means the same thing in both packages.  The port's
 ``build_engine`` serves the chunked, paged, greedy path, with bf16 or int8
-KV pages and raw or MX (``mx4`` / ``fp8``) weights; an option that needs a
-part not ported yet raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.
+KV pages and raw, absmax int (``int8`` / ``int4``) or MX (``mx4`` /
+``fp8``) weights; an option that needs a part not ported yet raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -98,8 +98,6 @@ class EngineConfig:
              "the dense backend and bucketed prefill: ROADMAP queue 1 item 6"),
             (self.temperature > 0, "temperature sampling: ROADMAP queue 1 "
                                    "item 6 (serving engine)"),
-            (self.quantize_weights in ("int8", "int4"),
-             "int8/int4 weights: ROADMAP queue 1 item 7"),
             (self.speculate_k > 0, "speculation: ROADMAP queue 1 item 9"),
             (self.tp > 1, "tensor parallelism: ROADMAP queue 1 item 12"),
         ]
@@ -128,11 +126,13 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
     parameters and runtime switches then win — e.g. weights bridged from
     the JAX package).  Otherwise the weights are a random init from
     ``seed`` made on ``device`` (the CUDA card unless ``device="cpu"``),
-    MX-quantized after the init when ``quantize_weights`` is ``"mx4"`` or
-    ``"fp8"``.  The engine's kernels launch with the configs
-    ``serve.step.tuned_kernel_configs`` resolves from the tune cache at the
-    engine's shapes (``serve_step.troop_configs``); an empty cache gives
-    the defaults."""
+    quantized after the init as the JAX factory does: MX when
+    ``quantize_weights`` is ``"mx4"`` or ``"fp8"``, absmax int8 or int4 in
+    groups of ``quantize_group_size`` rows when it is ``"int8"`` or
+    ``"int4"`` (those dequantize in the graph).  The engine's kernels
+    launch with the configs ``serve.step.tuned_kernel_configs`` resolves
+    from the tune cache at the engine's shapes
+    (``serve_step.troop_configs``); an empty cache gives the defaults."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, RuntimeConfig, build_model
     from repro_torch.quant import quantize_params
@@ -148,9 +148,13 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
                            quantize_weights=engine_cfg.quantize_weights,
                            kv_cache_dtype=engine_cfg.kv_cache_dtype)
         model = build_model(cfg, rt, device=device, seed=seed)
-        if engine_cfg.quantize_weights != "none":
+        q = engine_cfg.quantize_weights
+        if q in ("mx4", "fp8"):
+            model = Model(cfg, rt, quantize_params(model.params, fmt=q))
+        elif q != "none":
             model = Model(cfg, rt, quantize_params(
-                model.params, fmt=engine_cfg.quantize_weights))
+                model.params, bits=8 if q == "int8" else 4,
+                group_size=engine_cfg.quantize_group_size))
     # the decode-path kernels' tuned launch parameters, resolved once here
     # (as the JAX factory does); the engine's steps launch with them
     configs = tuned_kernel_configs(

@@ -34,7 +34,11 @@ def tuned_kernel_configs(model_cfg, batch_size: int, max_seq: int,
     projection.  The paged pool geometry comes from ``PageSpec.for_engine``
     — the same formula the engine allocates with — so the key always
     matches the pool the engine will run (pass ``num_pages`` when
-    overcommitting).  Names not ported yet answer their default."""
+    overcommitting).  Every name answers its tuned config from the cache,
+    ``qgemv`` (int8 codes of the read-out) and ``decode_attention_int8``
+    (the dense int8 cache) included, and its default when untuned; the
+    engine's steps launch only the paged path's kernels
+    (``launch_config``)."""
     import repro_torch.kernels  # noqa: F401  (populates the tune registry)
     from repro_torch.quant.tensor import granule
     from repro_torch.serve.kvcache import PageSpec

@@ -24,7 +24,11 @@ error: it rounds its plain version's fp32 multiply and add each on its own.
 dotp at 1e-5 of sum |x_i y_i|: the same fp32 products summed in another
 order.  The dense decode partials at ATTN_TOL after normalizing (as the
 paged kernels), the running max m at 1e-5 (fp32 dot products summed in
-another order), the sum l at 1e-4 relative.
+another order), the sum l at 1e-4 relative.  The int8/int4 GEMVs
+(``qgemv``, ``batched_qgemv``) and the batched MX GEMV at 1e-5 of sum
+|w x| per output: both sides dequantize each code with one fp32 multiply
+(the same weights) and sum the same fp32 products in another order.  The
+dense int8 decode at ATTN_TOL, as the paged int8 decode.
 """
 import numpy as np
 import pytest
@@ -32,7 +36,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops as TK  # noqa: E402
-from repro_torch.quant.tensor import quantize_kv, quantize_mx  # noqa: E402
+from repro_torch.kernels import ref as TR  # noqa: E402
+from repro_torch.core.troop import LaunchConfig  # noqa: E402
+from repro_torch.quant.tensor import (quantize, quantize_kv,  # noqa: E402
+                                      quantize_mx)
 
 pytestmark = pytest.mark.cuda
 
@@ -524,3 +531,133 @@ def test_tune_then_cached_on_the_card(tmp_path):
     got = tune.REGISTRY["dotp"].fn(x, y, cfg=best)
     assert torch.equal(K.dotp(x, y, best), got)
     assert TK.launch_counts()["dotp"] == before + 2
+
+
+def within_dot_bound(got, want, w, xs):
+    """|got - want| <= 1e-5 sum_k |w_nk x_k| per output; w (N, K) fp32."""
+    torch.cuda.synchronize()
+    bound = 1e-5 * (xs.float().abs() @ w.abs().t())
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got).all()
+    assert bool((err <= bound.reshape(err.shape)).all()), \
+        float((err - bound.reshape(err.shape)).max())
+
+
+@pytest.mark.parametrize("cfg", [LaunchConfig(),
+                                 LaunchConfig(block_n=128, unroll=2),
+                                 LaunchConfig(unroll=4)])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("N,K,group,B", [
+    (151936, 1024, 128, 0),                         # the read-out, one row
+    (2048, 4096, 128, 0), (2048, 4096, 128, 4),     # the registry example
+    (1000, 1024, 1024, 1), (1000, 1024, 128, 16),   # one group a row
+    (33, 2816, 128, 5)])                            # ragged rows
+def test_qgemv(N, K, group, B, bits, cfg):
+    """B = 0: the one-row ``qgemv``; else ``batched_qgemv``, W read once
+    for all B rows."""
+    g = torch.Generator(device="cuda").manual_seed(40)
+    w = torch.randn((N, K), device="cuda", generator=g)
+    qt = quantize(w, bits=bits, group_size=group, axis=-1)
+    wd = qt.dequantize()
+    xs = torch.randn((max(B, 1), K), device="cuda",
+                     generator=g).to(torch.bfloat16)
+    name = "batched_qgemv" if B else "qgemv"
+    before = TK.launch_counts()[name]
+    if B:
+        got = TK.batched_qgemv(qt.values, qt.scales, xs, cfg, bits=bits)
+        want = TK.PLAIN[name](qt.values, qt.scales, xs, bits=bits)
+    else:
+        got = TK.qgemv(qt.values, qt.scales, xs[0], cfg, bits=bits)
+        want = TK.PLAIN[name](qt.values, qt.scales, xs[0], bits=bits)
+    assert got.shape == ((B, N) if B else (N,))
+    within_dot_bound(got, want, wd, xs)
+    assert TK.launch_counts()[name] == before + 1
+
+
+@pytest.mark.parametrize("cfg", [LaunchConfig(),
+                                 LaunchConfig(block_n=128, unroll=2)])
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("N,K,elem", [
+    (151936, 1024, "fp4"),                          # the read-out
+    (2048, 4096, "fp4"), (2048, 4096, "fp8"),       # the registry example
+    (1040, 2848, "fp8"), (48, 96, "fp4")])          # ragged tiles
+def test_batched_mx_qgemv(N, K, elem, B, cfg):
+    rng = np.random.default_rng(41)
+    wq, s = mx_weight(rng, K, N, elem)
+    xs = bf16(rng.standard_normal((B, K)))
+    before = TK.launch_counts()["batched_mx_qgemv"]
+    got = TK.batched_mx_qgemv(wq, s, xs, cfg)
+    assert got.shape == (B, N) and got.dtype == torch.float32
+    wd = TR._mx_dequant(wq, s).t()
+    within_dot_bound(got, TK.PLAIN["batched_mx_qgemv"](wq, s, xs), wd, xs)
+    assert TK.launch_counts()["batched_mx_qgemv"] == before + 1
+    matches_plain(got[B - 1], TK.mx_qgemv(wq, s, xs[B - 1].contiguous()),
+                  MX_TOL)
+
+
+@pytest.mark.parametrize("cfg", [LaunchConfig(streams=1),
+                                 LaunchConfig(streams=1, unroll=2,
+                                              block_k=256)])
+@pytest.mark.parametrize("H,KV,hd,S,lengths", [
+    (16, 16, 64, 1024, [1024, 700, 1, 33]),   # qwen1.5-0.5b's dense shape
+    (16, 8, 128, 4096, [4096, 4096, 2049, 5]),  # kernel_bench's
+    (6, 2, 32, 96, [0, 96, 50, 31])])         # G = 3, a row with no key
+def test_decode_attention_int8(H, KV, hd, S, lengths, cfg):
+    """A row with no valid key gives 0 (row 10's convention), in the
+    kernel and in its plain version."""
+    rng = np.random.default_rng(42)
+    q = bf16(rng.standard_normal((4, H, hd)))
+    k8, ks = quantize_kv(bf16(rng.standard_normal((4, S, KV, hd))))
+    v8, vs = quantize_kv(bf16(rng.standard_normal((4, S, KV, hd))))
+    args = (q, k8, ks, v8, vs, i32(lengths))
+    before = TK.launch_counts()["decode_attention_int8"]
+    got = TK.decode_attention_int8(*args, cfg)
+    matches_plain(got, TK.PLAIN["decode_attention_int8"](*args), ATTN_TOL)
+    assert TK.launch_counts()["decode_attention_int8"] == before + 1
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
+def test_int_kernels_raise_instead_of_falling_back():
+    g = torch.Generator(device="cuda").manual_seed(43)
+    qt = quantize(torch.randn((64, 256), device="cuda", generator=g),
+                  bits=4, group_size=128, axis=-1)
+    x = torch.ones(256, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="bits"):      # int4 codes as int8
+        TK.qgemv(qt.values, qt.scales, x, bits=8)
+    with pytest.raises(ValueError, match="bf16 x"):
+        TK.qgemv(qt.values, qt.scales, x.float(), bits=4)
+    with pytest.raises(ValueError, match="rows <= 16"):
+        TK.batched_qgemv(qt.values, qt.scales, x.expand(17, 256).contiguous(),
+                         bits=4)
+    with pytest.raises(ValueError, match="unroll"):
+        TK.qgemv(qt.values, qt.scales, x, LaunchConfig(unroll=3), bits=4)
+    wq, s = mx_weight(np.random.default_rng(44), 64, 48, "fp4")
+    with pytest.raises(ValueError, match="rows <= 16"):
+        TK.batched_mx_qgemv(wq, s, bf16(np.ones((17, 64))))
+    q = torch.ones((1, 4, 64), dtype=torch.bfloat16, device="cuda")
+    kv = torch.ones((1, 64, 2, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="int8"):      # a bf16 cache
+        TK.decode_attention_int8(q, kv, kv[..., :1], kv, kv[..., :1],
+                                 i32([64]))
+
+
+def test_tune_the_int_kernels_on_the_card(tmp_path):
+    """tune -> cache on the card for the four kernels of the int slice,
+    int4 included; the knobs the tuner moves reach the kernels."""
+    from repro_torch import tune
+    cache = tune.TuneCache(str(tmp_path / "cache.json"))
+    points = [("qgemv", {}), ("qgemv", {"bits": 4}), ("batched_qgemv", {}),
+              ("batched_mx_qgemv", {}), ("decode_attention_int8", {})]
+    for name, extra in points:
+        args, kw = tune.REGISTRY[name].example(small=True, device="cuda",
+                                               **extra)
+        res = tune.tune(name, *args, kernel_kwargs=kw, keep=4, iters=2,
+                        cache=cache)
+        assert not res.from_cache and res.timings_run >= 2, name
+        assert not [c.error for c in res.candidates if c.error], name
+        assert 0 < res.fraction <= 1.05, (name, res.fraction)
+        again = tune.tune(name, *args, kernel_kwargs=kw, cache=cache)
+        assert again.from_cache and again.timings_run == 0
+        assert again.best == res.best

@@ -128,6 +128,34 @@ def test_apply_norm(pair, jax_tune_cache, routed):
     close(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_embedding_gradient_matches_jax(dtype):
+    """The gradient of ``apply_embed`` with respect to an fp32 table, with
+    each of 4 ids repeated ~100 times: the JAX package casts the whole
+    table and gathers, so a repeated id's gradient rows add in the compute
+    dtype; a table that takes a gradient does the same in the port.  The
+    two are equal (in bf16 the adds round as in the JAX package, up to
+    0.4 from the fp32 sum here), and the forward values are the rows'."""
+    rng = np.random.default_rng(0)
+    V, d, T = 16, 64, 200
+    table = rng.standard_normal((V, d)).astype(np.float32)
+    ids = rng.integers(0, 4, (2, T)).astype(np.int32)
+    w = rng.standard_normal((2, T, d)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def jax_loss(tab):
+        out = JM.apply_embed({"table": tab}, jnp.asarray(ids), jdt)
+        return jnp.sum(out.astype(jnp.float32) * w)
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(table)))
+    tab = torch.tensor(table, requires_grad=True)
+    out = TM.apply_embed({"table": tab}, torch.from_numpy(ids), tdt)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_array_equal(tab.grad.numpy(), want)
+    with torch.no_grad():                 # serving: rows first, same values
+        rows = TM.apply_embed({"table": tab}, torch.from_numpy(ids), tdt)
+    assert torch.equal(rows, out)
+
+
 def test_apply_rope(pair):
     _, _, _, tcfg, _ = pair
     rng = np.random.default_rng(2)

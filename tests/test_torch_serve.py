@@ -168,13 +168,21 @@ def test_engine_config_validate_matches_jax(kw):
     dict(),                                              # dense backend
     dict(backend="paged"),                               # bucketed prefill
     dict(backend="paged", chunked_prefill=True, temperature=0.7),
-    dict(backend="paged", chunked_prefill=True, quantize_weights="int4"),
-    dict(backend="paged", chunked_prefill=True, quantize_weights="int8"),
+    dict(backend="paged", chunked_prefill=True, speculate_k=2),
+    dict(backend="paged", chunked_prefill=True, speculate_k=2,
+         draft_arch="qwen1.5-0.5b"),
     dict(backend="paged", chunked_prefill=True, tp=2),
 ])
 def test_unported_options_raise_naming_roadmap(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(**kw).validate().check_ported()
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4", "mx4", "fp8"])
+def test_quantized_weight_formats_are_ported(fmt):
+    cfg = EngineConfig(backend="paged", chunked_prefill=True,
+                       quantize_weights=fmt)
+    assert cfg.validate().check_ported() is cfg
 
 
 NO_SHARED_EXPERT = "qwen2-moe-a2.7b without its shared expert"

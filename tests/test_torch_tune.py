@@ -35,9 +35,7 @@ from repro_torch.kernels import ops as TK  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.tune import registry, search  # noqa: E402
 
-UNPORTED = ("qgemv", "batched_qgemv", "batched_mx_qgemv",
-            "decode_attention_int8", "flash_attention", "rwkv6",
-            "mamba_scan")
+UNPORTED = ("flash_attention", "rwkv6", "mamba_scan")
 PORTED = tuple(n for n in jtune.names() if n not in UNPORTED)
 # the JAX TroopConfig knobs both predictors read
 KNOBS = ("streams", "unroll", "block_n", "block_k", "scrambled_layout")
@@ -70,7 +68,7 @@ def port_config(cfg: TroopConfig) -> LaunchConfig:
 # --------------------------------------------------------------------------
 def test_registry_names_equal_the_jax_registry():
     assert tune.names() == jtune.names()
-    assert len(PORTED) == 12 and set(UNPORTED) < set(tune.names())
+    assert len(PORTED) == 16 and set(UNPORTED) < set(tune.names())
 
 
 def test_registry_has_every_kernel():
@@ -349,7 +347,8 @@ def test_report_tunes_then_reads_the_cache(tmp_cache, tmp_path, capsys):
     assert all(r["timings_run"] == 0 for r in second)
     assert [r["config"] for r in first] == [r["config"] for r in second]
     assert json.loads(out.read_text())["backend"] == "cpu"
-    report.main(["--fast", "--device", "cpu", "--kernels", "nope,qgemv"])
+    report.main(["--fast", "--device", "cpu", "--kernels",
+                 "nope,flash_attention"])
     err = capsys.readouterr().err
     assert "unknown kernel 'nope'" in err and "ROADMAP item 11" in err
 
