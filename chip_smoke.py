@@ -7,8 +7,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each one against its plain PyTorch version at the serving and
-training shapes and times it, runs the tuner (``repro_torch.tune``) over
-every ported kernel on an empty cache of its own, then again from that
+training shapes and times it (the full-sequence attention and the two
+scans, which no model path runs, at the widths of qwen1.5-0.5b, glm4-9b,
+rwkv6-3b and jamba, at every candidate of their tuner spaces), runs the
+tuner (``repro_torch.tune``) over every registry name, each a CUDA kernel,
+on an empty cache of its own, then again from that
 cache, and builds an engine that carries the winners, then serves through
 the chunked, paged engine (on an empty cache: the default launch
 parameters) with every kernel on, random weights from seed 0: full-width
@@ -92,7 +95,17 @@ F32_OPS_PER_S = 67e12
 # order 1 from the same dequantized weights, summed in another order), the
 # int8 dense decode 1.2e-4 -> 5e-4 (bf16 outputs, single rounding flips).
 # qgemv's int4 row at the registry's (2048, 4096), added later, first
-# measured 8.3e-7 (under the first 9.8e-7): the same gate holds it.
+# measured 8.3e-7 (under the first 9.8e-7): the same gate holds it.  The
+# full-sequence attention and the scans take fourfold headroom over their
+# first measured errors, the largest over their shapes and tuner
+# candidates (their first run through these checks on an NVIDIA H100 80GB
+# HBM3 at 700 W, seeded inputs; PERF.md §6): flash_attention fp32 6.9e-7
+# -> 2.8e-6 (fp32 softmax-weighted means, the same sums in another order)
+# and bf16 2.0e-3 -> 8e-3 (single bf16 rounding flips of outputs of order
+# 0.1 to 1); wkv6 6.9e-5 -> 2.8e-4 and mamba_scan 3.4e-5 -> 1.4e-4 (fp32
+# states of order 1 to 10 over 2048 steps: the plain versions multiply the
+# decays step by step, the wkv6 kernel sums their logarithms in chunks,
+# and the error grows with the chunk).
 BF16_TOL = 2e-2
 TOL = {"rmsnorm": BF16_TOL, "gemv": BF16_TOL, "gemv_f32": 3e-6,
        "paged_decode_attention": 4e-3, "prefill_attention_paged": 4e-3,
@@ -104,7 +117,9 @@ TOL = {"rmsnorm": BF16_TOL, "gemv": BF16_TOL, "gemv_f32": 3e-6,
        "fused_adamw": 0.0, "fused_adamw bf16": 0.0,
        "axpy": 0.0, "dotp": 1e-5, "batched_gemv": BF16_TOL,
        "decode_attention": 4e-3, "qgemv": 4e-6, "batched_qgemv": 1.4e-5,
-       "batched_mx_qgemv": 3e-6, "decode_attention_int8": 5e-4}
+       "batched_mx_qgemv": 3e-6, "decode_attention_int8": 5e-4,
+       "flash_attention": 2.8e-6, "flash_attention bf16": 8e-3,
+       "rwkv6": 2.8e-4, "mamba_scan": 1.4e-4}
 ROOT = Path(__file__).resolve().parent
 
 REPLACES = {
@@ -146,16 +161,25 @@ REPLACES = {
     "decode_attention_int8": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:354"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:84"),
+    "rwkv6": ("src/repro_torch/kernels/csrc/rwkv6.cu",
+              "src/repro/kernels/rwkv6.py:107"),
+    "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:91"),
 }
-# the kernels of the tuner's path (the tune phase): every registered,
-# ported kernel is tuned and then launched through its dispatching entry
-# point, and the unregistered batched gemv through its own
+# the kernels of the tuner's path (the tune phase): every registry name is
+# tuned and then launched through its dispatching entry point, and the
+# unregistered batched gemv through its own
 TUNE_PATH = ("rmsnorm", "gemv", "paged_decode_attention",
              "prefill_attention_paged", "paged_decode_attention_int8",
              "mx_qgemv", "mx_qgemv_swiglu", "grouped_expert_qgemv",
              "fused_adamw", "dotp", "axpy", "decode_attention",
              "batched_gemv", "qgemv", "batched_qgemv", "batched_mx_qgemv",
-             "decode_attention_int8")
+             "decode_attention_int8", "flash_attention", "rwkv6",
+             "mamba_scan")
+# the dispatching entry point of a registry name, where the two differ
+ENTRY = {"rwkv6": "wkv6"}
 # the kernels whose tuned knobs an engine's steps launch with (bf16 pages;
 # ``serve.step.launch_config``): the engine also carries the tuned configs
 # of the other decode-path names (dense decode, int8 dense decode, qgemv),
@@ -302,15 +326,17 @@ def time_ms(torch, fns, reps: int = 25, inner: int = 20):
     return device, _event_ms(torch, eager, reps) / inner
 
 
-def timed(torch, kernel, plain, library=None, **kw):
+def timed(torch, kernel, plain, library=None, plain_kw=None, **kw):
     """The timing keys of one kernel row (lists of zero-argument calls;
     ``library`` None: no PyTorch call computes the function; ``kw`` goes to
-    ``time_ms``)."""
+    ``time_ms``, and ``plain_kw``, where given, instead for the plain
+    version)."""
     out = {"library_ms": None, "eager_library_ms": None}
     for key, fns in (("", kernel), ("plain_", plain), ("library_", library)):
         if fns is not None:
-            out[key + "ms"], out["eager_" + key + "ms"] = time_ms(torch, fns,
-                                                                  **kw)
+            out[key + "ms"], out["eager_" + key + "ms"] = time_ms(
+                torch, fns, **(plain_kw if key == "plain_" and plain_kw
+                               else kw))
     return out
 
 
@@ -782,6 +808,7 @@ def kernels_phase(torch, K, dev, rng):
     rows["fused_adamw"] = adamw_rows(torch, K, dev, gen)
     rows.update(paper_rows(torch, K, F, agree, dev, randn))
     rows.update(int_rows(torch, K, F, agree, dev, gen, rows))
+    rows.update(scan_rows(torch, K, F, agree, dev, gen))
     torch.cuda.synchronize()
     return rows
 
@@ -1004,6 +1031,150 @@ def int_rows(torch, K, F, agree, dev, gen, rows):
     return out
 
 
+# the plain versions of the two scans are T-step Python loops (and the
+# plain attention materializes every score): each new row times its plain
+# version over PLAIN_REPS windows of one call, and each candidate of a
+# tuner space over CANDIDATE_REPS windows of CANDIDATE_INNER calls
+PLAIN_REPS = 3
+CANDIDATE_REPS, CANDIDATE_INNER = 5, 5
+
+
+def scan_rows(torch, K, F, agree, dev, gen):
+    """The full-sequence attention and the two scans, each at its
+    registry's full-size example and at the widths of an architecture the
+    JAX package built it for, held against its plain version at every
+    candidate of its tuner space and timed at each candidate and at the
+    default: ``flash_attention`` at the registry's (2, 512, 8, 2, 64, 512)
+    fp32, qwen1.5-0.5b's attention (B = 1, T = S = 2048, 16 heads of 64,
+    bf16) and glm4-9b's GQA (32 query heads on 2 KV heads of 128, T = S =
+    2048, bf16), all causal, against SDPA (``is_causal``,
+    ``enable_gqa``); ``wkv6`` at the registry's (1, 256, 4, 64) and
+    rwkv6-3b's time mix (B = 1, T = 2048, 40 heads of 64, fp32, w =
+    exp(-exp(N(0, 1))), u = 0.5 as the model's init) from a zero and from
+    a nonzero state; ``mamba_scan`` at the registry's (2, 512, 512, 16) and
+    jamba's Mamba layer (b = 1, T = 2048, d_inner 2 x 4096, d_state 16,
+    fp32) from a zero and from a nonzero state.  No PyTorch call computes
+    either scan.  A causal row's bound counts the unmasked scores; the
+    registry's cost model, which counts all T x S, gives
+    ``registry_bound_ms`` beside it."""
+    from repro_torch import tune
+    from repro_torch.tune.search import enumerate_space
+    rows = {"flash_attention": [], "rwkv6": [], "mamba_scan": []}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def agree_all(label, got, want, key):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        return max(agree(label, g, w, key) for g, w in zip(got, want))
+
+    def row(name, label, sets, kw, key, shape, nbytes, ops, rate,
+            lib_fns=None, **extra):
+        """Every candidate against the plain version, then the timings."""
+        spec = tune.REGISTRY[name]
+        fn, plain = spec.fn, K.PLAIN[name]
+        want = plain(*sets[0], **kw)
+        cands = []
+        for cfg in enumerate_space(spec):
+            knobs = {k: getattr(cfg, k) for k in spec.space}
+            err = agree_all(f"{name} {label} {knobs}",
+                            fn(*sets[0], cfg=cfg, **kw), want, key)
+            ms = time_ms(torch, [lambda s=s, c=cfg: fn(*s, cfg=c, **kw)
+                                 for s in sets], reps=CANDIDATE_REPS,
+                         inner=CANDIDATE_INNER)[0]
+            cands.append({"knobs": knobs, "max_abs_err": err, "ms": ms})
+        bms, by = bound_ms(nbytes, ops, rate)
+        rows[name].append({
+            "shape": shape, "max_abs_err": max(c["max_abs_err"]
+                                               for c in cands),
+            "tolerance": TOL[key], "bound_ms": bms, "bound_by": by,
+            "candidates": cands, **extra,
+            **timed(torch, [lambda s=s: fn(*s, cfg=spec.default, **kw)
+                            for s in sets],
+                    [lambda s=s: plain(*s, **kw) for s in sets],
+                    lib_fns, plain_kw={"reps": PLAIN_REPS, "inner": 1})})
+
+    for label, B, T, H, KV, hd, dtype in (
+            ("registry example", 2, 512, 8, 2, 64, torch.float32),
+            ("qwen1.5-0.5b", 1, 2048, 16, 16, 64, torch.bfloat16),
+            ("glm4-9b", 1, 2048, 32, 2, 128, torch.bfloat16)):
+        S, item = T, torch.empty((), dtype=dtype).element_size()
+        nbytes = (2 * B * T * H * hd + 2 * B * S * KV * hd) * item
+        sets = [(randn(B, T, H, hd, dtype=dtype), randn(B, S, KV, hd,
+                                                        dtype=dtype),
+                 randn(B, S, KV, hd, dtype=dtype))
+                for _ in range(copies_for(nbytes))]
+        pairs = sum(min(t + 1, S) for t in range(T))     # unmasked scores
+        rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        key = "flash_attention" + ("" if dtype == torch.float32 else " bf16")
+        row("flash_attention", label, sets, {"causal": True}, key,
+            f"{label}: q ({B}, {T}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) "
+            f"{str(dtype)[6:]}, causal", nbytes, 4.0 * B * H * hd * pairs,
+            rate, lib_fns=[lambda s=s: F.scaled_dot_product_attention(
+                s[0].transpose(1, 2), s[1].transpose(1, 2),
+                s[2].transpose(1, 2), is_causal=True,
+                enable_gqa=H != KV) for s in sets],
+            library="scaled_dot_product_attention (is_causal, enable_gqa)",
+            registry_bound_ms=bound_ms(nbytes, 4.0 * B * T * S * H * hd,
+                                       rate)[0])
+        del sets
+        torch.cuda.empty_cache()
+
+    for label, state in (("registry example", False), ("rwkv6-3b", False),
+                         ("rwkv6-3b", True)):
+        if label == "registry example":
+            args, _ = tune.REGISTRY["rwkv6"].example(small=False, device=dev)
+        else:
+            B, T, H, hd = 1, 2048, 40, 64
+            r, k, v = (randn(B, T, H, hd) for _ in range(3))
+            w = torch.exp(-torch.exp(randn(B, T, H, hd)))
+            u = torch.full((H, hd), 0.5, device=dev)
+            s0 = randn(B, H, hd, hd) if state else \
+                torch.zeros((B, H, hd, hd), device=dev)
+            args = (r, k, v, w, u, s0)
+        r, u, s0 = args[0], args[4], args[5]
+        n = r.numel()
+        nbytes = 4 * n * r.element_size() + n * 4 + u.numel() * 4 \
+            + 2 * s0.numel() * 4
+        sets = [args] + [tuple(a.clone() for a in args)
+                         for _ in range(copies_for(nbytes) - 1)]
+        row("rwkv6", label, sets, {}, "rwkv6",
+            f"{label}: r, k, v, w {tuple(r.shape)} fp32, u {tuple(u.shape)},"
+            f" {'nonzero' if state else 'zero'} state {tuple(s0.shape)}",
+            nbytes, 6.0 * n * r.shape[3], F32_OPS_PER_S, library=None)
+        del sets, args
+        torch.cuda.empty_cache()
+
+    for label, state in (("registry example", False), ("jamba", False),
+                         ("jamba", True)):
+        if label == "registry example":
+            args, _ = tune.REGISTRY["mamba_scan"].example(small=False,
+                                                          device=dev)
+        else:
+            b, T, di, ds = 1, 2048, 2 * 4096, 16
+            args = (randn(b, T, di), F.softplus(randn(b, T, di)),
+                    randn(b, T, ds), randn(b, T, ds),
+                    -torch.exp(randn(di, ds)),
+                    torch.ones((di,), device=dev),
+                    randn(b, di, ds) if state
+                    else torch.zeros((b, di, ds), device=dev))
+        x, Bm, A, s0 = args[0], args[2], args[4], args[6]
+        n = x.numel()
+        nbytes = (2 * n + 2 * Bm.numel()) * x.element_size() + n * 4 \
+            + (A.numel() + args[5].numel() + 2 * s0.numel()) * 4
+        sets = [args] + [tuple(a.clone() for a in args)
+                         for _ in range(copies_for(nbytes) - 1)]
+        row("mamba_scan", label, sets, {}, "mamba_scan",
+            f"{label}: x, dt {tuple(x.shape)}, B, C {tuple(Bm.shape)} fp32, "
+            f"A {tuple(A.shape)}, {'nonzero' if state else 'zero'} state "
+            f"{tuple(s0.shape)}", nbytes, 6.0 * n * A.shape[1], F32_OPS_PER_S,
+            library=None)
+        del sets, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------------- tune
 # the qwen1.5-0.5b engine of the engine phase, whose decode-path configs
 # the tune phase tunes at the engine's own shapes
@@ -1018,10 +1189,11 @@ ADAMW_LEAVES = {"embedding": 151936 * 1024, "stacked MLP": 24 * 2816 * 1024,
 
 def tune_points(torch, tune, dev):
     """(label, kernel, args, kwargs) of every point the phase tunes: each
-    registered, ported kernel at its registry's full-size example; the
+    registered kernel at its registry's full-size example; the
     qwen1.5-0.5b engine's decode-path kernels at the shapes its
-    ``tuned_kernel_configs`` looks up; the fused AdamW at the four training
-    leaves."""
+    ``tuned_kernel_configs`` looks up; the full-sequence attention and the
+    two scans at one full-width point each; the fused AdamW at the four
+    training leaves."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1084,6 +1256,33 @@ def tune_points(torch, tune, dev):
          (q, k8, ks, v8, vs, full), {}),
     ]
     del qt
+    # the full-sequence attention and the scans at one full-width point
+    # each: qwen1.5-0.5b's attention, rwkv6-3b's time mix, jamba's Mamba
+    # layer (the kernels phase's shapes)
+    f32 = torch.float32
+    x = seeded(20, (1, 2048, 2 * 4096), f32, device=dev)
+    points += [
+        ("flash_attention (qwen1.5-0.5b attention, T = S = 2048)",
+         "flash_attention",
+         (seeded(12, (1, 2048, H, hd), device=dev),
+          seeded(13, (1, 2048, KV, hd), device=dev),
+          seeded(14, (1, 2048, KV, hd), device=dev)), {"causal": True}),
+        ("rwkv6 (rwkv6-3b time mix, T = 2048)", "rwkv6",
+         (*(seeded(15 + i, (1, 2048, 40, 64), f32, device=dev)
+            for i in range(3)),
+          torch.exp(-torch.exp(seeded(18, (1, 2048, 40, 64), f32,
+                                      device=dev))),
+          torch.full((40, 64), 0.5, device=dev),
+          torch.zeros((1, 40, 64, 64), device=dev)), {}),
+        ("mamba_scan (jamba Mamba layer, T = 2048)", "mamba_scan",
+         (x, torch.nn.functional.softplus(
+             seeded(24, (1, 2048, 2 * 4096), f32, device=dev)),
+          seeded(21, (1, 2048, 16), f32, device=dev),
+          seeded(22, (1, 2048, 16), f32, device=dev),
+          -torch.exp(seeded(23, (2 * 4096, 16), f32, device=dev)),
+          torch.ones((2 * 4096,), device=dev),
+          torch.zeros((1, 2 * 4096, 16), device=dev)), {}),
+    ]
     hyper = torch.tensor([1e-3, 0.9, 0.95, 1e-8, 0.1, 0.1, 0.1],
                          dtype=torch.float32).to(dev)
     for leaf, n in ADAMW_LEAVES.items():
@@ -1131,7 +1330,7 @@ def tune_phase(torch, dev):
                      for _, name, args, kw in points]
             tune_s = time.perf_counter() - t0
             for _, name, args, kw in points:
-                getattr(KD, name)(*args, **kw)
+                getattr(KD, ENTRY.get(name, name))(*args, **kw)
             w = next(args[0] for _, name, args, _ in points if name == "gemv")
             KD.batched_gemv(w, torch.ones((8, w.shape[1]), dtype=w.dtype,
                                           device=dev))
@@ -2315,7 +2514,12 @@ def main():
                        f"{us(r['eager_four_mx_qgemv_ms'])}, 4 x bf16 gemv "
                        f"{us(r['four_bf16_gemv_ms'])}/"
                        f"{us(r['eager_four_bf16_gemv_ms'])}]"
-                       if "four_mx_qgemv_ms" in r else ""))
+                       if "four_mx_qgemv_ms" in r else "")
+                    + (f"  [registry bound {us(r['registry_bound_ms'])}]"
+                       if "registry_bound_ms" in r else ""))
+                for c in r.get("candidates", ()):
+                    log(f"      {c['knobs']}  {us(c['ms'])}  err "
+                        f"{c['max_abs_err']:.3g}")
     # launches on the main paths: each run with the counts zeroed before it
     # and read after it (the tuner's path; the engine's 8-slot run; the
     # quantized, MoE bf16 and MoE mx4 paths' 8-slot and one-slot runs; the

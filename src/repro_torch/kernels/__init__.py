@@ -6,11 +6,11 @@ The kernel names exported here are the dispatching wrappers, as in
 ``repro.kernels``: call one *with* an explicit ``LaunchConfig`` and it
 behaves like the raw kernel; call it *without* one and the best tuned
 config for (kernel, shapes, dtype, backend) is resolved from the
-persistent tune cache (the default config on a miss).  ``batched_gemv``,
-``decode_attention_stats`` and ``lse_combine`` are not registered (as in
-JAX) and take the default config; the names not ported yet
-(``flash_attention``, ``wkv6``, ``mamba_scan``) raise
-``NotImplementedError``.  The raw kernels (the ``fused_adamw`` there takes
+persistent tune cache (the default config on a miss).  Every name of the
+registry is a hand-written CUDA kernel (``wkv6`` is registered as
+``"rwkv6"``, the JAX name).  ``batched_gemv``, ``decode_attention_stats``,
+``lse_combine`` and ``wkv6_with_state`` are not registered (as in JAX) and
+take the default config.  The raw kernels (the ``fused_adamw`` there takes
 a whole leaf of tensors), their plain versions (``PLAIN``), the launch
 counters and ``build`` are in ``repro_torch.kernels.ops``; the model path
 calls those.
@@ -18,7 +18,8 @@ calls those.
 from repro_torch.core.troop import BASELINE, TROOP, LaunchConfig
 from repro_torch.kernels.ops import (PLAIN, batched_gemv, build,
                                      decode_attention_stats, launch_counts,
-                                     lse_combine, reset_launch_counts)
+                                     lse_combine, reset_launch_counts,
+                                     wkv6_with_state)
 from repro_torch.kernels.axpy import axpy_tuned as axpy
 from repro_torch.kernels.decode_attention import (
     decode_attention_int8_tuned as decode_attention_int8,
@@ -26,8 +27,11 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_int8_tuned as paged_decode_attention_int8,
     paged_decode_attention_tuned as paged_decode_attention)
 from repro_torch.kernels.dotp import dotp_tuned as dotp
+from repro_torch.kernels.flash_attention import (
+    flash_attention_tuned as flash_attention)
 from repro_torch.kernels.fused_adamw import fused_adamw_tuned as fused_adamw
 from repro_torch.kernels.gemv import gemv_tuned as gemv
+from repro_torch.kernels.mamba_scan import mamba_scan_tuned as mamba_scan
 from repro_torch.kernels.mx_gemv import (
     batched_mx_qgemv_tuned as batched_mx_qgemv,
     grouped_expert_qgemv_tuned as grouped_expert_qgemv,
@@ -37,7 +41,7 @@ from repro_torch.kernels.prefill_attention import (
 from repro_torch.kernels.qgemv import batched_qgemv_tuned as batched_qgemv
 from repro_torch.kernels.qgemv import qgemv_tuned as qgemv
 from repro_torch.kernels.rmsnorm import rmsnorm_tuned as rmsnorm
-from repro_torch.kernels.unported import flash_attention, mamba_scan, wkv6
+from repro_torch.kernels.rwkv6 import wkv6_tuned as wkv6
 from repro_torch.tune.cache import get_tuned
 from repro_torch.tune.registry import REGISTRY
 
@@ -48,7 +52,8 @@ __all__ = ["gemv", "dotp", "axpy", "rmsnorm", "fused_adamw",
            "qgemv", "batched_qgemv",
            "mx_qgemv", "batched_mx_qgemv", "mx_qgemv_swiglu",
            "grouped_expert_qgemv",
-           "flash_attention", "wkv6", "mamba_scan", "batched_gemv",
+           "flash_attention", "wkv6", "wkv6_with_state", "mamba_scan",
+           "batched_gemv",
            "lse_combine", "BASELINE", "TROOP", "LaunchConfig",
            "get_tuned", "REGISTRY", "PLAIN", "launch_counts",
            "reset_launch_counts", "build"]

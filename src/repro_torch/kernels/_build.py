@@ -24,7 +24,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rmsnorm", "gemv", "decode_attention", "prefill_attention",
-           "mx_gemv", "fused_adamw", "dotp", "axpy", "qgemv")
+           "mx_gemv", "fused_adamw", "dotp", "axpy", "qgemv",
+           "flash_attention", "rwkv6", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,7 +2,9 @@
 
 Every kernel function here launches a CUDA kernel written for Hopper on a
 CUDA tensor and runs its plain PyTorch version on a CPU tensor; the plain
-versions and the oracles are in ``ref.py``.  Each takes its launch
+versions and the oracles are in ``ref.py``; ``lse_combine`` and
+``wkv6_with_state`` are plain PyTorch around the kernels, as in the JAX
+package's ``kernels/ops.py``.  Each kernel takes its launch
 parameters as ``cfg`` (default ``LaunchConfig()``): the model path calls
 these with the configs its engine resolved at build, and the tuner times
 them.  ``repro_torch.kernels`` exports the registry-dispatching wrappers
@@ -16,17 +18,20 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.troop import DEFAULT, LaunchConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels import axpy as _axpy
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import dotp as _dotp
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import gemv as _gemv
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import mx_gemv as _mx
 from repro_torch.kernels import prefill_attention as _pre
 from repro_torch.kernels import qgemv as _q
 from repro_torch.kernels import rmsnorm as _rms
-from repro_torch.kernels import unported  # noqa: F401  (registers the rest)
+from repro_torch.kernels import rwkv6 as _rwkv6
 from repro_torch.kernels.axpy import axpy
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8,
@@ -34,14 +39,17 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention,
                                                   paged_decode_attention_int8)
 from repro_torch.kernels.dotp import dotp
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_adamw import fused_adamw
 from repro_torch.kernels.gemv import batched_gemv, gemv
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.mx_gemv import (batched_mx_qgemv,
                                          grouped_expert_qgemv, mx_qgemv,
                                          mx_qgemv_swiglu)
 from repro_torch.kernels.prefill_attention import prefill_attention_paged
 from repro_torch.kernels.qgemv import batched_qgemv, qgemv
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rwkv6 import wkv6
 
 # kernel name -> (wrapper module, its launch counter, its plain version)
 _KERNELS = {
@@ -63,6 +71,9 @@ _KERNELS = {
     "batched_mx_qgemv": (_mx, "batched_launches", "plain_batched"),
     "decode_attention_int8": (_dec, "dense_int8_launches",
                               "plain_dense_int8"),
+    "flash_attention": (_flash, "launches", "plain"),
+    "rwkv6": (_rwkv6, "launches", "plain"),
+    "mamba_scan": (_mamba, "launches", "plain"),
 }
 
 #: the plain version of each kernel, by name
@@ -95,6 +106,23 @@ def lse_combine(partials):
     return acc / torch.clamp(l, min=1e-30)
 
 
+def wkv6_with_state(r, k, v, w, u, state0, cfg: LaunchConfig = DEFAULT):
+    """WKV6 with a carried-in state, in the JAX package's form
+    (``kernels/ops.py:wkv6_with_state``): the kernel from a zero state,
+    then the carried state folded in, y_t += (r_t decayed to the sequence
+    start) @ state0 by one einsum and state += diag(prod w) state0 (an
+    exact, associative split of the recurrence).  The port's ``wkv6``
+    itself starts from ``state0`` and gives the same function."""
+    y, state = wkv6(r, k, v, w, u, torch.zeros_like(state0), cfg)
+    lw = torch.log(torch.clamp(w.float(), min=1e-30))
+    cum_x = torch.cumsum(lw, dim=1) - lw                   # exclusive, <= 0
+    r_dec = r.float() * torch.exp(cum_x)
+    y = y + torch.einsum("bthi,bhij->bthj", r_dec, state0.float())
+    decay_all = torch.exp(torch.sum(lw, dim=1))            # (B,H,hd)
+    state = state + decay_all[..., None] * state0.float()
+    return y, state
+
+
 def build() -> Dict[str, Dict[str, object]]:
     """Compile every kernel now (normally done at first use); returns the
     per-source build log, empty when the libraries were already built."""
@@ -107,5 +135,6 @@ __all__ = ["rmsnorm", "gemv", "paged_decode_attention",
            "fused_adamw", "dotp", "axpy", "batched_gemv",
            "decode_attention", "decode_attention_stats", "lse_combine",
            "qgemv", "batched_qgemv", "batched_mx_qgemv",
-           "decode_attention_int8",
+           "decode_attention_int8", "flash_attention", "wkv6",
+           "wkv6_with_state", "mamba_scan",
            "PLAIN", "launch_counts", "reset_launch_counts", "build"]

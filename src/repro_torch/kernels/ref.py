@@ -179,3 +179,62 @@ def prefill_attention_paged(q, k_pool, v_pool, block_tables, q_offset,
     p = torch.nan_to_num(p, nan=0.0)           # fully masked pad rows
     o = torch.einsum("bkgts,bskh->btkgh", p, v)
     return o.reshape(B, C, H, hd)
+
+
+def flash_attention(q, k, v, causal=True):
+    """q (B,T,H,hd), k/v (B,S,KV,hd) -> (B,T,H,hd) fp32: the full softmax
+    over all S positions; with ``causal`` position s is masked for query t
+    when s > t (aligned at the top left, as SDPA's ``is_causal``)."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, T, KV, G, hd).float()
+    s = torch.einsum("btkgh,bskh->bkgts", qg, k.float()) * (hd ** -0.5)
+    if causal:
+        mask = (torch.arange(T, device=q.device)[:, None]
+                < torch.arange(S, device=q.device)[None, :])
+        s = s.masked_fill(mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgts,bskh->btkgh", p, v.float())
+    return o.reshape(B, T, H, hd)
+
+
+def wkv6(r, k, v, w, u, state0):
+    """The RWKV-6 recurrence, one fp32 step at a time from ``state0``
+    (the JAX package's ``models/rwkv.py:wkv6_scan``).
+
+    r, k, v, w (B,T,H,hd); u (H,hd); state0 (B,H,hd,hd) ->
+    (y (B,T,H,hd) fp32, state (B,H,hd,hd) fp32):
+    y_t = r_t S_{t-1} + (r_t . (u k_t)) v_t,
+    S_t = diag(w_t) S_{t-1} + k_t (x) v_t
+    """
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    S = state0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]   # (B,H,hd)
+        y = torch.einsum("bhi,bhij->bhj", rt, S)
+        y = y + torch.sum(rt * u[None] * kt, -1, keepdim=True) * vt
+        S = wt[..., None] * S + kt[..., None] * vt[..., None, :]
+        ys.append(y)
+    return torch.stack(ys, dim=1), S
+
+
+def mamba_scan(x, dt, B, C, A, D, state0):
+    """The selective scan, one fp32 step at a time from ``state0`` (the JAX
+    package's ``models/mamba.py:_ssm_scan``).
+
+    x, dt (b,T,di); B, C (b,T,ds); A (di,ds) < 0; D (di,); state0
+    (b,di,ds) -> (y (b,T,di) fp32, state (b,di,ds) fp32):
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t;  y_t = C_t . h_t + D x_t
+    """
+    u, dt, B_in, C = (a.float() for a in (x, dt, B, C))
+    dA = torch.exp(dt[..., None] * A[None, None])              # (b,T,di,ds)
+    dBu = dt[..., None] * B_in[:, :, None, :] * u[..., None]
+    h = state0.float()
+    ys = []
+    for t in range(u.shape[1]):
+        h = dA[:, t] * h + dBu[:, t]
+        ys.append(torch.einsum("bds,bs->bd", h, C[:, t]))
+    y = torch.stack(ys, dim=1) + u * D[None, None]
+    return y, h

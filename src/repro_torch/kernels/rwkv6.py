@@ -1,0 +1,108 @@
+"""WKV6: the wrapper of ``csrc/rwkv6.cu``, its launch count, its plain
+version and its registry entry (``"rwkv6"``, the JAX name).
+
+Replaces the JAX package's Pallas ``kernels/rwkv6.py:wkv6``, the RWKV-6
+recurrence in its chunked linear-attention form, an AXPY-class kernel that
+streams r, k, v and w once and keeps the hd x hd state on chip.  The Pallas
+kernel zeroes its state at the first chunk and never reads ``state0``; the
+port's kernel starts from ``state0``, so the kernel, its plain version (the
+JAX oracle, a T-step scan) and the CPU path compute one function, which is
+the Pallas one at zero state.  ``ops.wkv6_with_state`` keeps the JAX form:
+zeros into the kernel, the carried state folded in afterwards.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.troop import DEFAULT, LaunchConfig
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
+                                       troop_kernel)
+
+#: kernel launches so far (the CPU path and the plain version do not count)
+launches = 0
+
+_ARGS = [_build.P] * 8 + [_build.I] * 5 + [_build.P]
+_ARGTYPES = {"repro_wkv6_f32": _ARGS, "repro_wkv6_bf16": _ARGS}
+
+
+def plain(r, k, v, w, u, state0):
+    """The plain PyTorch version: the fp32 scan from ``state0``."""
+    return ref.wkv6(r, k, v, w, u, state0)
+
+
+def wkv6(r, k, v, w, u, state0, cfg: LaunchConfig = DEFAULT):
+    """r, k, v, w (B,T,H,hd); u (H,hd); state0 (B,H,hd,hd) -> (y (B,T,H,hd)
+    fp32, state (B,H,hd,hd) fp32), from ``state0``.  The kernel walks T in
+    chunks of ``cfg.block_n // 8`` steps (8, 16 or 32).  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (r, k, v, w
+    contiguous in one dtype, fp32 or bf16; u and state0 contiguous fp32;
+    hd 32, 64 or 128) or raises."""
+    global launches
+    if r.device.type == "cpu":
+        return plain(r, k, v, w, u, state0)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: unsupported device {r.device}")
+    B, T, H, hd = r.shape if r.dim() == 4 else (0, 0, 0, 0)
+    ok = (r.dtype in (torch.float32, torch.bfloat16) and hd in (32, 64, 128)
+          and T > 0 and all(a.dtype == r.dtype and a.shape == r.shape
+                            for a in (k, v, w))
+          and u.dtype == state0.dtype == torch.float32
+          and u.shape == (H, hd) and state0.shape == (B, H, hd, hd)
+          and all(a.device == r.device and a.is_contiguous()
+                  and a.data_ptr() % 16 == 0
+                  for a in (r, k, v, w, u, state0)))
+    if not ok:
+        raise ValueError(
+            f"wkv6 kernel takes contiguous r, k, v, w (B, T, H, hd in "
+            f"32/64/128) in one dtype (fp32 or bf16), fp32 u (H, hd) and "
+            f"fp32 state0 (B, H, hd, hd) on one device; got r "
+            f"{tuple(r.shape)} {r.dtype}, k {k.dtype}, v {v.dtype}, w "
+            f"{w.dtype}, u {tuple(u.shape)} {u.dtype}, state0 "
+            f"{tuple(state0.shape)} {state0.dtype}")
+    chunk = cfg.block_n // 8
+    if cfg.block_n % 8 or chunk not in (8, 16, 32):
+        raise ValueError(f"wkv6 takes block_n 64, 128 or 256 (chunks of 8, "
+                         f"16 or 32 steps); got {cfg.block_n}")
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    state = torch.empty_like(state0)
+    lib = _build.library("rwkv6", _ARGTYPES)
+    fn = lib.repro_wkv6_f32 if r.dtype == torch.float32 \
+        else lib.repro_wkv6_bf16
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), state0.data_ptr(), y.data_ptr(), state.data_ptr(),
+             B, T, H, hd, chunk, _build.stream_handle(r.device))
+    _build.check(err, "wkv6")
+    launches += 1
+    return y, state
+
+
+def _example(small: bool = True, device=None):
+    B, T, H, hd = (1, 64, 2, 32) if small else (1, 256, 4, 64)
+    f32 = torch.float32
+    r, k, v = (seeded(i, (B, T, H, hd), f32, device=device)
+               for i in range(3))
+    w = torch.exp(-torch.exp(seeded(3, (B, T, H, hd), f32, device=device)))
+    u = torch.full((H, hd), 0.5, device=r.device)
+    s0 = torch.zeros((B, H, hd, hd), device=r.device)
+    return (r, k, v, w, u, s0), {}
+
+
+#: ``wkv6`` through the tune registry, as ``"rwkv6"`` (the JAX package's
+#: name and cost model)
+wkv6_tuned = troop_kernel(
+    "rwkv6",
+    # state update + readout: O(hd) per (t, head, channel) element
+    flops=lambda r, k, v, w, u, s0: 6.0 * numel(r) * r.shape[3],
+    bytes=lambda r, k, v, w, u, s0: (
+        4 * numel(r) * itemsize(r)          # r, k, v, w in
+        + numel(r) * 4 + numel(s0) * 4      # y + final state out (fp32)
+        + numel(u) * itemsize(u)),
+    streamed=lambda r, k, v, w, u, s0: [
+        r, meta(k.shape, r.dtype), meta(v.shape, r.dtype),
+        meta(w.shape, r.dtype),
+        meta(r.shape, torch.float32),       # y out
+        meta(s0.shape, torch.float32),      # final state out
+        u],
+    space={"block_n": (64, 128, 256)}, ref="wkv6", example=_example)(wkv6)

@@ -15,9 +15,16 @@ On the card the times are device times (CUDA-graph replay) and the
 fractions are against the H100's published peaks.  With ``--device cpu``
 the plain PyTorch versions are timed on the host: the tune -> cache ->
 dispatch loop runs for real, but the times and fractions say nothing of
-the card.  ``--fast`` takes the registry's small example shapes, 2
-survivors and 1 timing a candidate; ``--kernels a,b`` a subset; ``--out
-PATH`` also writes the rows as JSON to PATH.
+the card.  Without ``--kernels`` it tunes all 19 registry names, each a
+hand-written CUDA kernel on the card (with ``--fast``: gemv, dotp, axpy
+and rmsnorm); ``--kernels a,b`` takes a subset, e.g. the full-sequence
+attention and the two scans:
+
+    REPRO_TORCH_TUNE_CACHE=/tmp/c.json python -m repro_torch.tune.report \\
+        --fast --device cpu --kernels flash_attention,rwkv6,mamba_scan
+
+``--fast`` takes the registry's small example shapes, 2 survivors and 1
+timing a candidate; ``--out PATH`` also writes the rows as JSON to PATH.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ def main(argv=None):
                     help="small shapes, keep=2, iters=1 (smoke)")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated subset (default: the fast four "
-                         "with --fast, else every ported kernel)")
+                         "with --fast, else all 19 registry names)")
     ap.add_argument("--keep", type=int, default=None,
                     help="survivors of the analytic prune per kernel")
     ap.add_argument("--iters", type=int, default=None,
@@ -77,12 +84,8 @@ def main(argv=None):
         spec = tune.REGISTRY[name]
         kargs, kkw = spec.example(small=args.fast, device=device)
         t0 = time.perf_counter()
-        try:
-            res = tune.tune(name, *kargs, kernel_kwargs=kkw, keep=keep,
-                            iters=iters, cache=cache, force=args.force)
-        except NotImplementedError as e:
-            print(f"-- {name}: {e}", file=sys.stderr)
-            continue
+        res = tune.tune(name, *kargs, kernel_kwargs=kkw, keep=keep,
+                        iters=iters, cache=cache, force=args.force)
         rows.append({
             "kernel": name,
             "key": res.key,

@@ -274,8 +274,7 @@ def tune(name: str, *args, kernel_kwargs: Optional[Dict[str, Any]] = None,
     ``keep`` survivors of the analytic prune are timed; the winner by
     measured fraction-of-roofline is persisted.  A candidate the kernel
     refuses (``ValueError`` from its wrapper, or a launch the card refuses)
-    is recorded as failed; a name whose kernel is not ported yet raises
-    ``NotImplementedError``.
+    is recorded as failed.
     """
     spec = registry.get(name)
     c = cache if cache is not None else tcache.default_cache()
@@ -306,8 +305,6 @@ def tune(name: str, *args, kernel_kwargs: Optional[Dict[str, Any]] = None,
                                       iters=iters)
             cand.achieved = roof / max(cand.measured_s, 1e-12)
             timings += 1
-        except NotImplementedError:
-            raise
         except (ValueError, RuntimeError) as e:   # infeasible combination
             cand.error = f"{type(e).__name__}: {e}"
 

@@ -28,7 +28,14 @@ another order), the sum l at 1e-4 relative.  The int8/int4 GEMVs
 (``qgemv``, ``batched_qgemv``) and the batched MX GEMV at 1e-5 of sum
 |w x| per output: both sides dequantize each code with one fp32 multiply
 (the same weights) and sum the same fp32 products in another order.  The
-dense int8 decode at ATTN_TOL, as the paged int8 decode.
+dense int8 decode at ATTN_TOL, as the paged int8 decode.  FLASH_TOL for
+``flash_attention`` in fp32 (the JAX package's own tolerance for it: fp32
+softmax-weighted means, the kernel's online softmax against the plain
+full one) and BF16_TOL where its output is bf16 (rows near t = 0 average
+few positions, so outputs reach order 1 to 3).  SCAN_TOL for ``wkv6`` and
+``mamba_scan`` (the JAX package's tolerance for them: fp32 states of order
+1 to 10 carried over T steps, the plain versions multiplying the decays
+step by step, the wkv6 kernel summing their logarithms in chunks).
 """
 import numpy as np
 import pytest
@@ -72,6 +79,7 @@ def paged_case(rng, B, H, KV, hd, page, nblk):
 
 BF16_TOL, ATTN_TOL, MX_TOL, F32_TOL = 2e-2, 4e-3, 1e-3, 1e-4
 ADAM_TOL = 1e-6
+FLASH_TOL, SCAN_TOL = 2e-4, 1e-4
 
 
 @pytest.fixture(autouse=True)
@@ -656,6 +664,160 @@ def test_tune_the_int_kernels_on_the_card(tmp_path):
         res = tune.tune(name, *args, kernel_kwargs=kw, keep=4, iters=2,
                         cache=cache)
         assert not res.from_cache and res.timings_run >= 2, name
+        assert not [c.error for c in res.candidates if c.error], name
+        assert 0 < res.fraction <= 1.05, (name, res.fraction)
+        again = tune.tune(name, *args, kernel_kwargs=kw, cache=cache)
+        assert again.from_cache and again.timings_run == 0
+        assert again.best == res.best
+
+
+# ------------------------------------- full-sequence attention and the scans
+FLASH_SPACE = [LaunchConfig(unroll=u, block_k=b) for u in (1, 2)
+               for b in (256, 512)]
+SCAN_SPACE = [LaunchConfig(block_n=n) for n in (64, 128, 256)]
+
+
+@pytest.mark.parametrize("cfg", FLASH_SPACE,
+                         ids=lambda c: f"unroll{c.unroll}_k{c.block_k}")
+@pytest.mark.parametrize("B,T,S,H,KV,hd,causal,dtype", [
+    (2, 512, 512, 8, 2, 64, True, torch.float32),    # the registry example
+    (1, 100, 77, 4, 2, 32, True, torch.float32),     # ragged, T > S
+    (2, 65, 65, 3, 3, 64, True, torch.float32),      # G = 1, ragged
+    (1, 77, 200, 4, 1, 128, False, torch.bfloat16),  # T < S, not causal
+    (1, 130, 130, 32, 2, 128, True, torch.bfloat16),  # G = 16 (glm4-9b)
+    (1, 256, 256, 16, 16, 64, True, torch.bfloat16),  # qwen1.5-0.5b heads
+])
+def test_flash_attention(B, T, S, H, KV, hd, causal, dtype, cfg):
+    g = torch.Generator(device="cuda").manual_seed(50)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
+               for shape in ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    before = TK.launch_counts()["flash_attention"]
+    got = TK.flash_attention(q, k, v, causal, cfg)
+    assert got.dtype == dtype and got.shape == (B, T, H, hd)
+    matches_plain(got, TK.PLAIN["flash_attention"](q, k, v, causal),
+                  FLASH_TOL if dtype == torch.float32 else BF16_TOL)
+    assert TK.launch_counts()["flash_attention"] == before + 1
+
+
+def wkv6_case(g, B, T, H, hd, dtype, state):
+    r, k, v = (torch.randn((B, T, H, hd), device="cuda", generator=g)
+               .to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, T, H, hd), device="cuda",
+                                         generator=g))).to(dtype)
+    u = 0.5 + 0.1 * torch.randn((H, hd), device="cuda", generator=g)
+    s0 = (torch.randn((B, H, hd, hd), device="cuda", generator=g) if state
+          else torch.zeros((B, H, hd, hd), device="cuda"))
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("cfg", SCAN_SPACE, ids=lambda c: f"n{c.block_n}")
+@pytest.mark.parametrize("B,T,H,hd,dtype,state", [
+    (1, 256, 4, 64, torch.float32, False),    # the registry example
+    (2, 77, 3, 32, torch.float32, True),      # ragged T, nonzero state
+    (1, 100, 2, 128, torch.bfloat16, True),
+    (1, 5, 2, 64, torch.float32, True),       # shorter than one chunk
+])
+def test_wkv6(B, T, H, hd, dtype, state, cfg):
+    g = torch.Generator(device="cuda").manual_seed(51)
+    args = wkv6_case(g, B, T, H, hd, dtype, state)
+    before = TK.launch_counts()["rwkv6"]
+    y, s = TK.wkv6(*args, cfg)
+    assert y.dtype == s.dtype == torch.float32
+    want_y, want_s = TK.PLAIN["rwkv6"](*args)
+    matches_plain(y, want_y, SCAN_TOL)
+    matches_plain(s, want_s, SCAN_TOL)
+    assert TK.launch_counts()["rwkv6"] == before + 1
+
+
+def test_wkv6_with_state_on_the_card():
+    """Zeros into the kernel and the state folded in (the JAX form) give
+    the kernel run from state0."""
+    g = torch.Generator(device="cuda").manual_seed(52)
+    args = wkv6_case(g, 1, 96, 4, 64, torch.float32, True)
+    y, s = TK.wkv6_with_state(*args)
+    y2, s2 = TK.wkv6(*args)
+    matches_plain(y, y2, SCAN_TOL)
+    matches_plain(s, s2, SCAN_TOL)
+
+
+@pytest.mark.parametrize("cfg", SCAN_SPACE, ids=lambda c: f"n{c.block_n}")
+@pytest.mark.parametrize("b,T,di,dtype,state", [
+    (2, 512, 512, torch.float32, False),      # the registry example
+    (1, 100, 300, torch.float32, True),       # ragged T and channels
+    (1, 64, 256, torch.bfloat16, True),
+    (1, 3, 128, torch.float32, True),         # shorter than one tile
+])
+def test_mamba_scan(b, T, di, dtype, state, cfg):
+    g = torch.Generator(device="cuda").manual_seed(53)
+    x = torch.randn((b, T, di), device="cuda", generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, T, di), device="cuda", generator=g)).to(dtype)
+    B, C = (torch.randn((b, T, 16), device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    A = -torch.exp(torch.randn((di, 16), device="cuda", generator=g))
+    D = 1 + 0.1 * torch.randn((di,), device="cuda", generator=g)
+    s0 = (torch.randn((b, di, 16), device="cuda", generator=g) if state
+          else torch.zeros((b, di, 16), device="cuda"))
+    before = TK.launch_counts()["mamba_scan"]
+    y, s = TK.mamba_scan(x, dt, B, C, A, D, s0, cfg)
+    assert y.dtype == s.dtype == torch.float32
+    want_y, want_s = TK.PLAIN["mamba_scan"](x, dt, B, C, A, D, s0)
+    matches_plain(y, want_y, SCAN_TOL)
+    matches_plain(s, want_s, SCAN_TOL)
+    assert TK.launch_counts()["mamba_scan"] == before + 1
+
+
+def test_attention_and_scans_raise_instead_of_falling_back():
+    f32 = dict(device="cuda", dtype=torch.float32)
+    q = torch.ones((1, 8, 4, 64), **f32)
+    kv = torch.ones((1, 8, 2, 64), **f32)
+    with pytest.raises(ValueError, match="all fp32 or all bf16"):
+        TK.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="all fp32 or all bf16"):
+        TK.flash_attention(q, kv.bfloat16(), kv.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           kv, kv)
+    with pytest.raises(ValueError, match="block_k"):
+        TK.flash_attention(q, kv, kv, True, LaunchConfig(unroll=4))
+    r = torch.ones((1, 8, 2, 64), **f32)
+    u, s0 = torch.ones((2, 64), **f32), torch.zeros((1, 2, 64, 64), **f32)
+    with pytest.raises(ValueError, match="one dtype"):
+        TK.wkv6(r, r, r, r.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="fp32 u"):
+        TK.wkv6(r, r, r, r, u.bfloat16(), s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), r, r, r, u,
+                s0)
+    with pytest.raises(ValueError, match="block_n"):
+        TK.wkv6(r, r, r, r, u, s0, LaunchConfig(block_n=512))
+    x = torch.ones((1, 8, 32), **f32)
+    bc = torch.ones((1, 8, 16), **f32)
+    A, D = -torch.ones((32, 16), **f32), torch.ones((32,), **f32)
+    h0 = torch.zeros((1, 32, 16), **f32)
+    with pytest.raises(ValueError, match="one dtype"):
+        TK.mamba_scan(x.half(), x.half(), bc.half(), bc.half(), A, D, h0)
+    with pytest.raises(ValueError, match="fp32 A"):
+        TK.mamba_scan(x, x, bc, bc, A.bfloat16(), D, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.mamba_scan(x, x.transpose(1, 2).contiguous().transpose(1, 2),
+                      bc, bc, A, D, h0)
+    with pytest.raises(ValueError, match="16"):          # d_state 8
+        TK.mamba_scan(x, x, bc[..., :8].contiguous(), bc[..., :8].contiguous(),
+                      A[:, :8].contiguous(), D, h0[..., :8].contiguous())
+
+
+def test_tune_attention_and_scans_on_the_card(tmp_path):
+    """tune -> cache on the card for the three names at their small
+    registry examples: every candidate launches, every fraction lies in
+    (0, 1.05], the second pass comes from the cache."""
+    from repro_torch import tune
+    cache = tune.TuneCache(str(tmp_path / "cache.json"))
+    for name in ("flash_attention", "rwkv6", "mamba_scan"):
+        args, kw = tune.REGISTRY[name].example(small=True, device="cuda")
+        res = tune.tune(name, *args, kernel_kwargs=kw, keep=4, iters=2,
+                        cache=cache)
+        assert not res.from_cache and res.timings_run >= 3, name
         assert not [c.error for c in res.candidates if c.error], name
         assert 0 < res.fraction <= 1.05, (name, res.fraction)
         again = tune.tune(name, *args, kernel_kwargs=kw, cache=cache)
