@@ -6,12 +6,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each one against its plain PyTorch version at the serving and
-training shapes and times it (the full-sequence attention and the two
-scans, which no model path runs, at the widths of qwen1.5-0.5b, glm4-9b,
-rwkv6-3b and jamba, at every candidate of their tuner spaces), runs the
-tuner (``repro_torch.tune``) over every registry name, each a CUDA kernel,
-on an empty cache of its own, then again from that
+checks in their SASS that the kernels built on the tensor cores use them
+(``TENSOR_CORE``), holds each one against its plain PyTorch version at
+the serving and training shapes and times it (the full-sequence
+attention and the two scans, which no model path runs, at the widths of
+qwen1.5-0.5b, glm4-9b, rwkv6-3b and jamba, at every candidate of their
+tuner spaces), runs the tuner (``repro_torch.tune``) over every registry
+name, each a CUDA kernel, on an empty cache of its own, then again from that
 cache, and builds an engine that carries the winners, then serves through
 the chunked, paged engine (on an empty cache: the default launch
 parameters) with every kernel on, random weights from seed 0: full-width
@@ -105,7 +106,10 @@ F32_OPS_PER_S = 67e12
 # 0.1 to 1); wkv6 6.9e-5 -> 2.8e-4 and mamba_scan 3.4e-5 -> 1.4e-4 (fp32
 # states of order 1 to 10 over 2048 steps: the plain versions multiply the
 # decays step by step, the wkv6 kernel sums their logarithms in chunks,
-# and the error grows with the chunk).
+# and the error grows with the chunk).  The bf16 flash attention on the
+# tensor cores rounds p to bf16 before its second product: one bf16 ulp of
+# outputs of order 1 (7.8e-3), inside the same gate (8e-3 + 8e-3 |x|), and
+# SDPA's own error against the plain version is as large (PERF.md §6).
 BF16_TOL = 2e-2
 TOL = {"rmsnorm": BF16_TOL, "gemv": BF16_TOL, "gemv_f32": 3e-6,
        "paged_decode_attention": 4e-3, "prefill_attention_paged": 4e-3,
@@ -168,6 +172,11 @@ REPLACES = {
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:91"),
 }
+# the kernels built on the tensor cores, by library: the function whose SASS
+# (``cuobjdump -sass``) must hold the instruction — the bf16 flash
+# attention's wgmma (HGMMA) and the batched GEMV's mma.sync (HMMA)
+TENSOR_CORE = {"flash_attention": ("flash_bf16_kernel", "HGMMA"),
+               "gemv": ("batched_gemv_kernel", "HMMA")}
 # the kernels of the tuner's path (the tune phase): every registry name is
 # tuned and then launched through its dispatching entry point, and the
 # unregistered batched gemv through its own
@@ -278,6 +287,30 @@ RESTART_TOL = dict(rtol=1e-5, atol=1e-6)
 
 def log(*a):
     print(*a, flush=True)
+
+
+def sass_check():
+    """HGMMA and HMMA instructions in the SASS of each library of
+    ``TENSOR_CORE`` (``cuobjdump`` beside ``nvcc``), and of its kernel's
+    instantiations; raises if an instantiation has none of its
+    instruction."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    out = {}
+    for lib, (fn, instr) in TENSOR_CORE.items():
+        sass = subprocess.run(
+            [str(tool), "-sass", str(_build.build_dir() / f"lib{lib}.so")],
+            capture_output=True, text=True, check=True).stdout
+        mine = [f for f in sass.split("Function : ")[1:]
+                if fn in f.split("\n", 1)[0]]
+        counts = [f.count(instr) for f in mine]
+        if not counts or min(counts) == 0:
+            raise AssertionError(f"lib{lib}.so: {fn} has an instantiation "
+                                 f"without {instr} (counts {counts})")
+        out[lib] = {"HGMMA": sass.count("HGMMA"), "HMMA": sass.count("HMMA"),
+                    "kernel": fn, "instruction": instr,
+                    "per_instantiation": counts}
+    return out
 
 
 def bound_ms(nbytes: float, ops: float, rate: float = BF16_OPS_PER_S):
@@ -827,7 +860,7 @@ def paper_rows(torch, K, F, agree, dev, randn):
     """The kernels of the tuner's slice at their shapes: dotp and axpy at
     the registry's full size (2^20 bf16) and past the L2 (2^27 bf16, 256 MB
     an operand), each from its default config; the batched gemv at
-    (2048, 4096) for 1, 2, 4 and 8 rows and at qwen1.5-0.5b's read-out
+    (2048, 4096) for 1, 2, 4, 8 and 16 rows and at qwen1.5-0.5b's read-out
     (151936, 1024) for 8; the dense decode attention at kernel_bench's
     (B=4, H=16, KV=8, hd=128, S=4096) and qwen1.5-0.5b's 8 slots (H = KV =
     16, hd=64, S=1024)."""
@@ -869,7 +902,7 @@ def paper_rows(torch, K, F, agree, dev, randn):
 
     for (N, Kd), B in (((2048, 4096), 1), ((2048, 4096), 2),
                        ((2048, 4096), 4), ((2048, 4096), 8),
-                       ((151936, 1024), 8)):
+                       ((2048, 4096), 16), ((151936, 1024), 8)):
         ws = [randn(N, Kd, scale=Kd ** -0.5)
               for _ in range(copies_for(N * Kd * 2))]
         xs = randn(B, Kd)
@@ -1048,7 +1081,8 @@ def scan_rows(torch, K, F, agree, dev, gen):
     fp32, qwen1.5-0.5b's attention (B = 1, T = S = 2048, 16 heads of 64,
     bf16) and glm4-9b's GQA (32 query heads on 2 KV heads of 128, T = S =
     2048, bf16), all causal, against SDPA (``is_causal``,
-    ``enable_gqa``); ``wkv6`` at the registry's (1, 256, 4, 64) and
+    ``enable_gqa``; its own error against the plain version beside the
+    kernel's); ``wkv6`` at the registry's (1, 256, 4, 64) and
     rwkv6-3b's time mix (B = 1, T = 2048, 40 heads of 64, fp32, w =
     exp(-exp(N(0, 1))), u = 0.5 as the model's init) from a zero and from
     a nonzero state; ``mamba_scan`` at the registry's (2, 512, 512, 16) and
@@ -1071,10 +1105,15 @@ def scan_rows(torch, K, F, agree, dev, gen):
 
     def row(name, label, sets, kw, key, shape, nbytes, ops, rate,
             lib_fns=None, **extra):
-        """Every candidate against the plain version, then the timings."""
+        """Every candidate against the plain version, then the timings
+        (and, where a PyTorch call computes the function, that call's own
+        error against the plain version, recorded only)."""
         spec = tune.REGISTRY[name]
         fn, plain = spec.fn, K.PLAIN[name]
         want = plain(*sets[0], **kw)
+        if lib_fns is not None:
+            extra["library_max_abs_err"] = (
+                lib_fns[0]().float() - want.float()).abs().max().item()
         cands = []
         for cfg in enumerate_space(spec):
             knobs = {k: getattr(cfg, k) for k in spec.space}
@@ -1114,7 +1153,7 @@ def scan_rows(torch, K, F, agree, dev, gen):
             rate, lib_fns=[lambda s=s: F.scaled_dot_product_attention(
                 s[0].transpose(1, 2), s[1].transpose(1, 2),
                 s[2].transpose(1, 2), is_causal=True,
-                enable_gqa=H != KV) for s in sets],
+                enable_gqa=H != KV).transpose(1, 2) for s in sets],
             library="scaled_dot_product_attention (is_causal, enable_gqa)",
             registry_bound_ms=bound_ms(nbytes, 4.0 * B * T * S * H * hd,
                                        rate)[0])
@@ -2486,6 +2525,12 @@ def main():
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "build": {k: {"seconds": v["seconds"], "nvcc": v["nvcc"]}
                         for k, v in build_log.items()}}
+    sass = sass_check()
+    record["sass"] = sass
+    log("tensor-core instructions (cuobjdump -sass): " + "; ".join(
+        f"lib{lib}.so HGMMA {c['HGMMA']} HMMA {c['HMMA']} ({c['instruction']}"
+        f" in each of {len(c['per_instantiation'])} {c['kernel']})"
+        for lib, c in sass.items()))
 
     rng = np.random.default_rng(0)
     rows, phase_s = {}, {}
@@ -2516,7 +2561,9 @@ def main():
                        f"{us(r['eager_four_bf16_gemv_ms'])}]"
                        if "four_mx_qgemv_ms" in r else "")
                     + (f"  [registry bound {us(r['registry_bound_ms'])}]"
-                       if "registry_bound_ms" in r else ""))
+                       if "registry_bound_ms" in r else "")
+                    + (f"  [library err {r['library_max_abs_err']:.3g}]"
+                       if "library_max_abs_err" in r else ""))
                 for c in r.get("candidates", ()):
                     log(f"      {c['knobs']}  {us(c['ms'])}  err "
                         f"{c['max_abs_err']:.3g}")

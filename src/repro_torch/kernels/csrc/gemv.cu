@@ -32,16 +32,32 @@
 //   xs (replaces src/repro/kernels/ops.py `batched_gemv`, a vmap of the
 //   Pallas gemv over the rows, which streams W once per row).  Still bound
 //   by the bytes of W: 2 N K + 2 B K + 4 B N bytes for 2 B N K operations,
-//   at most B / 2 operations per byte.  Each block first copies xs into
-//   shared memory (B K bf16, at most 227 KB), then each warp takes R W rows
-//   at a time (4, or 2 for B > 8; 1 when W has too few rows to fill the
-//   card that way), reads them once with 16-byte loads and
-//   dots them with all B rows of xs, keeping R x B fp32 accumulators in
-//   registers, so W's bytes are read once whatever B is, and each xs
-//   vector read from shared memory and converted serves R rows.  The blocks
-//   stride over the rows (at most what the SMs hold at once), so the copy
-//   of xs is paid once a block, not once a row.  For B = 1 each sum is
-//   taken in gemv's order.
+//   at most B / 2 operations per byte.  So the products go to the tensor
+//   cores, and the CUDA cores only move bytes: `mma.sync.m16n8k16` (bf16
+//   in, fp32 accumulators) takes W as A, 16 rows by 16 k, and xs as B, its
+//   rows as the 8 columns (one n-tile for B <= 8, two up to 16, the unused
+//   columns zero); one instruction does the 2,048 multiply-adds that took
+//   2,048 FMAs (plus the conversions and the shared loads of xs that kept
+//   the SIMT kernel issue-bound at the read-out).  A warp owns a tile of 16
+//   W rows and walks K in steps of 64: each lane loads 16 k of its two rows
+//   (g = lane / 4 and g + 8) as two 16-byte streaming loads, 8 k at 8 qd
+//   and at 32 + 8 qd (qd = lane % 4, so each load of a quad is 64
+//   contiguous bytes of a row), and the same k of xs row g through the
+//   read-only cache (xs is small and every warp reads it; no block copies
+//   it).  A lane's 8 k of a vector sit at the fragment's k positions of two
+//   mma (words 0-1 of the vector as one k-step of 16, words 2-3 as
+//   another, xs permuted the same way): a dot product does not care about
+//   the order of k within a step.  Four steps of loads are in flight before
+//   their products.  The warps of a block split K (`ksplit` of them on one
+//   tile, each taking every ksplit-th step) when the tiles are too few to
+//   fill the card, e.g. (2048, 4096): 128 tiles x 8 warps; their partials meet
+//   in shared memory and the first warp adds them in a fixed order, so the
+//   same inputs give the same bits, with no atomics and no second launch.
+//   A step past K (K % 64 != 0; K % 8 == 0) and rows past N load zeros.
+//   B = 1 launches gemv's kernel, so its bits are gemv's.  Knobs: the
+//   config's `gemv_warps` is the warps a block (at most 16, the kernel's
+//   launch bound); `ksplit` is worked out from the shape by the wrapper
+//   (kernels/gemv.py `split_k`).
 #include "common.cuh"
 
 namespace {
@@ -86,124 +102,153 @@ cudaError_t launch(const void* w, const void* x, const void* index, void* y,
   return cudaGetLastError();
 }
 
-// Each warp takes R rows of W at a time: per 16-byte step it loads the R
-// rows' vectors, then converts each row of xs' vector once and uses it for
-// all R rows (so the shared-memory reads and conversions of xs are 1 / R
-// per W byte).
-template <int MAXB, int R>
-__global__ void batched_gemv_kernel(const __nv_bfloat16* __restrict__ w,
-                                    const __nv_bfloat16* __restrict__ xs,
-                                    float* __restrict__ y, int N, int K,
-                                    int B) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint4* xs_s = reinterpret_cast<uint4*>(smem);
-  const int nvec = K / 8;
-  const uint4* xg = reinterpret_cast<const uint4*>(xs);
-  for (int i = threadIdx.x; i < B * nvec; i += blockDim.x) xs_s[i] = xg[i];
-  __syncthreads();
-  const int warps = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int row0 = (blockIdx.x * warps + (threadIdx.x >> 5)) * R; row0 < N;
-       row0 += gridDim.x * warps * R) {
-    const uint4* wr[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      wr[r] = reinterpret_cast<const uint4*>(
-          w + (size_t)min(row0 + r, N - 1) * K);
-    float acc[R][MAXB];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int b = 0; b < MAXB; ++b) acc[r][b] = 0.f;
-    for (int i = lane; i < nvec; i += 32) {
-      float wf[R][8];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        repro::bf16x8_to_float(__ldcs(wr[r] + i), wf[r]);
-#pragma unroll
-      for (int b = 0; b < MAXB; ++b) {
-        if (b < B) {
-          float xf[8];
-          repro::bf16x8_to_float(xs_s[b * nvec + i], xf);
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              acc[r][b] = fmaf(wf[r][j], xf[j], acc[r][b]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int b = 0; b < MAXB; ++b) {
-        if (b < B) {
-          const float s = repro::warp_sum(acc[r][b]);
-          if (lane == 0 && row0 + r < N) y[(size_t)b * N + row0 + r] = s;
-        }
-      }
-    }
-  }
+constexpr int kStep = 64;    // k a warp takes per step: 16 a lane
+constexpr int kInFlight = 4;  // steps whose loads are issued together
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row-major) . b (16 x 8 bf16)
+__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// rows of W a warp takes at a time when the rows are many (the
-// accumulators are R x MAXB registers); one when they are few, so the grid
-// still fills the card
-template <int MAXB>
-constexpr int kRows = MAXB >= 16 ? 2 : 4;
+// NT n-tiles of 8 xs rows; warp w of a block takes tile blockIdx.x * (warps
+// / ksplit) + w / ksplit and every ksplit-th step from w % ksplit
+template <int NT>
+__global__ void __launch_bounds__(512)
+    batched_gemv_kernel(const __nv_bfloat16* __restrict__ w,
+                        const __nv_bfloat16* __restrict__ xs,
+                        float* __restrict__ y, int N, int K, int B,
+                        int ksplit) {
+  extern __shared__ float part[];  // [warp][16 rows][8 NT columns]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int wk = warp % ksplit;
+  const int tile = blockIdx.x * ((blockDim.x >> 5) / ksplit) + warp / ksplit;
+  const int row0 = tile * 16 + g, row1 = row0 + 8;
+  const bool ok0 = row0 < N, ok1 = row1 < N;
+  const int nvec = K / 8, steps = (K + kStep - 1) / kStep;
+  const uint4* w0 =
+      reinterpret_cast<const uint4*>(w) + (size_t)min(row0, N - 1) * nvec;
+  const uint4* w1 =
+      reinterpret_cast<const uint4*>(w) + (size_t)min(row1, N - 1) * nvec;
+  const uint4* xv[NT];
+  bool xok[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    xok[nt] = 8 * nt + g < B;
+    xv[nt] = reinterpret_cast<const uint4*>(xs) +
+             (size_t)(xok[nt] ? 8 * nt + g : 0) * nvec;
+  }
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
-template <int MAXB, int R>
+  for (int s0 = wk; s0 < steps; s0 += ksplit * kInFlight) {
+    // vector v of a lane: k = 64 step + 32 v + 8 qd.. (a quad's loads are
+    // 64 contiguous bytes of a row); clamped into the row, not predicated
+    uint4 a[kInFlight][2][2];  // [step][row g, g + 8][vector]
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int i =
+            min((s0 + u * ksplit) * (kStep / 8) + qd + 4 * v, nvec - 1);
+        a[u][0][v] = __ldcs(w0 + i);
+        a[u][1][v] = __ldcs(w1 + i);
+      }
+    // ptxas keeps loads above a warp barrier (it orders memory): without
+    // it, it sinks each load to just before its product
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int i = (s0 + u * ksplit) * (kStep / 8) + qd + 4 * v;
+        const bool in = i < nvec;
+        const uint4 r0 = in && ok0 ? a[u][0][v] : zero;
+        const uint4 r1 = in && ok1 ? a[u][1][v] : zero;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint4 xl = __ldg(xv[nt] + min(i, nvec - 1));
+          const uint4 x = in && xok[nt] ? xl : zero;
+          mma_bf16(acc[nt], r0.x, r1.x, r0.y, r1.y, x.x, x.y);
+          mma_bf16(acc[nt], r0.z, r1.z, r0.w, r1.w, x.z, x.w);
+        }
+      }
+  }
+
+  // c[0..1]: row g, columns 8 nt + 2 qd + {0, 1}; c[2..3]: row g + 8
+  if (ksplit > 1) {
+    constexpr int W = 16 * 8 * NT;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[warp * W + (g + 8 * (e >> 1)) * 8 * NT + 8 * nt + 2 * qd +
+             (e & 1)] = acc[nt][e];
+    __syncthreads();
+    if (wk != 0) return;
+    for (int k2 = 1; k2 < ksplit; ++k2)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[nt][e] += part[(warp + k2) * W +
+                             (g + 8 * (e >> 1)) * 8 * NT + 8 * nt +
+                             2 * qd + (e & 1)];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * nt + 2 * qd + e;
+      if (n < B) {
+        if (ok0) y[(size_t)n * N + row0] = acc[nt][e];
+        if (ok1) y[(size_t)n * N + row1] = acc[nt][2 + e];
+      }
+    }
+}
+
+template <int NT>
 cudaError_t launch_batched(const void* w, const void* xs, void* y, int N,
-                           int K, int B, int warps, int blocks,
+                           int K, int B, int warps, int ksplit,
                            cudaStream_t stream) {
-  const int smem = B * K * 2;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        batched_gemv_kernel<MAXB, R>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  batched_gemv_kernel<MAXB, R><<<blocks, warps * 32, smem, stream>>>(
-      (const __nv_bfloat16*)w, (const __nv_bfloat16*)xs, (float*)y, N, K, B);
+  const int per_block = warps / ksplit;
+  const int blocks = ((N + 15) / 16 + per_block - 1) / per_block;
+  const int smem = ksplit > 1 ? warps * 16 * 8 * NT * 4 : 0;
+  batched_gemv_kernel<NT><<<blocks, warps * 32, smem, stream>>>(
+      (const __nv_bfloat16*)w, (const __nv_bfloat16*)xs, (float*)y, N, K, B,
+      ksplit);
   return cudaGetLastError();
-}
-
-template <int MAXB>
-cudaError_t launch_rows(const void* w, const void* xs, void* y, int N, int K,
-                        int B, int warps, int rows, int blocks,
-                        cudaStream_t stream) {
-  if (rows == 1)
-    return launch_batched<MAXB, 1>(w, xs, y, N, K, B, warps, blocks, stream);
-  if (rows == kRows<MAXB>)
-    return launch_batched<MAXB, kRows<MAXB>>(w, xs, y, N, K, B, warps,
-                                             blocks, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // w (N, K) row-major bf16, xs (B, K) bf16 with 1 <= B <= 16, y (B, N)
-// fp32; K % 8 == 0, B K 2 bytes of shared memory at most 227 KB, w and xs
-// 16-byte aligned (the wrapper checks); ``rows`` W rows a warp at a time (1,
-// or 4 for B <= 8 and 2 above); ``blocks`` stride over the rows.
+// fp32; K % 8 == 0, w and xs 16-byte aligned (the wrapper checks); warps
+// 1..16 a block, ``ksplit`` of them (a divisor of warps) on each 16-row
+// tile.  B = 1 is gemv (``warps`` rows a block).
 extern "C" cudaError_t repro_batched_gemv_bf16(const void* w, const void* xs,
                                                void* y, int N, int K, int B,
-                                               int warps, int rows,
-                                               int blocks, void* stream) {
+                                               int warps, int ksplit,
+                                               void* stream) {
   if (N <= 0) return cudaSuccess;
-  if (warps < 1 || warps > 32 || K % 8 != 0 || B < 1 || B > 16 ||
-      blocks < 1 || B * K * 2 > 227 * 1024)
+  if (warps < 1 || warps > 16 || ksplit < 1 || warps % ksplit != 0 ||
+      K % 8 != 0 || B < 1 || B > 16)
     return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   if (B == 1)
-    return launch_rows<1>(w, xs, y, N, K, B, warps, rows, blocks, s);
-  if (B == 2)
-    return launch_rows<2>(w, xs, y, N, K, B, warps, rows, blocks, s);
-  if (B <= 4)
-    return launch_rows<4>(w, xs, y, N, K, B, warps, rows, blocks, s);
-  if (B <= 8)
-    return launch_rows<8>(w, xs, y, N, K, B, warps, rows, blocks, s);
-  return launch_rows<16>(w, xs, y, N, K, B, warps, rows, blocks, s);
+    return launch<__nv_bfloat16>(w, xs, nullptr, y, N, K, warps, stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 8) return launch_batched<1>(w, xs, y, N, K, B, warps, ksplit, s);
+  return launch_batched<2>(w, xs, y, N, K, B, warps, ksplit, s);
 }
 
 // w (N, K) row-major, or a stack (E, N, K) with index -> one int32 expert

@@ -3,9 +3,10 @@ count, its plain version and its registry entry.
 
 Replaces the JAX package's Pallas ``kernels/flash_attention.py:
 flash_attention``, the paper's GEMM-class control kernel: full-sequence
-GQA attention with an online softmax, causal or not.  The CUDA kernel
-computes in fp32 on the CUDA cores and is bound by its operations;
-``csrc/flash_attention.cu`` says how its tiles map the JAX knobs.
+GQA attention with an online softmax, causal or not.  Bound by its
+operations, it takes two CUDA kernels: bf16 inputs run on the tensor cores
+(``wgmma`` fed by TMA), fp32 inputs in fp32 on the CUDA cores (no TF32);
+``csrc/flash_attention.cu`` says how their tiles map the JAX knobs.
 """
 from __future__ import annotations
 
@@ -33,11 +34,12 @@ def flash_attention(q, k, v, causal: bool = True,
                     cfg: LaunchConfig = DEFAULT):
     """q (B,T,H,hd), k/v (B,S,KV,hd) -> (B,T,H,hd) in q.dtype; with
     ``causal`` position s is masked for query t when s > t (aligned at the
-    top left).  ``cfg.unroll`` (1, 2) sets the query rows a block and
-    ``cfg.block_k`` (256, 512) the positions a tile (the source note says
-    how).  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (q, k, v contiguous, all fp32 or all bf16, hd 32, 64 or
-    128, H a multiple of KV) or raises."""
+    top left).  ``cfg.unroll`` (1, 2) sets the query rows a block (bf16:
+    64 a ``wgmma`` warpgroup) and ``cfg.block_k`` (256, 512) the positions
+    a tile (bf16: block_k / 4; the source note says how).  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (q, k, v
+    contiguous, all fp32 or all bf16, hd 32, 64 or 128, H a multiple of
+    KV) or raises."""
     global launches
     if q.device.type == "cpu":
         return plain(q, k, v, causal)

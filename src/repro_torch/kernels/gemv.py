@@ -23,11 +23,15 @@ batched_launches = 0
 _ARGS = [_build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
          _build.I, _build.P]
 _ARGTYPES = {"repro_gemv_bf16": _ARGS, "repro_gemv_f32": _ARGS,
-             "repro_batched_gemv_bf16": [_build.P] * 3 + [_build.I] * 6
+             "repro_batched_gemv_bf16": [_build.P] * 3 + [_build.I] * 5
              + [_build.P]}
-#: rows of xs one batched launch takes (``MAXB`` in the source)
+#: rows of xs one batched launch takes (two n-tiles of the tensor-core
+#: product)
 MAX_BATCH = 16
-_SMEM = 227 * 1024
+#: warps a block of the batched kernel (``__launch_bounds__(512)``)
+MAX_BATCH_WARPS = 16
+# k a warp of the batched kernel takes per step, and steps in flight
+_STEP, _IN_FLIGHT = 64, 4
 # elements per 16-byte load, by dtype
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
 
@@ -90,11 +94,12 @@ def plain_batched(w, xs):
 
 def batched_gemv(w, xs, cfg: LaunchConfig = DEFAULT):
     """w (N, K), xs (B, K) -> (B, N) fp32: ``gemv`` of every row of xs,
-    reading W once for all of them.
+    reading W once for all of them on the tensor cores (B = 1: gemv's
+    kernel and bits).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16 w and xs, 1 <= B <= 16, K % 8 == 0, B * K * 2 bytes of xs in
-    shared memory, contiguous and 16-byte aligned) or raises."""
+    (bf16 w and xs, 1 <= B <= 16, K % 8 == 0, contiguous and 16-byte
+    aligned, ``cfg.gemv_warps`` at most 16) or raises."""
     global batched_launches
     if w.device.type == "cpu":
         return plain_batched(w, xs)
@@ -102,32 +107,39 @@ def batched_gemv(w, xs, cfg: LaunchConfig = DEFAULT):
         raise ValueError(f"batched_gemv: unsupported device {w.device}")
     N, K = w.shape if w.dim() == 2 else (-1, -1)
     B = xs.shape[0] if xs.dim() == 2 else -1
+    warps = cfg.gemv_warps
     if (w.dtype != torch.bfloat16 or xs.dtype != w.dtype or w.dim() != 2
             or xs.shape != (B, K) or not 1 <= B <= MAX_BATCH
-            or B * K * 2 > _SMEM or xs.device != w.device
+            or not 1 <= warps <= MAX_BATCH_WARPS or xs.device != w.device
             or not w.is_contiguous() or not xs.is_contiguous() or K % 8
             or w.data_ptr() % 16 or xs.data_ptr() % 16):
         raise ValueError(
             f"batched_gemv kernel takes contiguous, 16-byte aligned bf16 w "
             f"(N, K) and xs (B, K) on one device with K % 8 == 0, 1 <= B <= "
-            f"{MAX_BATCH} and B * K * 2 <= {_SMEM} bytes; got w "
-            f"{tuple(w.shape)} {w.dtype}, xs {tuple(xs.shape)} {xs.dtype}")
-    warps, sms = cfg.gemv_warps, _build.sm_count(w.device)
-    # W rows a warp takes at a time: several when that still gives every
-    # SM two blocks' worth of rows, else one
-    rows = 2 if B > 8 else 4
-    if N < 2 * sms * warps * rows:
-        rows = 1
-    per_sm = max(1, min(2048 // (warps * 32), _SMEM // (B * K * 2)))
-    blocks = max(1, min(-(-N // (warps * rows)), sms * per_sm))
+            f"{MAX_BATCH} and at most {MAX_BATCH_WARPS} warps a block; got "
+            f"w {tuple(w.shape)} {w.dtype}, xs {tuple(xs.shape)} {xs.dtype}, "
+            f"{warps} warps")
     y = torch.empty((B, N), dtype=torch.float32, device=w.device)
     lib = _build.library("gemv", _ARGTYPES)
-    err = lib.repro_batched_gemv_bf16(w.data_ptr(), xs.data_ptr(),
-                                      y.data_ptr(), N, K, B, warps, rows,
-                                      blocks, _build.stream_handle(w.device))
+    err = lib.repro_batched_gemv_bf16(
+        w.data_ptr(), xs.data_ptr(), y.data_ptr(), N, K, B, warps,
+        split_k(N, K, warps, _build.sm_count(w.device)),
+        _build.stream_handle(w.device))
     _build.check(err, "batched_gemv")
     batched_launches += 1
     return y
+
+
+def split_k(N: int, K: int, warps: int, sms: int) -> int:
+    """Warps of a batched-GEMV block that share one 16-row tile, each taking
+    every ksplit-th 64-wide step of K: doubled while the tiles' warps stay
+    under 16 an SM, it divides ``warps`` and each warp keeps a full set of
+    steps in flight.  (2048, 4096) at 8 warps: 8; the read-out: 1."""
+    tiles, steps, ksplit = -(-N // 16), -(-K // _STEP), 1
+    while (warps % (2 * ksplit) == 0 and 2 * ksplit * _IN_FLIGHT <= steps
+           and tiles * ksplit < 16 * sms):
+        ksplit *= 2
+    return ksplit
 
 
 def _example(small: bool = True, device=None):

@@ -484,17 +484,22 @@ def test_decode_attention_stats(streams, unroll, block_k, H, KV, hd):
                   ATTN_TOL)
 
 
-@pytest.mark.parametrize("B", [1, 2, 5, 16])
-@pytest.mark.parametrize("N,K", [(2048, 4096), (1000, 1024), (64, 5632)])
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("N,K", [(2048, 4096), (1000, 1024), (64, 5632),
+                                 (1000, 1032)])
 def test_batched_gemv(B, N, K):
-    """Every row of xs against W read once; one row gives gemv's bits (the
-    same per-lane order)."""
+    """Every row of xs against W read once, on the tensor cores: one n-tile
+    of 8 rows (B <= 8) or two, N not a multiple of 16, K % 64 == 8 (1032: a
+    last step of one 16-byte vector); the same bits on a second launch (the
+    split-K partials meet in a fixed order); one row gives gemv's bits (B =
+    1 launches gemv's kernel)."""
     rng = np.random.default_rng(33)
     w = bf16(rng.standard_normal((N, K)) / np.sqrt(K))
     xs = bf16(rng.standard_normal((B, K)))
     got = TK.batched_gemv(w, xs)
     assert got.shape == (B, N) and got.dtype == torch.float32
     matches_plain(got, TK.PLAIN["batched_gemv"](w, xs))
+    assert torch.equal(got, TK.batched_gemv(w, xs))
     if B == 1:
         assert torch.equal(got[0], TK.gemv(w, xs[0].contiguous()))
 
@@ -509,6 +514,10 @@ def test_new_kernels_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="B <= 16"):
         TK.batched_gemv(w, torch.ones((17, 1024), dtype=torch.bfloat16,
                                       device="cuda"))
+    with pytest.raises(ValueError, match="16 warps"):
+        TK.batched_gemv(w, torch.ones((2, 1024), dtype=torch.bfloat16,
+                                      device="cuda"),
+                        LaunchConfig(gemv_warps=32))
     q = torch.ones((1, 4, 96), dtype=torch.bfloat16, device="cuda")
     kv = torch.ones((1, 64, 2, 96), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="32/64/128"):
@@ -686,6 +695,15 @@ SCAN_SPACE = [LaunchConfig(block_n=n) for n in (64, 128, 256)]
     (1, 77, 200, 4, 1, 128, False, torch.bfloat16),  # T < S, not causal
     (1, 130, 130, 32, 2, 128, True, torch.bfloat16),  # G = 16 (glm4-9b)
     (1, 256, 256, 16, 16, 64, True, torch.bfloat16),  # qwen1.5-0.5b heads
+    # the tensor-core tiles' edges: hd 32 (the 64-byte swizzle), T and S
+    # not multiples of 64 or 128, causal with T > S, G = 5 (qwen3-14b's 40
+    # on 8), and a G = 16 walk over many K/V stages
+    (1, 96, 96, 4, 2, 32, True, torch.bfloat16),
+    (1, 200, 200, 4, 2, 64, True, torch.bfloat16),
+    (1, 77, 300, 4, 1, 64, False, torch.bfloat16),
+    (1, 100, 77, 4, 2, 64, True, torch.bfloat16),
+    (2, 130, 130, 40, 8, 128, True, torch.bfloat16),
+    (1, 1024, 1024, 16, 1, 64, True, torch.bfloat16),
 ])
 def test_flash_attention(B, T, S, H, KV, hd, causal, dtype, cfg):
     g = torch.Generator(device="cuda").manual_seed(50)

@@ -218,6 +218,24 @@ def test_batched_gemv_plain_matches_jax(B, N, K, dtype):
         close(got[b], JR.gemv(wj, xj[b]), dtype)
 
 
+@pytest.mark.parametrize("N,K,warps,want", [
+    (2048, 4096, 8, 8),      # 128 tiles: the 8 warps of a block split K
+    (2048, 4096, 16, 16),
+    (2048, 4096, 4, 4),
+    (151936, 1024, 8, 1),    # the read-out: 9,496 tiles fill the card
+    (1000, 1032, 8, 4),      # 17 steps of 64: 4 warps keep 4 steps each
+    (64, 5632, 6, 2),        # 2 divides 6 warps, 4 does not
+])
+def test_batched_gemv_split_k(N, K, warps, want):
+    """The warps of a batched-GEMV block that share one 16-row tile on a
+    card of 132 SMs: a power of two that divides the block's warps, leaves
+    each warp four steps of K in flight, and stops once the tiles' warps
+    reach 16 an SM."""
+    from repro_torch.kernels.gemv import split_k
+    got = split_k(N, K, warps, 132)
+    assert got == want and warps % got == 0
+
+
 # ------------------------------------------------- dense decode attention
 def dense_case(rng, B, H, KV, hd, S, dtype):
     return [both(rng.standard_normal(shape), dtype)
