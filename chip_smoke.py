@@ -174,9 +174,12 @@ REPLACES = {
 }
 # the kernels built on the tensor cores, by library: the function whose SASS
 # (``cuobjdump -sass``) must hold the instruction — the bf16 flash
-# attention's wgmma (HGMMA) and the batched GEMV's mma.sync (HMMA)
+# attention's wgmma (HGMMA), and the mma.sync (HMMA) of the batched GEMV, the
+# bf16 dense decode and the paged prefill
 TENSOR_CORE = {"flash_attention": ("flash_bf16_kernel", "HGMMA"),
-               "gemv": ("batched_gemv_kernel", "HMMA")}
+               "gemv": ("batched_gemv_kernel", "HMMA"),
+               "decode_attention": ("decode_mma_kernel", "HMMA"),
+               "prefill_attention": ("prefill_mma_kernel", "HMMA")}
 # the kernels of the tuner's path (the tune phase): every registry name is
 # tuned and then launched through its dispatching entry point, and the
 # unregistered batched gemv through its own
@@ -379,11 +382,35 @@ def copies_for(nbytes: int, cap: int = 64) -> int:
 
 
 # ---------------------------------------------------------------- kernels
+def candidate_rows(torch, name, call, want, agree, label, key, sets,
+                   pick=lambda x: x):
+    """Every candidate of ``name``'s tuner space: ``pick`` of its output
+    held against ``want`` at the gate ``key``, a second launch that must
+    give the same bits, and its device time over the input ``sets``
+    (``call(inputs, cfg)``)."""
+    from repro_torch import tune
+    from repro_torch.tune.search import enumerate_space
+    spec = tune.REGISTRY[name]
+    out = []
+    for cfg in enumerate_space(spec):
+        knobs = {k: getattr(cfg, k) for k in spec.space}
+        got = call(sets[0], cfg)
+        err = agree(f"{name} {label} {knobs}", pick(got), want, key)
+        if not torch.equal(got, call(sets[0], cfg)):
+            raise AssertionError(f"{name} {label} {knobs}: two launches on "
+                                 f"the same inputs differ")
+        ms = time_ms(torch, [lambda s=s, c=cfg: call(s, c) for s in sets],
+                     reps=CANDIDATE_REPS, inner=CANDIDATE_INNER)[0]
+        out.append({"knobs": knobs, "max_abs_err": err, "ms": ms})
+    return out
+
+
 def attention_rows(torch, K, F, t, agree, dev, rng, hd):
     """The three paged-attention kernels at the engine's geometry: 16 heads
     of ``hd`` (64: qwen1.5-0.5b, 128: qwen2-moe-a2.7b), 8 slots, cache_len
     1024 -> 64 blocks of 16 bf16 rows or 32 blocks of 32 int8 rows per
-    slot."""
+    slot; the prefill at every candidate of its tuner space and, at hd 128,
+    also at glm4-9b's heads (32 query heads on 2 KV heads)."""
     import numpy as np
 
     from repro_torch.quant.tensor import quantize_kv
@@ -452,37 +479,67 @@ def attention_rows(torch, K, F, t, agree, dev, rng, hd):
 
     pre = []
     C = 32
-    for off, valid in ((224, 32), (0, 17), (401, 23)):
-        bt1 = bt[:1].contiguous()
-        q1 = t(rng.standard_normal((1, C, H, hd)))
+    PK = K.PLAIN["prefill_attention_paged"]
+
+    def prefill_row(H_, KV_, pools_, bt1, off, valid, label):
+        """One prefill row: one slab of C rows at ``off`` over the pools'
+        first table row, every candidate, SDPA (GQA inside) beside it."""
+        q1 = t(rng.standard_normal((1, C, H_, hd)))
         q_off = torch.as_tensor([off], dtype=torch.int32, device=dev)
         ln = torch.as_tensor([off + valid], dtype=torch.int32, device=dev)
-        got = K.prefill_attention_paged(q1, kp, vp, bt1, q_off, ln)
-        want = K.PLAIN["prefill_attention_paged"](q1, kp, vp, bt1, q_off, ln)
-        err = agree(f"prefill_attention_paged {tag} off={off}",
-                    got[:, :valid], want[:, :valid],  # pad rows: garbage
-                    key("prefill_attention_paged"))
-        dv1 = [dense(kp_, vp_, [0]) for kp_, vp_ in pools]
+        kp_, vp_ = pools_[0]
+        want = PK(q1, kp_, vp_, bt1, q_off, ln)[:, :valid]  # pad rows: garbage
+        cands = candidate_rows(
+            torch, "prefill_attention_paged",
+            lambda p, c: K.prefill_attention_paged(q1, p[0], p[1], bt1, q_off,
+                                                   ln, c),
+            want, agree, f"{label} off={off}", key("prefill_attention_paged"),
+            pools_, pick=lambda x: x[:, :valid])
+        ix = bt1[0].long()
+        dv1 = [tuple(a[ix].reshape(1, S, KV_, hd).transpose(1, 2).contiguous()
+                     for a in p) for p in pools_]
         q1s = q1.transpose(1, 2)
         spos = torch.arange(S, device=dev)[None, :]
         qpos = off + torch.arange(C, device=dev)[:, None]
         m1 = ((spos <= qpos) & (spos < off + valid))[None, None]
         visible = sum(min(off + r + 1, off + valid) for r in range(C))
-        bms, by = bound_ms((off + valid) * KV * hd * 4 + 2 * C * H * hd * 2
-                           + nblk * 4, 4 * H * hd * visible)
-        pre.append({
-            "shape": f"q (1, {C}, {H}, {hd}) bf16, same pools, bt (1, {nblk})"
-                     f", q_offset {off}, length {off + valid}",
-            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+        bms, by = bound_ms((off + valid) * KV_ * hd * 4 + 2 * C * H_ * hd * 2
+                           + nblk * 4, 4 * H_ * hd * visible)
+        return {
+            "shape": f"{label}: q (1, {C}, {H_}, {hd}) bf16, pools (P, "
+                     f"{page}, {KV_}, {hd}), bt (1, {nblk}), q_offset {off}, "
+                     f"length {off + valid}",
+            "max_abs_err": max(c["max_abs_err"] for c in cands),
+            "bound_ms": bms, "bound_by": by,
             "tolerance": TOL[key("prefill_attention_paged")],
+            "library": "scaled_dot_product_attention (mask, enable_gqa)",
+            "candidates": cands,
             **timed(torch,
                     [lambda p=p: K.prefill_attention_paged(
-                        q1, p[0], p[1], bt1, q_off, ln) for p in pools],
-                    [lambda p=p: K.PLAIN["prefill_attention_paged"](
-                        q1, p[0], p[1], bt1, q_off, ln) for p in pools],
+                        q1, p[0], p[1], bt1, q_off, ln) for p in pools_],
+                    [lambda p=p: PK(q1, p[0], p[1], bt1, q_off, ln)
+                     for p in pools_],
                     [lambda dv=dv: F.scaled_dot_product_attention(
-                        q1s, dv[0], dv[1], attn_mask=m1) for dv in dv1])})
+                        q1s, dv[0], dv[1], attn_mask=m1,
+                        enable_gqa=H_ != KV_) for dv in dv1])}
+
+    for off, valid in ((224, 32), (0, 17), (401, 23)):
+        pre.append(prefill_row(H, KV, pools, bt[:1].contiguous(), off, valid,
+                               f"{H} heads"))
     del pools
+    if hd == 128:
+        # glm4-9b's heads: 32 query heads on 2 KV heads, G = 16 (512 rows a
+        # KV head in a slab of 32)
+        Hg, KVg = 32, 2
+        pools_g = [(t(rng.standard_normal((P, page, KVg, hd))),
+                    t(rng.standard_normal((P, page, KVg, hd))))
+                   for _ in range(copies_for(2 * P * page * KVg * hd * 2))]
+        bt_g = torch.as_tensor((rng.permutation(P - 1)[:nblk] + 1)
+                               .astype(np.int32)[None], device=dev)
+        for off, valid in ((224, 32), (401, 23)):
+            pre.append(prefill_row(Hg, KVg, pools_g, bt_g, off, valid,
+                                   "glm4-9b heads"))
+        del pools_g
 
     # paged decode over int8 pools: the same slots and heads at the int8
     # page of 32 rows (cache_len 1024 -> 32 blocks per slot)
@@ -862,8 +919,9 @@ def paper_rows(torch, K, F, agree, dev, randn):
     an operand), each from its default config; the batched gemv at
     (2048, 4096) for 1, 2, 4, 8 and 16 rows and at qwen1.5-0.5b's read-out
     (151936, 1024) for 8; the dense decode attention at kernel_bench's
-    (B=4, H=16, KV=8, hd=128, S=4096) and qwen1.5-0.5b's 8 slots (H = KV =
-    16, hd=64, S=1024)."""
+    (B=4, H=16, KV=8, hd=128, S=4096), qwen1.5-0.5b's 8 slots (H = KV =
+    16, hd=64, S=1024) and glm4-9b's heads (B=4, H=32, KV=2, hd=128,
+    S=4096), each at every candidate of its tuner space."""
     rows = {"dotp": [], "axpy": [], "batched_gemv": [],
             "decode_attention": []}
     for n in (1 << 20, 1 << 27):
@@ -919,15 +977,22 @@ def paper_rows(torch, K, F, agree, dev, randn):
         del ws
         torch.cuda.empty_cache()
 
-    for B, H, KV, hd, S in ((4, 16, 8, 128, 4096), (8, 16, 16, 64, 1024)):
+    for B, H, KV, hd, S in ((4, 16, 8, 128, 4096), (8, 16, 16, 64, 1024),
+                            (4, 32, 2, 128, 4096)):
         caches = [(randn(B, S, KV, hd), randn(B, S, KV, hd))
                   for _ in range(copies_for(4 * B * S * KV * hd))]
         q = randn(B, H, hd)
         length = torch.full((B,), S, dtype=torch.int32, device=dev)
         k, v = caches[0]
-        err = agree(f"decode_attention B={B} H={H} KV={KV} hd={hd} S={S}",
+        label = f"B={B} H={H} KV={KV} hd={hd} S={S}"
+        err = agree(f"decode_attention {label}",
                     K.decode_attention(q, k, v, length),
                     K.PLAIN["decode_attention"](q, k, v, length))
+        cands = candidate_rows(
+            torch, "decode_attention",
+            lambda c_, cfg: K.decode_attention(q, *c_, length, cfg),
+            K.PLAIN["decode_attention"](q, k, v, length), agree, label,
+            "decode_attention", caches)
         q4 = q[:, :, None]
         mask = (torch.arange(S, device=dev)[None, :]
                 < length[:, None])[:, None, None]          # (B, 1, 1, S)
@@ -936,9 +1001,11 @@ def paper_rows(torch, K, F, agree, dev, randn):
         rows["decode_attention"].append({
             "shape": f"q ({B}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) bf16, "
                      f"full length",
-            "max_abs_err": err, "tolerance": TOL["decode_attention"],
+            "max_abs_err": max([err] + [c["max_abs_err"] for c in cands]),
+            "tolerance": TOL["decode_attention"],
             "bound_ms": bms, "bound_by": by,
-            "library": "scaled_dot_product_attention (length mask)",
+            "library": "scaled_dot_product_attention (length mask, "
+                       "enable_gqa)", "candidates": cands,
             **timed(torch,
                     [lambda c=c: K.decode_attention(q, *c, length)
                      for c in caches],

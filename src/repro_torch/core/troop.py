@@ -29,7 +29,7 @@ class LaunchConfig:
     rmsnorm_threads: int = 128      # one block per row, 8 bf16 per thread
     gemv_warps: int = 8             # one warp per output row
     decode_warps: int = 4           # warps splitting one (slot, KV head)
-    prefill_warps: int = 4          # warps splitting one (slab row, KV head)
+    prefill_warps: int = 4          # warps of one prefill block (rows x pages)
     adamw_streams: int = 1          # 2: each block takes one chunk from each
     #   contiguous half of a tensor (the JAX kernel's decoupled streams)
     # the JAX TroopConfig's knobs (dotp, axpy, dense decode_attention)

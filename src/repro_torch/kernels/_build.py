@@ -137,6 +137,28 @@ def resident_blocks(device, threads: int) -> int:
     return sm_count(device) * max(1, min(32, 2048 // threads))
 
 
+_RESIDENT: Dict[tuple, int] = {}
+
+
+def resident(device, occupancy, *args) -> int:
+    """Blocks of a kernel that the card holds at once: ``occupancy(*args)``
+    (a library entry point that returns the blocks one SM holds) times the
+    SMs, asked once per device, entry point and arguments.  An entry point
+    returns 0 for a parameter set its kernel cannot launch: that raises,
+    and is not kept."""
+    import torch
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    key = (index, occupancy.__name__, args)
+    if key not in _RESIDENT:
+        per_sm = occupancy(*args)
+        if per_sm <= 0:
+            raise RuntimeError(f"{occupancy.__name__}{args}: the kernel "
+                               f"cannot launch with these parameters")
+        _RESIDENT[key] = per_sm * _sm_count(index)
+    return _RESIDENT[key]
+
+
 def stream_handle(device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
     import torch

@@ -37,33 +37,37 @@
 //
 // The dense stats entry replaces src/repro/kernels/decode_attention.py
 //   `decode_attention_stats` (a (slot, S-block) grid, two contiguous
-//   S-halves streamed side by side when streams=2, (m, l, acc) in VMEM and
-//   committed once; `decode_attention` normalizes outside the kernel).
+//   S-halves streamed side by side when streams=2, each cache block scored
+//   for all G query heads of every KV head in one MXU product, (m, l, acc)
+//   in VMEM and committed once; `decode_attention` normalizes outside the
+//   kernel).
 // Bound on the H100: bytes, as above — B x S x KV x hd x 2 x 2 bytes of K
 //   and V for 4 x B x H x S x hd operations.
-// Design: the same online-softmax walk (paged_attention.cuh attend_tiles)
-//   with a dense index.  The TPU walks a slot's S blocks in order on one
-//   core; here one block per (slot, query head) would leave most of the
-//   132 SMs idle (64 blocks at B = 4, H = 16), so the grid also splits S
-//   into `nsplit` contiguous chunks (flash-decoding; the wrapper picks
-//   nsplit from the shape so the grid holds about two blocks an SM).  In a
-//   block the warps form `streams` groups, group g walking the g-th
-//   contiguous part of the chunk (the TROOP (A) intent: each group streams
-//   its own contiguous region), `block_k / 128` warps a group, each with
-//   `unroll` 32-position tiles of K and V loads in flight per step
-//   (16-byte loads).  The warps' states merge once through shared memory
-//   (C); with one split they are the result, else each split's (acc, m, l)
-//   goes to a workspace and a second kernel combines the splits in a fixed
-//   order (log-sum-exp, mechanism G) and commits them unnormalized.  The
-//   G query heads of one KV head are neighbouring blocks, so the second
-//   reads its K/V rows from L2.  The walk honours `s_offset` (valid
-//   positions are [0, max(length - s_offset, 0)) of this shard) and stops
-//   there; a masked score is -1e30, as in the JAX kernel, and a row (or a
-//   split) with no valid position commits acc = 0, l = 0, m = -1e30, so a
-//   combine of such partials gives 0, not NaN (the JAX kernel's all-masked
-//   row instead sums exp(0) = 1 per masked position; the two agree
-//   wherever a row has a valid position).
-//
+// Design (`decode_mma_kernel`, the tensor-core core of mma_attention.cuh):
+//   one block per (slot, KV head, split, m-tile of 16 query heads): the G
+//   query heads of a KV head are the rows of one mma m-tile (padded to 16;
+//   G > 16 takes more m-tiles over blockIdx.z), so every K/V row of the
+//   head is read once for all of them.  S splits into `nsplit` chunks of
+//   the slot's valid positions (whole tiles; flash-decoding: the wrapper
+//   picks nsplit so that one wave of the blocks an SM holds at once fills
+//   the card), and a chunk into `streams`
+//   contiguous parts walked side by side (the TROOP (A) intent): a staged
+//   tile of BN = block_k / 4 positions holds BN / streams of each part.
+//   Each of the block's BN / 16 warps folds 16 positions of every tile
+//   (both products on mma.sync), `unroll` sets the ring depth (1: 2
+//   stages, else 3), and the warps merge once, in registers and shared
+//   memory.  With one split that is the result; else each split's (acc, m,
+//   l) goes to a workspace and `split_combine_kernel` combines the splits
+//   in a fixed order (log-sum-exp, mechanism G) and commits them
+//   unnormalized.  For `decode_attention` whichever of the two writes the
+//   result normalizes it and stores bf16, so the normalization costs no
+//   launch of its own.  The walk honours `s_offset` (valid positions are
+//   [0, max(length - s_offset, 0)) of this shard) and stops there; a row
+//   (or a split) with no valid position commits acc = 0, l = 0, m = -1e30,
+//   so a combine of such partials gives 0, not NaN (the JAX kernel's
+//   all-masked row instead sums exp(0) = 1 per masked position; the two
+//   agree wherever a row has a valid position).
+
 // The int8 stats entry replaces src/repro/kernels/decode_attention.py
 //   `decode_attention_int8` (the same (slot, S-block) grid over an int8
 //   cache (B, S, KV, hd) with per-(position, KV head) bf16 scales (B, S,
@@ -71,13 +75,21 @@
 //   dequantized in VMEM; normalized outside the kernel).
 // Bound on the H100: bytes — B x S x KV x (hd + 2) x 2 bytes of int8 K and
 //   V with their scales, for 4 x B x H x S x hd operations.
-// Design: the dense walk above with int8 rows (16 values a 16-byte load;
-//   an hd = 64 row is 4 loads), each row's scale read at the same row
+// Design (`dense_stats_kernel`): the paged decode's online-softmax walk
+//   (paged_attention.cuh attend_tiles) with a dense index, one block per
+//   (slot, query head, split): S splits into `nsplit` contiguous chunks
+//   (flash-decoding, about two blocks an SM); in a block the warps form
+//   `streams` groups, group g walking the g-th contiguous part of the chunk,
+//   `block_k / 128` warps a group, each with `unroll` 32-position tiles of
+//   K and V loads in flight per step.  int8 rows are 16 values a 16-byte
+//   load (an hd = 64 row is 4 loads), each row's scale read at the same row
 //   index of the scale cache and staged beside its V row, K and V
-//   dequantized in fp32 before the dot and the value update (attend_tiles,
-//   as for the int8 page pools); the same splits, combine and empty-row
-//   convention.
-#include "paged_attention.cuh"
+//   dequantized in fp32 before the dot and the value update (as for the
+//   int8 page pools).  The warps' states merge once through shared memory;
+//   with more than one split `split_combine_kernel` (mma_attention.cuh,
+//   shared with the bf16 entry) combines the splits in a fixed order; the
+//   empty-row convention is the bf16 entry's.
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -162,31 +174,6 @@ __global__ void dense_stats_kernel(
   }
 }
 
-// One block of HD threads per row o: the nsplit partials of ``part``
-// combined in split order.
-template <int HD>
-__global__ void dense_combine_kernel(const float* __restrict__ part,
-                                     int nsplit, float* __restrict__ acc_out,
-                                     float* __restrict__ m_out,
-                                     float* __restrict__ l_out) {
-  const int o = blockIdx.x, d = threadIdx.x;
-  const float* p = part + (size_t)o * nsplit * (HD + 2);
-  float M = repro::kNeg;
-  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, p[s * (HD + 2) + HD]);
-  float A = 0.f, L = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float* ps = p + s * (HD + 2);
-    const float f = expf(ps[HD] - M);
-    A = fmaf(ps[d], f, A);
-    L = fmaf(ps[HD + 1], f, L);
-  }
-  acc_out[(size_t)o * HD + d] = A;
-  if (d == 0) {
-    m_out[o] = M;
-    l_out[o] = L;
-  }
-}
-
 template <int HD, int U, typename E>
 cudaError_t launch_dense(const void* q, const void* k, const void* v,
                          const void* ks, const void* vs, const void* length,
@@ -213,8 +200,9 @@ cudaError_t launch_dense(const void* q, const void* k, const void* v,
       streams, chunk, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
-  dense_combine_kernel<HD><<<B * H, HD, 0, stream>>>(
-      (const float*)part, nsplit, (float*)acc, (float*)m, (float*)l);
+  repro::mma::split_combine_kernel<HD><<<B * H, HD, 0, stream>>>(
+      (const float*)part, nsplit, (float*)acc, (float*)m, (float*)l,
+      nullptr);
   return cudaGetLastError();
 }
 
@@ -278,6 +266,174 @@ cudaError_t dense_stats(const void* q, const void* k, const void* v,
   }
 }
 
+// One block per (slot b and KV head kvh = blockIdx.x, split blockIdx.y,
+// m-tile blockIdx.z of 16 of the G query heads), BN / 16 warps.  Split
+// ``split`` takes [lo, hi) = [split * chunk, min((split + 1) * chunk, n))
+// of the slot's n valid positions, chunk = ceil(ceil(n / BN) / nsplit) BN;
+// stream s of the split walks [lo + s * gpart, min(lo + (s + 1) * gpart,
+// hi)), gpart = chunk / streams, and row r of a staged tile is position r
+// % BNs of stream r / BNs (BNs = BN / streams).  Rows o = b * H + kvh * G +
+// h go to ``sink``.
+template <int HD, int STAGES>
+__global__ void __launch_bounds__(256) decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ length,
+    repro::mma::Sink sink, int S, int H, int KV, int s_offset, int streams,
+    int BN, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int nsplit = gridDim.y;
+  const int G = H / KV;
+  const int lane = threadIdx.x & 31, wn = threadIdx.x >> 5;
+  const int g = lane >> 2;
+
+  const int n = max(0, min(length[b] - s_offset, S));
+  const int chunk = ((n + BN - 1) / BN + nsplit - 1) / nsplit * BN;
+  const int lo = blockIdx.y * chunk, hi = min(n, lo + chunk);
+  const int BNs = BN / streams, gpart = chunk / streams;
+  const int T = hi > lo ? (min(gpart, hi - lo) + BNs - 1) / BNs : 0;
+
+  const int m0 = blockIdx.z * 16;  // the tile's first query head
+  const __nv_bfloat16* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
+  uint32_t qf[HD / 16][4];
+  repro::mma::load_q<HD>(qf, qb + (size_t)min(m0 + g, G - 1) * HD,
+                         qb + (size_t)min(m0 + g + 8, G - 1) * HD);
+
+  const long long base = (long long)b * S;
+  // streams <= 2: row r of a tile is stream r >= BNs
+  auto pos_of = [&](int t, int r) {
+    const int s = r >= BNs;
+    const int p = lo + s * gpart + t * BNs + r - s * BNs;
+    return p < min(hi, lo + (s + 1) * gpart) ? p : -1;
+  };
+  auto row_of = [&](int p) { return (base + p) * KV + kvh; };
+  // the warp's 16 positions lie in one stream: every row sees up to the
+  // stream's end
+  const int r0 = wn * 16, s0 = r0 >= BNs;
+  const int lim = min(hi, lo + (s0 + 1) * gpart);
+  auto slice = [&](int t, int& pos0, int& lim0, int& lim1) {
+    pos0 = lo + s0 * gpart + t * BNs + r0 - s0 * BNs;
+    lim0 = lim1 = lim;
+  };
+  repro::mma::State<HD> st;
+  st.init();
+  repro::mma::walk<HD, 16, STAGES>(k, v, smem, BN, T, pos_of, row_of, slice,
+                                   wn, qf, scale, st);
+  repro::mma::merge<HD>(st, smem, blockDim.x >> 5,
+                        [&](int row, int d, float a0, float a1, float M,
+                            float L) {
+    const int h = m0 + row;
+    if (h < G)
+      sink.put<HD>((size_t)b * H + (size_t)kvh * G + h, d, a0, a1, M, L);
+  });
+}
+
+template <int HD, int STAGES>
+cudaError_t launch_decode_mma(const void* q, const void* k, const void* v,
+                              const void* length, repro::mma::Sink sink,
+                              int B, int S, int H, int KV, int s_offset,
+                              int streams, int BN, int nsplit, float scale,
+                              cudaStream_t stream) {
+  using Tile = repro::mma::Tile<HD>;
+  const int warps = BN / 16;
+  const int smem = max(STAGES * Tile::stage_bytes(BN),
+                       Tile::merge_bytes(warps));
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_mma_kernel<HD, STAGES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int G = H / KV;
+  decode_mma_kernel<HD, STAGES>
+      <<<dim3(B * KV, nsplit, (G + 15) / 16), warps * 32, smem, stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+          (const __nv_bfloat16*)v, (const int*)length, sink, S, H, KV,
+          s_offset, streams, BN, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || nsplit == 1) return e;
+  repro::mma::split_combine_kernel<HD><<<B * H, HD, 0, stream>>>(
+      sink.part, nsplit, sink.acc, sink.m, sink.l, sink.out);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t decode_mma_stages(const void* q, const void* k, const void* v,
+                              const void* length, repro::mma::Sink sink,
+                              int B, int S, int H, int KV, int s_offset,
+                              int streams, int unroll, int BN, int nsplit,
+                              float scale, cudaStream_t s) {
+  if (unroll == 1)
+    return launch_decode_mma<HD, 2>(q, k, v, length, sink, B, S, H, KV,
+                                    s_offset, streams, BN, nsplit, scale, s);
+  return launch_decode_mma<HD, 3>(q, k, v, length, sink, B, S, H, KV,
+                                  s_offset, streams, BN, nsplit, scale, s);
+}
+
+// The blocks of decode_mma_kernel<HD, STAGES> that one SM holds at once.
+template <int HD, int STAGES>
+int decode_mma_occupancy(int BN) {
+  using Tile = repro::mma::Tile<HD>;
+  const int smem = max(STAGES * Tile::stage_bytes(BN),
+                       Tile::merge_bytes(BN / 16));
+  if (smem > 227 * 1024) return 0;
+  if (cudaFuncSetAttribute(decode_mma_kernel<HD, STAGES>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return 0;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, decode_mma_kernel<HD, STAGES>, BN / 16 * 32, smem) !=
+      cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int HD>
+int decode_mma_occupancy_stages(int unroll, int BN) {
+  return unroll == 1 ? decode_mma_occupancy<HD, 2>(BN)
+                     : decode_mma_occupancy<HD, 3>(BN);
+}
+
+// Checks the launch parameters of the tensor-core dense decode and picks
+// the head-dim instantiation: BN = block_k / 4 positions a stage (16 a
+// warp, BN / streams a stream), unroll 1 -> 2 stages, 2 or 4 -> 3.  The
+// result goes to ``out`` (bf16, normalized) when it is not null, else to
+// acc / m / l.
+cudaError_t decode_mma(const void* q, const void* k, const void* v,
+                       const void* length, void* acc, void* m, void* l,
+                       void* out, void* part, int B, int S, int H, int KV,
+                       int hd, int s_offset, int streams, int unroll,
+                       int block_k, int nsplit, float scale, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  const int BN = block_k / 4;
+  if (S <= 0 || KV <= 0 || H % KV != 0 || (streams != 1 && streams != 2) ||
+      (unroll != 1 && unroll != 2 && unroll != 4) || block_k % 4 != 0 ||
+      BN % (16 * streams) != 0 || BN > 128 || nsplit < 1 ||
+      (nsplit > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const repro::mma::Sink sink{(__nv_bfloat16*)out, (float*)acc, (float*)m,
+                              (float*)l, (float*)part};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hd) {
+    case 32:
+      return decode_mma_stages<32>(q, k, v, length, sink, B, S, H, KV,
+                                   s_offset, streams, unroll, BN, nsplit,
+                                   scale, s);
+    case 64:
+      return decode_mma_stages<64>(q, k, v, length, sink, B, S, H, KV,
+                                   s_offset, streams, unroll, BN, nsplit,
+                                   scale, s);
+    case 128:
+      return decode_mma_stages<128>(q, k, v, length, sink, B, S, H, KV,
+                                    s_offset, streams, unroll, BN, nsplit,
+                                    scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q (B, H, hd) bf16; k_pool / v_pool (P, page, KV, hd) bf16; block_tables
@@ -288,10 +444,9 @@ extern "C" cudaError_t repro_paged_decode_bf16(
     const void* block_tables, const void* length, void* out, int B, int H,
     int KV, int hd, int page, int nblk, int warps, float scale,
     void* stream) {
-  return repro::paged_attention<false>(q, k_pool, v_pool, nullptr, nullptr,
-                                       block_tables, nullptr, length, out, B,
-                                       1, H, KV, hd, page, nblk, warps, scale,
-                                       stream);
+  return repro::paged_attention(q, k_pool, v_pool, nullptr, nullptr,
+                                block_tables, length, out, B, H, KV, hd, page,
+                                nblk, warps, scale, stream);
 }
 
 // As above with int8 k_pool / v_pool (P, page, KV, hd) and bf16 k_scales /
@@ -301,30 +456,52 @@ extern "C" cudaError_t repro_paged_decode_int8(
     const void* v_pool, const void* v_scales, const void* block_tables,
     const void* length, void* out, int B, int H, int KV, int hd, int page,
     int nblk, int warps, float scale, void* stream) {
-  return repro::paged_attention<false, int8_t>(
-      q, k_pool, v_pool, k_scales, v_scales, block_tables, nullptr, length,
-      out, B, 1, H, KV, hd, page, nblk, warps, scale, stream);
+  return repro::paged_attention<int8_t>(q, k_pool, v_pool, k_scales,
+                                        v_scales, block_tables, length, out,
+                                        B, H, KV, hd, page, nblk, warps,
+                                        scale, stream);
 }
 
-// q (B, H, hd) bf16; k, v (B, S, KV, hd) bf16; length (B,) int32; acc (B,
-// KV, G, hd) fp32, m and l (B, KV, G, 1) fp32 (G = H / KV).  streams 1 or 2,
-// unroll 1, 2 or 4, block_k a multiple of 128 (block_k / 128 warps a
-// stream); nsplit >= 1 chunks of S, ``part`` (B H nsplit (hd + 2) fp32
-// scratch) when nsplit > 1; hd in {32, 64, 128}; 16-byte aligned k, v (the
-// wrapper checks).
-extern "C" cudaError_t repro_decode_stats_bf16(
+// q (B, H, hd) bf16; k, v (B, S, KV, hd) bf16; length (B,) int32.  Into
+// ``out`` (B, H, hd) bf16, normalized, when it is not null; else acc (B,
+// KV, G, hd) fp32, m and l (B, KV, G, 1) fp32 (G = H / KV), unnormalized.
+// streams 1 or 2, unroll 1, 2 or 4, block_k / 4 a multiple of 16 x streams
+// up to 128 (the positions of a staged tile, 16 a warp); nsplit >= 1 chunks
+// of the valid positions, ``part`` (B H nsplit (hd + 2) fp32 scratch) when
+// nsplit > 1; hd in {32, 64, 128}; 16-byte aligned k, v (the wrapper
+// checks).
+extern "C" cudaError_t repro_decode_dense_bf16(
     const void* q, const void* k, const void* v, const void* length,
-    void* acc, void* m, void* l, void* part, int B, int S, int H, int KV,
-    int hd, int s_offset, int streams, int unroll, int block_k, int nsplit,
-    float scale, void* stream) {
-  return dense_stats<__nv_bfloat16>(q, k, v, nullptr, nullptr, length, acc,
-                                    m, l, part, B, S, H, KV, hd, s_offset,
-                                    streams, unroll, block_k, nsplit, scale,
-                                    stream);
+    void* acc, void* m, void* l, void* out, void* part, int B, int S, int H,
+    int KV, int hd, int s_offset, int streams, int unroll, int block_k,
+    int nsplit, float scale, void* stream) {
+  return decode_mma(q, k, v, length, acc, m, l, out, part, B, S, H, KV, hd,
+                    s_offset, streams, unroll, block_k, nsplit, scale,
+                    stream);
+}
+
+// The blocks of the bf16 dense decode at (hd, unroll, block_k) that one SM
+// holds at once (0 for parameters it does not take): the wrapper splits S
+// so that one wave of blocks fills the card.
+extern "C" int repro_decode_dense_bf16_occupancy(int hd, int unroll,
+                                                 int block_k) {
+  const int BN = block_k / 4;
+  if (block_k % 4 != 0 || BN % 16 != 0 || BN > 128 || BN <= 0) return 0;
+  switch (hd) {
+    case 32:
+      return decode_mma_occupancy_stages<32>(unroll, BN);
+    case 64:
+      return decode_mma_occupancy_stages<64>(unroll, BN);
+    case 128:
+      return decode_mma_occupancy_stages<128>(unroll, BN);
+    default:
+      return 0;
+  }
 }
 
 // As above over an int8 cache: k, v (B, S, KV, hd) int8 and bf16 scales
-// ks, vs (B, S, KV, 1).
+// ks, vs (B, S, KV, 1); block_k a multiple of 128 (block_k / 128 warps a
+// stream), nsplit >= 1 chunks of S.
 extern "C" cudaError_t repro_decode_stats_int8(
     const void* q, const void* k, const void* ks, const void* v,
     const void* vs, const void* length, void* acc, void* m, void* l,

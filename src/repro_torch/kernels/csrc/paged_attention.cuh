@@ -1,6 +1,6 @@
-// Paged attention for one query row per block, shared by the decode kernel
-// (one row per slot) and the chunked-prefill kernel (C slab rows per slot,
-// each with its own causal limit).
+// Paged decode attention for one query row per block (one row per slot),
+// over bf16 or int8 page pools, and the SIMT online-softmax walk
+// (attend_tiles) that it shares with the dense int8 decode.
 //
 // Layout (the JAX package's, serve/kvcache.py): pools (P, page, KV, HD)
 // bf16, or int8 with bf16 scale pools (P, page, KV, 1) addressed by the
@@ -226,28 +226,24 @@ __device__ __forceinline__ void attend_tiles(
   }
 }
 
-// One block per (query row, KV head).  Row ``row`` = b * C + r is row r of
-// slot b's C query rows (C = 1 for decode).  The row sees positions
-// [0, n): n = length[b] for decode; n = min(q_offset[b] + r + 1, length[b])
-// for a slab (SLAB), exactly what the mask (spos > qpos) | (spos >= length)
-// leaves visible; n is clamped to the table's nblk * page rows.  The
-// block's warps take the row's 32-position tiles in turn, each folding its
+// One block per (slot, KV head).  Slot b's query row sees positions [0,
+// n), n = length[b] clamped to the table's nblk * page rows.  The block's
+// warps take the row's 32-position tiles in turn, each folding its
 // own online-softmax state (m, l, acc) in fp32 registers; the partial
 // states are merged through shared memory, normalized by max(l, 1e-30) and
 // stored as bf16.  The G query heads of one KV head (GQA) are handled one
 // after another by the same block, so their K/V rows come from L1/L2 after
 // the first head.
-template <int HD, bool SLAB, typename E>
+template <int HD, typename E>
 __global__ void paged_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const E* __restrict__ k_pool,
     const E* __restrict__ v_pool, const __nv_bfloat16* __restrict__ k_scale,
     const __nv_bfloat16* __restrict__ v_scale,
-    const int* __restrict__ block_tables, const int* __restrict__ q_offset,
-    const int* __restrict__ length, __nv_bfloat16* __restrict__ out, int C,
-    int H, int KV, int page, int nblk, float scale) {
+    const int* __restrict__ block_tables, const int* __restrict__ length,
+    __nv_bfloat16* __restrict__ out, int H, int KV, int page, int nblk,
+    float scale) {
   constexpr int DPL = HD / 32;
-  const int row = blockIdx.x, kvh = blockIdx.y;
-  const int b = row / C;
+  const int b = blockIdx.x, kvh = blockIdx.y;
   const int G = H / KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
@@ -260,12 +256,10 @@ __global__ void paged_attention_kernel(
   float* pl = pm + nw;
   float* pacc = pm + 2 * nw;
 
-  int n = length[b];
-  if constexpr (SLAB) n = min(n, q_offset[b] + row % C + 1);
-  n = max(0, min(n, nblk * page));
+  const int n = max(0, min(length[b], nblk * page));
   const int* bt_row = block_tables + (size_t)b * nblk;
   for (int g = 0; g < G; ++g) {
-    const size_t qo = ((size_t)row * H + kvh * G + g) * HD;
+    const size_t qo = ((size_t)b * H + kvh * G + g) * HD;
     __syncthreads();  // the previous head's merge is done with pm / q_s
     for (int d = threadIdx.x; d < HD; d += blockDim.x)
       q_s[d] = __bfloat162float(q[qo + d]);
@@ -299,58 +293,50 @@ __global__ void paged_attention_kernel(
   }
 }
 
-template <int HD, bool SLAB, typename E>
+template <int HD, typename E>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
                          const void* ks, const void* vs, const void* bt,
-                         const void* q_offset, const void* length, void* out,
-                         int rows, int C, int H, int KV, int page, int nblk,
-                         int warps, float scale, cudaStream_t stream) {
+                         const void* length, void* out, int B, int H, int KV,
+                         int page, int nblk, int warps, float scale,
+                         cudaStream_t stream) {
   const int smem =
       warps * (VStage<HD, E>::bytes + (int)sizeof(float) * (2 + HD));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<HD, SLAB, E>,
+        paged_attention_kernel<HD, E>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  paged_attention_kernel<HD, SLAB, E>
-      <<<dim3(rows, KV), warps * 32, smem, stream>>>(
-          (const __nv_bfloat16*)q, (const E*)kp, (const E*)vp,
-          (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const int*)bt,
-          (const int*)q_offset, (const int*)length, (__nv_bfloat16*)out, C,
-          H, KV, page, nblk, scale);
+  paged_attention_kernel<HD, E><<<dim3(B, KV), warps * 32, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const E*)kp, (const E*)vp,
+      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const int*)bt,
+      (const int*)length, (__nv_bfloat16*)out, H, KV, page, nblk, scale);
   return cudaGetLastError();
 }
 
 // Checks the launch parameters and picks the head-dim instantiation.
-// q_offset is read only for a slab (SLAB); ks / vs (the scale pools) only
-// for int8 pools (E = int8_t).
-template <bool SLAB, typename E = __nv_bfloat16>
+// ks / vs (the scale pools) are read only for int8 pools (E = int8_t).
+template <typename E = __nv_bfloat16>
 cudaError_t paged_attention(const void* q, const void* kp, const void* vp,
                             const void* ks, const void* vs, const void* bt,
-                            const void* q_offset, const void* length,
-                            void* out, int B, int C, int H, int KV, int hd,
-                            int page, int nblk, int warps, float scale,
-                            void* stream) {
-  if (B <= 0 || C <= 0) return cudaSuccess;
+                            const void* length, void* out, int B, int H,
+                            int KV, int hd, int page, int nblk, int warps,
+                            float scale, void* stream) {
+  if (B <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || page <= 0 || nblk <= 0 || warps < 1 ||
       warps > 32)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int rows = B * C;
   switch (hd) {
     case 32:
-      return launch_paged<32, SLAB, E>(q, kp, vp, ks, vs, bt, q_offset,
-                                       length, out, rows, C, H, KV, page,
-                                       nblk, warps, scale, s);
+      return launch_paged<32, E>(q, kp, vp, ks, vs, bt, length, out, B, H,
+                                 KV, page, nblk, warps, scale, s);
     case 64:
-      return launch_paged<64, SLAB, E>(q, kp, vp, ks, vs, bt, q_offset,
-                                       length, out, rows, C, H, KV, page,
-                                       nblk, warps, scale, s);
+      return launch_paged<64, E>(q, kp, vp, ks, vs, bt, length, out, B, H,
+                                 KV, page, nblk, warps, scale, s);
     case 128:
-      return launch_paged<128, SLAB, E>(q, kp, vp, ks, vs, bt, q_offset,
-                                        length, out, rows, C, H, KV, page,
-                                        nblk, warps, scale, s);
+      return launch_paged<128, E>(q, kp, vp, ks, vs, bt, length, out, B, H,
+                                  KV, page, nblk, warps, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -34,7 +34,8 @@ _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = {
     "repro_paged_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
     "repro_paged_decode_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
-    "repro_decode_stats_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "repro_decode_dense_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "repro_decode_dense_bf16_occupancy": [_I] * 3,
     "repro_decode_stats_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
 }
 
@@ -186,9 +187,68 @@ def plain_dense(q, k, v, length):
 
 
 def split_count(rows: int, S: int, sms: int) -> int:
-    """Chunks of S a dense decode splits into: enough (rows x chunks) blocks
-    for about two an SM, each chunk at least 256 positions."""
+    """Chunks of S the int8 dense decode splits into: enough (rows x chunks)
+    blocks for about two an SM, each chunk at least 256 positions."""
     return max(1, min(-(-2 * sms // rows), -(-S // 256)))
+
+
+def wave_splits(blocks: int, S: int, resident: int) -> int:
+    """Splits of the tensor-core kernels' walk over at most S positions:
+    as many as let ``blocks`` blocks a split fill one wave of the
+    ``resident`` blocks the card holds at once (at least one), each split
+    at least 256 positions."""
+    return max(1, min(resident // blocks, -(-S // 256)))
+
+
+def decode_plan(B: int, H: int, KV: int, S: int, cfg: LaunchConfig,
+                resident: int) -> dict:
+    """The launch of the bf16 dense decode: one block per (slot, KV head,
+    split, m-tile of 16 of the G query heads), ``warps`` warps of 16
+    positions of each staged tile of ``bn`` = block_k / 4 positions, whose
+    ``streams`` contiguous parts of a split are walked side by side;
+    ``stages`` the ring depth; ``resident``: the blocks the card holds at
+    once."""
+    G = H // KV
+    mtiles = -(-G // 16)
+    nsplit = wave_splits(B * KV * mtiles, S, resident)
+    bn = cfg.block_k // 4
+    return {"grid": (B * KV, nsplit, mtiles), "nsplit": nsplit, "bn": bn,
+            "warps": bn // 16, "stages": 2 if cfg.unroll == 1 else 3}
+
+
+def _dense_bf16(name, q, k, v, length, cfg, s_offset=0, normalized=False):
+    """Launch the tensor-core dense decode: fp32 (acc, m, l), or the bf16
+    output normalized in the kernel (``normalized``)."""
+    global dense_launches
+    _check_dense(name, q, k, v, length, torch.bfloat16)
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    dev = q.device
+    G = H // KV
+    if normalized:
+        out, stats = torch.empty_like(q), (None, None, None)
+    else:
+        out = None
+        stats = (torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev),
+                 torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev),
+                 torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev))
+    lib = _build.library("decode_attention", _ARGTYPES)
+    resident = _build.resident(
+        dev, lib.repro_decode_dense_bf16_occupancy, hd, cfg.unroll,
+        cfg.block_k)
+    nsplit = decode_plan(B, H, KV, S, cfg, resident)["nsplit"]
+    part = torch.empty((B * H * nsplit, hd + 2), dtype=torch.float32,
+                       device=dev) if nsplit > 1 else None
+    err = lib.repro_decode_dense_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in stats),
+        None if out is None else out.data_ptr(),
+        None if part is None else part.data_ptr(), B, S, H, KV, hd,
+        int(s_offset), cfg.streams, cfg.unroll, cfg.block_k, nsplit,
+        hd ** -0.5, _build.stream_handle(dev))
+    _build.check(err, name)
+    dense_launches += 1
+    return out if normalized else stats
 
 
 def decode_attention_stats(q, k, v, length, cfg: LaunchConfig = DEFAULT,
@@ -199,39 +259,21 @@ def decode_attention_stats(q, k, v, length, cfg: LaunchConfig = DEFAULT,
     shard of a split-S cache starts).  Returns fp32 (acc (B,KV,G,hd),
     m (B,KV,G,1), l (B,KV,G,1)), unnormalized, for ``lse_combine``.
 
-    The kernel splits S into ``split_count`` chunks, one block per (slot,
-    query head, chunk); in a block ``cfg.streams`` warp groups walk
-    contiguous parts of the chunk side by side, ``cfg.block_k / 128`` warps
-    a group, each with ``cfg.unroll`` tiles of 32 positions in flight.  A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16 q, k, v, hd in 32/64/128, H % KV == 0, contiguous) or raises."""
-    global dense_launches
+    The kernel (``decode_plan``) takes one block per (slot, KV head,
+    split, m-tile of 16 query heads): the G query heads of a KV head share
+    each K/V tile, which is read once, and both products run on the tensor
+    cores.  A tile holds ``cfg.block_k / 4`` positions, of ``cfg.streams``
+    contiguous parts of the split walked side by side; ``cfg.unroll`` 1
+    keeps two tiles in flight, else three.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (bf16 q, k, v, hd in
+    32/64/128, H % KV == 0, contiguous) or raises."""
     if q.device.type == "cpu":
         return plain_stats(q, k, v, length, s_offset)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_stats: unsupported device "
                          f"{q.device}")
-    _check_dense("decode_attention_stats", q, k, v, length, torch.bfloat16)
-    B, H, hd = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    dev = q.device
-    G = H // KV
-    acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
-    m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
-    l = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
-    nsplit = split_count(B * H, S, _build.sm_count(dev))
-    part = torch.empty((B * H * nsplit, hd + 2), dtype=torch.float32,
-                       device=dev) if nsplit > 1 else None
-    lib = _build.library("decode_attention", _ARGTYPES)
-    err = lib.repro_decode_stats_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        None if part is None else part.data_ptr(), B, S, H, KV, hd,
-        int(s_offset), cfg.streams, cfg.unroll, cfg.block_k, nsplit,
-        hd ** -0.5, _build.stream_handle(dev))
-    _build.check(err, "decode_attention_stats")
-    dense_launches += 1
-    return acc, m, l
+    return _dense_bf16("decode_attention_stats", q, k, v, length, cfg,
+                       s_offset)
 
 
 def plain_dense_int8(q, k8, k_scale, v8, v_scale, length):
@@ -307,11 +349,18 @@ def decode_attention_int8(q, k8, k_scale, v8, v_scale, length,
 
 def decode_attention(q, k, v, length, cfg: LaunchConfig = DEFAULT):
     """q (B,H,hd); k, v (B,S,KV,hd); length (B,) valid prefix -> (B,H,hd)
-    in q.dtype: ``decode_attention_stats`` normalized here, outside the
-    kernel, as the JAX package normalizes outside its ``pallas_call`` (a
-    row with no valid position gives 0)."""
-    acc, _, l = decode_attention_stats(q, k, v, length, cfg)
-    return _normalize(q, acc, l)
+    in q.dtype: ``decode_attention_stats``'s partials normalized by max(l,
+    1e-30) (a row with no valid position gives 0).  The JAX package
+    normalizes outside its ``pallas_call``; the CUDA kernel normalizes in
+    its last stage, which saves the launches of a separate division.  A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    if q.device.type == "cpu":
+        return plain_dense(q, k, v, length)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    return _dense_bf16("decode_attention", q, k, v, length, cfg,
+                       normalized=True)
 
 
 # --------------------------------------------------------------------------

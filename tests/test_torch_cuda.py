@@ -175,19 +175,52 @@ def test_paged_decode_idle_slot_reads_null_page():
     assert torch.isfinite(got.float()).all()
 
 
-@pytest.mark.parametrize("offset,valid,hd", [(0, 32, 64), (224, 32, 64),
-                                             (7, 5, 64), (40, 32, 128),
-                                             (224, 32, 128), (7, 5, 128)])
-def test_prefill_attention_paged(offset, valid, hd):
+@pytest.mark.parametrize("warps", [2, 4, 8])
+@pytest.mark.parametrize("H,KV,hd,offsets,valid", [
+    (16, 16, 64, [0], [32]), (16, 16, 64, [224], [32]),
+    (16, 16, 64, [7], [5]), (16, 16, 128, [40], [32]),
+    (16, 16, 128, [224], [32]), (16, 16, 128, [7], [5]),
+    # G = 5 (qwen3-14b) and G = 16 (glm4-9b): 160 and 512 rows a KV head,
+    # beyond one block; two slabs at different offsets (a prefix hit),
+    # lengths that end mid-page
+    (10, 2, 128, [0, 224], [32, 23]), (32, 2, 128, [401, 7], [23, 32]),
+    (32, 2, 64, [40, 0], [5, 32]), (10, 2, 32, [3, 100], [32, 17]),
+])
+def test_prefill_attention_paged(H, KV, hd, offsets, valid, warps):
+    """Every prefill_warps; the same bits on a second launch."""
     rng = np.random.default_rng(8)
-    _, kp, vp, bt = paged_case(rng, 1, 16, 16, hd, 16, 16)
-    q = bf16(rng.standard_normal((1, 32, 16, hd)))
-    off = i32([offset])
-    ln = off + valid
-    got = TK.prefill_attention_paged(q, kp, vp, bt, off, ln)
+    B = len(offsets)
+    _, kp, vp, bt = paged_case(rng, B, H, KV, hd, 16, 32)
+    q = bf16(rng.standard_normal((B, 32, H, hd)))
+    off = i32(offsets)
+    ln = off + i32(valid)
+    cfg = LaunchConfig(prefill_warps=warps)
+    before = TK.launch_counts()["prefill_attention_paged"]
+    got = TK.prefill_attention_paged(q, kp, vp, bt, off, ln, cfg)
+    assert TK.launch_counts()["prefill_attention_paged"] == before + 1
     want = TK.PLAIN["prefill_attention_paged"](q, kp, vp, bt, off, ln)
-    matches_plain(got[:, :valid], want[:, :valid],   # pad rows are garbage
-                  ATTN_TOL)
+    for b, v in enumerate(valid):              # pad rows are garbage
+        matches_plain(got[b, :v], want[b, :v], ATTN_TOL)
+    assert torch.equal(got, TK.prefill_attention_paged(q, kp, vp, bt, off,
+                                                       ln, cfg))
+
+
+@pytest.mark.parametrize("warps", [2, 4, 8])
+def test_prefill_attention_paged_long_table(warps):
+    """A table of 9,000 pages (144,000 positions) at hd 128: more splits
+    than one wave needs, so that no split's page list outgrows the block's
+    shared memory; a slab at the end of a length that ends mid-page."""
+    rng = np.random.default_rng(9)
+    _, kp, vp, bt = paged_case(rng, 1, 4, 2, 128, 16, 9000)
+    q = bf16(rng.standard_normal((1, 8, 4, 128)))
+    ln = i32([9000 * 16 - 9])
+    off = ln - 8
+    cfg = LaunchConfig(prefill_warps=warps)
+    got = TK.prefill_attention_paged(q, kp, vp, bt, off, ln, cfg)
+    matches_plain(got, TK.PLAIN["prefill_attention_paged"](q, kp, vp, bt,
+                                                           off, ln), ATTN_TOL)
+    assert torch.equal(got, TK.prefill_attention_paged(q, kp, vp, bt, off,
+                                                       ln, cfg))
 
 
 def mx_weight(rng, K, N, elem):
@@ -454,19 +487,24 @@ def test_dotp_is_deterministic(dtype, streams, n, unroll, block_k):
     assert abs(a.item() - TK.PLAIN["dotp"](x, y).item()) <= bound
 
 
-@pytest.mark.parametrize("streams,unroll,block_k", [(1, 1, 256), (2, 1, 512),
-                                                    (2, 2, 256), (1, 4, 128)])
-@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (16, 16, 64), (4, 2, 32)])
-def test_decode_attention_stats(streams, unroll, block_k, H, KV, hd):
+@pytest.mark.parametrize("streams,unroll,block_k", [
+    (s, u, b) for s in (1, 2) for u in (1, 2) for b in (256, 512)]
+    + [(1, 4, 128), (2, 4, 128)])
+@pytest.mark.parametrize("H,KV,hd,S", [(16, 8, 128, 512), (16, 16, 64, 512),
+                                       (4, 2, 32, 512),
+                                       # G = 5 and 16, S not a whole tile
+                                       (10, 2, 128, 300), (32, 2, 64, 300)])
+def test_decode_attention_stats(streams, unroll, block_k, H, KV, hd, S):
     """A row with no valid position (length <= s_offset) gives acc = 0,
-    l = 0, m = -1e30; the others match the plain version."""
+    l = 0, m = -1e30; the others match the plain version; every tuner
+    candidate; the same bits on a second launch."""
     from repro_torch.core.troop import LaunchConfig
     rng = np.random.default_rng(32)
-    B, S, off = 3, 512, 100
+    B, off = 3, 100
     q = bf16(rng.standard_normal((B, H, hd)))
     k = bf16(rng.standard_normal((B, S, KV, hd)))
     v = bf16(rng.standard_normal((B, S, KV, hd)))
-    length = i32([off, 300, S + off])               # 0, 200, 512 valid
+    length = i32([off, 300, S + off])               # 0, 200, S valid
     cfg = LaunchConfig(streams=streams, unroll=unroll, block_k=block_k)
     acc, m, l = TK.decode_attention_stats(q, k, v, length, cfg, s_offset=off)
     want = TK._dec.plain_stats(q, k, v, length, s_offset=off)
@@ -479,9 +517,30 @@ def test_decode_attention_stats(streams, unroll, block_k, H, KV, hd):
     norm = (acc / l.clamp(min=1e-30))[1:]
     want_norm = (want[0] / want[2].clamp(min=1e-30))[1:]
     torch.testing.assert_close(norm, want_norm, rtol=ATTN_TOL, atol=ATTN_TOL)
+    again = TK.decode_attention_stats(q, k, v, length, cfg, s_offset=off)
+    assert all(torch.equal(a, b) for a, b in zip((acc, m, l), again))
     out = TK.decode_attention(q, k, v, length - off, cfg)
     matches_plain(out, TK.PLAIN["decode_attention"](q, k, v, length - off),
                   ATTN_TOL)
+
+
+def test_tensor_core_attention_raises_instead_of_falling_back():
+    """The two tensor-core attention kernels refuse an hd they have no
+    instantiation for, and a prefill block of 3 warps."""
+    rng = np.random.default_rng(34)
+    q = torch.ones((1, 4, 96), dtype=torch.bfloat16, device="cuda")
+    kv = torch.ones((1, 64, 2, 96), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="32/64/128"):
+        TK.decode_attention(q, kv, kv, i32([64]))
+    _, kp, vp, bt = paged_case(rng, 1, 4, 2, 96, 16, 2)
+    q4 = torch.ones((1, 8, 4, 96), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="32/64/128"):
+        TK.prefill_attention_paged(q4, kp, vp, bt, i32([0]), i32([8]))
+    _, kp, vp, bt = paged_case(rng, 1, 4, 2, 64, 16, 2)
+    with pytest.raises(ValueError, match="prefill_warps"):
+        TK.prefill_attention_paged(q4[..., :64].contiguous(), kp, vp, bt,
+                                   i32([0]), i32([8]),
+                                   LaunchConfig(prefill_warps=3))
 
 
 @pytest.mark.parametrize("B", [1, 2, 3, 5, 8, 9, 16])

@@ -125,6 +125,35 @@ def test_prefill_paged_plain_matches_jax(B, C, H, KV, hd, page, nblk,
         close(got[b, :v], want_pallas[b, :v], dtype)
 
 
+@pytest.mark.parametrize("H,KV", [(10, 2), (32, 2)])     # G = 5 and 16
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_paged_gqa_plain_matches_jax(H, KV, dtype):
+    """The G = 5 (qwen3-14b) and G = 16 (glm4-9b) query heads of a KV head
+    over the same pages, two slabs at different offsets (a prefix hit), a
+    length that ends mid-page: test_prefill_paged_plain_matches_jax's
+    tolerance."""
+    rng = np.random.default_rng(11)
+    B, C, hd, page, nblk = 2, 8, 32, 16, 4
+    _, kp, vp, bt = paged_case(rng, B, H, KV, hd, page, nblk)
+    q = rng.standard_normal((B, C, H, hd))
+    (qj, qt), (kj, kt), (vj, vt) = (both(a, dtype) for a in (q, kp, vp))
+    off = np.asarray([0, 37], np.int32)
+    valid = [8, 6]
+    ln = off + np.asarray(valid, np.int32)               # 8 and 43
+    args_j = (qj, kj, vj, jnp.asarray(bt), jnp.asarray(off), jnp.asarray(ln))
+    got = TK.prefill_attention_paged(qt, kt, vt, torch.from_numpy(bt),
+                                     torch.from_numpy(off),
+                                     torch.from_numpy(ln))
+    assert got.dtype == qt.dtype and got.shape == (B, C, H, hd)
+    want_ref = np.asarray(JR.prefill_attention_paged(*args_j), np.float32)
+    want_pallas = np.asarray(
+        JK.prefill_attention_paged(*args_j, cfg=INTERPRET), np.float32)
+    for b in range(B):            # pad rows (r >= valid) are garbage
+        v = valid[b]
+        close(got[b, :v], want_ref[b, :v], dtype)
+        close(got[b, :v], want_pallas[b, :v], dtype)
+
+
 # ------------------------------------------------------------ wrapper rules
 def test_cpu_wrappers_run_plain_and_do_not_count():
     TK.reset_launch_counts()
@@ -282,6 +311,34 @@ def test_decode_attention_stats_plain_matches_jax(dtype, cfg):
                      np.float32)[live], dtype)
 
 
+@pytest.mark.parametrize("H,KV", [(10, 2), (32, 2)])     # G = 5 and 16
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_stats_gqa_plain_matches_jax(H, KV, dtype):
+    """G = 5 and G = 16 query heads of a KV head, S not a multiple of a
+    tile, against the interpret-mode Pallas partials and the JAX oracle:
+    test_decode_attention_stats_plain_matches_jax's tolerance and empty-row
+    convention."""
+    rng = np.random.default_rng(12)
+    B, hd, S, off = 3, 32, 200, 40
+    (qj, qt), (kj, kt), (vj, vt) = dense_case(rng, B, H, KV, hd, S, dtype)
+    ln = np.asarray([off, 117, S + off], np.int32)       # 0, 77, 200 valid
+    acc, m, l = TK.decode_attention_stats(qt, kt, vt, torch.from_numpy(ln),
+                                          s_offset=off)
+    G = H // KV
+    assert acc.shape == (B, KV, G, hd) and m.shape == l.shape == (B, KV, G, 1)
+    jacc, jm, jl = (np.asarray(t, np.float32) for t in JK.decode_attention_stats(
+        qj, kj, vj, jnp.asarray(ln), INTERPRET, s_offset=off))
+    assert (m[0] == np.float32(-1e30)).all() and (jm[0] == np.float32(-1e30)).all()
+    assert not acc[0].any() and not l[0].any()
+    close(m[1:], jm[1:], dtype)
+    close(l[1:], jl[1:], dtype)
+    close(acc[1:], jacc[1:], dtype)
+    out = TK.decode_attention(qt, kt, vt, torch.from_numpy(ln - off))
+    assert out.shape == (B, H, hd) and not out[0].float().any()
+    close(out[1:], np.asarray(JR.decode_attention(
+        qj, kj, vj, jnp.asarray(ln - off)), np.float32)[1:], dtype)
+
+
 def test_decode_stats_lse_combine_split_s():
     """Two halves through decode_attention_stats and lse_combine equal the
     whole, as tests/test_kernels.py holds the JAX kernel (and a row that
@@ -320,3 +377,105 @@ def test_lse_combine_matches_jax():
     want = JK.lse_combine([tuple(jnp.asarray(a) for a in p) for p in parts])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+# ---------------------------------------------- the tensor-core launch plans
+@pytest.mark.parametrize("blocks,S,resident,want", [
+    (32, 4096, 132, 4),      # kernel_bench's decode, one block an SM
+    (128, 1024, 264, 2),     # 8 slots x 16 KV heads, two an SM
+    (8, 4096, 132, 16),      # glm4-9b's 2 KV heads: 256 positions a split
+    (16, 1024, 264, 4),      # the engine's slab: 1024 / 256
+    (300, 4096, 264, 1),     # more blocks than a wave: no split
+    (16, 17, 264, 1),        # one short walk
+])
+def test_wave_splits(blocks, S, resident, want):
+    """The tensor-core kernels' splits: one wave of the blocks the card
+    holds at once, none shorter than 256 positions, at least one."""
+    from repro_torch.kernels.decode_attention import wave_splits
+    got = wave_splits(blocks, S, resident)
+    assert got == want
+    assert got == 1 or got * blocks <= resident
+
+
+@pytest.mark.parametrize("B,H,KV,S", [(4, 16, 8, 4096), (8, 16, 16, 1024),
+                                       (3, 10, 2, 200), (3, 32, 2, 512),
+                                       (1, 64, 2, 300)])
+def test_decode_plan(B, H, KV, S):
+    """The dense decode's launch at every tuner candidate and the tests'
+    (1|2, 4, 128): one block per (slot, KV head, split, m-tile of 16 query
+    heads), a grid >= 1 in each dimension, BN = block_k / 4 positions a
+    tile in BN / 16 warps, as many splits as ``wave_splits`` gives for the
+    blocks of one split, and the ring depth ``unroll`` asks for."""
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels.decode_attention import decode_plan, wave_splits
+    for streams, unroll, block_k in [(s, u, k) for s in (1, 2)
+                                     for u in (1, 2) for k in (256, 512)] + [
+            (1, 4, 128), (2, 4, 128)]:
+        cfg = LaunchConfig(streams=streams, unroll=unroll, block_k=block_k)
+        plan = decode_plan(B, H, KV, S, cfg, 264)
+        gx, gy, gz = plan["grid"]
+        assert (gx, gz) == (B * KV, -(-(H // KV) // 16))
+        assert gy == plan["nsplit"] == wave_splits(gx * gz, S, 264) >= 1
+        assert plan["warps"] * 16 == plan["bn"] == block_k // 4
+        assert plan["bn"] % (16 * streams) == 0
+        assert plan["stages"] == (2 if unroll == 1 else 3)
+
+
+@pytest.mark.parametrize("warps", [2, 4, 8])
+@pytest.mark.parametrize("C,H,KV", [(32, 16, 16), (32, 10, 2), (32, 32, 2),
+                                    (8, 4, 4), (5, 16, 16)])
+def test_prefill_plan(warps, C, H, KV):
+    """The paged prefill's block: ``warps`` = row-tile warps x position
+    warps, the row tiles cover the slab's C x G rows, a grid >= 1 in each
+    dimension, as many splits as fill a wave, and more for a table longer
+    than one split's page list."""
+    from repro_torch.kernels.decode_attention import wave_splits
+    from repro_torch.kernels.prefill_attention import prefill_plan
+    plan = prefill_plan(1, C, H, KV, 16, 64, warps, 264, 256)
+    gx, gy, gz = plan["grid"]
+    assert gx == KV and gy >= 1 and gz >= 1
+    assert gy == plan["nsplit"] == wave_splits(gx * gz, 64 * 16, 264)
+    long = prefill_plan(1, C, H, KV, 16, 9000, warps, 264, 256)["nsplit"]
+    assert long == max(wave_splits(gx * gz, 9000 * 16, 264), 36)
+    assert plan["wm"] * plan["wn"] == warps and plan["bn"] % 16 == 0
+    assert plan["nw"] * plan["wn"] == plan["bn"] and plan["nw"] % 16 == 0
+    assert 16 * plan["wm"] * gz >= C * (H // KV) > 16 * plan["wm"] * (gz - 1)
+    with pytest.raises(ValueError, match="prefill_warps"):
+        prefill_plan(1, C, H, KV, 16, 64, 3, 264, 256)
+
+
+def test_resident_asks_each_entry_point_once(monkeypatch):
+    """The blocks the card holds at once, per (device, entry point,
+    arguments): a ctypes entry point (unhashable) asked once, times the
+    SMs."""
+    import ctypes
+    from repro_torch.kernels import _build
+    calls = []
+    libc = ctypes.CDLL(None)
+    occ = libc.abs
+    occ.argtypes, occ.restype = [ctypes.c_int], ctypes.c_int
+    monkeypatch.setattr(_build, "_sm_count", lambda index: calls.append(
+        index) or 132)
+    monkeypatch.setattr(_build, "_RESIDENT", {})
+    dev = torch.device("cuda", 0)
+    assert _build.resident(dev, occ, -2) == 264
+    assert _build.resident(dev, occ, -2) == 264 and calls == [0]
+    assert _build.resident(dev, occ, 3) == 396 and calls == [0, 0]
+
+
+def test_resident_refuses_a_kernel_that_cannot_launch(monkeypatch):
+    """An occupancy of 0 (parameters the kernel cannot launch with) raises
+    instead of turning into one split, and is asked again next time."""
+    import ctypes
+    from repro_torch.kernels import _build
+    libc = ctypes.CDLL(None)
+    occ = libc.abs
+    occ.argtypes, occ.restype = [ctypes.c_int], ctypes.c_int
+    monkeypatch.setattr(_build, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(_build, "_RESIDENT", {})
+    dev = torch.device("cuda", 0)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="cannot launch"):
+            _build.resident(dev, occ, 0)
+    assert _build.resident(dev, occ, 1) == 132
+    assert list(_build._RESIDENT.values()) == [132]
