@@ -1,8 +1,9 @@
 // Decode attention: one query token per slot attends over the slot's cached
 // K/V.  Paged: gathered page by page through its block-table row; bf16
 // pools, or int8 pools with bf16 per-(position, KV head) scale pools.
-// Dense (the stats entry): a bf16 cache (B, S, KV, hd), returning the
-// unnormalized online-softmax partials (acc, m, l).
+// Dense: a bf16 cache (B, S, KV, hd), returning the unnormalized
+// online-softmax partials (acc, m, l) or the normalized output, or an int8
+// cache with bf16 per-(position, KV head) scales, normalized.
 //
 // Replaces: src/repro/kernels/decode_attention.py `paged_decode_attention`
 //   (`_paged_decode_attention`: a (slot, page) grid whose page index comes
@@ -68,203 +69,41 @@
 //   all-masked row instead sums exp(0) = 1 per masked position; the two
 //   agree wherever a row has a valid position).
 
-// The int8 stats entry replaces src/repro/kernels/decode_attention.py
+// The int8 dense entry replaces src/repro/kernels/decode_attention.py
 //   `decode_attention_int8` (the same (slot, S-block) grid over an int8
 //   cache (B, S, KV, hd) with per-(position, KV head) bf16 scales (B, S,
-//   KV, 1), each value block and its scale block DMA'd side by side and
-//   dequantized in VMEM; normalized outside the kernel).
+//   KV, 1), each value block and its scale block DMA'd side by side,
+//   dequantized in fp32 in VMEM and scored for all G heads of every KV
+//   head in one MXU product (`_block_update_q8`); normalized outside the
+//   kernel).
 // Bound on the H100: bytes — B x S x KV x (hd + 2) x 2 bytes of int8 K and
-//   V with their scales, for 4 x B x H x S x hd operations.
-// Design (`dense_stats_kernel`): the paged decode's online-softmax walk
-//   (paged_attention.cuh attend_tiles) with a dense index, one block per
-//   (slot, query head, split): S splits into `nsplit` contiguous chunks
-//   (flash-decoding, about two blocks an SM); in a block the warps form
-//   `streams` groups, group g walking the g-th contiguous part of the chunk,
-//   `block_k / 128` warps a group, each with `unroll` 32-position tiles of
-//   K and V loads in flight per step.  int8 rows are 16 values a 16-byte
-//   load (an hd = 64 row is 4 loads), each row's scale read at the same row
-//   index of the scale cache and staged beside its V row, K and V
-//   dequantized in fp32 before the dot and the value update (as for the
-//   int8 page pools).  The warps' states merge once through shared memory;
-//   with more than one split `split_combine_kernel` (mma_attention.cuh,
-//   shared with the bf16 entry) combines the splits in a fixed order; the
-//   empty-row convention is the bf16 entry's.
+//   V with their scales, for 4 x B x H x S x hd operations (two a byte).
+// Design (`decode_q8_mma_kernel`, on the core of mma_attention.cuh): the
+//   bf16 entry's grid, splits (`wave_splits` over this kernel's own
+//   occupancy), streams and tile of block_k / 4 positions, so every int8
+//   K/V row of a KV head is read once for all G query heads, and both
+//   products run on mma.sync.  Each warp stages only the 16 positions it
+//   folds, through its own cp.async ring of `unroll` + 1 stages (no block
+//   barrier in the walk): the int8 rows, and the 4-byte word that holds
+//   each row's bf16 K or V scale.  An int8 value is an integer in [-128,
+//   127], exact in bf16, so it becomes bf16 with no rounding (byte
+//   permutation into fp32, then paired): the V rows into the warp's bf16 V
+//   tile, which fold's ldmatrix.trans path reads unchanged, and the K rows
+//   straight into B fragments, each lane reading its own quarter of a K
+//   row (q's fragments are loaded in the matching order of k, so no bf16 K
+//   tile takes shared memory and the blocks an SM holds are not cut by
+//   it).  The scales go where they commute: the K scale multiplies its
+//   column of the fp32 scores, the V scale its column of P after the row
+//   sum took P unscaled (so P V is the product over v8 vs, with P's hi +
+//   lo bf16 split as for bf16).  In exact arithmetic that is
+//   the JAX function over the fp32-dequantized cache.  Whichever kernel
+//   writes last (this one with one split, else `split_combine_kernel`,
+//   whose blocks combine the splits of one row each, in split order)
+//   normalizes and stores bf16, so no launch of its own normalizes; the
+//   empty-row convention is the bf16 entry's (output 0).
 #include "mma_attention.cuh"
 
 namespace {
-
-// One block per (row o = b * H + h, split blockIdx.y): the chunk [split *
-// chunk, min((split + 1) * chunk, n)) of slot b's valid positions for
-// query head h.  Shared memory: per warp U V-staging tiles, then m[nw],
-// l[nw], acc[nw][HD].  With one split the block writes acc / m / l of row
-// o; else its partial goes to ``part`` (rows o * nsplit + split of HD + 2
-// floats: acc, then m, then l).
-// E = int8_t: k, v int8 with bf16 scales ks, vs (B, S, KV, 1).
-template <int HD, int U, typename E>
-__global__ void dense_stats_kernel(
-    const __nv_bfloat16* __restrict__ q, const E* __restrict__ k,
-    const E* __restrict__ v, const __nv_bfloat16* __restrict__ ks,
-    const __nv_bfloat16* __restrict__ vs, const int* __restrict__ length,
-    float* __restrict__ acc_out, float* __restrict__ m_out,
-    float* __restrict__ l_out, float* __restrict__ part, int S, int H,
-    int KV, int s_offset, int streams, int chunk, float scale) {
-  using Stage = repro::VStage<HD, E>;
-  constexpr int DPL = HD / 32;
-  const int o = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
-  const int b = o / H, h = o % H;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  const int per = nw / streams;                 // warps of one group
-  const int group = warp / per;
-  __shared__ float q_s[HD];
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* v_s = smem + warp * U * Stage::bytes;
-  float* pm = reinterpret_cast<float*>(smem + nw * U * Stage::bytes);
-  float* pl = pm + nw;
-  float* pacc = pm + 2 * nw;
-
-  const int n = max(0, min(length[b] - s_offset, S));
-  const int lo = split * chunk;
-  const int hi = min(n, lo + chunk);
-  // group g walks [lo + g * gpart, min(lo + (g + 1) * gpart, hi)), gpart a
-  // multiple of 32
-  const int gpart = ((chunk + streams - 1) / streams + 31) / 32 * 32;
-  const int begin = lo + group * gpart;
-  const int end = min(hi, begin + gpart);
-  for (int d = threadIdx.x; d < HD; d += blockDim.x)
-    q_s[d] = __bfloat162float(q[(size_t)o * HD + d]);
-  __syncthreads();
-
-  float m = repro::kNeg, l = 0.f, acc[DPL];
-#pragma unroll
-  for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
-  repro::attend_tiles<HD, E, U>(
-      q_s, v_s, k, v, ks, vs,
-      repro::DenseIndex{(long long)b * S, KV, kvh}, begin, end, warp % per,
-      per, scale, m, l, acc);
-  if (lane == 0) {
-    pm[warp] = m;
-    pl[warp] = l;
-  }
-#pragma unroll
-  for (int d = 0; d < DPL; ++d) pacc[warp * HD + lane * DPL + d] = acc[d];
-  __syncthreads();
-
-  float M = repro::kNeg;
-  for (int w = 0; w < nw; ++w) M = fmaxf(M, pm[w]);
-  float* a_dst = nsplit == 1 ? acc_out + (size_t)o * HD
-                             : part + ((size_t)o * nsplit + split) * (HD + 2);
-  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
-    float A = 0.f;
-    for (int w = 0; w < nw; ++w)
-      A = fmaf(pacc[w * HD + d], expf(pm[w] - M), A);
-    a_dst[d] = A;
-  }
-  if (threadIdx.x == 0) {
-    float L = 0.f;
-    for (int w = 0; w < nw; ++w) L = fmaf(pl[w], expf(pm[w] - M), L);
-    if (nsplit == 1) {
-      m_out[o] = M;
-      l_out[o] = L;
-    } else {
-      a_dst[HD] = M;
-      a_dst[HD + 1] = L;
-    }
-  }
-}
-
-template <int HD, int U, typename E>
-cudaError_t launch_dense(const void* q, const void* k, const void* v,
-                         const void* ks, const void* vs, const void* length,
-                         void* acc, void* m, void* l, void* part, int B,
-                         int S, int H, int KV, int s_offset, int streams,
-                         int warps, int nsplit, float scale,
-                         cudaStream_t stream) {
-  using Stage = repro::VStage<HD, E>;
-  const int smem = warps * (U * Stage::bytes + (int)sizeof(float) * (2 + HD));
-  // the static q_s (HD floats) counts against both limits
-  if (smem + HD * 4 > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem + HD * 4 > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dense_stats_kernel<HD, U, E>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int chunk = ((S + nsplit - 1) / nsplit + 31) / 32 * 32;
-  dense_stats_kernel<HD, U, E><<<dim3(B * H, nsplit), warps * 32, smem,
-                                 stream>>>(
-      (const __nv_bfloat16*)q, (const E*)k, (const E*)v,
-      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const int*)length,
-      (float*)acc, (float*)m, (float*)l, (float*)part, S, H, KV, s_offset,
-      streams, chunk, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || nsplit == 1) return e;
-  repro::mma::split_combine_kernel<HD><<<B * H, HD, 0, stream>>>(
-      (const float*)part, nsplit, (float*)acc, (float*)m, (float*)l,
-      nullptr);
-  return cudaGetLastError();
-}
-
-template <int HD, typename E>
-cudaError_t dense_unroll(const void* q, const void* k, const void* v,
-                         const void* ks, const void* vs, const void* length,
-                         void* acc, void* m, void* l, void* part, int B,
-                         int S, int H, int KV, int s_offset, int streams,
-                         int warps, int unroll, int nsplit, float scale,
-                         cudaStream_t s) {
-  switch (unroll) {
-    case 1:
-      return launch_dense<HD, 1, E>(q, k, v, ks, vs, length, acc, m, l, part,
-                                    B, S, H, KV, s_offset, streams, warps,
-                                    nsplit, scale, s);
-    case 2:
-      return launch_dense<HD, 2, E>(q, k, v, ks, vs, length, acc, m, l, part,
-                                    B, S, H, KV, s_offset, streams, warps,
-                                    nsplit, scale, s);
-    case 4:
-      return launch_dense<HD, 4, E>(q, k, v, ks, vs, length, acc, m, l, part,
-                                    B, S, H, KV, s_offset, streams, warps,
-                                    nsplit, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// Checks the launch parameters and picks the head-dim instantiation of the
-// dense walk over elements E.
-template <typename E>
-cudaError_t dense_stats(const void* q, const void* k, const void* v,
-                        const void* ks, const void* vs, const void* length,
-                        void* acc, void* m, void* l, void* part, int B, int S,
-                        int H, int KV, int hd, int s_offset, int streams,
-                        int unroll, int block_k, int nsplit, float scale,
-                        void* stream) {
-  if (B <= 0) return cudaSuccess;
-  if (S <= 0 || KV <= 0 || H % KV != 0 || (streams != 1 && streams != 2) ||
-      block_k < 128 || block_k % 128 != 0 || nsplit < 1 ||
-      (nsplit > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
-  const int warps = streams * (block_k / 128);
-  if (warps > 32) return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 32:
-      return dense_unroll<32, E>(q, k, v, ks, vs, length, acc, m, l, part, B,
-                                 S, H, KV, s_offset, streams, warps, unroll,
-                                 nsplit, scale, s);
-    case 64:
-      return dense_unroll<64, E>(q, k, v, ks, vs, length, acc, m, l, part, B,
-                                 S, H, KV, s_offset, streams, warps, unroll,
-                                 nsplit, scale, s);
-    case 128:
-      return dense_unroll<128, E>(q, k, v, ks, vs, length, acc, m, l, part,
-                                  B, S, H, KV, s_offset, streams, warps,
-                                  unroll, nsplit, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // One block per (slot b and KV head kvh = blockIdx.x, split blockIdx.y,
 // m-tile blockIdx.z of 16 of the G query heads), BN / 16 warps.  Split
@@ -434,6 +273,127 @@ cudaError_t decode_mma(const void* q, const void* k, const void* v,
   }
 }
 
+// The int8 cache's kernel: decode_mma_kernel's block, split and stream
+// layout (one block per (slot b and KV head kvh = blockIdx.x, split
+// blockIdx.y, m-tile blockIdx.z); BN / 16 warps, warp wn folding the
+// positions wn 16 .. wn 16 + 15 of every tile of BN), but each warp stages
+// its own 16 positions through its own ring (walk_q8) and folds them with
+// their scales.  The result goes to ``sink`` normalized (bf16 out) or, with
+// more than one split, to its workspace for split_combine_kernel.
+template <int HD, int STAGES>
+__global__ void __launch_bounds__(256) decode_q8_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const __nv_bfloat16* __restrict__ ks,
+    const __nv_bfloat16* __restrict__ vs, const int* __restrict__ length,
+    repro::mma::Sink sink, int S, int H, int KV, int streams, int BN,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int nsplit = gridDim.y;
+  const int G = H / KV;
+  const int lane = threadIdx.x & 31, wn = threadIdx.x >> 5;
+  const int g = lane >> 2;
+
+  const int n = max(0, min(length[b], S));
+  const int chunk = ((n + BN - 1) / BN + nsplit - 1) / nsplit * BN;
+  const int lo = blockIdx.y * chunk, hi = min(n, lo + chunk);
+  const int BNs = BN / streams, gpart = chunk / streams;
+  const int T = hi > lo ? (min(gpart, hi - lo) + BNs - 1) / BNs : 0;
+
+  const int m0 = blockIdx.z * 16;  // the tile's first query head
+  const __nv_bfloat16* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
+  uint32_t qf[HD / 16][4];
+  repro::mma::load_q<HD, true>(qf, qb + (size_t)min(m0 + g, G - 1) * HD,
+                               qb + (size_t)min(m0 + g + 8, G - 1) * HD);
+
+  // the warp's 16 positions of tile t: first + t BNs .. + 15, all in one
+  // stream (streams <= 2), which ends at lim
+  const int r0 = wn * 16, s0 = r0 >= BNs;
+  const int lim = min(hi, lo + (s0 + 1) * gpart);
+  const int first = lo + s0 * gpart + r0 - s0 * BNs;
+  repro::mma::State<HD> st;
+  st.init();
+  repro::mma::walk_q8<HD, STAGES>(
+      k, v, ks, vs, smem + wn * repro::mma::Tile8<HD>::warp_bytes(STAGES),
+      (long long)b * S, KV, kvh, first, BNs, lim, T, qf, scale, st);
+  __syncthreads();  // every warp's ring is free: the merge buffer next
+  repro::mma::merge<HD>(st, smem, blockDim.x >> 5,
+                        [&](int row, int d, float a0, float a1, float M,
+                            float L) {
+    const int h = m0 + row;
+    if (h < G)
+      sink.put<HD>((size_t)b * H + (size_t)kvh * G + h, d, a0, a1, M, L);
+  });
+}
+
+template <int HD, int STAGES>
+int q8_smem(int BN) {
+  return max(BN / 16 * repro::mma::Tile8<HD>::warp_bytes(STAGES),
+             repro::mma::Tile<HD>::merge_bytes(BN / 16));
+}
+
+template <int HD, int STAGES>
+cudaError_t launch_q8(const void* q, const void* k, const void* ks,
+                      const void* v, const void* vs, const void* length,
+                      repro::mma::Sink sink, int B, int S, int H, int KV,
+                      int streams, int BN, int nsplit, float scale,
+                      cudaStream_t stream) {
+  const int smem = q8_smem<HD, STAGES>(BN);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_q8_mma_kernel<HD, STAGES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int G = H / KV;
+  decode_q8_mma_kernel<HD, STAGES>
+      <<<dim3(B * KV, nsplit, (G + 15) / 16), BN / 16 * 32, smem, stream>>>(
+          (const __nv_bfloat16*)q, (const int8_t*)k, (const int8_t*)v,
+          (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs,
+          (const int*)length, sink, S, H, KV, streams, BN, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || nsplit == 1) return e;
+  repro::mma::split_combine_kernel<HD><<<B * H, HD, 0, stream>>>(
+      sink.part, nsplit, sink.acc, sink.m, sink.l, sink.out);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t q8_stages(const void* q, const void* k, const void* ks,
+                      const void* v, const void* vs, const void* length,
+                      repro::mma::Sink sink, int B, int S, int H, int KV,
+                      int streams, int unroll, int BN, int nsplit,
+                      float scale, cudaStream_t s) {
+  if (unroll == 1)
+    return launch_q8<HD, 2>(q, k, ks, v, vs, length, sink, B, S, H, KV,
+                            streams, BN, nsplit, scale, s);
+  return launch_q8<HD, 3>(q, k, ks, v, vs, length, sink, B, S, H, KV,
+                          streams, BN, nsplit, scale, s);
+}
+
+// The blocks of decode_q8_mma_kernel<HD, STAGES> that one SM holds at once.
+template <int HD, int STAGES>
+int q8_occupancy(int BN) {
+  const int smem = q8_smem<HD, STAGES>(BN);
+  if (smem > 227 * 1024) return 0;
+  if (cudaFuncSetAttribute(decode_q8_mma_kernel<HD, STAGES>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return 0;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, decode_q8_mma_kernel<HD, STAGES>, BN / 16 * 32, smem) !=
+      cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int HD>
+int q8_occupancy_stages(int unroll, int BN) {
+  return unroll == 1 ? q8_occupancy<HD, 2>(BN) : q8_occupancy<HD, 3>(BN);
+}
+
 }  // namespace
 
 // q (B, H, hd) bf16; k_pool / v_pool (P, page, KV, hd) bf16; block_tables
@@ -499,16 +459,55 @@ extern "C" int repro_decode_dense_bf16_occupancy(int hd, int unroll,
   }
 }
 
-// As above over an int8 cache: k, v (B, S, KV, hd) int8 and bf16 scales
-// ks, vs (B, S, KV, 1); block_k a multiple of 128 (block_k / 128 warps a
-// stream), nsplit >= 1 chunks of S.
-extern "C" cudaError_t repro_decode_stats_int8(
+// q (B, H, hd) bf16; k, v (B, S, KV, hd) int8 with bf16 scales ks, vs (B,
+// S, KV, 1); length (B,) int32 -> out (B, H, hd) bf16, normalized.  The
+// launch parameters as for repro_decode_dense_bf16 (``part``: B H nsplit
+// (hd + 2) fp32 scratch when nsplit > 1); 16-byte aligned k, v (the
+// wrapper checks).
+extern "C" cudaError_t repro_decode_dense_int8(
     const void* q, const void* k, const void* ks, const void* v,
-    const void* vs, const void* length, void* acc, void* m, void* l,
-    void* part, int B, int S, int H, int KV, int hd, int s_offset,
-    int streams, int unroll, int block_k, int nsplit, float scale,
-    void* stream) {
-  return dense_stats<int8_t>(q, k, v, ks, vs, length, acc, m, l, part, B, S,
-                             H, KV, hd, s_offset, streams, unroll, block_k,
-                             nsplit, scale, stream);
+    const void* vs, const void* length, void* out, void* part, int B, int S,
+    int H, int KV, int hd, int streams, int unroll, int block_k, int nsplit,
+    float scale, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  const int BN = block_k / 4;
+  if (S <= 0 || KV <= 0 || H % KV != 0 || (streams != 1 && streams != 2) ||
+      (unroll != 1 && unroll != 2 && unroll != 4) || block_k % 4 != 0 ||
+      BN % (16 * streams) != 0 || BN > 128 || BN <= 0 || nsplit < 1 ||
+      (nsplit > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const repro::mma::Sink sink{(__nv_bfloat16*)out, nullptr, nullptr, nullptr,
+                              (float*)part};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hd) {
+    case 32:
+      return q8_stages<32>(q, k, ks, v, vs, length, sink, B, S, H, KV,
+                           streams, unroll, BN, nsplit, scale, s);
+    case 64:
+      return q8_stages<64>(q, k, ks, v, vs, length, sink, B, S, H, KV,
+                           streams, unroll, BN, nsplit, scale, s);
+    case 128:
+      return q8_stages<128>(q, k, ks, v, vs, length, sink, B, S, H, KV,
+                            streams, unroll, BN, nsplit, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The blocks of the int8 dense decode at (hd, unroll, block_k) that one SM
+// holds at once (0 for parameters it does not take).
+extern "C" int repro_decode_dense_int8_occupancy(int hd, int unroll,
+                                                 int block_k) {
+  const int BN = block_k / 4;
+  if (block_k % 4 != 0 || BN % 16 != 0 || BN > 128 || BN <= 0) return 0;
+  switch (hd) {
+    case 32:
+      return q8_occupancy_stages<32>(unroll, BN);
+    case 64:
+      return q8_occupancy_stages<64>(unroll, BN);
+    case 128:
+      return q8_occupancy_stages<128>(unroll, BN);
+    default:
+      return 0;
+  }
 }

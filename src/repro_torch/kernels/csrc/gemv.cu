@@ -10,23 +10,37 @@
 //   fp32) for 2 N K operations, at most one operation per byte, far below
 //   the card's ridge.  At the read-out shape (151936 x 1024 bf16) W is
 //   311 MB, so the kernel's floor is the device memory rate; the router
-//   (60 x 2048 fp32, 0.49 MB) and the experts (1408 x 2048 bf16, 5.8 MB)
-//   are small enough that the launch latency is the floor.
-// Design: one warp per output row.  Each lane walks the row with 16-byte
-//   loads (8 bf16 or 4 fp32) that bypass L1 (the row is used once),
-//   multiplies with the matching slice of x (small, reused by every warp,
-//   read through the read-only cache) and keeps one fp32 accumulator; a
-//   5-step shuffle reduction gives the row's dot product, written by lane
-//   0.  K need not be a power of two: the loop bound is the mask (K = 2816
-//   is 11 vectors per lane).  K must be a multiple of the vector (8 bf16,
-//   4 fp32) and w, x 16-byte aligned; the wrapper refuses anything else
+//   (60 x 2048 fp32, 0.49 MB), the experts (1408 x 2048 bf16, 5.8 MB) and
+//   the (1024, 1024) projections (2 MB) are small enough that the launch
+//   and the rounds of device-memory latency a warp waits for set the time.
+// Design: `ksplit` warps a row (`gemv_kernel`), a block of `gemv_warps`
+//   warps taking warps / ksplit rows.  A row is walked in steps of 64
+//   16-byte vectors (8 bf16 or 4 fp32 each; lane l holds vectors l and
+//   32 + l of a step), and the row's warps take every ksplit-th step.  A
+//   lane issues the loads of two of its steps (4 vectors of W, bypassing
+//   L1 since the row is used once, and the matching vectors of x, small
+//   and reused by every warp, through the read-only cache) before its first
+//   FMA, so a warp whose share of the row is at most two steps waits for
+//   device memory once; more loads a lane would cost registers, so fewer
+//   warps an SM and fewer bytes in flight at the read-out.  It multiplies in fp32 and keeps one accumulator,
+//   vector by vector in the order of K; a 5-step shuffle reduction gives
+//   the warp's sum; with ksplit > 1 the row's sums meet in shared memory
+//   and its first warp adds them in warp order, so the same inputs give the
+//   same bits, with no atomics and no second launch.  The wrapper works out
+//   ksplit from (N, K, warps, SMs) (kernels/gemv.py `gemv_ksplit`): it
+//   doubles while it divides the block's warps, leaves every warp at least
+//   one whole step, and keeps the row warps within 32 an SM.  The
+//   read-outs (151936 rows) stay at ksplit 1, whose order of the adds is
+//   the one-warp-a-row walk's: their bits do not depend on the split.  The
+//   router (60 x 2048 fp32: 8 steps) takes 8 warps a row at 8 warps a
+//   block, the (1024, 1024) projections 2.  K need not be a multiple of a
+//   step: a vector past K is loaded clamped into the row and not added (K
+//   = 2816 is 5.5 steps).  K must be a multiple of the vector (8 bf16, 4
+//   fp32) and w, x 16-byte aligned; the wrapper refuses anything else
 //   rather than switch to a slower kernel.  With an index (the bf16 routed
 //   MoE path, `moe.py:173-185` in the JAX package) every block reads the
 //   expert id from device memory itself and offsets W by id * N * K, so
 //   the host never reads the router's choice and no expert slice is copied.
-//   A (1024, 1024) projection has only 1024 rows = 128 blocks of 8 warps,
-//   which fills at most one block per SM of the 132: the small projections
-//   leave most of the card idle (kept simple here; split-K comes later).
 //
 // Batched entry: Y (B, N) fp32 = xs (B, K) . W^T for B <= 16 rows of bf16
 //   xs (replaces src/repro/kernels/ops.py `batched_gemv`, a vmap of the
@@ -64,41 +78,89 @@ namespace {
 
 using repro::Vec;
 
+constexpr int kRowVecs = 2;   // 16-byte loads a lane per step of a row
+constexpr int kRowSteps = 2;  // steps whose loads a lane issues at once
+
+// ksplit warps of a block share a row: warp w takes row blockIdx.x *
+// (warps / ksplit) + w / ksplit and the steps w % ksplit, w % ksplit +
+// ksplit, ... (a step: 64 16-byte vectors, lane l holding vectors l and
+// 32 + l of it).  Each lane issues the loads of kRowSteps of its steps
+// before the first FMA, and adds vector by vector in the order of K; with
+// ksplit 1 that is the order i = l, 32 + l, 64 + l, ... of the
+// one-warp-a-row walk.  The warps' sums meet in shared memory and the
+// first adds them in warp order.
 template <typename T>
 __global__ void gemv_kernel(const T* __restrict__ w, const T* __restrict__ x,
                             const int* __restrict__ index,
-                            float* __restrict__ y, int N, int K) {
+                            float* __restrict__ y, int N, int K,
+                            int ksplit) {
   constexpr int V = Vec<T>::n;
-  const int warps = blockDim.x >> 5;
-  const int row = blockIdx.x * warps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= N) return;
+  __shared__ float part[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * ((blockDim.x >> 5) / ksplit) + warp / ksplit;
+  const int wk = warp % ksplit;
+  const bool live = row < N;
   if (index != nullptr) w += (size_t)__ldg(index) * N * K;
-  const uint4* wr = reinterpret_cast<const uint4*>(w + (size_t)row * K);
+  const int nvec = K / V, steps = (nvec + 63) / 64;
+  const uint4* wr =
+      reinterpret_cast<const uint4*>(w + (size_t)min(row, N - 1) * K);
   const uint4* xv = reinterpret_cast<const uint4*>(x);
-  const int nvec = K / V;
   float acc = 0.f;
-#pragma unroll 4
-  for (int i = lane; i < nvec; i += 32) {
-    float wf[V], xf[V];
-    Vec<T>::load(__ldcs(wr + i), wf);
-    Vec<T>::load(__ldg(xv + i), xf);
+  for (int s0 = wk; live && s0 < steps; s0 += ksplit * kRowSteps) {
+    // vector i of step s: 64 s + 32 v + lane; a step past the row is not
+    // loaded, and in the last one a vector past K is clamped into the row,
+    // loaded and not added
+    uint4 a[kRowSteps][kRowVecs], b[kRowSteps][kRowVecs];
 #pragma unroll
-    for (int j = 0; j < V; ++j) acc = fmaf(wf[j], xf[j], acc);
+    for (int u = 0; u < kRowSteps; ++u)
+      if (s0 + u * ksplit < steps) {
+#pragma unroll
+        for (int v = 0; v < kRowVecs; ++v) {
+          const int i =
+              min((s0 + u * ksplit) * 64 + 32 * v + lane, nvec - 1);
+          a[u][v] = __ldcs(wr + i);
+          b[u][v] = __ldg(xv + i);
+        }
+      }
+    // ptxas keeps loads above a warp barrier (it orders memory): without
+    // it, it sinks each load to just before its product
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kRowSteps; ++u)
+#pragma unroll
+      for (int v = 0; v < kRowVecs; ++v)
+        if ((s0 + u * ksplit) * 64 + 32 * v + lane < nvec) {
+          float wf[V], xf[V];
+          Vec<T>::load(a[u][v], wf);
+          Vec<T>::load(b[u][v], xf);
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc = fmaf(wf[j], xf[j], acc);
+        }
   }
   acc = repro::warp_sum(acc);
-  if (lane == 0) y[row] = acc;
+  if (ksplit > 1) {
+    if (lane == 0) part[warp] = acc;
+    __syncthreads();
+    if (wk != 0 || lane != 0 || !live) return;
+    for (int k2 = 1; k2 < ksplit; ++k2) acc += part[warp + k2];
+    y[row] = acc;
+  } else if (lane == 0 && live) {
+    y[row] = acc;
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* w, const void* x, const void* index, void* y,
-                   int N, int K, int warps, void* stream) {
+                   int N, int K, int warps, int ksplit, void* stream) {
   if (N <= 0) return cudaSuccess;
-  if (warps < 1 || warps > 32 || K % Vec<T>::n != 0)
+  if (warps < 1 || warps > 32 || ksplit < 1 || warps % ksplit != 0 ||
+      K % Vec<T>::n != 0)
     return cudaErrorInvalidValue;
-  const int blocks = (N + warps - 1) / warps;
-  gemv_kernel<T><<<blocks, warps * 32, 0, (cudaStream_t)stream>>>(
-      (const T*)w, (const T*)x, (const int*)index, (float*)y, N, K);
+  const int rows = warps / ksplit;
+  gemv_kernel<T><<<(N + rows - 1) / rows, warps * 32, 0,
+                   (cudaStream_t)stream>>>((const T*)w, (const T*)x,
+                                           (const int*)index, (float*)y, N, K,
+                                           ksplit);
   return cudaGetLastError();
 }
 
@@ -235,7 +297,7 @@ cudaError_t launch_batched(const void* w, const void* xs, void* y, int N,
 // w (N, K) row-major bf16, xs (B, K) bf16 with 1 <= B <= 16, y (B, N)
 // fp32; K % 8 == 0, w and xs 16-byte aligned (the wrapper checks); warps
 // 1..16 a block, ``ksplit`` of them (a divisor of warps) on each 16-row
-// tile.  B = 1 is gemv (``warps`` rows a block).
+// tile.  B = 1 is gemv (``ksplit`` warps a row, gemv's split).
 extern "C" cudaError_t repro_batched_gemv_bf16(const void* w, const void* xs,
                                                void* y, int N, int K, int B,
                                                int warps, int ksplit,
@@ -245,7 +307,8 @@ extern "C" cudaError_t repro_batched_gemv_bf16(const void* w, const void* xs,
       K % 8 != 0 || B < 1 || B > 16)
     return cudaErrorInvalidValue;
   if (B == 1)
-    return launch<__nv_bfloat16>(w, xs, nullptr, y, N, K, warps, stream);
+    return launch<__nv_bfloat16>(w, xs, nullptr, y, N, K, warps, ksplit,
+                                 stream);
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 8) return launch_batched<1>(w, xs, y, N, K, B, warps, ksplit, s);
   return launch_batched<2>(w, xs, y, N, K, B, warps, ksplit, s);
@@ -253,15 +316,18 @@ extern "C" cudaError_t repro_batched_gemv_bf16(const void* w, const void* xs,
 
 // w (N, K) row-major, or a stack (E, N, K) with index -> one int32 expert
 // id on the device (null: no stack); x (K,); y (N,) fp32.  bf16: K % 8 ==
-// 0; fp32: K % 4 == 0; w, x 16-byte aligned (the wrapper checks).
+// 0; fp32: K % 4 == 0; w, x 16-byte aligned (the wrapper checks); warps
+// 1..32 a block, ``ksplit`` of them (a divisor of warps) on each row.
 extern "C" cudaError_t repro_gemv_bf16(const void* w, const void* x,
                                        const void* index, void* y, int N,
-                                       int K, int warps, void* stream) {
-  return launch<__nv_bfloat16>(w, x, index, y, N, K, warps, stream);
+                                       int K, int warps, int ksplit,
+                                       void* stream) {
+  return launch<__nv_bfloat16>(w, x, index, y, N, K, warps, ksplit, stream);
 }
 
 extern "C" cudaError_t repro_gemv_f32(const void* w, const void* x,
                                       const void* index, void* y, int N,
-                                      int K, int warps, void* stream) {
-  return launch<float>(w, x, index, y, N, K, warps, stream);
+                                      int K, int warps, int ksplit,
+                                      void* stream) {
+  return launch<float>(w, x, index, y, N, K, warps, ksplit, stream);
 }

@@ -1,9 +1,10 @@
-// The tensor-core attention core shared by the dense decode
-// (decode_attention.cu, `decode_mma_kernel`) and the paged chunked prefill
-// (prefill_attention.cu, `prefill_mma_kernel`): a block takes every query
-// row that shares one KV head, streams that head's K/V positions through a
-// shared-memory ring once, and runs both products on `mma.sync.m16n8k16`
-// (bf16 in, fp32 accumulate).
+// The tensor-core attention core shared by the dense decodes
+// (decode_attention.cu: `decode_mma_kernel` over a bf16 cache,
+// `decode_q8_mma_kernel` over an int8 one, through walk_q8) and the paged
+// chunked prefill (prefill_attention.cu, `prefill_mma_kernel`): a block
+// takes every query row that shares one KV head, streams that head's K/V
+// positions through a shared-memory ring once, and runs both products on
+// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).
 //
 // Warps.  A block is WM x WN warps.  Warp (wm, wn) owns the 16 query rows
 // 16 wm .. 16 wm + 15 of the block (one m-tile) and the NW positions
@@ -70,6 +71,15 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
                                                  int bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes));
+}
+
+// cp.async of 4 bytes (4-byte aligned), or (bytes == 0) 4 zero bytes
+// without a read
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(bytes));
 }
 
@@ -140,33 +150,74 @@ struct State {
 };
 
 // The A fragments of 16 q rows (row g at q_g, row g + 8 at q_g8; bf16, hd
-// contiguous, 4-byte aligned), for every k16 step of hd.
-template <int HD>
+// contiguous, 4-byte aligned), for every k16 step of hd.  Q8 (the int8
+// cache, whose K fragments a lane builds from its own quarter of a K row):
+// step kk of lane quad qd takes the hd columns qd HD / 4 + 4 kk .. + 3, the
+// first two as the fragment's columns 2 qd, 2 qd + 1 and the last two as 2
+// qd + 8, 2 qd + 9 (a dot product does not care about the order of k, so
+// long as q and K agree).
+template <int HD, bool Q8 = false>
 __device__ __forceinline__ void load_q(uint32_t (&qf)[HD / 16][4],
                                        const __nv_bfloat16* q_g,
                                        const __nv_bfloat16* q_g8) {
   const int qd = threadIdx.x & 3;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + 2 * qd;
+    const int c = Q8 ? qd * (HD / 4) + 4 * kk : kk * 16 + 2 * qd;
+    const int c8 = Q8 ? c + 2 : c + 8;
     qf[kk][0] = *reinterpret_cast<const uint32_t*>(q_g + c);
     qf[kk][1] = *reinterpret_cast<const uint32_t*>(q_g8 + c);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(q_g + c + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(q_g8 + c + 8);
+    qf[kk][2] = *reinterpret_cast<const uint32_t*>(q_g + c8);
+    qf[kk][3] = *reinterpret_cast<const uint32_t*>(q_g8 + c8);
   }
 }
+
+// Two int8 values (bytes k, k + 1 of ``biased``, the int8 word XOR
+// 0x80808080) -> bf16x2, exactly (|x| <= 128 has 8 significant bits):
+// through fp32 by byte permutation, then paired (byte k in the low half).
+__device__ __forceinline__ uint32_t biased_pair_to_bf16x2(uint32_t biased,
+                                                          int k) {
+  const __nv_bfloat162 p =
+      __floats2bfloat162_rn(biased_byte_to_float(biased, k),
+                            biased_byte_to_float(biased, k + 1));
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The int8 cache's per-warp staging (walk_q8): a ring of STAGES stages,
+// each the warp's 16 positions of int8 K rows then V rows, row_bytes apart,
+// and 32 scale words (the 4-byte aligned word that holds each position's
+// bf16 K scale, then its V scale); then the bf16 V tile that fold reads
+// (Tile<HD> rows) and the 32 scales as floats.  Rows are padded only at
+// hd 128, so that the 16-byte loads of a lane's quarter K rows (two rows a
+// phase of 8 lanes) fall on distinct banks.
+template <int HD>
+struct Tile8 {
+  static constexpr int row_bytes = HD == 128 ? HD + 16 : HD;
+  static constexpr int stage_bytes = 32 * row_bytes + 32 * 4;
+  __host__ __device__ static constexpr int warp_bytes(int stages) {
+    return stages * stage_bytes + 16 * Tile<HD>::row_bytes + 32 * 4;
+  }
+};
 
 // Fold NW staged positions (pos0 .. pos0 + NW - 1; their K rows at k_s, V
 // rows at v_s, Tile<HD>::stride apart) into the state of the warp's 16 rows.
 // lim0 / lim1: the first position that row g / g + 8 of this lane may not
 // see; ``masked`` false promises pos0 + NW <= both for every lane.  ``sc``
-// is the score scale (hd^-0.5).
-template <int HD, int NW>
+// is the score scale (hd^-0.5).  Q8 (the int8 cache): k_s holds the int8 K
+// rows (Tile8<HD>::row_bytes apart), and a lane makes the B fragments of
+// its row of an n8 tile from its own quarter of that row (load_q's Q8
+// order), exactly in bf16; position j's K scale k_sc[j] multiplies column
+// j of the scores, and its V scale v_sc[j] column j of P after the row sums
+// took P unscaled — in exact arithmetic the products over the dequantized
+// rows k8 k_sc and v8 v_sc.
+template <int HD, int NW, bool Q8 = false>
 __device__ __forceinline__ void fold(const uint32_t (&qf)[HD / 16][4],
-                                     const __nv_bfloat16* k_s,
+                                     const void* k_s,
                                      const __nv_bfloat16* v_s, int pos0,
                                      int lim0, int lim1, bool masked,
-                                     float sc, State<HD>& st) {
+                                     float sc, State<HD>& st,
+                                     const float* k_sc = nullptr,
+                                     const float* v_sc = nullptr) {
   constexpr int STR = Tile<HD>::stride;
   constexpr int NT = NW / 8;  // n8 score tiles
   const int lane = threadIdx.x & 31, qd = lane & 3;
@@ -175,17 +226,44 @@ __device__ __forceinline__ void fold(const uint32_t (&qf)[HD / 16][4],
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-  // S = q K^T: one ldmatrix.x4 gives b0, b1 of two k16 steps of one n8 tile
+  if constexpr (Q8) {
+    // S = q K^T: word kk of the lane's quarter row holds step kk's 4 k
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NT; ++nt) {
+      const unsigned char* row =
+          static_cast<const unsigned char*>(k_s) +
+          (nt * 8 + (lane >> 2)) * Tile8<HD>::row_bytes + qd * (HD / 4);
+      uint32_t w[HD / 16];
+      if constexpr (HD >= 64) {
 #pragma unroll
-    for (int kp = 0; kp < HD / 32; ++kp) {
-      uint32_t b[4];
-      ldmatrix_x4(b, k_s + (nt * 8 + (lane & 7)) * STR + kp * 32 +
-                         8 * (lane >> 3));
-      mma16816(s[nt], qf[2 * kp], b[0], b[1]);
-      mma16816(s[nt], qf[2 * kp + 1], b[2], b[3]);
+        for (int i = 0; i < HD / 64; ++i)
+          *reinterpret_cast<uint4*>(w + 4 * i) =
+              reinterpret_cast<const uint4*>(row)[i];
+      } else {
+        *reinterpret_cast<uint2*>(w) = *reinterpret_cast<const uint2*>(row);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t b = w[kk] ^ 0x80808080u;
+        mma16816(s[nt], qf[kk], biased_pair_to_bf16x2(b, 0),
+                 biased_pair_to_bf16x2(b, 2));
+      }
     }
+  } else {
+    // S = q K^T: one ldmatrix.x4 gives b0, b1 of two k16 steps of one n8
+    // tile
+    const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k_s);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int kp = 0; kp < HD / 32; ++kp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kb + (nt * 8 + (lane & 7)) * STR + kp * 32 +
+                           8 * (lane >> 3));
+        mma16816(s[nt], qf[2 * kp], b[0], b[1]);
+        mma16816(s[nt], qf[2 * kp + 1], b[2], b[3]);
+      }
+  }
   // scale, mask, row max over the quad
   float mx0 = st.m[0], mx1 = st.m[1];
 #pragma unroll
@@ -193,6 +271,7 @@ __device__ __forceinline__ void fold(const uint32_t (&qf)[HD / 16][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = s[nt][e] * sc;
+      if constexpr (Q8) v *= k_sc[nt * 8 + 2 * qd + (e & 1)];
       if (masked) {
         const int p = pos0 + nt * 8 + 2 * qd + (e & 1);
         if (p >= (e < 2 ? lim0 : lim1)) v = kNeg;
@@ -238,6 +317,12 @@ __device__ __forceinline__ void fold(const uint32_t (&qf)[HD / 16][4],
     st.acc[j][1] *= a0;
     st.acc[j][2] *= a1;
     st.acc[j][3] *= a1;
+  }
+  if constexpr (Q8) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= v_sc[nt * 8 + 2 * qd + (e & 1)];
   }
   // O += P V, P as hi + lo bf16 parts; one ldmatrix.x4.trans gives b0, b1
   // of two n8 tiles of hd
@@ -316,6 +401,101 @@ __device__ __forceinline__ void walk(
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring's memory is the merge buffer next
+}
+
+// 8 int8 values -> 8 bf16, exactly.
+__device__ __forceinline__ uint4 int8x8_to_bf16x8(uint2 u) {
+  const uint32_t x = u.x ^ 0x80808080u, y = u.y ^ 0x80808080u;
+  return make_uint4(biased_pair_to_bf16x2(x, 0), biased_pair_to_bf16x2(x, 2),
+                    biased_pair_to_bf16x2(y, 0), biased_pair_to_bf16x2(y, 2));
+}
+
+// The walk of one warp over an int8 cache (B, S, KV, HD) with bf16 scales
+// (B, S, KV, 1): T tiles, the warp's 16 positions of tile t being first +
+// t step .. + 15 (rows (base + pos) KV + kvh), those >= lim zero-filled
+// and masked.  Each warp stages only its own positions, through its own
+// cp.async ring in ``ws`` (Tile8<HD>::warp_bytes(STAGES) bytes), so no
+// barrier of the block is needed: per tile it converts the landed int8 V
+// rows to its bf16 V tile (exact) and the scales to floats, and folds the
+// tile (fold<HD, 16, true>: K fragments made from the int8 rows in
+// registers, the K scales on the score columns, the V scales on P's).  The
+// warp stops at the first tile past lim.  Returns with every copy landed;
+// the caller syncs the block before reusing the memory.
+template <int HD, int STAGES>
+__device__ __forceinline__ void walk_q8(
+    const int8_t* __restrict__ k, const int8_t* __restrict__ v,
+    const __nv_bfloat16* __restrict__ ks,
+    const __nv_bfloat16* __restrict__ vs, unsigned char* ws, long long base,
+    int KV, int kvh, int first, int step, int lim, int T,
+    const uint32_t (&qf)[HD / 16][4], float sc, State<HD>& st) {
+  using T8 = Tile8<HD>;
+  constexpr int STR = Tile<HD>::stride;
+  constexpr int CPR = HD / 16;  // 16-byte pieces of an int8 row
+  const int lane = threadIdx.x & 31;
+  __nv_bfloat16* vb =
+      reinterpret_cast<__nv_bfloat16*>(ws + STAGES * T8::stage_bytes);
+  float* scf = reinterpret_cast<float*>(vb + 16 * STR);  // K, then V scales
+  // lane < 16: the K scale of row lane of tile t, else the V scale of row
+  // lane - 16; null past lim
+  auto scale_at = [&](int t) -> const __nv_bfloat16* {
+    const int pos = first + t * step + (lane & 15);
+    return pos < lim ? (lane < 16 ? ks : vs) + (base + pos) * KV + kvh
+                     : nullptr;
+  };
+  auto load = [&](int t) {
+    unsigned char* s8 = ws + (t % STAGES) * T8::stage_bytes;
+    const int p0 = first + t * step;
+#pragma unroll
+    for (int c = lane; c < 16 * CPR; c += 32) {
+      const int r = c / CPR, part = c % CPR;
+      const bool ok = p0 + r < lim;
+      const long long off =
+          ok ? ((base + p0 + r) * KV + kvh) * HD + part * 16 : 0;
+      cp_async16_zfill(s8 + r * T8::row_bytes + part * 16, k + off,
+                       ok ? 16 : 0);
+      cp_async16_zfill(s8 + (16 + r) * T8::row_bytes + part * 16, v + off,
+                       ok ? 16 : 0);
+    }
+    const __nv_bfloat16* sp = scale_at(t);
+    const uintptr_t a = reinterpret_cast<uintptr_t>(sp ? sp : ks);
+    cp_async4_zfill(s8 + 32 * T8::row_bytes + lane * 4,
+                    reinterpret_cast<const void*>(a & ~uintptr_t(3)),
+                    sp ? 4 : 0);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < T) load(s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    const int pos0 = first + t * step;
+    if (pos0 >= lim) break;  // this and every later tile
+    // the warp is done with tile t - 1 (fold), whose stage tile t +
+    // STAGES - 1 takes
+    __syncwarp();
+    if (t + STAGES - 1 < T) load(t + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();  // tile t has landed for every lane of the warp
+    const unsigned char* s8 = ws + (t % STAGES) * T8::stage_bytes;
+#pragma unroll
+    for (int c = lane; c < 16 * (HD / 8); c += 32) {
+      const int r = c / (HD / 8), part = c % (HD / 8);
+      *reinterpret_cast<uint4*>(vb + r * STR + part * 8) =
+          int8x8_to_bf16x8(*reinterpret_cast<const uint2*>(
+              s8 + (16 + r) * T8::row_bytes + part * 8));
+    }
+    {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+          s8 + 32 * T8::row_bytes + lane * 4);
+      const bool upper = (reinterpret_cast<uintptr_t>(scale_at(t)) >> 1) & 1;
+      scf[lane] = __uint_as_float((upper ? w >> 16 : w & 0xffffu) << 16);
+    }
+    __syncwarp();
+    fold<HD, 16, true>(qf, s8, vb, pos0, lim, lim, pos0 + 16 > lim, sc, st,
+                       scf, scf + 16);
+  }
+  cp_async_wait<0>();
 }
 
 // Merge the WN states of each m-tile (warp w = wm WN + wn) and hand this

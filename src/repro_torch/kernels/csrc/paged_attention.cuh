@@ -1,6 +1,6 @@
 // Paged decode attention for one query row per block (one row per slot),
-// over bf16 or int8 page pools, and the SIMT online-softmax walk
-// (attend_tiles) that it shares with the dense int8 decode.
+// over bf16 or int8 page pools, through the SIMT online-softmax walk
+// attend_tiles.
 //
 // Layout (the JAX package's, serve/kvcache.py): pools (P, page, KV, HD)
 // bf16, or int8 with bf16 scale pools (P, page, KV, 1) addressed by the
@@ -95,9 +95,8 @@ __device__ __forceinline__ void bf16xn_to_float(const __nv_bfloat16* p,
 }
 
 // Where position ``pos`` of the walked cache lives: the pool row (in units
-// of HD elements) of that position's K / V vector for one KV head.  A paged
-// cache goes through the slot's block-table row; a dense cache (B, S, KV,
-// HD) is the slot's own rows.
+// of HD elements) of that position's K / V vector for one KV head, through
+// the slot's block-table row.
 struct PagedIndex {
   const int* bt_row;
   int page, KV, kv_head;
@@ -107,122 +106,99 @@ struct PagedIndex {
   }
 };
 
-struct DenseIndex {
-  long long base;  // b * S: the slot's first row
-  int KV, kv_head;
-  __device__ __forceinline__ long long operator()(int pos) const {
-    return (base + pos) * KV + kv_head;
-  }
-};
-
-// Fold positions [begin, end) into (m, l, acc): the warp takes 32-position
-// tiles tile0, tile0 + tile_stride, ... of the range, U of them per step;
-// lane t owns position begin + 32 * tile + t of each.  It first starts
-// asynchronous copies (cp.async) of its V rows of all U tiles into the
-// warp's staging tiles of ``v_s`` (and, for int8 pools, stores their
-// scales), then per tile loads its whole K row into registers at once and
-// scores it against q (HD fp32 values in shared memory): every load of a
-// row is in flight together, and the V copies overlap the scoring.  Then
-// the U tiles update the state in order: for the value update lane t owns
-// output dims [t * HD / 32, (t + 1) * HD / 32) and reads the staged rows
-// from shared memory, a lane's dims in one load.  Positions >= end are never
-// read, which is the same function as the JAX kernels' full masked walk: a
-// masked score is -1e30 and contributes an exact zero.  int8 pools (E =
-// int8_t) take a bf16 scale per (position, KV head) from ``k_scale`` /
-// ``v_scale`` (P, page, KV, 1) at the same pool row, and dequantize K and V
-// in fp32 before the dot and the value update.
-template <int HD, typename E, int U, typename Index>
+// Fold positions [0, end) into (m, l, acc): the warp takes 32-position
+// tiles tile0, tile0 + tile_stride, ...; lane t owns position 32 * tile + t
+// of each.  It first starts asynchronous copies (cp.async) of its V row into
+// the warp's staging tile ``v_s`` (and, for int8 pools, stores its scale),
+// then loads its whole K row into registers at once and scores it against
+// q (HD fp32 values in shared memory): every load of a row is in flight
+// together, and the V copies overlap the scoring.  Then the tile updates the
+// state: for the value update lane t owns output dims [t * HD / 32, (t + 1)
+// * HD / 32) and reads the staged rows from shared memory, a lane's dims in
+// one load.  Positions >= end are never read, which is the same function as
+// the JAX kernels' full masked walk: a masked score is -1e30 and
+// contributes an exact zero.  int8 pools (E = int8_t) take a bf16 scale per
+// (position, KV head) from ``k_scale`` / ``v_scale`` (P, page, KV, 1) at
+// the same pool row, and dequantize K and V in fp32 before the dot and the
+// value update.
+template <int HD, typename E>
 __device__ __forceinline__ void attend_tiles(
     const float* q_s, unsigned char* v_s, const E* __restrict__ k_pool,
     const E* __restrict__ v_pool, const __nv_bfloat16* __restrict__ k_scale,
-    const __nv_bfloat16* __restrict__ v_scale, Index index, int begin,
-    int end, int tile0, int tile_stride, float scale, float& m, float& l,
+    const __nv_bfloat16* __restrict__ v_scale, PagedIndex index, int end,
+    int tile0, int tile_stride, float scale, float& m, float& l,
     float* acc) {
   using Stage = VStage<HD, E>;
   constexpr int DPL = HD / 32;
   constexpr int PER16 = 16 / (int)sizeof(E);     // elements per 16 bytes
   const int lane = threadIdx.x & 31;
   constexpr int NV = HD / PER16;                  // 16-byte vectors a row
-  for (int tile = tile0; begin + tile * 32 < end; tile += tile_stride * U) {
-    float s[U];
-    long long row[U];
+  for (int tile = tile0; tile * 32 < end; tile += tile_stride) {
+    const int pos = tile * 32 + lane;
+    const long long row = pos < end ? index(pos) : -1;
+    if (row >= 0) {
+      E* v_rows = reinterpret_cast<E*>(v_s);
+      const uint4* vr = reinterpret_cast<const uint4*>(v_pool + row * HD);
+      uint4* vs = reinterpret_cast<uint4*>(v_rows + lane * Stage::stride);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int pos = begin + (tile + u * tile_stride) * 32 + lane;
-      row[u] = pos < end ? index(pos) : -1;
-      if (row[u] >= 0) {
-        E* v_rows = reinterpret_cast<E*>(v_s + u * Stage::bytes);
-        const uint4* vr = reinterpret_cast<const uint4*>(v_pool + row[u] * HD);
-        uint4* vs = reinterpret_cast<uint4*>(v_rows + lane * Stage::stride);
-#pragma unroll
-        for (int c = 0; c < NV; ++c) cp_async16(vs + c, vr + c);
-        if constexpr (Stage::kInt8)
-          reinterpret_cast<float*>(v_s + u * Stage::bytes +
-                                   Stage::rows_bytes)[lane] =
-              __bfloat162float(v_scale[row[u]]);
-      }
+      for (int c = 0; c < NV; ++c) cp_async16(vs + c, vr + c);
+      if constexpr (Stage::kInt8)
+        reinterpret_cast<float*>(v_s + Stage::rows_bytes)[lane] =
+            __bfloat162float(v_scale[row]);
     }
+    float s = kNeg;
+    if (row >= 0) {
+      const uint4* kr = reinterpret_cast<const uint4*>(k_pool + row * HD);
+      uint4 kv[NV];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      s[u] = kNeg;
-      if (row[u] >= 0) {
-        const uint4* kr = reinterpret_cast<const uint4*>(k_pool + row[u] * HD);
-        uint4 kv[NV];
+      for (int c = 0; c < NV; ++c) kv[c] = kr[c];
+      float ks = 1.f;
+      if constexpr (Stage::kInt8) ks = __bfloat162float(k_scale[row]);
+      float dot = 0.f;
 #pragma unroll
-        for (int c = 0; c < NV; ++c) kv[c] = kr[c];
-        float ks = 1.f;
-        if constexpr (Stage::kInt8) ks = __bfloat162float(k_scale[row[u]]);
-        float dot = 0.f;
+      for (int c = 0; c < NV; ++c) {
+        float kf[PER16];
+        if constexpr (Stage::kInt8)
+          int8x16_to_float(kv[c], kf, ks);
+        else
+          bf16x8_to_float(kv[c], kf);
 #pragma unroll
-        for (int c = 0; c < NV; ++c) {
-          float kf[PER16];
-          if constexpr (Stage::kInt8)
-            int8x16_to_float(kv[c], kf, ks);
-          else
-            bf16x8_to_float(kv[c], kf);
-#pragma unroll
-          for (int j = 0; j < PER16; ++j)
-            dot = fmaf(q_s[c * PER16 + j], kf[j], dot);
-        }
-        s[u] = dot * scale;
+        for (int j = 0; j < PER16; ++j)
+          dot = fmaf(q_s[c * PER16 + j], kf[j], dot);
       }
+      s = dot * scale;
     }
     cp_async_wait_all();
     __syncwarp();
+    const E* v_rows = reinterpret_cast<const E*>(v_s);
+    const float* v_scl =
+        reinterpret_cast<const float*>(v_s + Stage::rows_bytes);
+    const int base = tile * 32;
+    const float m_new = fmaxf(m, warp_max(s));
+    const float alpha = expf(m - m_new);
+    const float p = pos < end ? expf(s - m_new) : 0.f;
+    l = l * alpha + warp_sum(p);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const E* v_rows = reinterpret_cast<const E*>(v_s + u * Stage::bytes);
-      const float* v_scl = reinterpret_cast<const float*>(
-          v_s + u * Stage::bytes + Stage::rows_bytes);
-      const int base = begin + (tile + u * tile_stride) * 32;
-      const bool live = base + lane < end;
-      const float m_new = fmaxf(m, warp_max(s[u]));
-      const float alpha = expf(m - m_new);
-      const float p = live ? expf(s[u] - m_new) : 0.f;
-      l = l * alpha + warp_sum(p);
+    for (int d = 0; d < DPL; ++d) acc[d] *= alpha;
+    const int cnt = min(32, end - base);
+    for (int t = 0; t < cnt; ++t) {
+      const float pt = __shfl_sync(kFull, p, t);
+      const E* vrow = v_rows + t * Stage::stride + lane * DPL;
+      if constexpr (Stage::kInt8) {
+        const float vsc = v_scl[t];
+        float vf[DPL];
+        int8xn_to_float<DPL>(vrow, vf);
 #pragma unroll
-      for (int d = 0; d < DPL; ++d) acc[d] *= alpha;
-      const int cnt = min(32, end - base);
-      for (int t = 0; t < cnt; ++t) {
-        const float pt = __shfl_sync(kFull, p, t);
-        const E* vrow = v_rows + t * Stage::stride + lane * DPL;
-        if constexpr (Stage::kInt8) {
-          const float vsc = v_scl[t];
-          float vf[DPL];
-          int8xn_to_float<DPL>(vrow, vf);
+        for (int d = 0; d < DPL; ++d) acc[d] = fmaf(pt, vf[d] * vsc, acc[d]);
+      } else {
+        float vf[DPL];
+        bf16xn_to_float<DPL>(vrow, vf);
 #pragma unroll
-          for (int d = 0; d < DPL; ++d)
-            acc[d] = fmaf(pt, vf[d] * vsc, acc[d]);
-        } else {
-          float vf[DPL];
-          bf16xn_to_float<DPL>(vrow, vf);
-#pragma unroll
-          for (int d = 0; d < DPL; ++d) acc[d] = fmaf(pt, vf[d], acc[d]);
-        }
+        for (int d = 0; d < DPL; ++d) acc[d] = fmaf(pt, vf[d], acc[d]);
       }
-      m = m_new;
     }
-    __syncwarp();  // the next step overwrites v_s
+    m = m_new;
+    __syncwarp();  // the next tile overwrites v_s
   }
 }
 
@@ -268,9 +244,9 @@ __global__ void paged_attention_kernel(
     float m = kNeg, l = 0.f, acc[DPL];
 #pragma unroll
     for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
-    attend_tiles<HD, E, 1>(q_s, v_s, k_pool, v_pool, k_scale, v_scale,
-                           PagedIndex{bt_row, page, KV, kvh}, 0, n, warp, nw,
-                           scale, m, l, acc);
+    attend_tiles<HD, E>(q_s, v_s, k_pool, v_pool, k_scale, v_scale,
+                        PagedIndex{bt_row, page, KV, kvh}, n, warp, nw,
+                        scale, m, l, acc);
     if (lane == 0) {
       pm[warp] = m;
       pl[warp] = l;

@@ -36,7 +36,8 @@ _ARGTYPES = {
     "repro_paged_decode_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
     "repro_decode_dense_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
     "repro_decode_dense_bf16_occupancy": [_I] * 3,
-    "repro_decode_stats_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "repro_decode_dense_int8": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "repro_decode_dense_int8_occupancy": [_I] * 3,
 }
 
 
@@ -186,12 +187,6 @@ def plain_dense(q, k, v, length):
     return _normalize(q, acc, l)
 
 
-def split_count(rows: int, S: int, sms: int) -> int:
-    """Chunks of S the int8 dense decode splits into: enough (rows x chunks)
-    blocks for about two an SM, each chunk at least 256 positions."""
-    return max(1, min(-(-2 * sms // rows), -(-S // 256)))
-
-
 def wave_splits(blocks: int, S: int, resident: int) -> int:
     """Splits of the tensor-core kernels' walk over at most S positions:
     as many as let ``blocks`` blocks a split fill one wave of the
@@ -202,11 +197,12 @@ def wave_splits(blocks: int, S: int, resident: int) -> int:
 
 def decode_plan(B: int, H: int, KV: int, S: int, cfg: LaunchConfig,
                 resident: int) -> dict:
-    """The launch of the bf16 dense decode: one block per (slot, KV head,
-    split, m-tile of 16 of the G query heads), ``warps`` warps of 16
-    positions of each staged tile of ``bn`` = block_k / 4 positions, whose
-    ``streams`` contiguous parts of a split are walked side by side;
-    ``stages`` the ring depth; ``resident``: the blocks the card holds at
+    """The launch of the dense decode, bf16 or int8 cache: one block per
+    (slot, KV head, split, m-tile of 16 of the G query heads), ``warps``
+    warps of 16 positions of each staged tile of ``bn`` = block_k / 4
+    positions, whose ``streams`` contiguous parts of a split are walked
+    side by side; ``stages`` the ring depth (the block's, or each warp's
+    for int8); ``resident``: the blocks of the kernel the card holds at
     once."""
     G = H // KV
     mtiles = -(-G // 16)
@@ -311,12 +307,14 @@ def decode_attention_int8(q, k8, k_scale, v8, v_scale, length,
                           cfg: LaunchConfig = DEFAULT):
     """q (B,H,hd); k8, v8 (B,S,KV,hd) int8 with per-(position, KV head)
     bf16 scales k_scale, v_scale (B,S,KV,1); length (B,) int32 valid
-    prefix -> (B,H,hd) in q.dtype.  The kernel is ``decode_attention``'s
-    split-S walk over the int8 cache, K and V dequantized in fp32 (the same
-    knobs), normalized here; a row with no valid position gives 0.
+    prefix -> (B,H,hd) in q.dtype; a row with no valid position gives 0.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    The kernel is ``decode_attention``'s tensor-core launch (``decode_plan``,
+    the same knobs) over the int8 cache: each warp stages its positions'
+    int8 rows and scales, the codes become bf16 exactly, and the K and V
+    scales multiply the scores' and P's columns; whichever of its kernel
+    and the split combine writes last normalizes.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
     global dense_int8_launches
     if q.device.type == "cpu":
         return plain_dense_int8(q, k8, k_scale, v8, v_scale, length)
@@ -328,23 +326,23 @@ def decode_attention_int8(q, k8, k_scale, v8, v_scale, length,
     B, H, hd = q.shape
     S, KV = k8.shape[1], k8.shape[2]
     dev = q.device
-    G = H // KV
-    acc = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
-    m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
-    l = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
-    nsplit = split_count(B * H, S, _build.sm_count(dev))
+    lib = _build.library("decode_attention", _ARGTYPES)
+    resident = _build.resident(
+        dev, lib.repro_decode_dense_int8_occupancy, hd, cfg.unroll,
+        cfg.block_k)
+    nsplit = decode_plan(B, H, KV, S, cfg, resident)["nsplit"]
+    out = torch.empty_like(q)
     part = torch.empty((B * H * nsplit, hd + 2), dtype=torch.float32,
                        device=dev) if nsplit > 1 else None
-    lib = _build.library("decode_attention", _ARGTYPES)
-    err = lib.repro_decode_stats_int8(
+    err = lib.repro_decode_dense_int8(
         q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
-        v_scale.data_ptr(), length.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), None if part is None else part.data_ptr(), B, S, H, KV,
-        hd, 0, cfg.streams, cfg.unroll, cfg.block_k, nsplit, hd ** -0.5,
+        v_scale.data_ptr(), length.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), B, S, H, KV, hd,
+        cfg.streams, cfg.unroll, cfg.block_k, nsplit, hd ** -0.5,
         _build.stream_handle(dev))
     _build.check(err, "decode_attention_int8")
     dense_int8_launches += 1
-    return _normalize(q, acc, l)
+    return out
 
 
 def decode_attention(q, k, v, length, cfg: LaunchConfig = DEFAULT):

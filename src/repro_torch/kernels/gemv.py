@@ -20,8 +20,7 @@ from repro_torch.tune.registry import itemsize, meta, seeded, troop_kernel
 launches = 0
 batched_launches = 0
 
-_ARGS = [_build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
-         _build.I, _build.P]
+_ARGS = [_build.P] * 4 + [_build.I] * 4 + [_build.P]
 _ARGTYPES = {"repro_gemv_bf16": _ARGS, "repro_gemv_f32": _ARGS,
              "repro_batched_gemv_bf16": [_build.P] * 3 + [_build.I] * 5
              + [_build.P]}
@@ -32,6 +31,8 @@ MAX_BATCH = 16
 MAX_BATCH_WARPS = 16
 # k a warp of the batched kernel takes per step, and steps in flight
 _STEP, _IN_FLIGHT = 64, 4
+# 16-byte vectors of a row in one step of the one-row kernel
+_ROW_STEP = 64
 # elements per 16-byte load, by dtype
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
 
@@ -49,8 +50,10 @@ def gemv(w, x, index=None, cfg: LaunchConfig = DEFAULT):
     takes ``w[index[0]]``, read where it lies: the id is never brought to
     the host.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (w and x both bf16 with K % 8 == 0, or both fp32 with K % 4 == 0,
+    The kernel takes ``cfg.gemv_warps`` warps a block, ``gemv_ksplit`` of
+    them sharing a row when the rows are too few to fill the card.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (w
+    and x both bf16 with K % 8 == 0, or both fp32 with K % 4 == 0,
     contiguous and 16-byte aligned) or raises."""
     global launches
     if w.device.type == "cpu":
@@ -81,7 +84,10 @@ def gemv(w, x, index=None, cfg: LaunchConfig = DEFAULT):
         else lib.repro_gemv_f32
     err = fn(w.data_ptr(), x.data_ptr(),
              index.data_ptr() if stacked else None, y.data_ptr(), N, K,
-             cfg.gemv_warps, _build.stream_handle(w.device))
+             cfg.gemv_warps,
+             gemv_ksplit(N, K, vec, cfg.gemv_warps,
+                         _build.sm_count(w.device)),
+             _build.stream_handle(w.device))
     _build.check(err, "gemv")
     launches += 1
     return y
@@ -121,9 +127,11 @@ def batched_gemv(w, xs, cfg: LaunchConfig = DEFAULT):
             f"{warps} warps")
     y = torch.empty((B, N), dtype=torch.float32, device=w.device)
     lib = _build.library("gemv", _ARGTYPES)
+    sms = _build.sm_count(w.device)
     err = lib.repro_batched_gemv_bf16(
         w.data_ptr(), xs.data_ptr(), y.data_ptr(), N, K, B, warps,
-        split_k(N, K, warps, _build.sm_count(w.device)),
+        gemv_ksplit(N, K, 8, warps, sms) if B == 1
+        else split_k(N, K, warps, sms),
         _build.stream_handle(w.device))
     _build.check(err, "batched_gemv")
     batched_launches += 1
@@ -138,6 +146,19 @@ def split_k(N: int, K: int, warps: int, sms: int) -> int:
     tiles, steps, ksplit = -(-N // 16), -(-K // _STEP), 1
     while (warps % (2 * ksplit) == 0 and 2 * ksplit * _IN_FLIGHT <= steps
            and tiles * ksplit < 16 * sms):
+        ksplit *= 2
+    return ksplit
+
+
+def gemv_ksplit(N: int, K: int, vec: int, warps: int, sms: int) -> int:
+    """Warps of a one-row GEMV block that share a row, each taking every
+    ksplit-th step of 64 16-byte vectors (``vec`` elements each): doubled
+    while it divides ``warps``, every warp keeps at least one whole step,
+    and the rows' warps stay within 32 an SM.  At 8 warps on 132 SMs: the
+    read-outs 1, the router (60, 2048) fp32 8, (1024, 1024) bf16 2."""
+    steps, ksplit = K // vec // _ROW_STEP, 1
+    while (warps % (2 * ksplit) == 0 and 2 * ksplit <= steps
+           and 2 * ksplit * N <= 32 * sms):
         ksplit *= 2
     return ksplit
 

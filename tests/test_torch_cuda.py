@@ -147,6 +147,39 @@ def test_gemv_picks_one_matrix_of_a_stack(N, K, dtype):
                       BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
+@pytest.mark.parametrize("warps", [4, 8, 16])
+@pytest.mark.parametrize("N,K,dtype,stack", [
+    (60, 2048, torch.float32, False),     # the MoE router: 8 steps of K
+    (1024, 1024, torch.bfloat16, False),
+    (1024, 2816, torch.bfloat16, False),  # 5.5 steps: K not a multiple
+    (1408, 2048, torch.bfloat16, True),   # an expert of a stack, by id
+    (1000, 1032, torch.bfloat16, False),  # a last step of one vector
+    (7, 4100, torch.float32, False),      # rows fewer than a block
+    (151936, 1024, torch.bfloat16, False)])  # the read-out: one warp a row
+def test_gemv_split_k(N, K, dtype, stack, warps):
+    """The one-row gemv at every ``gemv_warps`` of its tuner space, split
+    over K where the rows are few (``gemv_ksplit``): against the plain
+    version, the same bits on a second launch (the warps of a row meet in
+    a fixed order), and ``batched_gemv`` at B = 1 gives gemv's bits."""
+    from repro_torch.kernels.gemv import gemv_ksplit
+    g = torch.Generator(device="cuda").manual_seed(17)
+    w = (torch.randn((3, N, K) if stack else (N, K), device="cuda",
+                     generator=g) / np.sqrt(K)).to(dtype)
+    x = torch.randn(K, device="cuda", generator=g).to(dtype)
+    ix = i32([2]) if stack else None
+    cfg = LaunchConfig(gemv_warps=warps)
+    split = gemv_ksplit(N, K, 8 if dtype == torch.bfloat16 else 4, warps,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+    assert (split > 1) == (N < 151936)
+    got = TK.gemv(w, x, ix, cfg)
+    matches_plain(got, TK.PLAIN["gemv"](w, x, ix),
+                  BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+    assert torch.equal(got, TK.gemv(w, x, ix, cfg))
+    if dtype == torch.bfloat16 and not stack:
+        assert torch.equal(TK.batched_gemv(w, x[None], cfg)[0], got)
+
+
 @pytest.mark.parametrize("H,KV,hd,nblk,lengths", [
     (16, 16, 64, 64, [424, 40, 1, 17]),    # qwen1.5-0.5b geometry
     (16, 16, 128, 64, [424, 40, 1, 17]),   # qwen2-moe-a2.7b geometry
@@ -671,16 +704,20 @@ def test_batched_mx_qgemv(N, K, elem, B, cfg):
                   MX_TOL)
 
 
-@pytest.mark.parametrize("cfg", [LaunchConfig(streams=1),
-                                 LaunchConfig(streams=1, unroll=2,
-                                              block_k=256)])
+@pytest.mark.parametrize("cfg", [
+    LaunchConfig(streams=1, unroll=u, block_k=b)   # the tuner's space
+    for u in (1, 2) for b in (256, 512)])
 @pytest.mark.parametrize("H,KV,hd,S,lengths", [
     (16, 16, 64, 1024, [1024, 700, 1, 33]),   # qwen1.5-0.5b's dense shape
-    (16, 8, 128, 4096, [4096, 4096, 2049, 5]),  # kernel_bench's
-    (6, 2, 32, 96, [0, 96, 50, 31])])         # G = 3, a row with no key
+    (16, 8, 128, 4096, [4096, 4096, 2049, 5]),  # kernel_bench's, G = 2
+    (6, 2, 32, 96, [0, 96, 50, 31]),          # G = 3, a row with no key
+    (10, 2, 128, 300, [300, 0, 129, 17]),     # G = 5, S not a whole tile
+    (32, 2, 64, 300, [1, 300, 0, 250]),       # G = 16
+    (32, 2, 128, 4096, [4096, 3001, 0, 64])])  # glm4-9b's heads
 def test_decode_attention_int8(H, KV, hd, S, lengths, cfg):
-    """A row with no valid key gives 0 (row 10's convention), in the
-    kernel and in its plain version."""
+    """Every tuner candidate at G = 1, 2, 3, 5 and 16; a row with no valid
+    key gives 0 (row 10's convention), in the kernel and in its plain
+    version; a second launch gives the same bits."""
     rng = np.random.default_rng(42)
     q = bf16(rng.standard_normal((4, H, hd)))
     k8, ks = quantize_kv(bf16(rng.standard_normal((4, S, KV, hd))))
@@ -690,6 +727,7 @@ def test_decode_attention_int8(H, KV, hd, S, lengths, cfg):
     got = TK.decode_attention_int8(*args, cfg)
     matches_plain(got, TK.PLAIN["decode_attention_int8"](*args), ATTN_TOL)
     assert TK.launch_counts()["decode_attention_int8"] == before + 1
+    assert torch.equal(got, TK.decode_attention_int8(*args, cfg))
     for b, n in enumerate(lengths):
         if n == 0:
             assert torch.equal(got[b], torch.zeros_like(got[b]))

@@ -265,6 +265,32 @@ def test_batched_gemv_split_k(N, K, warps, want):
     assert got == want and warps % got == 0
 
 
+@pytest.mark.parametrize("N,K,vec", [
+    (151936, 1024, 8), (151936, 2048, 8),    # the two read-outs
+    (60, 2048, 4),                            # the MoE router, fp32
+    (1024, 1024, 8), (2816, 1024, 8), (1024, 2816, 8), (1408, 2048, 8),
+    (2048, 1408, 8), (2048, 5632, 8), (1000, 1032, 8), (33, 100, 4),
+    (1, 2048, 8)])
+@pytest.mark.parametrize("warps", [4, 8, 16, 6])
+def test_gemv_ksplit(N, K, vec, warps):
+    """The warps of a one-row GEMV block that share a row on a card of 132
+    SMs: 1 at both read-outs (so their order of adds is one warp's), more at
+    the router and at (1024, 1024); always a divisor of the block's warps;
+    every split keeps at least one whole step of 64 16-byte vectors; the
+    rows' warps stay within 32 an SM unless the split is 1."""
+    from repro_torch.kernels.gemv import gemv_ksplit
+    got = gemv_ksplit(N, K, vec, warps, 132)
+    assert got >= 1 and warps % got == 0
+    assert got == 1 or (got * 64 * vec <= K and got * N <= 32 * 132)
+    if N == 151936:
+        assert got == 1
+    if (N, K) in ((60, 2048), (1024, 1024)) and warps % 2 == 0:
+        assert got > 1
+    # the largest such split: doubling it would break one of the rules
+    assert (warps % (2 * got) or 2 * got * 64 * vec > K
+            or 2 * got * N > 32 * 132)
+
+
 # ------------------------------------------------- dense decode attention
 def dense_case(rng, B, H, KV, hd, S, dtype):
     return [both(rng.standard_normal(shape), dtype)
@@ -419,6 +445,35 @@ def test_decode_plan(B, H, KV, S):
         assert plan["warps"] * 16 == plan["bn"] == block_k // 4
         assert plan["bn"] % (16 * streams) == 0
         assert plan["stages"] == (2 if unroll == 1 else 3)
+
+
+@pytest.mark.parametrize("B,H,KV,S,want_tiles", [
+    (8, 16, 16, 1024, 1),       # the qwen1.5-0.5b engine's dense shape
+    (4, 16, 8, 4096, 1),        # kernel_bench's (the registry's example)
+    (4, 32, 2, 4096, 1),        # glm4-9b's heads: G = 16, one m-tile
+    (3, 10, 2, 300, 1)])        # G = 5, S not a whole tile
+@pytest.mark.parametrize("resident", [132, 264, 528])
+def test_decode_plan_int8(B, H, KV, S, want_tiles, resident):
+    """The int8 dense decode's launch (``decode_plan`` with its own
+    kernel's residency) at every candidate of its tuner space: one block
+    per (slot, KV head, split, m-tile), as many splits as fill one wave of
+    what the card holds (none shorter than 256 positions), block_k / 4
+    positions a tile, 16 a warp, and the ring depth ``unroll`` asks for."""
+    from repro_torch import tune
+    from repro_torch.kernels.decode_attention import decode_plan
+    from repro_torch.tune.search import enumerate_space
+    spec = tune.REGISTRY["decode_attention_int8"]
+    cfgs = list(enumerate_space(spec))
+    assert len(cfgs) == 4 and all(c.streams == 1 for c in cfgs)
+    for cfg in cfgs:
+        plan = decode_plan(B, H, KV, S, cfg, resident)
+        gx, gy, gz = plan["grid"]
+        assert (gx, gz) == (B * KV, want_tiles)
+        assert gy == plan["nsplit"]
+        assert gy == max(1, min(resident // (gx * gz), -(-S // 256)))
+        assert gy == 1 or gy * gx * gz <= resident
+        assert plan["bn"] == cfg.block_k // 4 == 16 * plan["warps"]
+        assert plan["stages"] == (2 if cfg.unroll == 1 else 3)
 
 
 @pytest.mark.parametrize("warps", [2, 4, 8])

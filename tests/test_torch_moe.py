@@ -487,3 +487,63 @@ def test_chip_smoke_launch_gates_match_the_jax_account(fmt):
         assert gates["gemv"] == 505
     else:
         assert gates["grouped_expert_qgemv"] == 72
+
+
+def _route(pins, moe, name, logits, mo):
+    """Run the router's top-k over ``logits`` (one (rows, E) tensor a MoE
+    call) under ``pins``: recording when ``name`` is None, else replaying
+    as the reference ``name``."""
+    with (pins.record() if name is None else pins.replay(name)):
+        for lg in logits:
+            moe._top_k(lg, mo)
+
+
+@pytest.mark.parametrize("case,fails", [
+    ("fp32 ties where plain routes as the kernel path", False),
+    ("fp32 ties where plain does not", True),
+    ("a shared tie wider than the bound", True),
+    ("plain ties on more rows than the allowance", True),
+])
+def test_chip_smoke_routing_check(case, fails):
+    """``RoutingPins.check`` of ``chip_smoke.py``: the fp32 reference may
+    route rows otherwise than the kernel path beyond the allowance (one row
+    in ROUTE_FLIP_DIV, plus one) only where the plain bf16 path routes as
+    the kernel path did; each such row stays a near tie (margin within
+    twice the step's noise)."""
+    import types
+
+    from repro_torch.models import moe as MOE
+    smoke = _chip_smoke()
+    mo = types.SimpleNamespace(num_experts_per_tok=2, norm_topk_prob=True,
+                               routed_scaling_factor=1.0)
+    rows, calls, E = 2, 3, 8              # 6 routed rows: allowance 1
+    base = torch.arange(E, dtype=torch.float32).flip(0) * 0.5
+    kernel = [base.expand(rows, E).clone() for _ in range(calls)]
+
+    def tie(logits, c, r, by):
+        """Row r of call c: experts 1 and 2 (picks 0, 1 -> 0, 2) swap
+        places by ``by`` in the router logits."""
+        out = [lg.clone() for lg in logits]
+        out[c][r, 2] = out[c][r, 1] + by
+        return out
+
+    noise = 0.01                          # ties within 2 x noise = 0.02
+    fp32 = tie(tie(tie(kernel, 0, 0, 0.002), 1, 1, 0.003), 2, 0, 0.001)
+    plain = kernel
+    if case == "fp32 ties where plain does not":
+        plain = fp32          # the kernel path alone routes those 3 rows
+    elif case == "a shared tie wider than the bound":
+        fp32 = tie(fp32, 2, 1, 0.05)
+    elif case == "plain ties on more rows than the allowance":
+        plain = tie(tie(kernel, 0, 1, 0.001), 1, 0, 0.001)
+    pins = smoke.RoutingPins(torch)
+    _route(pins, MOE, None, kernel, mo)
+    _route(pins, MOE, "plain", plain, mo)
+    _route(pins, MOE, "fp32", fp32, mo)
+    if fails:
+        with pytest.raises(AssertionError, match="routed"):
+            pins.check("decode", noise)
+    else:
+        got = pins.check("decode", noise)
+        assert got["fp32"]["flips"] == 3 and got["fp32"]["counted"] == 0
+        assert got["plain"]["flips"] == got["plain"]["counted"] == 0
