@@ -603,6 +603,83 @@ def attention_rows(torch, K, F, t, agree, dev, rng, hd):
     return dec, pre, int8
 
 
+# the generator of gqa_decode_rows' inputs: its own, so that adding its
+# rows moved no other row's inputs
+GQA_SEED = 21
+
+
+def gqa_decode_rows(torch, K, F, t, agree, dev):
+    """The engine's two paged decode kernels (bf16 pages of 16 rows, int8
+    pages of 32 with bf16 scale pages) at grouped-query heads: 8 slots,
+    cache_len 1024, hd 128, at glm4-9b's heads (32 on 2 KV heads, G = 16)
+    and qwen3-14b's (40 on 8, G = 5); SDPA with ``enable_gqa`` over the
+    gathered view (for int8 the dequantized one) beside each."""
+    import numpy as np
+
+    from repro_torch.quant.tensor import quantize_kv
+    rng = np.random.default_rng(GQA_SEED)
+    slots, hd, S = 8, 128, 1024
+    lens = rng.integers(64, 449, slots).astype(np.int32)
+    length = torch.as_tensor(lens, device=dev)
+    rows_read = int(lens.sum())
+    mask = (torch.arange(S, device=dev)[None, None, None, :]
+            < length[:, None, None, None])
+    out = {"paged_decode_attention": [], "paged_decode_attention_int8": []}
+    for label, H, KV in (("glm4-9b", 32, 2), ("qwen3-14b", 40, 8)):
+        q = t(rng.standard_normal((slots, H, hd)))
+        qs = q[:, :, None]
+        for name, page in (("paged_decode_attention", 16),
+                           ("paged_decode_attention_int8", 32)):
+            int8 = page == 32
+            nblk = S // page
+            P = slots * nblk + 1
+            pools = []
+            for _ in range(copies_for(2 * P * page * KV * (hd + 2 * int8)
+                                      * (1 if int8 else 2), cap=4)):
+                kv = [t(rng.standard_normal((P, page, KV, hd)))
+                      for _ in range(2)]
+                pools.append(tuple(kv) if not int8 else
+                             (*quantize_kv(kv[0]), *quantize_kv(kv[1])))
+            bt = torch.as_tensor((rng.permutation(P - 1)[:slots * nblk] + 1)
+                                 .reshape(slots, nblk).astype(np.int32),
+                                 device=dev)
+            fn, plain = getattr(K, name), K.PLAIN[name]
+            key = f"{name} hd=128"
+            err = agree(f"{name} {label} heads", fn(q, *pools[0], bt, length),
+                        plain(q, *pools[0], bt, length), key)
+            ix = bt.long()
+            views = []
+            for p in pools:
+                kv = ((p[0][ix], p[1][ix]) if not int8 else
+                      tuple((c[ix].float() * sc[ix].float()).to(
+                          torch.bfloat16) for c, sc in (p[:2], p[2:])))
+                views.append(tuple(a.reshape(slots, S, KV, hd).transpose(1, 2)
+                                   .contiguous() for a in kv))
+            row_bytes = KV * (hd + 2) * 2 if int8 else KV * hd * 4
+            bms, by = bound_ms(rows_read * row_bytes + slots * H * hd * 4
+                               + slots * nblk * 4, 4 * H * hd * rows_read)
+            out[name].append({
+                "shape": f"{label} heads: q ({slots}, {H}, {hd}) bf16, "
+                         + ("int8 pools + bf16 scale pages" if int8 else
+                            "bf16 pools")
+                         + f" ({P}, {page}, {KV}, {hd}), bt ({slots}, {nblk})"
+                         f", length {lens.tolist()}",
+                "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+                "tolerance": TOL[key],
+                "library": "SDPA (length mask, enable_gqa) on the "
+                           + ("pre-dequantized bf16 " if int8 else "")
+                           + "dense view",
+                **timed(torch,
+                        [lambda p=p: fn(q, *p, bt, length) for p in pools],
+                        [lambda p=p: plain(q, *p, bt, length) for p in pools],
+                        [lambda v=v: F.scaled_dot_product_attention(
+                            qs, v[0], v[1], attn_mask=mask, enable_gqa=True)
+                         for v in views])})
+            del pools, views
+        torch.cuda.empty_cache()
+    return out
+
+
 def gemv_row(torch, K, F, agree, key, ws, x, experts=None):
     """One gemv row: ``ws`` weight copies, or one stack ``ws[0]`` with the
     ``experts`` (host ids) to rotate over, each read cold from device
@@ -799,6 +876,8 @@ def kernels_phase(torch, K, dev, rng):
         rows.setdefault("paged_decode_attention", []).extend(dec)
         rows.setdefault("prefill_attention_paged", []).extend(pre)
         rows.setdefault("paged_decode_attention_int8", []).extend(int8)
+    for name, rs in gqa_decode_rows(torch, K, F, t, agree, dev).items():
+        rows[name].extend(rs)
 
     # MX weights at every one-row projection shape of the quantized path:
     # fp4 and fp8 at the read-out, fp4 at q/k/v/o and down; no PyTorch call
@@ -813,6 +892,8 @@ def kernels_phase(torch, K, dev, rng):
                            / np.sqrt(K_), elem=elem) for _ in range(n)]
         return [(qt.values, qt.scales) for qt in qts]
 
+    from repro_torch.kernels.mx_gemv import qgemv_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mx = []
     for (N, Kd), elem in (((151936, 1024), "fp4"), ((151936, 1024), "fp8"),
                           ((1024, 1024), "fp4"), ((1024, 2816), "fp4"),
@@ -830,6 +911,8 @@ def kernels_phase(torch, K, dev, rng):
             "max_abs_err": err, "bound_ms": bms, "bound_by": by,
             "tolerance": TOL["mx_qgemv"], "library": None,
             "bf16_gemv_ms": gemv_ms.get(f"w ({N}, {Kd})"),
+            "plan": qgemv_plan(N, Kd, 4 if elem == "fp4" else 8,
+                               sms)._asdict(),
             **timed(torch, [lambda w=w: K.mx_qgemv(*w, x) for w in ws],
                     [lambda w=w: K.PLAIN["mx_qgemv"](*w, x) for w in ws])})
         del ws
@@ -933,7 +1016,8 @@ def sdpa_decode(torch, F, q, k, v, mask):
 def paper_rows(torch, K, F, agree, dev, randn):
     """The kernels of the tuner's slice at their shapes: dotp and axpy at
     the registry's full size (2^20 bf16) and past the L2 (2^27 bf16, 256 MB
-    an operand), each from its default config; the batched gemv at
+    an operand), each from its default config, axpy also at every
+    candidate of its tuner space; the batched gemv at
     (2048, 4096) for 1, 2, 4, 8 and 16 rows and at qwen1.5-0.5b's read-out
     (151936, 1024) for 8; the dense decode attention at kernel_bench's
     (B=4, H=16, KV=8, hd=128, S=4096), qwen1.5-0.5b's 8 slots (H = KV =
@@ -961,12 +1045,17 @@ def paper_rows(torch, K, F, agree, dev, randn):
             **timed(torch, [lambda p=p: K.dotp(*p) for p in pairs],
                     [lambda p=p: K.PLAIN["dotp"](*p) for p in pairs],
                     [lambda p=p: torch.dot(*p) for p in pairs])})
-        err = agree(f"axpy n={n}", K.axpy(1.5, x, y),
-                    K.PLAIN["axpy"](1.5, x, y))
+        want = K.PLAIN["axpy"](1.5, x, y)
+        err = agree(f"axpy n={n}", K.axpy(1.5, x, y), want)
+        cands = candidate_rows(
+            torch, "axpy", lambda p, c: K.axpy(1.5, *p, cfg=c), want, agree,
+            f"n={n}", "axpy", pairs)
+        del want
         bms, by = bound_ms(6 * n, 2 * n)
         rows["axpy"].append({
             "shape": f"a fp32, x, y ({n},) bf16 -> ({n},) bf16",
-            "max_abs_err": err, "tolerance": TOL["axpy"], "bound_ms": bms,
+            "max_abs_err": max([err] + [c["max_abs_err"] for c in cands]),
+            "tolerance": TOL["axpy"], "bound_ms": bms, "candidates": cands,
             "bound_by": by, "library": "torch.add(y, x, alpha=a)",
             **timed(torch, [lambda p=p: K.axpy(1.5, *p) for p in pairs],
                     [lambda p=p: K.PLAIN["axpy"](1.5, *p) for p in pairs],
@@ -1469,6 +1558,7 @@ def tune_phase(torch, dev):
                                           device=dev))
             torch.cuda.synchronize()
             launches = K.launch_counts()
+            mx_shapes = K.mx_qgemv_launches_by_shape()
             t0 = time.perf_counter()
             second = [tune.tune(name, *args, kernel_kwargs=kw, cache=cache)
                       for _, name, args, kw in points]
@@ -1531,7 +1621,8 @@ def tune_phase(torch, dev):
                 os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
             else:
                 os.environ["REPRO_TORCH_TUNE_CACHE"] = prev
-    return {"rows": rows, "launches": launches, "tune_s": tune_s,
+    return {"rows": rows, "launches": launches,
+            "mx_qgemv_by_shape": mx_shapes, "tune_s": tune_s,
             "cached_s": cached_s, "engine_configs": checked,
             "engine_launch": launch}
 
@@ -1946,6 +2037,7 @@ def engine_phase(torch, dev, rng, record=None):
     with M.kernel_routing():
         reqs_k, wall = serve(torch, eng, specs, V)
     res["launches"] = K.launch_counts()
+    res["mx_qgemv_by_shape"] = K.mx_qgemv_launches_by_shape()
     missing = [k for k in BF16_PATH if res["launches"][k] == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
@@ -1978,6 +2070,7 @@ def engine_phase(torch, dev, rng, record=None):
     with M.kernel_routing():
         _, wall = serve(torch, eng, specs[:2], V)
     res["launches_one_slot"] = K.launch_counts()
+    res["mx_qgemv_by_shape_one_slot"] = K.mx_qgemv_launches_by_shape()
     if not all(res["launches_one_slot"][k] for k in BF16_PATH):
         raise AssertionError(f"one-slot run: {res['launches_one_slot']}")
     res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
@@ -2105,6 +2198,7 @@ def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
     with M.kernel_routing():
         reqs_k, wall = serve(torch, eng, specs, V)
     res["launches"] = K.launch_counts()
+    res["mx_qgemv_by_shape"] = K.mx_qgemv_launches_by_shape()
     check_path("8-slot run", res["launches"], path8)
     res["kernel_path"] = {"wall_s": wall, "metrics": eng.metrics()}
     check_balanced(eng)
@@ -2133,6 +2227,7 @@ def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
     with M.kernel_routing():
         _, wall = serve(torch, eng, specs[:2], V)
     res["launches_one_slot"] = K.launch_counts()
+    res["mx_qgemv_by_shape_one_slot"] = K.mx_qgemv_launches_by_shape()
     check_path("one-slot run", res["launches_one_slot"], path1)
     res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
     check_balanced(eng)
@@ -2267,6 +2362,7 @@ def moe_phase(torch, dev, rng, fmt, record=None):
     with M.kernel_routing():
         reqs_k, wall = serve(torch, eng, specs, V)
     res["launches"] = K.launch_counts()
+    res["mx_qgemv_by_shape"] = K.mx_qgemv_launches_by_shape()
     missing = [k for k in MOE_PATHS_8_SLOTS[fmt] if res["launches"][k] == 0]
     if missing:
         raise AssertionError(f"the {fmt} MoE path never launched {missing}")
@@ -2297,6 +2393,7 @@ def moe_phase(torch, dev, rng, fmt, record=None):
     with M.kernel_routing():
         _, wall = serve(torch, eng, specs[:2], V)
     res["launches_one_slot"] = K.launch_counts()
+    res["mx_qgemv_by_shape_one_slot"] = K.mx_qgemv_launches_by_shape()
     missing = [k for k in MOE_PATHS[fmt] if not res["launches_one_slot"][k]]
     if missing:
         raise AssertionError(f"one-slot {fmt} MoE run never launched "
@@ -2452,6 +2549,7 @@ def train_phase(torch, dev, rng, record=None):
     K.reset_launch_counts()
     res["fused"] = run(model, True, "fused")
     res["launches"] = K.launch_counts()
+    res["mx_qgemv_by_shape"] = K.mx_qgemv_launches_by_shape()
     want = {k: TRAIN_LEAVES * TRAIN_STEPS if k == "fused_adamw" else 0
             for k in res["launches"]}
     if res["launches"] != want:
@@ -2687,6 +2785,7 @@ def main():
                     f"{r['max_abs_err']:.3g}  {r['shape']}"
                     + (f"  [bf16 gemv {us(r['bf16_gemv_ms'])}]"
                        if r.get("bf16_gemv_ms") else "")
+                    + (f"  [plan {r['plan']}]" if "plan" in r else "")
                     + (f"  [streams=2 {us(r['streams2_ms'])}]"
                        if "streams2_ms" in r else "")
                     + (f"  [4 x mx_qgemv {us(r['four_mx_qgemv_ms'])}/"
@@ -2704,8 +2803,8 @@ def main():
     # launches on the main paths: each run with the counts zeroed before it
     # and read after it (the tuner's path; the engine's 8-slot run; the
     # quantized, MoE bf16 and MoE mx4 paths' 8-slot and one-slot runs; the
-    # fused training run)
-    runs = {}
+    # fused training run); mx_qgemv's also by shape
+    runs, mx_shapes = {}, {}
     if "tune" in phases:
         t1 = time.perf_counter()
         tn = tune_phase(torch, dev)
@@ -2723,6 +2822,7 @@ def main():
                 f"(timings_run {r['cached']['timings_run']})")
         log(f"  engine launches with {tn['engine_launch']}")
         runs["tune"] = tn["launches"]
+        mx_shapes["tune"] = tn["mx_qgemv_by_shape"]
         record["tune"] = tn
         del tn
         torch.cuda.empty_cache()
@@ -2732,6 +2832,9 @@ def main():
         phase_s["engine"] = time.perf_counter() - t1
         log(f"engine phase: {phase_s['engine']:.1f} s")
         runs["qwen1.5 bf16"] = eng["launches"]
+        mx_shapes["qwen1.5 bf16"] = eng["mx_qgemv_by_shape"]
+        mx_shapes["qwen1.5 bf16 one slot"] = \
+            eng["mx_qgemv_by_shape_one_slot"]
         record["engine"] = eng
         del eng
     if "quant" in phases:
@@ -2743,6 +2846,9 @@ def main():
                 f"{phase_s[f'quant {fmt}']:.1f} s")
             runs[f"qwen1.5 {fmt}"] = qeng["launches"]
             runs[f"qwen1.5 {fmt} one slot"] = qeng["launches_one_slot"]
+            mx_shapes[f"qwen1.5 {fmt}"] = qeng["mx_qgemv_by_shape"]
+            mx_shapes[f"qwen1.5 {fmt} one slot"] = \
+                qeng["mx_qgemv_by_shape_one_slot"]
             record["quant" if fmt == "mx4" else f"quant_{fmt}"] = qeng
             del qeng
             torch.cuda.empty_cache()
@@ -2754,6 +2860,9 @@ def main():
             log(f"MoE {fmt} engine phase: {phase_s[f'moe {fmt}']:.1f} s")
             runs[f"qwen2-moe {fmt}"] = moe["launches"]
             runs[f"qwen2-moe {fmt} one slot"] = moe["launches_one_slot"]
+            mx_shapes[f"qwen2-moe {fmt}"] = moe["mx_qgemv_by_shape"]
+            mx_shapes[f"qwen2-moe {fmt} one slot"] = \
+                moe["mx_qgemv_by_shape_one_slot"]
             record[f"moe_{fmt}"] = moe
             del moe
             torch.cuda.empty_cache()
@@ -2763,11 +2872,20 @@ def main():
         phase_s["train"] = time.perf_counter() - t1
         log(f"train phase: {phase_s['train']:.1f} s")
         runs["qwen1.5 train"] = tr["launches"]
+        mx_shapes["qwen1.5 train"] = tr["mx_qgemv_by_shape"]
         record["train"] = tr
         del tr
     launches = {name: (sum(r[name] for r in runs.values()) if runs
                        else None) for name in REPLACES}
     record["launches_by_run"] = runs
+    by_shape = {}
+    for counts in mx_shapes.values():
+        for shape, n in counts.items():
+            by_shape[shape] = by_shape.get(shape, 0) + n
+    record["mx_qgemv_launches_by_shape"] = {"by_run": mx_shapes,
+                                            "total": by_shape}
+    if runs:
+        log(f"mx_qgemv launches by shape (K->N), over the runs: {by_shape}")
     record["phase_s"] = phase_s
 
     entries = []
@@ -2787,7 +2905,9 @@ def main():
             "tolerance": worst.get("tolerance", TOL[name]),
             "max_abs_err": worst.get("max_abs_err"),
             "kernel_ms": head.get("ms"),
-            **{k: head.get(k) for k in keys}, "by_shape": rs})
+            **{k: head.get(k) for k in keys}, "by_shape": rs,
+            **({"launches_by_shape": by_shape} if name == "mx_qgemv"
+               else {})})
     record["kernels"] = entries
     if args.record is not None:
         (args.record / "chip_smoke.json").write_text(json.dumps(record,

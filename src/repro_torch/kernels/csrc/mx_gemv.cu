@@ -20,40 +20,78 @@
 // Bound on the H100: bytes.  The codes are read once (K N / 2 bytes for
 //   fp4, K N for fp8) plus K N / 32 scale bytes, for 2 K N operations:
 //   ~4 operations per byte, far below the ridge.  At the read-out shape
-//   (K = 1024, N = 151936, fp4) that is 83 MB, ~24.9 us at 3.35 TB/s.
-//   The grouped variant reads only the topk selected slices: for
+//   (K = 1024, N = 151936, fp4) that is 83 MB, ~24.9 us at 3.35 TB/s; at
+//   the projections (1024 -> 1024: 0.55 MB, 0.17 us; 5632 -> 2048: 6.1
+//   MB, 1.83 us) the bound is below a launch, so the time is a chain of
+//   latencies: the launch, one trip to device memory, the products, the
+//   sums.  The grouped variant reads only the topk selected slices: for
 //   qwen2-moe-a2.7b's experts (top-4 of 60, 2048 -> 1408 or 1408 -> 2048)
-//   4 x 1.53 MB of fp4 codes and scales, ~1.83 us at 3.35 TB/s, which is
-//   below the launch latency: the kernel is a latency chain, not a stream.
-// Design: the stored layout is contiguous along N, so lanes own columns:
-//   a lane owns 16 consecutive columns and reads one 16-byte chunk of a
-//   code row per load (a warp reads 512 contiguous bytes of the row), plus
-//   one 16-byte chunk of the block's scale row per 32-row block.  A warp
-//   takes whole 32-row blocks, sums x_k * code over the block in fp32
-//   (fp4 codes decode through a 16-entry table in shared memory, fp8 pairs
-//   through the hardware e4m3x2 -> half2 conversion) and adds the block
-//   sum times the block's scale to its 16 accumulators.  A block of 8 warps
-//   shares one 512-column tile; its warps split the block's K range and
-//   merge through shared memory.  x is staged once per block in shared
-//   memory as fp32.  When the column tiles alone leave the card's 132 SMs
-//   short (N = 1024, 2816: 2 and 6 tiles), the wrapper also splits K over
-//   `ksplit` blocks per tile: each writes its partial sums to a workspace
-//   and a second kernel adds them in split order and applies the
-//   epilogue (deterministic: no atomics).  (A thread-block-cluster
-//   reduction through distributed shared memory in place of the second
-//   kernel measured no faster at 1024 x 1024 and slower at 2816 x 1024,
-//   where a cluster holds at most 8 splits.)  The E8M0 scale is built as
-//   the float bits s << 23 (s = 0 is 2^-127, a subnormal).  N must be a
-//   multiple of 16 and K of 32 (the wrapper checks).  The grouped variant
-//   is the same walk with a third grid axis over the topk rows: each block
-//   reads its row's expert id from device memory itself (where the TPU
-//   kernel had it scalar-prefetched) and offsets its code and scale
-//   pointers by id x (K/pack x N) and id x (K/32 x N); x, y and the split
-//   workspace are offset by the row.  The split count counts the rows too
-//   (tiles x splits x rows blocks), so four 1408-column rows of 3 tiles
-//   (the last one ragged: its lanes past N load nothing) split K 8 ways;
-//   the second pass adds the splits in order, as for one row.  Repeated
-//   ids are two rows reading the same slice.
+//   4 x 1.53 MB of fp4 codes and scales, ~1.83 us at 3.35 TB/s, also a
+//   latency chain, not a stream.
+// Design of mx_qgemv (`mx_walk_kernel`, the one-row walk): the stored
+//   layout is contiguous along N, so lanes own columns: a lane owns 16
+//   columns (8 where N is too small to give half the SMs a 16-column
+//   tile) and reads a 16- (8-) byte chunk of a code row per load; `lpr`
+//   lanes cover a row of the block's tile, the other lanes of the warp
+//   and the block's warps the rows under it, a lane a run of `rpl` rows
+//   inside one E8M0 block, and a lane issues every code, scale and x load
+//   of its run before its first product (x straight from global memory
+//   into registers, with the codes).  fp4 codes decode in registers, two
+//   at a time: the nibble's exponent and mantissa go to bits 9-11 of a
+//   half and its sign to bit 15, which makes the half code x 2^-14 exactly
+//   (the e2m1 subnormal 0.5 lands on the half subnormal 2^-15), the
+//   hardware half -> float conversion gives normal floats, so no product
+//   with x loses bits, and the 2^14 goes onto the block sum with the E8M0
+//   factor; no shared-memory table (the table's one lookup a code, 32
+//   lanes a clock an SM, held the read-out at 0.53 of its bound).  fp8
+//   pairs use the hardware e4m3x2 -> half2 conversion.  A lane sums its
+//   run in fp32 and adds the run sum times the block's scale to its
+//   accumulators.  The sums of a tile's columns meet in the same launch:
+//   the row lanes of a warp reduce-scatter through shuffles, each lane
+//   keeping a few columns' sums, which go to shared memory, one barrier,
+//   then the block adds its warps in order and writes y: one launch a
+//   call, no workspace, no atomics, the same bits twice.  The wrapper
+//   (kernels/mx_gemv.py `qgemv_plan`) cuts the shape two ways.  A wide
+//   shape (the read-outs) streams: 8 lanes across a row (128 bytes a row
+//   segment), 2 warps, 8 rows a lane, K walked in rounds of 64 rows, many
+//   blocks an SM covering each other's waits (37.6 us fp4 and 56.5 fp8 on
+//   the H100, against 40.8 and 71.2 for 16 rows a lane and K in one pass;
+//   scripts/chip_probe.py).  A narrow one (the projections) takes
+//   all of K in one block of up to 8 warps, the fewest rows a lane that
+//   still cover it, in rounds where 16 rows a lane and 8 warps do not.
+//   K is never split over blocks: a thread-block cluster of 2-8 blocks a
+//   tile, reducing through distributed shared memory, was slower than one
+//   block at every smoke shape, by 0.9 us at 1024 x 1024 (4.36 against
+//   3.46 us for 2 blocks) and by 17 us at the fp4 read-out (55.01 against
+//   37.61; H100), and no model of the port has a K that one block does
+//   not cover.  The E8M0 scale is built as the float bits s <<
+//   23 (s = 0 is 2^-127, a subnormal).  N must be a multiple of 16 and K
+//   of 32 (the wrapper checks).
+// Design of the fused SwiGLU and the grouped experts (`mx_gemv_kernel`,
+//   the walk mx_qgemv took before; the one-row walk is written so that
+//   they can move onto it): a lane owns 16 consecutive columns and reads
+//   one 16-byte chunk of a code row per load (a warp reads 512 contiguous
+//   bytes of the row), plus one 16-byte chunk of the block's scale row per
+//   32-row block.  A warp takes whole 32-row blocks, sums x_k * code over
+//   the block in fp32 (fp4 codes decode through a 16-entry table in shared
+//   memory, fp8 pairs through the hardware conversion) and adds the block
+//   sum times the block's scale to its 16 accumulators.  A block of 8
+//   warps shares one 512-column tile; its warps split the block's K range
+//   and merge through shared memory.  x is staged once per block in
+//   shared memory as fp32.  When the column tiles alone leave the card's
+//   132 SMs short, the wrapper also splits K over `ksplit` blocks per
+//   tile: each writes its partial sums to a workspace and a second kernel
+//   adds them in split order and applies the epilogue (deterministic: no
+//   atomics).  The grouped variant is the same walk with a third grid
+//   axis over the topk rows: each block reads its row's expert id from
+//   device memory itself (where the TPU kernel had it scalar-prefetched)
+//   and offsets its code and scale pointers by id x (K/pack x N) and id x
+//   (K/32 x N); x, y and the split workspace are offset by the row.  The
+//   split count counts the rows too (tiles x splits x rows blocks), so
+//   four 1408-column rows of 3 tiles (the last one ragged: its lanes past
+//   N load nothing) split K 8 ways; the second pass adds the splits in
+//   order, as for one row.  Repeated ids are two rows reading the same
+//   slice.
 //
 // Batched variant: Y (B, N) fp32 = xs (B, K) bf16 . dequant(W) for
 //   1 <= B <= 16 rows of x against one MX weight.  Replaces
@@ -247,18 +285,6 @@ __global__ void mx_reduce_kernel(const float* __restrict__ work,
   y[n] = SWIGLU ? silu_gate(g, u) : g;
 }
 
-// Columns a lane owns in the batched walk for a batch bucket MAXB and
-// `unroll` U: 16 U / MAXB, clamped to [2, 16] (`repro_mx_batched_tile`
-// gives the wrapper the tile width this makes).
-__host__ __device__ constexpr int batch_cols(int maxb, int u) {
-  return 16 * u / maxb > 16 ? 16 : (16 * u / maxb < 2 ? 2 : 16 * u / maxb);
-}
-
-// B's bucket: the batch size the batched kernel is compiled for.
-constexpr int batch_bucket(int B) {
-  return B <= 1 ? 1 : B <= 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16;
-}
-
 template <int C>
 struct Chunk;  // the load type of C bytes
 template <>
@@ -277,6 +303,301 @@ template <>
 struct Chunk<2> {
   using T = unsigned short;
 };
+
+// ------------------------------------------------------ the one-row walk
+// (mx_qgemv; see the header).  A lane owns 16 columns of one tile and a
+// run of RPL code rows inside one E8M0 block; lpr lanes of a warp cover
+// the tile's 16 lpr columns of one row, its 32 / lpr row lanes runs one
+// under the other, and the block's warps the runs under those.  Block t
+// covers tile t and all of its rows.
+
+constexpr int kWalkThreads = 256;
+
+// Two e2m1 nibbles, at bits [SH, SH + 4) of each 16-bit half of w, as the
+// floats of their values times 2^-14: placed as the half bits sign << 15 |
+// (e1 e0 m) << 9, the exponent field is e and the mantissa's top bit m,
+// 2^(e - 15) (1 + m / 2) = code 2^-14 for e >= 1 and the subnormal half m
+// 2^-15 = (m / 2) 2^-14 for e = 0.  Exact, and normal once they are floats
+// (>= 2^-15), so no product with x loses bits; the 2^14 goes onto the
+// block sum.  No table: two shifts, two logic operations and the two
+// half -> float conversions for two codes.
+template <int SH>
+__device__ __forceinline__ float2 fp4_pair(uint32_t w) {
+  uint32_t em;
+  if constexpr (SH <= 9)
+    em = w << (9 - SH);
+  else
+    em = w >> (SH - 9);
+  const uint32_t sg = w << (12 - SH);
+  const uint32_t h = (em & 0x0E000E00u) | (sg & 0x80008000u);
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+// B bytes of x from p (B-byte aligned) into words; B of 2 fills the low
+// half of word 0.  Read-only and cached: every row lane of a warp at the
+// same rows reads the same bytes.
+template <int B>
+__device__ __forceinline__ void load_x(const __nv_bfloat16* p, uint32_t* w) {
+  if constexpr (B == 2) {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else if constexpr (B == 4) {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else if constexpr (B == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < B / 16; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  }
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+// One lane's run of one weight stream: code rows [row0, row0 + RPL) of
+// the COLS columns from col (16, or 8 where the columns are too few to
+// give every SM a lane's 16), their E8M0 scales and the run's x, loaded
+// (`load`: every load issued before anything waits on one), then summed
+// (`add_to`: x_k . code(k, j) over the rows, times the scale, added to
+// part[COLS]).  A lane past N or past the rows (the ragged edges) reads row
+// 0 of column 0 like the rest, so the warp stays converged, and adds
+// nothing.
+template <int BITS, int RPL, int COLS>
+struct Run {
+  using Load = typename Chunk<COLS>::T;                  // COLS bytes
+  static constexpr int kSB = BITS == 4 ? kBlockRows / 2 : kBlockRows;
+  static constexpr int kXB = (BITS == 4 ? 4 : 2) * RPL;   // bytes of x
+  static constexpr int kXW = kXB < 4 ? 1 : kXB / 4;
+  static_assert(kSB % RPL == 0, "a run stays inside one E8M0 block");
+  Load code[RPL];
+  Load su;
+  uint32_t xw[kXW];
+  bool live;
+
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ w,
+                                       const uint8_t* __restrict__ s,
+                                       const __nv_bfloat16* __restrict__ x,
+                                       int N, int rows, int col, int row0) {
+    live = col < N && row0 < rows;
+    const int c = live ? col : 0, r0 = live ? row0 : 0;
+#pragma unroll
+    for (int i = 0; i < RPL; ++i)
+      code[i] = __ldcs(reinterpret_cast<const Load*>(
+          w + (size_t)(r0 + i) * N + c));
+    su = __ldcs(reinterpret_cast<const Load*>(s + (size_t)(r0 / kSB) * N +
+                                              c));
+    load_x<kXB>(x + (BITS == 4 ? 2 * r0 : r0), xw);
+  }
+
+  __device__ __forceinline__ void add_to(float* part) const {
+    float blk[COLS];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) blk[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      const uint32_t* cw = reinterpret_cast<const uint32_t*>(&code[i]);
+      if constexpr (BITS == 4) {
+        // x[2 r], x[2 r + 1]: the low and the high nibbles' k
+        const float x0 = bf16_lo(xw[i]), x1 = bf16_hi(xw[i]);
+#pragma unroll
+        for (int q = 0; q < COLS / 4; ++q) {  // word q: columns 4 q .. + 3
+          const float2 lo02 = fp4_pair<0>(cw[q]), hi02 = fp4_pair<4>(cw[q]);
+          const float2 lo13 = fp4_pair<8>(cw[q]), hi13 = fp4_pair<12>(cw[q]);
+          float* b = blk + 4 * q;
+          b[0] = fmaf(x1, hi02.x, fmaf(x0, lo02.x, b[0]));
+          b[1] = fmaf(x1, hi13.x, fmaf(x0, lo13.x, b[1]));
+          b[2] = fmaf(x1, hi02.y, fmaf(x0, lo02.y, b[2]));
+          b[3] = fmaf(x1, hi13.y, fmaf(x0, lo13.y, b[3]));
+        }
+      } else {
+        const float x0 = i % 2 ? bf16_hi(xw[i / 2]) : bf16_lo(xw[i / 2]);
+        const __nv_fp8x2_storage_t* p =
+            reinterpret_cast<const __nv_fp8x2_storage_t*>(&code[i]);
+#pragma unroll
+        for (int j = 0; j < COLS / 2; ++j) {
+          const float2 f = __half22float2(
+              __half2(__nv_cvt_fp8x2_to_halfraw2(p[j], __NV_E4M3)));
+          blk[2 * j] = fmaf(x0, f.x, blk[2 * j]);
+          blk[2 * j + 1] = fmaf(x0, f.y, blk[2 * j + 1]);
+        }
+      }
+    }
+    const uint8_t* sb = reinterpret_cast<const uint8_t*>(&su);
+#pragma unroll
+    for (int j = 0; j < COLS; ++j)
+      if (live)
+        part[j] = fmaf(BITS == 4 ? blk[j] * 16384.f : blk[j], e8m0(sb[j]),
+                       part[j]);
+  }
+};
+
+// One level of the warp's reduce-scatter: the lane and its partner at
+// offset o hold M sums each of the same columns; the lane whose bit o is
+// set keeps the upper half, its partner the lower, each adding the other's
+// copy of the half it keeps (so one lane adds each column, in one order).
+template <int M>
+__device__ __forceinline__ void halve(float* v, int o, int& off) {
+  const bool upper = (threadIdx.x & o) != 0;
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i) {
+    const float send = upper ? v[i] : v[i + M / 2];
+    const float keep = upper ? v[i + M / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(repro::kFull, send, o);
+  }
+  if (upper) off += M / 2;
+}
+
+// The sums of a tile's columns over the block's lanes and warps, in a
+// fixed order, to y.  part: this lane's COLS columns.  A warp's row lanes
+// of one column group reduce-scatter (a level for each row-lane bit while
+// the lane holds two sums or more; past that a plain butterfly, of which
+// one lane writes), so each lane ends with the sums of a few of the
+// group's columns; it stores them into shared memory, [warp][column].  One
+// barrier, then the block adds its warps in order and writes y.
+template <int COLS>
+__device__ __forceinline__ void tile_sum(float* part, float* smem,
+                                         float* __restrict__ y, int N,
+                                         int lpr_log2) {
+  const int lpr = 1 << lpr_log2, tile = COLS << lpr_log2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int off = 0, held = COLS, o = lpr, extra = 0;
+  if constexpr (COLS == 16)
+    if (o < 32) halve<16>(part, o, off), o <<= 1, held >>= 1;
+  if (o < 32) halve<8>(part, o, off), o <<= 1, held >>= 1;
+  if (o < 32) halve<4>(part, o, off), o <<= 1, held >>= 1;
+  if (o < 32) halve<2>(part, o, off), o <<= 1, held >>= 1;
+  for (; o < 32; o <<= 1) {
+    part[0] += __shfl_xor_sync(repro::kFull, part[0], o);
+    extra |= o;
+  }
+  const bool writes = (lane & extra) == 0;
+  const int c0 = (lane & (lpr - 1)) * COLS + off;
+#pragma unroll
+  for (int i = 0; i < COLS; ++i)
+    if (writes && i < held) smem[warp * tile + c0 + i] = part[i];
+  __syncthreads();
+  const int base = blockIdx.x * tile;
+  for (int c = threadIdx.x; c < tile; c += blockDim.x) {
+    // in warp order; eight reads issued before their adds
+    float v = 0.f;
+    for (int e0 = 0; e0 < nw; e0 += 8) {
+      float p8[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        p8[e] = e0 + e < nw ? smem[(e0 + e) * tile + c] : 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e0 + e < nw) v = e0 + e ? v + p8[e] : p8[e];
+    }
+    if (base + c < N) y[base + c] = v;
+  }
+}
+
+// grid (tiles); block 32 warps lanes.  The block holds `rounds` bands of
+// the tile's rows one under the other; a lane walks its run in each band
+// in turn (the other warps of the SM cover the wait: issuing the next
+// band's loads first took registers and measured slower).  A template
+// over the weight streams and the epilogue would take the fused SwiGLU
+// and the grouped experts onto this walk; only mx_qgemv takes it so far.
+template <int BITS, int RPL, int COLS>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+    mx_walk_kernel(const uint8_t* __restrict__ w,
+                   const uint8_t* __restrict__ s,
+                   const __nv_bfloat16* __restrict__ x, float* __restrict__ y,
+                   int N, int rows, int lpr_log2, int rounds) {
+  extern __shared__ __align__(16) float wsmem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, rlanes = 32 >> lpr_log2;
+  const int cl = lane & ((1 << lpr_log2) - 1), rl = lane >> lpr_log2;
+  const int col = blockIdx.x * (COLS << lpr_log2) + cl * COLS;
+  const int band = nw * rlanes * RPL;               // rows of one round
+  const int row0 = (warp * rlanes + rl) * RPL;
+  float part[COLS];
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) part[j] = 0.f;
+  for (int r = 0; r < rounds; ++r) {
+    Run<BITS, RPL, COLS> run;
+    run.load(w, s, x, N, rows, col, row0 + r * band);
+    __syncwarp();  // keeps ptxas from sinking the loads into the products
+    run.add_to(part);
+  }
+  tile_sum<COLS>(part, wsmem, y, N, lpr_log2);
+}
+
+template <int BITS, int RPL, int COLS>
+cudaError_t launch_walk(const void* w, const void* s, const void* x, void* y,
+                        int N, int rows, int lpr_log2, int warps, int rounds,
+                        cudaStream_t stream) {
+  const int tile = COLS << lpr_log2;
+  mx_walk_kernel<BITS, RPL, COLS>
+      <<<(N + tile - 1) / tile, 32 * warps, warps * tile * sizeof(float),
+         stream>>>((const uint8_t*)w, (const uint8_t*)s,
+                   (const __nv_bfloat16*)x, (float*)y, N, rows, lpr_log2,
+                   rounds);
+  return cudaGetLastError();
+}
+
+template <int BITS, int COLS>
+cudaError_t walk_rpl(const void* w, const void* s, const void* x, void* y,
+                     int N, int rows, int lpr_log2, int warps, int rpl,
+                     int rounds, cudaStream_t st) {
+  switch (rpl) {
+    case 1:
+      return launch_walk<BITS, 1, COLS>(w, s, x, y, N, rows, lpr_log2, warps,
+                                        rounds, st);
+    case 2:
+      return launch_walk<BITS, 2, COLS>(w, s, x, y, N, rows, lpr_log2, warps,
+                                        rounds, st);
+    case 4:
+      return launch_walk<BITS, 4, COLS>(w, s, x, y, N, rows, lpr_log2, warps,
+                                        rounds, st);
+    case 8:
+      return launch_walk<BITS, 8, COLS>(w, s, x, y, N, rows, lpr_log2, warps,
+                                        rounds, st);
+    case 16:
+      return launch_walk<BITS, 16, COLS>(w, s, x, y, N, rows, lpr_log2,
+                                         warps, rounds, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int BITS>
+cudaError_t walk_cols(const void* w, const void* s, const void* x, void* y,
+                      int N, int rows, int cols, int lpr_log2, int warps,
+                      int rpl, int rounds, cudaStream_t st) {
+  if (cols == 16)
+    return walk_rpl<BITS, 16>(w, s, x, y, N, rows, lpr_log2, warps, rpl,
+                              rounds, st);
+  if (cols == 8)
+    return walk_rpl<BITS, 8>(w, s, x, y, N, rows, lpr_log2, warps, rpl,
+                             rounds, st);
+  return cudaErrorInvalidValue;
+}
+
+// Columns a lane owns in the batched walk for a batch bucket MAXB and
+// `unroll` U: 16 U / MAXB, clamped to [2, 16] (`repro_mx_batched_tile`
+// gives the wrapper the tile width this makes).
+__host__ __device__ constexpr int batch_cols(int maxb, int u) {
+  return 16 * u / maxb > 16 ? 16 : (16 * u / maxb < 2 ? 2 : 16 * u / maxb);
+}
+
+// B's bucket: the batch size the batched kernel is compiled for.
+constexpr int batch_bucket(int B) {
+  return B <= 1 ? 1 : B <= 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16;
+}
 
 // C bytes at p (C-byte aligned), read once (L1 bypassed).
 template <int C>
@@ -521,14 +842,29 @@ cudaError_t dispatch(const void* w0, const void* s0, const void* w1,
 }  // namespace
 
 // w (K/2 | K, N) uint8 codes (fp4 packed | fp8 e4m3 bytes); s (K/32, N)
-// uint8 E8M0; x (K,) bf16; y (N,) fp32; work (ksplit, N) fp32 when ksplit
-// > 1 (else unused).  All 16-byte aligned, N % 16 == 0, K % 32 == 0.
-extern "C" cudaError_t repro_mx_gemv(const void* w, const void* s,
-                                     const void* x, void* y, void* work,
-                                     int N, int K, int bits, int ksplit,
-                                     void* stream) {
-  return dispatch(w, s, nullptr, nullptr, x, y, work, nullptr, 1, N, K,
-                  bits, ksplit, false, stream);
+// uint8 E8M0; x (K,) bf16; y (N,) fp32.  All 16-byte aligned, N % 16 ==
+// 0, K % 32 == 0.  The plan (kernels/mx_gemv.py `qgemv_plan`): `cols`
+// columns a lane (8 or 16), tiles of cols << lpr_log2 columns (a block
+// each), `warps` warps a block, `rpl` code rows a lane and round (1, 2,
+// 4, 8 or 16), `rounds` rounds, which together cover the rows once.
+extern "C" cudaError_t repro_mx_qgemv(const void* w, const void* s,
+                                      const void* x, void* y, int N, int K,
+                                      int bits, int cols, int lpr_log2,
+                                      int warps, int rpl, int rounds,
+                                      void* stream) {
+  if (N <= 0) return cudaSuccess;
+  const int rows = bits == 4 ? K / 2 : K;
+  // code rows a block
+  const long long rpb = (long long)warps * (32 >> lpr_log2) * rpl * rounds;
+  if (K <= 0 || K % kBlockRows || N % kCols || (bits != 4 && bits != 8) ||
+      lpr_log2 < 0 || lpr_log2 > 5 || warps < 1 ||
+      32 * warps > kWalkThreads || rounds < 1 || rpb < rows)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bits == 4 ? walk_cols<4>(w, s, x, y, N, rows, cols, lpr_log2, warps,
+                                  rpl, rounds, st)
+                   : walk_cols<8>(w, s, x, y, N, rows, cols, lpr_log2, warps,
+                                  rpl, rounds, st);
 }
 
 // The fused SwiGLU: gate (wg, sg) and up (wu, su) as above, y = silu(x.Wg)

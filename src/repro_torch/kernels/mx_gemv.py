@@ -14,6 +14,7 @@ that.
 from __future__ import annotations
 
 import functools
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -27,13 +28,15 @@ from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
 
 #: kernel launches so far (the CPU path and the plain versions do not count)
 launches = 0
+#: ``mx_qgemv``'s launches by shape ("fp4 K->N"), counted with ``launches``
+shape_launches: Dict[str, int] = {}
 batched_launches = 0
 swiglu_launches = 0
 grouped_launches = 0
 
 _P, _I = _build.P, _build.I
 _ARGTYPES = {
-    "repro_mx_gemv": [_P] * 5 + [_I] * 4 + [_P],
+    "repro_mx_qgemv": [_P] * 4 + [_I] * 8 + [_P],
     "repro_mx_gemv_swiglu": [_P] * 7 + [_I] * 4 + [_P],
     "repro_mx_gemv_grouped": [_P] * 6 + [_I] * 5 + [_P],
     "repro_mx_gemv_batched": [_P] * 5 + [_I] * 7 + [_P],
@@ -112,6 +115,90 @@ def _splits(dev, N, K, rows, streams):
     return ks, work
 
 
+class QgemvPlan(NamedTuple):
+    """How ``mx_qgemv``'s walk (``csrc/mx_gemv.cu`` `mx_walk_kernel`) cuts
+    N columns by ``rows`` code rows (K/2 fp4, K fp8): ``tiles`` tiles of
+    ``cols`` ``lpr`` columns (``lpr`` lanes across a row, ``cols`` columns
+    a lane: one 16- or 8-byte load a row), one block a tile taking all of
+    its rows in ``rounds`` bands of ``band`` rows; in a band, ``warps``
+    warps of 32 / ``lpr`` row lanes, each lane a run of ``rpl`` rows
+    inside one E8M0 block (row lane i of warp w: rows (w 32 / lpr + i) rpl
+    on from the band's first)."""
+    cols: int
+    lpr: int
+    warps: int
+    rpl: int
+    rounds: int
+    tiles: int
+    rows: int
+
+    @property
+    def tile(self) -> int:
+        return self.cols * self.lpr
+
+    @property
+    def band(self) -> int:
+        return self.warps * (32 // self.lpr) * self.rpl
+
+    @property
+    def rows_per_block(self) -> int:
+        return self.band * self.rounds
+
+    def runs(self):
+        """(first column, first code row) of every lane's run in every
+        round: ``cols`` columns and ``rpl`` rows from there, as the kernel
+        walks them."""
+        rlanes = 32 // self.lpr
+        for t in range(self.tiles):
+            for r in range(self.rounds):
+                for w in range(self.warps):
+                    for rl in range(rlanes):
+                        r0 = r * self.band + (w * rlanes + rl) * self.rpl
+                        for cl in range(self.lpr):
+                            yield t * self.tile + self.cols * cl, r0
+
+
+#: a bandwidth-bound shape's block: 8 lanes across a row (128 bytes),
+#: 2 warps, runs of 8 rows: a band of 64 rows, walked in rounds down K
+STREAM_LPR, STREAM_WARPS, STREAM_RPL = 8, 2, 8
+
+
+@functools.lru_cache(maxsize=None)
+def qgemv_plan(N: int, K: int, bits: int, sms: int) -> QgemvPlan:
+    """The one-row walk's cut for (N, K) on ``sms`` SMs, as measured on the
+    H100 (PERF.md).  A shape whose 128-column tiles alone give every SM 4
+    blocks streams: blocks of ``STREAM_WARPS`` warps walk a tile's whole K
+    in bands of 64 rows, each lane a run of ``STREAM_RPL`` rows a band,
+    many blocks an SM covering each other's waits.  Any other shape is a
+    chain of latencies: 16 columns a lane where that gives half the SMs a
+    lane's columns, else 8 (more SMs at 1024 columns, fewer at 2048); the
+    widest tile of 8, 4 or 2 lanes across a row that still gives 16 tiles
+    an SM, else one lane; a lane's run of rows, the most (at most 16) that
+    still leave lanes for 8 warps an SM, and at least enough that one
+    block of at most 8 warps covers all of K in one round; as few warps as
+    cover it.  Where 16 rows a lane and 8 warps leave K uncovered, the
+    block walks K in as many such rounds as it takes."""
+    rows = K // 2 if bits == 4 else K
+    wide = -(-N // (16 * STREAM_LPR))
+    if wide >= 4 * sms:
+        band = STREAM_WARPS * (32 // STREAM_LPR) * STREAM_RPL
+        return QgemvPlan(16, STREAM_LPR, STREAM_WARPS, STREAM_RPL,
+                         -(-rows // band), wide, rows)
+    cols = 16 if 2 * -(-N // 16) >= sms else 8
+    groups = -(-N // cols)
+    lpr = next((lanes for lanes in (8, 4, 2)
+                if -(-N // (cols * lanes)) >= 16 * sms), 1)
+    rlanes = 32 // lpr
+    rpl = next((r for r in (16, 8, 4, 2)
+                if groups * -(-rows // r) >= 8 * 32 * sms), 1)
+    rpl = min(16, max(rpl, 1 << (-(-rows // (8 * rlanes)) - 1).bit_length()))
+    least = -(-rows // (8 * rlanes * rpl))   # rounds of 8 warps covering K
+    warps = min(8, -(-rows // (least * rlanes * rpl)))
+    rounds = -(-rows // (warps * rlanes * rpl))
+    return QgemvPlan(cols, lpr, warps, rpl, rounds, -(-N // (cols * lpr)),
+                     rows)
+
+
 def _launch(fn, name, codes_scales, x, N, K, bits):
     dev = x.device
     ks, work = _splits(dev, N, K, 1, len(codes_scales) // 2)
@@ -124,7 +211,8 @@ def _launch(fn, name, codes_scales, x, N, K, bits):
 
 
 def mx_qgemv(wq, scales, x):
-    """y (N,) fp32 = x (K,) . dequant(wq, scales).
+    """y (N,) fp32 = x (K,) . dequant(wq, scales), in one launch cut by
+    ``qgemv_plan``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
@@ -135,8 +223,16 @@ def mx_qgemv(wq, scales, x):
         raise ValueError(f"mx_qgemv: unsupported device {wq.device}")
     N, K, bits = _check("mx_qgemv", wq, scales, x)
     lib = _build.library("mx_gemv", _ARGTYPES)
-    y = _launch(lib.repro_mx_gemv, "mx_qgemv", (wq, scales), x, N, K, bits)
+    plan = qgemv_plan(N, K, bits, _build.sm_count(wq.device))
+    y = torch.empty((N,), dtype=torch.float32, device=wq.device)
+    err = lib.repro_mx_qgemv(
+        wq.data_ptr(), scales.data_ptr(), x.data_ptr(), y.data_ptr(), N, K,
+        bits, plan.cols, plan.lpr.bit_length() - 1, plan.warps, plan.rpl,
+        plan.rounds, _build.stream_handle(wq.device))
+    _build.check(err, "mx_qgemv")
     launches += 1
+    key = f"fp{bits} {K}->{N}"
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     return y
 
 

@@ -88,6 +88,12 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts():
     for mod, attr, _ in _KERNELS.values():
         setattr(mod, attr, 0)
+    _mx.shape_launches.clear()
+
+
+def mx_qgemv_launches_by_shape() -> Dict[str, int]:
+    """``mx_qgemv``'s launches since the last reset, by "fp4 K->N"."""
+    return dict(_mx.shape_launches)
 
 
 def lse_combine(partials):

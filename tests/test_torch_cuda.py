@@ -269,15 +269,40 @@ def mx_weight(rng, K, N, elem):
     (151936, 1024, "fp4"), (151936, 1024, "fp8"),   # the read-out
     (1024, 1024, "fp4"), (1024, 2816, "fp4"),       # q/k/v/o, down
     (1040, 2848, "fp8"),                            # ragged tile, odd split
-    (48, 96, "fp4")])                               # one partial tile
+    (48, 96, "fp4"),                                # one partial tile
+    (2048, 2048, "fp4"), (2048, 2048, "fp8"),       # qwen2-moe attention
+    (2048, 5632, "fp4"), (2048, 5632, "fp8"),       # its shared expert's down
+    (16, 1024, "fp4"), (16, 1024, "fp8"),           # one lane's columns
+    (1024, 32, "fp4"), (1024, 32, "fp8"),           # one E8M0 block of K
+    (64, 16384, "fp4"), (64, 8192, "fp8")])         # K in 2 rounds a block
 def test_mx_qgemv(N, K, elem):
     rng = np.random.default_rng(10)
     wq, s = mx_weight(rng, K, N, elem)
     x = bf16(rng.standard_normal(K))
     before = TK.launch_counts()["mx_qgemv"]
+    key = f"fp{4 if elem == 'fp4' else 8} {K}->{N}"
+    shape_before = TK.mx_qgemv_launches_by_shape().get(key, 0)
     matches_plain(TK.mx_qgemv(wq, s, x), TK.PLAIN["mx_qgemv"](wq, s, x),
                   MX_TOL)
     assert TK.launch_counts()["mx_qgemv"] == before + 1
+    assert TK.mx_qgemv_launches_by_shape()[key] == shape_before + 1
+
+
+@pytest.mark.parametrize("N,K,elem", [
+    (151936, 1024, "fp4"), (151936, 1024, "fp8"), (1024, 1024, "fp4"),
+    (2048, 5632, "fp4"), (1040, 2848, "fp8"), (16, 32, "fp4"),
+    (64, 16384, "fp4")])
+def test_mx_qgemv_gives_the_same_bits_twice(N, K, elem):
+    """One launch a call (a tile's lanes and warps add in a fixed order in
+    one block, no atomics): the same inputs give the same bits."""
+    rng = np.random.default_rng(14)
+    wq, s = mx_weight(rng, K, N, elem)
+    x = bf16(rng.standard_normal(K))
+    before = TK.launch_counts()["mx_qgemv"]
+    a, b = TK.mx_qgemv(wq, s, x), TK.mx_qgemv(wq, s, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert TK.launch_counts()["mx_qgemv"] == before + 2
 
 
 @pytest.mark.parametrize("N,K,elem", [(2816, 1024, "fp4"),
@@ -499,6 +524,81 @@ def test_axpy_gives_the_plain_bits(dtype, streams, n, unroll, block_k):
     got = TK.axpy(1.7, x, y, cfg=cfg)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, TK.PLAIN["axpy"](1.7, x, y))
+
+
+def axpy_inputs(seed, n, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).to(
+        "cuda", dtype) for _ in range(2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("edge", ["one vector", "one tile + 8",
+                                  "many steps a block"])
+def test_axpy_stream_edges(dtype, streams, edge):
+    """The stream's edges, walked as ``stream_plan`` cuts them whatever n:
+    8 elements (no whole tile: the tail alone), one tile + 8 (one step, a
+    tail of one vector) at the registry's default tile, and 3 steps a block
+    (two parts of 16 KB tiles, or one of 32 KB, at unroll 4: as many as fit
+    a block) with a tail; the plain version's bits."""
+    from repro_torch.kernels.axpy import run_plan, stream_plan
+    vec = 8 if dtype == torch.bfloat16 else 4
+    cfg = (LaunchConfig(streams=streams, unroll=4,
+                        block_k=2048 if streams == 1 else 1024)
+           if edge == "many steps a block" else
+           LaunchConfig(streams=streams, unroll=1, block_k=256))
+    tile = cfg.block_k * vec
+    n = {"one vector": 8, "one tile + 8": tile + 8,
+         "many steps a block": 37 * tile + 24}[edge]
+    x, y = axpy_inputs(32, n, dtype)
+    plan = stream_plan(n, x.element_size(), cfg)
+    got = run_plan(1.25, x, y, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TK.PLAIN["axpy"](1.25, x, y))
+    if edge == "many steps a block":
+        assert plan.spb == 3 and plan.tail > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("past", [0, 1])
+def test_axpy_switches_path_past_four_waves(dtype, past):
+    """The card's 4 waves of a 16-byte vector a thread on the vector path,
+    and one vector more on the stream (a tail of one vector): the plain
+    version's bits, one launch each."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.axpy import SM_THREADS, VECTOR_WAVES, axpy_plan
+    vec = 8 if dtype == torch.bfloat16 else 4
+    n = (VECTOR_WAVES * _build.sm_count(torch.device("cuda")) * SM_THREADS
+         + past) * vec
+    x, y = axpy_inputs(34, n, dtype)
+    cfg = LaunchConfig(streams=1, unroll=1, block_k=256)
+    before = TK.launch_counts()["axpy"]
+    got = TK.axpy(0.5, x, y, cfg=cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TK.PLAIN["axpy"](0.5, x, y))
+    assert TK.launch_counts()["axpy"] == before + 1
+    assert (axpy_plan(n, x.element_size(), cfg,
+                      _build.sm_count(x.device)).tiles > 0) == bool(past)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("streams,unroll,block_k", [
+    (s, u, b) for s in (1, 2) for u in (1, 2) for b in (256, 512, 1024)])
+def test_axpy_every_candidate_gives_the_plain_bits(dtype, streams, unroll,
+                                                   block_k):
+    """Every candidate of the tuner's space, both types, at a size past the
+    vector path (on a card of up to 144 SMs): the stream, with a tail."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.axpy import axpy_plan
+    x, y = axpy_inputs(33, (9 << 20) + 40, dtype)
+    cfg = LaunchConfig(streams=streams, unroll=unroll, block_k=block_k)
+    got = TK.axpy(-0.75, x, y, cfg=cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TK.PLAIN["axpy"](-0.75, x, y))
+    plan = axpy_plan(x.shape[0], x.element_size(), cfg,
+                     _build.sm_count(x.device))
+    assert plan.tiles > 0 and plan.tail > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
