@@ -13,10 +13,21 @@ prints the card's ``nvidia-smi`` name and power limit; one line per gemv
 shape with a digest of ``gemv(w, x)`` (and, for bf16, of
 ``batched_gemv(w, x[None])``) on seeded inputs at the default launch
 config, so two trees with equal digests at a shape give the same bits
-there; one line per ``axpy`` shape (bf16, 2^20 and 2^27) and per
-``mx_qgemv`` shape of ``chip_smoke.py``'s kernel rows, each with a digest
-of its output and its device time (CUDA-graph replay over input copies
-past twice the L2, the smoke's own ``time_ms``) at the default config;
+there; one line per ``axpy`` shape (bf16, 2^20 and 2^27), per
+``mx_qgemv`` shape of ``chip_smoke.py``'s kernel rows, per paged decode
+shape (``paged_decode_attention`` over bf16 pages of 16 rows and
+``paged_decode_attention_int8`` over int8 pages of 32: 8 slots of a 1024-row
+table, at G = 1 with 16 heads of 64 and of 128, and at hd 128 at glm4-9b's
+heads, 32 on 2 KV heads, and qwen3-14b's, 40 on 8) and per
+``decode_attention_int8`` shape of the smoke (full length), each with a
+digest of its output and its device time (CUDA-graph replay over input
+copies past twice the L2, the smoke's own ``time_ms``) at the default
+config; for each paged decode shape also, over its input copies, how
+many bf16 outputs of the kernel and of its plain version are not the
+rounding of the float64 value (this checkout's ``paged_decode_fp64``), and
+how many of the kernel's miss the smoke's gate against the plain version;
+then the paged decodes at the engines' G = 1 shapes with every slot at
+one length, 0 to 1024, and their device time at each;
 then it runs serving phases of that tree, each from a fresh seed-0 stream
 (``--engines``: ``bf16``, the default, runs ``engine_phase``, qwen1.5-0.5b
 bf16, and ``moe_phase`` for bf16, qwen2-moe-a2.7b; ``mx4`` runs
@@ -46,6 +57,14 @@ AXPY_SIZES = (1 << 20, 1 << 27)
 MX_SHAPES = (((151936, 1024), "fp4"), ((151936, 1024), "fp8"),
              ((1024, 1024), "fp4"), ((1024, 2816), "fp4"),
              ((2048, 2048), "fp4"), ((2048, 5632), "fp4"))
+# the paged decodes: (H, KV, hd) over 8 slots of a 1024-row table
+PAGED_SHAPES = ((16, 16, 64), (16, 16, 128),   # the engines, G = 1
+                (32, 2, 128), (40, 8, 128))    # glm4-9b's, qwen3-14b's heads
+# the G = 1 sweep: every slot at each of these lengths
+SWEEP_LENGTHS = (0, 16, 64, 128, 256, 448, 1024)
+# the int8 dense decode: (B, H, KV, hd, S), full length
+DENSE_INT8_SHAPES = ((8, 16, 16, 64, 1024), (4, 16, 8, 128, 4096),
+                     (4, 32, 2, 128, 4096))
 
 
 def digests(torch, K):
@@ -63,10 +82,12 @@ def digests(torch, K):
         print(line, flush=True)
 
 
-def kernel_lines(torch, K, smoke):
-    """axpy and mx_qgemv: a digest of each output on seeded inputs and the
-    device us per call over input copies, at the default config."""
-    from repro_torch.quant.tensor import quantize_mx
+def kernel_lines(torch, K, smoke, referee):
+    """axpy, mx_qgemv, the paged decodes and the int8 dense decode: a
+    digest of each output on seeded inputs and the device us per call over
+    input copies, at the default config; ``referee``: this checkout's
+    ``chip_smoke.py`` (its float64 paged decode and its gates)."""
+    from repro_torch.quant.tensor import quantize_kv, quantize_mx
 
     def sha(t):
         return hashlib.sha256(t.view(torch.uint8).cpu().numpy()
@@ -96,6 +117,98 @@ def kernel_lines(torch, K, smoke):
               f"{ms * 1e3:.2f} us", flush=True)
         del ws
         torch.cuda.empty_cache()
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g).to(
+            torch.bfloat16)
+
+    def paged_inputs(H, KV, hd, page):
+        nblk = 1024 // page
+        P = slots * nblk + 1
+        bt = (torch.randperm(P - 1, device="cuda", generator=g)[
+            :slots * nblk] + 1).reshape(slots, nblk).to(torch.int32)
+        pools = []
+        for _ in range(smoke.copies_for(4 * P * page * KV * hd, cap=4)):
+            kv = [randn(P, page, KV, hd) for _ in range(2)]
+            pools.append(tuple(kv) if page == 16 else
+                         (*quantize_kv(kv[0]), *quantize_kv(kv[1])))
+        return bt, pools
+
+    def rounding(name, q, pools, bt, length, hd):
+        """Outputs off the float64 value's bf16 rounding (kernel, plain),
+        the kernel's past the smoke's gate against the plain version, and
+        the outputs counted, over the input copies."""
+        tol = referee.TOL[name if hd == 64 else f"{name} hd=128"]
+        off_k = off_p = past = n = 0
+        for p in pools:
+            got = getattr(K, name)(q, *p, bt, length).float()
+            want = K.PLAIN[name](q, *p, bt, length).float()
+            pools_64 = ((p[0], p[2], bt, length, p[1], p[3]) if len(p) == 4
+                        else (p[0], p[1], bt, length))
+            x = referee.paged_decode_fp64(torch, q, *pools_64).float().to(
+                torch.bfloat16).float()
+            off_k += int((got != x).sum())
+            off_p += int((want != x).sum())
+            past += int(((got - want).abs() > tol + tol * want.abs()).sum())
+            n += got.numel()
+        return (f"off the float64 rounding: kernel {off_k}, plain {off_p}; "
+                f"past the gate against plain {past}; of {n}")
+
+    slots = 8
+    for H, KV, hd in PAGED_SHAPES:
+        q = randn(slots, H, hd)
+        length = torch.randint(64, 449, (slots,), device="cuda",
+                               generator=g, dtype=torch.int32)
+        for name, page in (("paged_decode_attention", 16),
+                           ("paged_decode_attention_int8", 32)):
+            bt, pools = paged_inputs(H, KV, hd, page)
+            fn = getattr(K, name)
+            ms = smoke.time_ms(torch, [lambda p=p: fn(q, *p, bt, length)
+                                       for p in pools])[0]
+            print(f"{name} H={H} KV={KV} hd={hd} "
+                  f"{sha(fn(q, *pools[0], bt, length))} {ms * 1e3:.2f} us; "
+                  + rounding(name, q, pools, bt, length, hd), flush=True)
+            del pools
+            torch.cuda.empty_cache()
+    for hd in (64, 128):
+        q = randn(slots, 16, hd)
+        for name, page in (("paged_decode_attention", 16),
+                           ("paged_decode_attention_int8", 32)):
+            bt, pools = paged_inputs(16, 16, hd, page)
+            fn = getattr(K, name)
+            us = []
+            for n in SWEEP_LENGTHS:
+                length = torch.full((slots,), n, dtype=torch.int32,
+                                    device="cuda")
+                us.append(smoke.time_ms(torch, [
+                    lambda p=p: fn(q, *p, bt, length) for p in pools])[0])
+            print(f"{name} G=1 hd={hd} us by length: "
+                  + ", ".join(f"{n} {t * 1e3:.2f}"
+                              for n, t in zip(SWEEP_LENGTHS, us)), flush=True)
+            del pools
+            torch.cuda.empty_cache()
+    for B, H, KV, hd, S in DENSE_INT8_SHAPES:
+        q = randn(B, H, hd)
+        length = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        caches = []
+        for _ in range(smoke.copies_for(2 * B * S * KV * (hd + 2), cap=8)):
+            caches.append((*quantize_kv(randn(B, S, KV, hd)),
+                           *quantize_kv(randn(B, S, KV, hd))))
+        ms = smoke.time_ms(torch, [lambda c=c: K.decode_attention_int8(
+            q, *c, length) for c in caches])[0]
+        print(f"decode_attention_int8 B={B} H={H} KV={KV} hd={hd} S={S} "
+              f"{sha(K.decode_attention_int8(q, *caches[0], length))} "
+              f"{ms * 1e3:.2f} us", flush=True)
+        del caches
+        torch.cuda.empty_cache()
+
+
+def load_smoke(path):
+    spec = importlib.util.spec_from_file_location(f"smoke_{abs(hash(path))}",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def rates(res):
@@ -127,10 +240,8 @@ def main():
     sys.path.insert(0, str(tree / "src"))
     cache = tempfile.TemporaryDirectory()
     os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(cache.name) / "e.json")
-    spec = importlib.util.spec_from_file_location("smoke",
-                                                  tree / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke, referee = (load_smoke(path / "chip_smoke.py") for path in
+                      (tree, Path(__file__).resolve().parents[1]))
     from repro_torch.kernels import ops as K
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -143,7 +254,7 @@ def main():
     print(f"tree {tree}", flush=True)
     K.build()
     digests(torch, K)
-    kernel_lines(torch, K, smoke)
+    kernel_lines(torch, K, smoke, referee)
     out = {}
     if args.engines == "bf16":
         out["qwen1.5 bf16"] = rates(smoke.engine_phase(

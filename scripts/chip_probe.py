@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Launch-plan probes of ``axpy`` and the one-row ``mx_qgemv`` walk on the
-card: the device time of each plan the wrappers choose beside the plans
-they do not, called through the kernels' C entry points.
+"""Launch-plan probes of ``axpy``, the one-row ``mx_qgemv`` walk and the
+paged decodes on the card: the device time of each plan the wrappers
+choose beside the plans they do not, called through the kernels' C entry
+points.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 scripts/chip_probe.py [--out FILE]
+    python3 scripts/chip_probe.py [--out FILE] [--probes axpy,mx_qgemv,paged]
 
 It prints the card's ``nvidia-smi`` name and power limit, then one line
 per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
@@ -22,7 +23,14 @@ per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
   one-row ``gemv`` at the same (N, K), the wrapper's plan, and for the
   read-outs the first cut tried (4 lanes across a row, 16 rows a lane, K
   in one pass where 8 warps cover it); each held to the plain version
-  (5e-6, the smoke's gate).
+  (5e-6, the smoke's gate);
+- the paged decodes (bf16 pages of 16 rows, int8 pages of 32) over 8
+  slots of a 1024-row table with lengths 64 to 448, at G = 1 (16 heads of
+  64 and of 128: the engines) and at hd 128 at G = 5 and 16, at every
+  ``decode_warps``: one split against ``wave_splits`` over the kernel's
+  occupancy (the splits the plan takes at G > 1), each held to the plain
+  version at the smoke's gate; a split count past one adds the combine
+  launch.
 
 It exits non-zero without a CUDA device.
 """
@@ -43,6 +51,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the probes as JSON to this file")
+    ap.add_argument("--probes", default="axpy,mx_qgemv,paged",
+                    help="comma list of the probes to run (default: all)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -76,8 +86,9 @@ def main():
         print("  ".join(f"{k} {v:.2f}" if isinstance(v, float) else
                         f"{k} {v}" for k, v in row.items()), flush=True)
 
+    probes = set(args.probes.split(","))
     cfg = tune.REGISTRY["axpy"].default
-    for n in [1 << e for e in (20, 21, 22, 23, 24, 27)]:
+    for n in [1 << e for e in (20, 21, 22, 23, 24, 27)] * ("axpy" in probes):
         pairs = [tuple(torch.randn(n, device="cuda", generator=g)
                        .to(torch.bfloat16) for _ in range(2))
                  for _ in range(smoke.copies_for(4 * n))]
@@ -99,7 +110,7 @@ def main():
         torch.cuda.empty_cache()
 
     mxlib = _build.library("mx_gemv", mx._ARGTYPES)
-    for (N, Kd), bits in MX_SHAPES:
+    for (N, Kd), bits in MX_SHAPES * ("mx_qgemv" in probes):
         elem = "fp4" if bits == 4 else "fp8"
         ws = []
         for _ in range(smoke.copies_for(Kd * N // (2 if bits == 4 else 1))):
@@ -138,9 +149,78 @@ def main():
                  us=us([lambda w=w: call(w) for w in ws]))
         del ws, want, y
         torch.cuda.empty_cache()
+    if "paged" in probes:
+        paged_probes(torch, smoke, K, g, us, line)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
+
+
+def paged_probes(torch, smoke, K, g, us, line):
+    """The paged decodes at one split and at ``wave_splits``'s count."""
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels import _build
+    DA = importlib.import_module("repro_torch.kernels.decode_attention")
+    from repro_torch.quant.tensor import quantize_kv
+    lib = _build.library("decode_attention", DA._ARGTYPES)
+    dev = torch.device("cuda", 0)
+    slots = 8
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g).to(
+            torch.bfloat16)
+
+    for H, KV, hd in ((16, 16, 64), (16, 16, 128), (40, 8, 128),
+                      (32, 2, 128)):
+        q = randn(slots, H, hd)
+        length = torch.randint(64, 449, (slots,), device="cuda", generator=g,
+                               dtype=torch.int32)
+        G = H // KV
+        for int8, page in ((False, 16), (True, 32)):
+            name = "paged_decode_attention" + "_int8" * int8
+            nblk = 1024 // page
+            P = slots * nblk + 1
+            bt = (torch.randperm(P - 1, device="cuda", generator=g)[
+                :slots * nblk] + 1).reshape(slots, nblk).to(torch.int32)
+            pools = []
+            for _ in range(smoke.copies_for(4 * P * page * KV * hd, cap=4)):
+                kv = [randn(P, page, KV, hd) for _ in range(2)]
+                pools.append(tuple(kv) if not int8 else
+                             (*quantize_kv(kv[0]), *quantize_kv(kv[1])))
+            want = K.PLAIN[name](q, *pools[0], bt, length)
+            key = name if hd == 64 else f"{name} hd=128"
+            fn = lib.repro_paged_decode_int8 if int8 else \
+                lib.repro_paged_decode_bf16
+            occ = lib.repro_paged_decode_int8_occupancy if int8 else \
+                lib.repro_paged_decode_bf16_occupancy
+            out = torch.empty_like(q)
+            for warps in (2, 4, 8):
+                resident = _build.resident(dev, occ, hd, warps)
+                wave = DA.wave_splits(slots * KV * -(-G // 16), nblk * page,
+                                      resident)
+                plan = DA.paged_decode_plan(
+                    slots, H, KV, page, nblk, LaunchConfig(decode_warps=warps),
+                    resident, lib.repro_paged_decode_max_pages())
+                for nsplit in sorted({1, wave}):
+                    part = torch.empty((slots * H * nsplit, hd + 2),
+                                       device="cuda")
+
+                    def call(p, nsplit=nsplit, part=part, warps=warps):
+                        _build.check(fn(
+                            q.data_ptr(), *(t.data_ptr() for t in p),
+                            bt.data_ptr(), length.data_ptr(), out.data_ptr(),
+                            part.data_ptr(), slots, H, KV, hd, page, nblk,
+                            warps, nsplit, hd ** -0.5,
+                            _build.stream_handle(dev)), "paged probe")
+                    call(pools[0])
+                    err = (out.float() - want.float()).abs().max().item()
+                    line(kernel=name, shape=f"H={H} KV={KV} hd={hd}",
+                         warps=warps, nsplit=nsplit,
+                         plan=nsplit == plan["nsplit"], err=err,
+                         ok=err <= smoke.TOL[key],
+                         us=us([lambda p=p: call(p) for p in pools]))
+            del pools, want
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -28,7 +28,8 @@ import torch
 class LaunchConfig:
     rmsnorm_threads: int = 128      # one block per row, 8 bf16 per thread
     gemv_warps: int = 8             # one warp per output row
-    decode_warps: int = 4           # warps splitting one (slot, KV head)
+    decode_warps: int = 4           # paged decode: position warps of a
+    #   block, 16 positions each of a staged tile
     prefill_warps: int = 4          # warps of one prefill block (rows x pages)
     adamw_streams: int = 1          # 2: each block takes one chunk from each
     #   contiguous half of a tensor (the JAX kernel's decoupled streams)

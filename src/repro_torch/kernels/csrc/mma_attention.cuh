@@ -1,10 +1,12 @@
 // The tensor-core attention core shared by the dense decodes
 // (decode_attention.cu: `decode_mma_kernel` over a bf16 cache,
-// `decode_q8_mma_kernel` over an int8 one, through walk_q8) and the paged
-// chunked prefill (prefill_attention.cu, `prefill_mma_kernel`): a block
-// takes every query row that shares one KV head, streams that head's K/V
-// positions through a shared-memory ring once, and runs both products on
-// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).
+// `decode_q8_mma_kernel` over an int8 one, through walk_q8), the paged
+// decodes (the same file: `paged_decode_mma_kernel`, over bf16 pages, and
+// over int8 pages through walk_q8) and the paged chunked prefill
+// (prefill_attention.cu, `prefill_mma_kernel`): a block takes every query
+// row that shares one KV head, streams that head's K/V positions through a
+// shared-memory ring once, and runs both products on `mma.sync.m16n8k16`
+// (bf16 in, fp32 accumulate).
 //
 // Warps.  A block is WM x WN warps.  Warp (wm, wn) owns the 16 query rows
 // 16 wm .. 16 wm + 15 of the block (one m-tile) and the NW positions
@@ -21,9 +23,10 @@
 // [pos][hd] and read by ldmatrix.trans.  P is split into a bf16 high part
 // and the bf16 rounding of the rest, and both parts are multiplied: P V is
 // then good to ~2^-16 relative, where P in bf16 alone would cost a bf16
-// ulp of outputs of order 1 (rows that see few positions).  The kernels are
-// bound by bytes (~1 operation a byte against a ridge near 295), so the
-// second product costs no time that shows.
+// ulp of outputs of order 1 (rows that see few positions); the paged
+// decodes split P in three (fold's PSPLIT).  The kernels are bound by bytes
+// (~1 operation a byte against a ridge near 295), so the extra products
+// cost no time that shows.
 //
 // Masks.  Each lane holds the limit of its two rows (g and g + 8 of the
 // m-tile): positions >= the limit give p = 0 explicitly (a row that has
@@ -31,6 +34,10 @@
 // their scores are left out of the max.  A warp whose whole slice is below
 // every limit of its rows skips the compares; one whose slice is at or
 // above every limit skips the slice.
+//
+// Pages.  A paged kernel's block takes a split of whole pages of its slot
+// (PageSplit) and looks the split's block-table entries up once, into
+// shared memory; the walks map a position to its pool row through them.
 //
 // Staging.  cp.async, 16 bytes a lane, into a ring of STAGES tiles; tiles
 // t + 1 .. t + STAGES - 1 are in flight while the block waits for tile t
@@ -41,12 +48,16 @@
 // same bits on every launch.
 #pragma once
 
-#include "paged_attention.cuh"
+#include "common.cuh"
 
 namespace repro {
 namespace mma {
 
+constexpr float kNeg = -1e30f;  // the JAX kernels' mask value (_NEG)
 constexpr float kLog2e = 1.4426950408889634f;
+// block-table entries of one split in shared memory (4096 positions of
+// 16-row pages, 8192 of 32-row ones): a longer table takes more splits
+constexpr int kMaxPages = 256;
 
 // K/V tile row stride in elements: hd + 16 bytes of padding
 template <int HD>
@@ -131,6 +142,17 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// two floats -> three bf16x2 parts, each the bf16 rounding of what the
+// parts before it left (each residual is exact in fp32): their sum is x,
+// y to ~2^-27 relative
+__device__ __forceinline__ void split3_bf16x2(float x, float y, uint32_t& hi,
+                                              uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  split_bf16x2(x - hf.x, y - hf.y, mid, lo);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // A lane's online-softmax state for its two rows (g, g + 8) of one m-tile:
 // the running max (scaled scores, replicated over the quad), the lane's
 // partial row sums (over its own columns; reduced over the quad once, at
@@ -209,8 +231,13 @@ struct Tile8 {
 // order), exactly in bf16; position j's K scale k_sc[j] multiplies column
 // j of the scores, and its V scale v_sc[j] column j of P after the row sums
 // took P unscaled — in exact arithmetic the products over the dequantized
-// rows k8 k_sc and v8 v_sc.
-template <int HD, int NW, bool Q8 = false>
+// rows k8 k_sc and v8 v_sc.  PSPLIT: P V over P's hi + lo bf16 parts (2),
+// each added into the running accumulators by mma; or (3) over three
+// parts, summed by mma into a zeroed accumulator, smallest part first, and
+// that added to the running ones in fp32: no bf16 residual of P (~2^-27
+// against ~2^-18) and one truncating tensor-core sum a tile instead of two
+// a tile onto the running total.
+template <int HD, int NW, bool Q8 = false, int PSPLIT = 2>
 __device__ __forceinline__ void fold(const uint32_t (&qf)[HD / 16][4],
                                      const void* k_s,
                                      const __nv_bfloat16* v_s, int pos0,
@@ -324,8 +351,39 @@ __device__ __forceinline__ void fold(const uint32_t (&qf)[HD / 16][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] *= v_sc[nt * 8 + 2 * qd + (e & 1)];
   }
-  // O += P V, P as hi + lo bf16 parts; one ldmatrix.x4.trans gives b0, b1
+  // O += P V, P as PSPLIT bf16 parts; one ldmatrix.x4.trans gives b0, b1
   // of two n8 tiles of hd
+  if constexpr (PSPLIT == 3) {
+#pragma unroll
+    for (int t = 0; t < NW / 16; ++t) {
+      uint32_t ph[4], pm[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split3_bf16x2(s[2 * t + (i >> 1)][2 * (i & 1)],
+                      s[2 * t + (i >> 1)][2 * (i & 1) + 1], ph[i], pm[i],
+                      pl[i]);
+#pragma unroll
+      for (int j = 0; j < HD / 8; j += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, v_s + (t * 16 + (lane & 7) +
+                                    8 * ((lane >> 3) & 1)) * STR +
+                                 j * 8 + 8 * (lane >> 4));
+        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16816(c0, pl, b[0], b[1]);
+        mma16816(c0, pm, b[0], b[1]);
+        mma16816(c0, ph, b[0], b[1]);
+        mma16816(c1, pl, b[2], b[3]);
+        mma16816(c1, pm, b[2], b[3]);
+        mma16816(c1, ph, b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st.acc[j][e] += c0[e];
+          st.acc[j + 1][e] += c1[e];
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int t = 0; t < NW / 16; ++t) {
     uint32_t ph[4], pl[4];
@@ -346,13 +404,57 @@ __device__ __forceinline__ void fold(const uint32_t (&qf)[HD / 16][4],
   }
 }
 
+// Where a position of a paged split lives: its pool row (in units of HD
+// elements) for KV head kvh, through the split's block-table entries in
+// shared memory (``pages[i]`` the physical page of logical page p0 + i).
+struct PageRows {
+  const int* pages;
+  int p0, page, KV, kvh;
+  __device__ __forceinline__ long long operator()(int pos) const {
+    return ((long long)pages[pos / page - p0] * page + pos % page) * KV +
+           kvh;
+  }
+};
+
+// A block's share of one slot's paged K/V: split blockIdx.y of gridDim.y
+// takes the positions [lo, hi) of the slot's n valid ones (n = length
+// clamped to the table's nblk page rows), in whole pages: ceil(ceil(n /
+// page) / nsplit) pages a split, so every split starts on a page boundary.
+// A split past n is empty (lo >= hi).
+struct PageSplit {
+  int lo, hi, page;
+  __device__ __forceinline__ PageSplit(int length, int nblk, int page_)
+      : page(page_) {
+    const int n = max(0, min(length, nblk * page));
+    const int chunk =
+        ((n + page - 1) / page + (int)gridDim.y - 1) / (int)gridDim.y * page;
+    lo = blockIdx.y * chunk;
+    hi = min(n, lo + chunk);
+  }
+  // The split's block-table entries [lo / page, ceil(hi / page)) of the
+  // slot's row ``bt_row``, looked up once by the whole block into
+  // ``pages`` (shared memory, at most kMaxPages entries: the launch takes
+  // enough splits), then a barrier of the block.
+  __device__ __forceinline__ PageRows lookup(int* pages, const int* bt_row,
+                                             int KV, int kvh) const {
+    const int p0 = lo / page;
+    const int npg = hi > lo ? (hi - lo + page - 1) / page : 0;
+    for (int i = threadIdx.x; i < npg; i += blockDim.x)
+      pages[i] = bt_row[p0 + i];
+    __syncthreads();
+    return {pages, p0, page, KV, kvh};
+  }
+};
+
 // The walk of one block: T tiles of BN = WN NW positions through a ring of
 // STAGES stages in ``smem``.  pos_of(t, r): the position of row r of tile t,
 // or -1 outside the walked range (zero-filled); row_of(pos): its pool row
 // (in units of HD elements) in k / v.  slice(t, pos0, lim0, lim1): this
 // warp's first position in tile t and its lane's two row limits.  Every
 // thread of the block takes part (the ring is filled by all of them).
-template <int HD, int NW, int STAGES, class PosOf, class RowOf, class Slice>
+// PSPLIT: fold's split of P.
+template <int HD, int NW, int STAGES, int PSPLIT = 2, class PosOf,
+          class RowOf, class Slice>
 __device__ __forceinline__ void walk(
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     unsigned char* smem, int BN, int T, PosOf pos_of, RowOf row_of,
@@ -396,8 +498,9 @@ __device__ __forceinline__ void walk(
         !__all_sync(kFull, pos0 + NW <= lim0 && pos0 + NW <= lim1);
     const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(
         smem + (t % STAGES) * sbytes);
-    fold<HD, NW>(qf, ks + wn * NW * STR, ks + BN * STR + wn * NW * STR, pos0,
-                 lim0, lim1, masked, sc, st);
+    fold<HD, NW, false, PSPLIT>(qf, ks + wn * NW * STR,
+                                ks + BN * STR + wn * NW * STR, pos0, lim0,
+                                lim1, masked, sc, st);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring's memory is the merge buffer next
@@ -410,10 +513,12 @@ __device__ __forceinline__ uint4 int8x8_to_bf16x8(uint2 u) {
                     biased_pair_to_bf16x2(y, 0), biased_pair_to_bf16x2(y, 2));
 }
 
-// The walk of one warp over an int8 cache (B, S, KV, HD) with bf16 scales
-// (B, S, KV, 1): T tiles, the warp's 16 positions of tile t being first +
-// t step .. + 15 (rows (base + pos) KV + kvh), those >= lim zero-filled
-// and masked.  Each warp stages only its own positions, through its own
+// The walk of one warp over an int8 cache with bf16 scales at the same
+// rows: T tiles, the warp's 16 positions of tile t being first + t step ..
+// + 15, those >= lim zero-filled and masked; row_of(pos) is a position's
+// row (the int8 K / V row at k, v + row HD, its scales at ks, vs + row):
+// (base + pos) KV + kvh for a dense cache (B, S, KV, HD), the page map for
+// a paged one.  Each warp stages only its own positions, through its own
 // cp.async ring in ``ws`` (Tile8<HD>::warp_bytes(STAGES) bytes), so no
 // barrier of the block is needed: per tile it converts the landed int8 V
 // rows to its bf16 V tile (exact) and the scales to floats, and folds the
@@ -421,12 +526,12 @@ __device__ __forceinline__ uint4 int8x8_to_bf16x8(uint2 u) {
 // registers, the K scales on the score columns, the V scales on P's).  The
 // warp stops at the first tile past lim.  Returns with every copy landed;
 // the caller syncs the block before reusing the memory.
-template <int HD, int STAGES>
+template <int HD, int STAGES, int PSPLIT = 2, class RowOf>
 __device__ __forceinline__ void walk_q8(
     const int8_t* __restrict__ k, const int8_t* __restrict__ v,
     const __nv_bfloat16* __restrict__ ks,
-    const __nv_bfloat16* __restrict__ vs, unsigned char* ws, long long base,
-    int KV, int kvh, int first, int step, int lim, int T,
+    const __nv_bfloat16* __restrict__ vs, unsigned char* ws, RowOf row_of,
+    int first, int step, int lim, int T,
     const uint32_t (&qf)[HD / 16][4], float sc, State<HD>& st) {
   using T8 = Tile8<HD>;
   constexpr int STR = Tile<HD>::stride;
@@ -439,8 +544,7 @@ __device__ __forceinline__ void walk_q8(
   // lane - 16; null past lim
   auto scale_at = [&](int t) -> const __nv_bfloat16* {
     const int pos = first + t * step + (lane & 15);
-    return pos < lim ? (lane < 16 ? ks : vs) + (base + pos) * KV + kvh
-                     : nullptr;
+    return pos < lim ? (lane < 16 ? ks : vs) + row_of(pos) : nullptr;
   };
   auto load = [&](int t) {
     unsigned char* s8 = ws + (t % STAGES) * T8::stage_bytes;
@@ -449,8 +553,7 @@ __device__ __forceinline__ void walk_q8(
     for (int c = lane; c < 16 * CPR; c += 32) {
       const int r = c / CPR, part = c % CPR;
       const bool ok = p0 + r < lim;
-      const long long off =
-          ok ? ((base + p0 + r) * KV + kvh) * HD + part * 16 : 0;
+      const long long off = ok ? row_of(p0 + r) * HD + part * 16 : 0;
       cp_async16_zfill(s8 + r * T8::row_bytes + part * 16, k + off,
                        ok ? 16 : 0);
       cp_async16_zfill(s8 + (16 + r) * T8::row_bytes + part * 16, v + off,
@@ -492,8 +595,8 @@ __device__ __forceinline__ void walk_q8(
       scf[lane] = __uint_as_float((upper ? w >> 16 : w & 0xffffu) << 16);
     }
     __syncwarp();
-    fold<HD, 16, true>(qf, s8, vb, pos0, lim, lim, pos0 + 16 > lim, sc, st,
-                       scf, scf + 16);
+    fold<HD, 16, true, PSPLIT>(qf, s8, vb, pos0, lim, lim,
+                               pos0 + 16 > lim, sc, st, scf, scf + 16);
   }
   cp_async_wait<0>();
 }
@@ -631,6 +734,10 @@ __global__ void split_combine_kernel(const float* __restrict__ part,
                                      float* __restrict__ m,
                                      float* __restrict__ l,
                                      __nv_bfloat16* __restrict__ out) {
+  // launched as a programmatic dependent of the kernel that writes
+  // ``part`` (launch_combine), wait for that grid's results; a plain launch
+  // passes straight through
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int o = blockIdx.x, d = threadIdx.x;
   const float* p = part + (size_t)o * nsplit * (HD + 2);
   float M = kNeg;
@@ -653,6 +760,30 @@ __global__ void split_combine_kernel(const float* __restrict__ part,
       l[o] = L;
     }
   }
+}
+
+// Launch split_combine_kernel on ``stream`` as a programmatic dependent of
+// the kernel before it (which lets its dependents start early with
+// ``griddepcontrol.launch_dependents``): its blocks are scheduled while
+// that kernel runs and wait for its results in the kernel, so the launch
+// latency of a second graph node overlaps the first.
+template <int HD>
+cudaError_t launch_combine(const float* part, int nsplit, int rows,
+                           __nv_bfloat16* out, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows);
+  cfg.blockDim = dim3(HD);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, split_combine_kernel<HD>, part, nsplit,
+                         (float*)nullptr, (float*)nullptr, (float*)nullptr,
+                         out);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace mma

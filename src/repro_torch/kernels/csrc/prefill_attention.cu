@@ -38,9 +38,7 @@
 namespace {
 
 constexpr int kStages = 3;
-// block-table entries of one split in shared memory (4096 positions of
-// 16-row pages): the wrapper splits a longer table further
-constexpr int kMaxPages = 256;
+using repro::mma::kMaxPages;
 
 // bytes of the ring (and of the merge buffer, which reuses it)
 template <int HD>
@@ -58,9 +56,9 @@ constexpr int smem_bytes(int BN, int warps) {
 }
 
 // One block per (slot b and KV head kvh = blockIdx.x, split blockIdx.y,
-// row tile blockIdx.z of 16 WM rows).  Split ``split`` takes [lo, hi) =
-// [split * chunk, min((split + 1) * chunk, n)), chunk = ceil(ceil(n /
-// page) / nsplit) pages; row r of staged tile t is position lo + t BN + r.
+// row tile blockIdx.z of 16 WM rows).  The block's split (PageSplit) is
+// [lo, hi), whole pages of the slot's valid positions; row r of staged
+// tile t is position lo + t BN + r.
 // Warp w = wm WN + wn takes m-tile wm and positions wn NW .. of each tile.
 // Output row o = (b C + c) H + kvh G + g goes to ``sink`` (out, normalized,
 // with one split; else ``part``).
@@ -73,16 +71,14 @@ __global__ void __launch_bounds__(256) prefill_mma_kernel(
     float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
-  const int nsplit = gridDim.y;
   const int G = H / KV, R = C * G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int WN = (blockDim.x >> 5) / WM, BN = WN * NW;
   const int wm = warp / WN, wn = warp % WN;
   const int g = lane >> 2;
 
-  const int n = max(0, min(length[b], nblk * page));
-  const int chunk = ((n + page - 1) / page + nsplit - 1) / nsplit * page;
-  const int lo = blockIdx.y * chunk, hi = min(n, lo + chunk);
+  const repro::mma::PageSplit sp(length[b], nblk, page);
+  const int lo = sp.lo, hi = sp.hi;
   const int T = hi > lo ? (hi - lo + BN - 1) / BN : 0;
   const int off = q_offset[b];
 
@@ -101,20 +97,13 @@ __global__ void __launch_bounds__(256) prefill_mma_kernel(
   uint32_t qf[HD / 16][4];
   repro::mma::load_q<HD>(qf, qr[0], qr[1]);
 
-  // the split's pages, looked up once: the block-table entries [lo / page,
-  // ceil(hi / page)) (at most kMaxPages) in shared memory past the ring
-  int* pages = reinterpret_cast<int*>(smem + ring_bytes<HD>(BN, WM * WN));
-  const int p0 = lo / page;
-  const int npg = hi > lo ? (hi - lo + page - 1) / page : 0;
-  for (int i = threadIdx.x; i < npg; i += blockDim.x)
-    pages[i] = bt[(size_t)b * nblk + p0 + i];
-  __syncthreads();
+  // the split's pages, in shared memory past the ring
+  const repro::mma::PageRows row_of = sp.lookup(
+      reinterpret_cast<int*>(smem + ring_bytes<HD>(BN, WM * WN)),
+      bt + (size_t)b * nblk, KV, kvh);
   auto pos_of = [&](int t, int r) {
     const int p = lo + t * BN + r;
     return p < hi ? p : -1;
-  };
-  auto row_of = [&](int p) {
-    return ((long long)pages[p / page - p0] * page + p % page) * KV + kvh;
   };
   auto slice = [&](int t, int& pos0, int& lim0, int& lim1) {
     pos0 = lo + t * BN + wn * NW;
@@ -200,9 +189,10 @@ template <int HD, int NW>
 int prefill_occupancy(int warps, int WM) {
   const int smem = smem_bytes<HD>(warps / WM * NW, warps);
   if (smem > 227 * 1024 ||
-      cudaFuncSetAttribute(prefill_mma_kernel<HD, NW>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
+      (smem > 48 * 1024 &&
+       cudaFuncSetAttribute(prefill_mma_kernel<HD, NW>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            smem) != cudaSuccess))
     return 0;
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -32,8 +32,11 @@ NEG = -1e30
 
 _P, _I, _F = _build.P, _build.I, _build.F
 _ARGTYPES = {
-    "repro_paged_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
-    "repro_paged_decode_int8": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "repro_paged_decode_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "repro_paged_decode_int8": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "repro_paged_decode_bf16_occupancy": [_I] * 2,
+    "repro_paged_decode_int8_occupancy": [_I] * 2,
+    "repro_paged_decode_max_pages": [],
     "repro_decode_dense_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
     "repro_decode_dense_bf16_occupancy": [_I] * 3,
     "repro_decode_dense_int8": [_P] * 8 + [_I] * 9 + [_F, _P],
@@ -82,14 +85,72 @@ def check_paged(name, q, k_pool, v_pool, block_tables, *vecs,
             f"int32 (B,) vectors, all on one device")
 
 
+def paged_decode_plan(B: int, H: int, KV: int, page: int, nblk: int,
+                      cfg: LaunchConfig, resident: int,
+                      max_pages: int) -> dict:
+    """The launch of the paged decode, bf16 or int8 pages: one block per
+    (slot, KV head, split, m-tile of 16 of the G query heads), ``warps`` =
+    ``cfg.decode_warps`` warps of 16 positions of each staged tile of
+    ``bn``.  The splits are whole pages of a slot's valid positions, at
+    most ``pages`` table entries each (``max_pages``: the block's shared
+    page list); their count comes from the table's capacity, never from
+    the lengths: as many as fill one wave of the ``resident`` blocks the
+    card holds at once (``wave_splits``; at G = 1 too, where one split a
+    slot measured slower), and at least as many as ``max_pages`` asks."""
+    if not 1 <= cfg.decode_warps <= 8:
+        raise ValueError(f"paged decode: decode_warps must be 1 to 8; got "
+                         f"{cfg.decode_warps}")
+    G = H // KV
+    mtiles = -(-G // 16)
+    nsplit = max(wave_splits(B * KV * mtiles, nblk * page, resident),
+                 -(-nblk // max_pages))
+    return {"grid": (B * KV, nsplit, mtiles), "nsplit": nsplit,
+            "bn": 16 * cfg.decode_warps, "warps": cfg.decode_warps,
+            "pages": -(-nblk // nsplit)}
+
+
+def _paged(name, q, k_pool, v_pool, k_scales, v_scales, block_tables,
+           length, cfg):
+    """Launch the tensor-core paged decode (int8 pages when the scale
+    pools are given) at ``paged_decode_plan``; returns the bf16 output."""
+    B, H, hd = q.shape
+    page, KV = k_pool.shape[1], k_pool.shape[2]
+    nblk = block_tables.shape[1]
+    dev = q.device
+    int8 = k_scales is not None
+    lib = _build.library("decode_attention", _ARGTYPES)
+    occupancy = (lib.repro_paged_decode_int8_occupancy if int8 else
+                 lib.repro_paged_decode_bf16_occupancy)
+    plan = paged_decode_plan(
+        B, H, KV, page, nblk, cfg,
+        _build.resident(dev, occupancy, hd, cfg.decode_warps),
+        lib.repro_paged_decode_max_pages())
+    out = torch.empty_like(q)
+    part = torch.empty((B * H * plan["nsplit"], hd + 2), dtype=torch.float32,
+                       device=dev) if plan["nsplit"] > 1 else None
+    pools = ((k_pool, k_scales, v_pool, v_scales) if int8 else
+             (k_pool, v_pool))
+    fn = lib.repro_paged_decode_int8 if int8 else lib.repro_paged_decode_bf16
+    err = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+             block_tables.data_ptr(), length.data_ptr(), out.data_ptr(),
+             None if part is None else part.data_ptr(), B, H, KV, hd, page,
+             nblk, cfg.decode_warps, plan["nsplit"], hd ** -0.5,
+             _build.stream_handle(dev))
+    _build.check(err, name)
+    return out
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, length,
                            cfg: LaunchConfig = DEFAULT):
     """Flash-decode over a paged KV cache.
 
     q (B,H,hd); k_pool/v_pool (P,page,KV,hd); block_tables (B,nblk) int32
     mapping logical block -> physical page; length (B,) int32 valid prefix.
-    Returns (B,H,hd) in q.dtype.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises."""
+    Returns (B,H,hd) in q.dtype.  The kernel (``paged_decode_plan``) reads
+    each page once for all the query heads of a KV head and runs both
+    products on the tensor cores; ``cfg.decode_warps`` warps of 16
+    positions a block.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
     global launches
     if q.device.type == "cpu":
         return plain(q, k_pool, v_pool, block_tables, length)
@@ -98,16 +159,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, length,
                          f"{q.device}")
     check_paged("paged_decode_attention", q, k_pool, v_pool, block_tables,
                 length)
-    B, H, hd = q.shape
-    page, KV = k_pool.shape[1], k_pool.shape[2]
-    out = torch.empty_like(q)
-    lib = _build.library("decode_attention", _ARGTYPES)
-    err = lib.repro_paged_decode_bf16(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), length.data_ptr(), out.data_ptr(), B, H, KV,
-        hd, page, block_tables.shape[1], cfg.decode_warps, hd ** -0.5,
-        _build.stream_handle(q.device))
-    _build.check(err, "paged_decode_attention")
+    out = _paged("paged_decode_attention", q, k_pool, v_pool, None, None,
+                 block_tables, length, cfg)
     launches += 1
     return out
 
@@ -120,8 +173,12 @@ def paged_decode_attention_int8(q, k_pool, k_scales, v_pool, v_scales,
 
     q (B,H,hd); k_pool/v_pool (P,page,KV,hd) int8; k_scales/v_scales
     (P,page,KV,1) bf16 at the same page indices; block_tables (B,nblk)
-    int32; length (B,) int32.  Returns (B,H,hd) in q.dtype.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    int32; length (B,) int32.  Returns (B,H,hd) in q.dtype.  The kernel is
+    ``paged_decode_attention``'s launch over the int8 pages: each warp
+    stages its positions' int8 rows and scales, the codes become bf16
+    exactly, and the K and V scales multiply the scores' and P's columns.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
     global int8_launches
     if q.device.type == "cpu":
         return plain_int8(q, k_pool, k_scales, v_pool, v_scales,
@@ -138,17 +195,8 @@ def paged_decode_attention_int8(q, k_pool, k_scales, v_pool, v_scales,
         raise ValueError(f"paged_decode_attention_int8 kernel takes "
                          f"contiguous bf16 scale pools {sshape}; got "
                          f"{tuple(k_scales.shape)} {k_scales.dtype}")
-    B, H, hd = q.shape
-    page, KV = k_pool.shape[1], k_pool.shape[2]
-    out = torch.empty_like(q)
-    lib = _build.library("decode_attention", _ARGTYPES)
-    err = lib.repro_paged_decode_int8(
-        q.data_ptr(), k_pool.data_ptr(), k_scales.data_ptr(),
-        v_pool.data_ptr(), v_scales.data_ptr(), block_tables.data_ptr(),
-        length.data_ptr(), out.data_ptr(), B, H, KV, hd, page,
-        block_tables.shape[1], cfg.decode_warps, hd ** -0.5,
-        _build.stream_handle(q.device))
-    _build.check(err, "paged_decode_attention_int8")
+    out = _paged("paged_decode_attention_int8", q, k_pool, v_pool, k_scales,
+                 v_scales, block_tables, length, cfg)
     int8_launches += 1
     return out
 

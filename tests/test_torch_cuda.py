@@ -37,6 +37,8 @@ few positions, so outputs reach order 1 to 3).  SCAN_TOL for ``wkv6`` and
 1 to 10 carried over T steps, the plain versions multiplying the decays
 step by step, the wkv6 kernel summing their logarithms in chunks).
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -206,6 +208,108 @@ def test_paged_decode_idle_slot_reads_null_page():
     matches_plain(got[:1], TK.PLAIN["paged_decode_attention"](
         q, kp, vp, bt, ln)[:1], ATTN_TOL)
     assert torch.isfinite(got.float()).all()
+
+
+def paged_splits(int8, H, KV, nblk, page, warps, B=4):
+    """The splits ``paged_decode_plan`` gives B slots on this card."""
+    from repro_torch.kernels import _build
+    DA = importlib.import_module("repro_torch.kernels.decode_attention")
+    lib = _build.library("decode_attention", DA._ARGTYPES)
+    occ = (lib.repro_paged_decode_int8_occupancy if int8 else
+           lib.repro_paged_decode_bf16_occupancy)
+    return DA.paged_decode_plan(
+        B, H, KV, page, nblk, LaunchConfig(decode_warps=warps),
+        _build.resident(torch.device("cuda", 0), occ, 128, warps),
+        lib.repro_paged_decode_max_pages())["nsplit"]
+
+
+def check_gqa_decode(name, args, lengths, nsplit):
+    """A paged decode at G > 1 over several splits: the rows of live slots
+    against the plain version, an idle slot's row exactly 0 (every split
+    commits the empty state; the plain softmax over no position is NaN),
+    the same bits on a second launch, one launch a call."""
+    fn, plain = getattr(TK, name), TK.PLAIN[name]
+    assert nsplit > 1
+    before = TK.launch_counts()[name]
+    got = fn(*args)
+    assert TK.launch_counts()[name] == before + 1
+    want = plain(*args[:-1])
+    live = [b for b, n in enumerate(lengths) if n > 0]
+    matches_plain(got[live], want[live], ATTN_TOL)
+    assert (got[[b for b, n in enumerate(lengths) if n == 0]] == 0).all()
+    assert torch.equal(got, fn(*args))
+    assert TK.launch_counts()[name] == before + 2
+
+
+# hd 128 at grouped-query heads, a table of 1024 rows (more than one split
+# of 256), lengths past a split, mid-page and 0: G = 5 (qwen3-14b's 40
+# heads on 8), G = 16 (glm4-9b's 32 on 2) and G = 20 (two m-tiles, the
+# second of 4 rows)
+GQA_PAGED = [(40, 8, [1024, 0, 300, 17]), (32, 2, [1024, 513, 0, 1000]),
+             (40, 2, [700, 0, 16, 1023])]
+
+
+@pytest.mark.parametrize("warps", [2, 4, 8])
+@pytest.mark.parametrize("H,KV,lengths", GQA_PAGED)
+def test_paged_decode_attention_gqa(H, KV, lengths, warps):
+    rng = np.random.default_rng(15)
+    q, kp, vp, bt = paged_case(rng, 4, H, KV, 128, 16, 64)
+    cfg = LaunchConfig(decode_warps=warps)
+    check_gqa_decode("paged_decode_attention", (q, kp, vp, bt, i32(lengths),
+                                                cfg), lengths,
+                     paged_splits(False, H, KV, 64, 16, warps))
+
+
+@pytest.mark.parametrize("warps", [2, 4, 8])
+@pytest.mark.parametrize("H,KV,lengths", GQA_PAGED)
+def test_paged_decode_attention_int8_gqa(H, KV, lengths, warps):
+    rng = np.random.default_rng(16)
+    q, kp, vp, bt = paged_case(rng, 4, H, KV, 128, 32, 32)
+    cfg = LaunchConfig(decode_warps=warps)
+    check_gqa_decode("paged_decode_attention_int8",
+                     (q, *int8_pools(kp, vp), bt, i32(lengths), cfg),
+                     lengths, paged_splits(True, H, KV, 32, 32, warps))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_decode_long_table(int8):
+    """A table of 144,000 rows (9,000 bf16 pages, 4,500 int8 ones) at G =
+    2: many splits (more than 8, and more than one split's page list
+    holds at 16-row pages) meeting in the combine kernel; a length that
+    ends mid-page, an idle slot."""
+    rng = np.random.default_rng(18)
+    page = 32 if int8 else 16
+    nblk = 144000 // page
+    q, kp, vp, bt = paged_case(rng, 2, 4, 2, 128, page, nblk)
+    pools = int8_pools(kp, vp) if int8 else (kp, vp)
+    lengths = [nblk * page - 9, 0]
+    nsplit = paged_splits(int8, 4, 2, nblk, page, 4, B=2)
+    assert nsplit > 8
+    check_gqa_decode("paged_decode_attention" + "_int8" * int8,
+                     (q, *pools, bt, i32(lengths), LaunchConfig()), lengths,
+                     nsplit)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_decode_candidates_in_turn(int8, hd):
+    """The tuner's candidates launched in turn, as the tuner and the smoke
+    do (4, 2, 4, 8, 4): asking how many blocks of a small one fit must not
+    leave the kernel's shared-memory limit below what a launch of a larger
+    one asks for; every launch gives the first one's bits."""
+    rng = np.random.default_rng(17)
+    page = 32 if int8 else 16
+    q, kp, vp, bt = paged_case(rng, 8, 16, 16, hd, page, 1024 // page)
+    pools = int8_pools(kp, vp) if int8 else (kp, vp)
+    name = "paged_decode_attention" + "_int8" * int8
+    ln = i32(rng.integers(64, 449, 8))
+    first = getattr(TK, name)(q, *pools, bt, ln, LaunchConfig(decode_warps=4))
+    for warps in (2, 4, 8, 4):
+        got = getattr(TK, name)(q, *pools, bt, ln,
+                                LaunchConfig(decode_warps=warps))
+        matches_plain(got, first, ATTN_TOL)
+        if warps == 4:
+            assert torch.equal(got, first)
 
 
 @pytest.mark.parametrize("warps", [2, 4, 8])

@@ -82,6 +82,7 @@ def test_gemv_plain_matches_jax(N, K, dtype):
 @pytest.mark.parametrize("B,H,KV,hd,page,nblk,lengths,dtype", [
     (2, 4, 2, 32, 16, 4, [37, 64], "float32"),   # mid-page end, GQA
     (2, 4, 4, 32, 16, 3, [48, 21], "bfloat16"),  # odd nblk: one stream
+    (2, 10, 2, 32, 16, 4, [53, 16], "float32"),  # G = 5 (qwen3-14b's)
 ])
 def test_paged_decode_plain_matches_jax(B, H, KV, hd, page, nblk, lengths,
                                         dtype):

@@ -1,5 +1,6 @@
-"""The launch plans of ``axpy`` and the one-row ``mx_qgemv`` walk, as plain
-Python: what each block and lane of the CUDA kernels covers.
+"""The launch plans of ``axpy``, the one-row ``mx_qgemv`` walk and the
+paged decode, as plain Python: what each block and lane of the CUDA kernels
+covers.
 
 ``axpy_plan`` takes n elements on the vector path (a 16-byte vector a
 thread) up to four waves of the card, and past that cuts them into tiles of
@@ -7,8 +8,14 @@ thread) up to four waves of the card, and past that cuts them into tiles of
 tail of fewer than a tile; ``qgemv_plan`` cuts (N, K) MX codes into column
 tiles, one block a tile, rounds down K and lane runs inside E8M0 blocks.  Each is held here to cover
 every element (every column and code row) exactly once, to keep its ragged
-tails right, and to fill a card of 132 SMs at the projection shapes.  The
-kernels themselves are held against their plain versions on the card
+tails right, and to fill a card of 132 SMs at the projection shapes.
+``paged_decode_plan`` cuts each slot's valid positions into splits of whole
+pages, tiles of 16 positions a warp and m-tiles of 16 query heads; the walk
+that the kernel computes on the device from it (``PageSplit`` in
+``csrc/mma_attention.cuh``, ``paged_decode_mma_kernel`` in
+``csrc/decode_attention.cu``) is written out here to fold every valid
+position once, in warps that never cross a page.  The kernels themselves
+are held against their plain versions on the card
 (``test_torch_cuda.py``).
 """
 import numpy as np
@@ -17,6 +24,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.troop import LaunchConfig  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    paged_decode_plan, wave_splits)
 from repro_torch.kernels.axpy import (BARRIER_BYTES,  # noqa: E402
                                       SM_THREADS, SMEM_LIMIT, THREADS,
                                       VECTOR_WAVES, axpy_plan, stream_plan, vector_plan)
@@ -226,3 +235,129 @@ def test_qgemv_plan_streams_the_read_outs():
         assert (plan.cols, plan.lpr, plan.warps, plan.rpl) == (16, 8, 2, 8)
         assert plan.rounds == rounds and plan.tiles == 1187
         assert plan.rows_per_block == plan.rows
+
+
+# ------------------------------------------------------------ paged decode
+PAGED_WARPS = REGISTRY["paged_decode_attention"].space["decode_warps"]
+MAX_PAGES = 256        # the kernel's page list (repro_paged_decode_max_pages)
+SLOTS = 8
+
+
+def paged_lengths(page, nblk):
+    """One slot of each edge: idle, one position, a page less one, a
+    page, a page and one, the whole table, mid-table, and a stale length
+    past the table (the kernel clamps it)."""
+    return [0, 1, page - 1, page, page + 1, nblk * page, 7 * page + 3,
+            nblk * page + 40]
+
+
+def paged_walk(length, nblk, page, plan):
+    """What the blocks of one slot fold, as the kernel computes it: split s
+    takes [lo, hi), ceil(ceil(n / page) / nsplit) pages each, n = length
+    clamped to the table; warp w folds positions lo + t bn + 16 w .. + 15
+    of tile t, those >= hi masked.  Yields (split, lo, hi, tile, warp,
+    positions folded)."""
+    n = max(0, min(length, nblk * page))
+    nsplit, bn = plan["nsplit"], plan["bn"]
+    chunk = -(-(-(-n // page)) // nsplit) * page
+    for split in range(nsplit):
+        lo = split * chunk
+        hi = min(n, lo + chunk)
+        tiles = -(-(hi - lo) // bn) if hi > lo else 0
+        for t in range(tiles):
+            for w in range(plan["warps"]):
+                first = lo + t * bn + 16 * w
+                yield split, lo, hi, t, w, [p for p in range(first, first + 16)
+                                            if p < hi]
+
+
+PAGED_CASES = [(nblk, page, G, warps) for nblk, page in ((64, 16), (32, 32))
+               for G in (1, 5, 16, 20) for warps in PAGED_WARPS]
+
+
+def paged_plan(nblk, page, G, warps, resident=264):
+    KV = 2
+    return paged_decode_plan(SLOTS, G * KV, KV, page, nblk,
+                             LaunchConfig(decode_warps=warps), resident,
+                             MAX_PAGES)
+
+
+@pytest.mark.parametrize("resident", [132, 528])
+@pytest.mark.parametrize("nblk,page,G,warps", PAGED_CASES)
+def test_paged_decode_plan_folds_every_position_once(nblk, page, G, warps,
+                                                     resident):
+    """Every valid position of every slot by exactly one (split, tile,
+    warp); nothing past the slot's valid positions; the blocks of one
+    split a tile of ``bn`` = 16 positions a warp."""
+    plan = paged_plan(nblk, page, G, warps, resident)
+    assert plan["bn"] == 16 * plan["warps"] == 16 * warps
+    for length in paged_lengths(page, nblk):
+        n = max(0, min(length, nblk * page))
+        count = np.zeros(nblk * page + 64, np.int64)
+        for *_, pos in paged_walk(length, nblk, page, plan):
+            np.add.at(count, pos, 1)
+        assert (count[:n] == 1).all() and (count[n:] == 0).all()
+
+
+@pytest.mark.parametrize("nblk,page,G,warps", PAGED_CASES)
+def test_paged_decode_plan_keeps_splits_and_warps_inside_pages(nblk, page, G,
+                                                               warps):
+    """Every split starts on a page boundary and takes at most ``pages``
+    table entries (the block's shared list); no warp's 16 positions cross
+    a page, at 16-row (bf16) and 32-row (int8) pages."""
+    plan = paged_plan(nblk, page, G, warps)
+    assert plan["pages"] == -(-nblk // plan["nsplit"]) <= MAX_PAGES
+    for length in paged_lengths(page, nblk):
+        for _, lo, hi, _, _, pos in paged_walk(length, nblk, page, plan):
+            assert lo % page == 0
+            assert -(-hi // page) - lo // page <= plan["pages"]
+            if pos:                       # a warp with a valid position
+                assert pos[0] % 16 == 0
+                assert pos[0] // page == (pos[0] + 15) // page
+
+
+@pytest.mark.parametrize("nblk,page,G,warps", PAGED_CASES)
+def test_paged_decode_plan_covers_the_heads_once(nblk, page, G, warps):
+    """The m-tiles of 16 rows over blockIdx.z cover a KV head's G query
+    heads once (G = 20: two tiles, the second of 4 rows); the grid is one
+    block per (slot, KV head) on x and the splits on y."""
+    plan = paged_plan(nblk, page, G, warps)
+    gx, gy, gz = plan["grid"]
+    assert (gx, gy, gz) == (SLOTS * 2, plan["nsplit"], -(-G // 16))
+    heads = [16 * z + row for z in range(gz) for row in range(16)
+             if 16 * z + row < G]
+    assert heads == list(range(G))
+
+
+@pytest.mark.parametrize("nblk,page,G,warps", PAGED_CASES)
+def test_paged_decode_plan_idle_slot_commits_the_empty_state(nblk, page, G,
+                                                             warps):
+    """A slot of length 0 folds nothing in any split, so every split
+    commits acc = 0, l = 0, m = -1e30 and the row comes out 0; a slot of
+    one position leaves every split but the first empty."""
+    plan = paged_plan(nblk, page, G, warps)
+    assert list(paged_walk(0, nblk, page, plan)) == []
+    splits = {split for split, *_ in paged_walk(1, nblk, page, plan)}
+    assert splits == {0}
+
+
+@pytest.mark.parametrize("G,KV,nblk,resident,want", [
+    (1, 16, 64, 528, 4),        # the engines: 128 blocks, 4 an SM
+    (1, 16, 64, 132, 1),        # the engines at one block an SM
+    (1, 16, 9000, 528, 36),     # a table past one split's page list
+    (5, 8, 64, 528, 4),         # qwen3-14b's heads: 64 blocks, 1024 rows
+    (16, 2, 64, 528, 4),        # glm4-9b's: 16 blocks, capped at 256 rows
+    (16, 2, 32 * 16, 132, 8),   # one block an SM: 132 // 16
+    (20, 2, 64, 528, 4)])       # two m-tiles
+def test_paged_decode_plan_splits(G, KV, nblk, resident, want):
+    """The splits fill one wave of what the card holds, from the table's
+    capacity (none shorter than 256 rows), and never take more table
+    entries a split than the kernel's page list."""
+    plan = paged_decode_plan(8, G * KV, KV, 16, nblk, LaunchConfig(),
+                             resident, MAX_PAGES)
+    assert plan["nsplit"] == want
+    assert want == max(wave_splits(8 * KV * plan["grid"][2], nblk * 16,
+                                   resident), -(-nblk // MAX_PAGES))
+    with pytest.raises(ValueError, match="decode_warps"):
+        paged_decode_plan(8, G * KV, KV, 16, nblk,
+                          LaunchConfig(decode_warps=9), resident, MAX_PAGES)

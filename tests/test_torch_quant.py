@@ -346,6 +346,25 @@ def test_paged_decode_int8_plain_matches_jax(dtype):
           TOL[dtype])
 
 
+def test_paged_decode_int8_gqa_plain_matches_jax():
+    """G = 5 (qwen3-14b's 40 query heads on 8 KV heads, cut to 10 on 2):
+    five query heads share each int8 page and its scales."""
+    rng = np.random.default_rng(10)
+    q, (k8, ks, v8, vs), bt = int8_paged_case(rng, 2, 10, 2, 32, 32, 3)
+    ln = np.asarray([65, 32], np.int32)          # a page and one, a page
+    args_j = (jnp.asarray(q), jnp.asarray(k8),
+              jnp.asarray(ks).astype(jnp.bfloat16), jnp.asarray(v8),
+              jnp.asarray(vs).astype(jnp.bfloat16), jnp.asarray(bt),
+              jnp.asarray(ln))
+    got = TK.paged_decode_attention_int8(
+        t(q), t(k8, torch.int8), t(ks, torch.bfloat16), t(v8, torch.int8),
+        t(vs, torch.bfloat16), t(bt, torch.int32), t(ln, torch.int32))
+    assert got.shape == (2, 10, 32)
+    close(got, JR.paged_decode_attention_int8(*args_j), TOL["float32"])
+    close(got, JK.paged_decode_attention_int8(*args_j, cfg=INTERPRET),
+          TOL["float32"])
+
+
 def test_new_wrappers_run_plain_on_cpu_and_do_not_count():
     TK.reset_launch_counts()
     rng = np.random.default_rng(9)
