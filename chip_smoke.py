@@ -987,8 +987,18 @@ def kernels_phase(torch, K, dev, rng):
                            / np.sqrt(K_), elem=elem) for _ in range(n)]
         return [(qt.values, qt.scales) for qt in qts]
 
-    from repro_torch.kernels.mx_gemv import qgemv_plan
+    from repro_torch.kernels.mx_gemv import (grouped_plan, qgemv_plan,
+                                             swiglu_plan)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def twice(name, call):
+        """``call()``'s output, which a second launch on the same inputs
+        must repeat bit for bit."""
+        got = call()
+        if not torch.equal(got, call()):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 f"differ")
+        return got
     mx = []
     for (N, Kd), elem in (((151936, 1024), "fp4"), ((151936, 1024), "fp8"),
                           ((1024, 1024), "fp4"), ((1024, 2816), "fp4"),
@@ -1017,13 +1027,15 @@ def kernels_phase(torch, K, dev, rng):
     for N, Kd in ((2816, 1024), (5632, 2048)):     # gate + up of the MLPs
         gs, us = mx_weights(Kd, N, "fp4"), mx_weights(Kd, N, "fp4")
         x = t(rng.standard_normal(Kd))
-        err = agree(f"mx_qgemv_swiglu {N}x{Kd}",
-                    K.mx_qgemv_swiglu(*gs[0], *us[0], x),
+        name = f"mx_qgemv_swiglu {N}x{Kd}"
+        err = agree(name, twice(name, lambda: K.mx_qgemv_swiglu(
+                        *gs[0], *us[0], x)),
                     K.PLAIN["mx_qgemv_swiglu"](*gs[0], *us[0], x))
         wg8, sg8 = mx_weights(Kd, N, "fp8")[0]
         wu8, su8 = mx_weights(Kd, N, "fp8")[0]
-        err8 = agree(f"mx_qgemv_swiglu fp8 {N}x{Kd}",
-                     K.mx_qgemv_swiglu(wg8, sg8, wu8, su8, x),
+        name8 = f"mx_qgemv_swiglu fp8 {N}x{Kd}"
+        err8 = agree(name8, twice(name8, lambda: K.mx_qgemv_swiglu(
+                         wg8, sg8, wu8, su8, x)),
                      K.PLAIN["mx_qgemv_swiglu"](wg8, sg8, wu8, su8, x))
         bms, by = bound_ms(2 * (N * Kd // 2 + N * Kd // 32) + Kd * 2 + N * 4,
                            4 * N * Kd)
@@ -1033,6 +1045,8 @@ def kernels_phase(torch, K, dev, rng):
             "max_abs_err": max(err, err8), "bound_ms": bms, "bound_by": by,
             "tolerance": TOL["mx_qgemv_swiglu"], "library": None,
             "bf16_gemv_ms": None if ref is None else 2 * ref,
+            "plan": swiglu_plan(N, Kd, 4, sms)._asdict(),
+            "plan_fp8": swiglu_plan(N, Kd, 8, sms)._asdict(),
             **timed(torch, [lambda g=g, u=u: K.mx_qgemv_swiglu(*g, *u, x)
                             for g, u in zip(gs, us)],
                     [lambda g=g, u=u: K.PLAIN["mx_qgemv_swiglu"](*g, *u, x)
@@ -1056,7 +1070,9 @@ def kernels_phase(torch, K, dev, rng):
         repeated = torch.as_tensor(np.asarray([12, 12, 3, 12], np.int32),
                                    device=dev)
         err = max(agree(f"grouped_expert_qgemv {elem} {N}x{Kd}{tail}",
-                        K.grouped_expert_qgemv(wq, sc, xs, ids),
+                        twice(f"grouped_expert_qgemv {elem} {N}x{Kd}{tail}",
+                              lambda ids=ids: K.grouped_expert_qgemv(
+                                  wq, sc, xs, ids)),
                         K.PLAIN["grouped_expert_qgemv"](wq, sc, xs, ids))
                   for tail, ids in (("", sets[0]), (" repeated", repeated)))
         slice_bytes = (Kd // (2 if elem == "fp4" else 1) + Kd // 32) * N
@@ -1077,6 +1093,8 @@ def kernels_phase(torch, K, dev, rng):
                      f"xs ({TOPK}, {Kd}) bf16, {TOPK} ids",
             "max_abs_err": err, "bound_ms": bms, "bound_by": by,
             "tolerance": TOL["grouped_expert_qgemv"], "library": None,
+            "plan": grouped_plan(N, Kd, 4 if elem == "fp4" else 8, sms,
+                                 TOPK)._asdict(),
             "four_mx_qgemv_ms": four_mx[0],
             "eager_four_mx_qgemv_ms": four_mx[1],
             "four_bf16_gemv_ms": four_gemv[0],

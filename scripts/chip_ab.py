@@ -14,7 +14,15 @@ shape with a digest of ``gemv(w, x)`` (and, for bf16, of
 ``batched_gemv(w, x[None])``) on seeded inputs at the default launch
 config, so two trees with equal digests at a shape give the same bits
 there; one line per ``axpy`` shape (bf16, 2^20 and 2^27), per
-``mx_qgemv`` shape of ``chip_smoke.py``'s kernel rows, per paged decode
+``mx_qgemv`` shape of ``chip_smoke.py``'s kernel rows, per fused MX SwiGLU
+shape (fp4 gate + up, 1024 -> 2816 and 2048 -> 5632) and grouped MX expert
+shape (fp4, 60 experts, top-4, 2048 -> 1408 and 1408 -> 2048, digests of
+distinct and of repeated ids), then for each of these SwiGLU and grouped
+shapes at fp4 and fp8, over ``ACCURACY_SETS`` fresh seeded input sets, how
+many outputs of the kernel miss the smoke's gate against the plain
+version, the largest distance, and each side's distance from the float64
+value of the function (exact codes and scales, float64 sums: ``mx_fp64``)
+with the outputs past the gate against it; per paged decode
 shape (``paged_decode_attention`` over bf16 pages of 16 rows and
 ``paged_decode_attention_int8`` over int8 pages of 32: 8 slots of a 1024-row
 table, at G = 1 with 16 heads of 64 and of 128, and at hd 128 at glm4-9b's
@@ -27,7 +35,8 @@ many bf16 outputs of the kernel and of its plain version are not the
 rounding of the float64 value (this checkout's ``paged_decode_fp64``), and
 how many of the kernel's miss the smoke's gate against the plain version;
 then the paged decodes at the engines' G = 1 shapes with every slot at
-one length, 0 to 1024, and their device time at each;
+one length, 0 to 1024, and their device time at each (``--no-paged``
+stops after the MX lines);
 then it runs serving phases of that tree, each from a fresh seed-0 stream
 (``--engines``: ``bf16``, the default, runs ``engine_phase``, qwen1.5-0.5b
 bf16, and ``moe_phase`` for bf16, qwen2-moe-a2.7b; ``mx4`` runs
@@ -57,6 +66,15 @@ AXPY_SIZES = (1 << 20, 1 << 27)
 MX_SHAPES = (((151936, 1024), "fp4"), ((151936, 1024), "fp8"),
              ((1024, 1024), "fp4"), ((1024, 2816), "fp4"),
              ((2048, 2048), "fp4"), ((2048, 5632), "fp4"))
+# the fused MX SwiGLU's gate + up (N, K), fp4: qwen1.5-0.5b's MLP and
+# qwen2-moe-a2.7b's shared expert
+SWIGLU_SHAPES = ((2816, 1024), (5632, 2048))
+# the grouped MX experts (N, K), fp4: qwen2-moe-a2.7b's up and down, top-4
+# rows of a 60-expert stack
+GROUPED_SHAPES = ((1408, 2048), (2048, 1408))
+GROUPED_E, GROUPED_TOPK = 60, 4
+# fresh input sets a shape and format of the MX accuracy lines
+ACCURACY_SETS = 8
 # the paged decodes: (H, KV, hd) over 8 slots of a 1024-row table
 PAGED_SHAPES = ((16, 16, 64), (16, 16, 128),   # the engines, G = 1
                 (32, 2, 128), (40, 8, 128))    # glm4-9b's, qwen3-14b's heads
@@ -82,8 +100,9 @@ def digests(torch, K):
         print(line, flush=True)
 
 
-def kernel_lines(torch, K, smoke, referee):
-    """axpy, mx_qgemv, the paged decodes and the int8 dense decode: a
+def kernel_lines(torch, K, smoke, referee, paged=True):
+    """axpy, the one-row MX walk (mx_qgemv, the fused SwiGLU, the grouped
+    experts), the paged decodes and the int8 dense decode (``paged``): a
     digest of each output on seeded inputs and the device us per call over
     input copies, at the default config; ``referee``: this checkout's
     ``chip_smoke.py`` (its float64 paged decode and its gates)."""
@@ -117,6 +136,45 @@ def kernel_lines(torch, K, smoke, referee):
               f"{ms * 1e3:.2f} us", flush=True)
         del ws
         torch.cuda.empty_cache()
+    for N, Kd in SWIGLU_SHAPES:
+        ws = []
+        for _ in range(smoke.copies_for(2 * Kd * N // 2)):
+            qts = [quantize_mx(torch.randn((Kd, N), device="cuda",
+                                           generator=g) / Kd ** 0.5)
+                   for _ in range(2)]
+            ws.append((qts[0].values, qts[0].scales, qts[1].values,
+                       qts[1].scales))
+        x = torch.randn(Kd, device="cuda", generator=g).to(torch.bfloat16)
+        ms = smoke.time_ms(torch, [lambda w=w: K.mx_qgemv_swiglu(*w, x)
+                                   for w in ws])[0]
+        print(f"mx_qgemv_swiglu fp4 ({N}, {Kd}) "
+              f"{sha(K.mx_qgemv_swiglu(*ws[0], x))} {ms * 1e3:.2f} us",
+              flush=True)
+        del ws
+        torch.cuda.empty_cache()
+    for N, Kd in GROUPED_SHAPES:
+        qt = quantize_mx(torch.randn((GROUPED_E, Kd, N), device="cuda",
+                                     generator=g) / Kd ** 0.5, axis=-2)
+        wq, sc = qt.values, qt.scales
+        del qt
+        xs = torch.randn((GROUPED_TOPK, Kd), device="cuda",
+                         generator=g).to(torch.bfloat16)
+        sets = [torch.randperm(GROUPED_E, device="cuda", generator=g)[
+            :GROUPED_TOPK].to(torch.int32) for _ in range(16)]
+        repeated = torch.full((GROUPED_TOPK,), 12, dtype=torch.int32,
+                              device="cuda")
+        repeated[2] = 3                           # ids 12, 12, 3, 12
+        ms = smoke.time_ms(torch, [lambda s=s: K.grouped_expert_qgemv(
+            wq, sc, xs, s) for s in sets])[0]
+        print(f"grouped_expert_qgemv fp4 ({N}, {Kd}) "
+              f"{sha(K.grouped_expert_qgemv(wq, sc, xs, sets[0]))}, repeated "
+              f"ids {sha(K.grouped_expert_qgemv(wq, sc, xs, repeated))} "
+              f"{ms * 1e3:.2f} us", flush=True)
+        del wq, sc
+        torch.cuda.empty_cache()
+    mx_accuracy(torch, K, referee)
+    if not paged:
+        return
 
     def randn(*shape):
         return torch.randn(shape, device="cuda", generator=g).to(
@@ -203,6 +261,99 @@ def kernel_lines(torch, K, smoke, referee):
         torch.cuda.empty_cache()
 
 
+def mx_fp64(torch, wq, scales):
+    """The float64 value of MX codes (..., K/2 | K, N) and their E8M0
+    scales (..., K/32, N), exactly: (..., K, N)."""
+    from repro_torch.quant.tensor import FP8_DTYPE, fp4_decode, unpack_fp4
+    v = (wq.float() if wq.dtype == FP8_DTYPE
+         else fp4_decode(unpack_fp4(wq, axis=-2))).double()
+    # 2^(s - 127) as float64 bits: biased exponent s - 127 + 1023
+    sc = ((scales.long() + 896) << 52).view(torch.float64)
+    shape = v.shape
+    v = v.reshape(shape[:-2] + (shape[-2] // 32, 32, shape[-1]))
+    return (v * sc.unsqueeze(-2)).reshape(shape)
+
+
+def mx_accuracy(torch, K, referee):
+    """The fused MX SwiGLU and the grouped MX experts at the smoke's
+    shapes, fp4 and fp8, over ``ACCURACY_SETS`` fresh input sets made
+    from their own seeds: one line each with the kernel's outputs past the
+    smoke's gate against the plain version, the largest distance, and the
+    kernel's and the plain version's distances from the float64 value
+    (``mx_fp64``), with the outputs of each past the gate against it."""
+    from repro_torch.quant.tensor import quantize_mx
+
+    def tally(name, pairs):
+        tol = referee.TOL[name]
+        past = past_k = past_p = n = 0
+        err = err_k = err_p = 0.0
+        for got, want, exact in pairs:
+            got, want = got.double(), want.double()
+
+            def off(a, b):
+                return int(((a - b).abs() > tol + tol * b.abs()).sum())
+            past += off(got, want)
+            past_k += off(got, exact)
+            past_p += off(want, exact)
+            err = max(err, (got - want).abs().max().item())
+            err_k = max(err_k, (got - exact).abs().max().item())
+            err_p = max(err_p, (want - exact).abs().max().item())
+            n += got.numel()
+        return (f"past the gate ({tol:g}) against plain {past} of {n}, "
+                f"max {err:.3g}; against float64: kernel {past_k}, max "
+                f"{err_k:.3g}; plain {past_p}, max {err_p:.3g}")
+
+    def swiglu_64(g, u):
+        return g * torch.sigmoid(g) * u
+
+    for elem in ("fp4", "fp8"):
+        for N, Kd in SWIGLU_SHAPES:
+            pairs = []
+            for i in range(ACCURACY_SETS):
+                g = torch.Generator(device="cuda").manual_seed(1000 + i)
+                ws = [quantize_mx(torch.randn((Kd, N), device="cuda",
+                                              generator=g) / Kd ** 0.5,
+                                  elem=elem) for _ in range(2)]
+                x = torch.randn(Kd, device="cuda", generator=g).to(
+                    torch.bfloat16)
+                args = (ws[0].values, ws[0].scales, ws[1].values,
+                        ws[1].scales, x)
+                x64 = x.double()
+                pairs.append((K.mx_qgemv_swiglu(*args),
+                              K.PLAIN["mx_qgemv_swiglu"](*args),
+                              swiglu_64(x64 @ mx_fp64(torch, *args[:2]),
+                                        x64 @ mx_fp64(torch, *args[2:4]))))
+            print(f"accuracy mx_qgemv_swiglu {elem} ({N}, {Kd}) over "
+                  f"{ACCURACY_SETS} input sets: "
+                  + tally("mx_qgemv_swiglu", pairs), flush=True)
+            del pairs
+        for N, Kd in GROUPED_SHAPES:
+            pairs = []
+            for i in range(ACCURACY_SETS):
+                g = torch.Generator(device="cuda").manual_seed(2000 + i)
+                qt = quantize_mx(torch.randn((GROUPED_E, Kd, N),
+                                             device="cuda", generator=g)
+                                 / Kd ** 0.5, elem=elem, axis=-2)
+                xs = torch.randn((GROUPED_TOPK, Kd), device="cuda",
+                                 generator=g).to(torch.bfloat16)
+                ids = torch.randperm(GROUPED_E, device="cuda", generator=g)[
+                    :GROUPED_TOPK].to(torch.int32)
+                ix = ids.long()
+                w64 = mx_fp64(torch, qt.values.view(torch.uint8)[ix].view(
+                    qt.values.dtype), qt.scales[ix])
+                pairs.append((
+                    K.grouped_expert_qgemv(qt.values, qt.scales, xs, ids),
+                    K.PLAIN["grouped_expert_qgemv"](qt.values, qt.scales,
+                                                    xs, ids),
+                    torch.einsum("tk,tkn->tn", xs.double(), w64)))
+                del qt, w64
+            print(f"accuracy grouped_expert_qgemv {elem} ({N}, {Kd}) over "
+                  f"{ACCURACY_SETS} input sets: "
+                  + tally("grouped_expert_qgemv", pairs), flush=True)
+            del pairs
+            torch.cuda.empty_cache()
+
+
 def load_smoke(path):
     spec = importlib.util.spec_from_file_location(f"smoke_{abs(hash(path))}",
                                                   path)
@@ -228,6 +379,9 @@ def main():
     ap.add_argument("--tree", type=Path, required=True,
                     help="root of the tree to run (its src/ and "
                          "chip_smoke.py)")
+    ap.add_argument("--no-paged", action="store_true",
+                    help="stop after the MX lines: no paged or int8 dense "
+                         "decode lines")
     ap.add_argument("--engines", choices=("bf16", "mx4", "none"),
                     default="bf16", help="serving phases to run (default: "
                                          "bf16)")
@@ -254,7 +408,7 @@ def main():
     print(f"tree {tree}", flush=True)
     K.build()
     digests(torch, K)
-    kernel_lines(torch, K, smoke, referee)
+    kernel_lines(torch, K, smoke, referee, not args.no_paged)
     out = {}
     if args.engines == "bf16":
         out["qwen1.5 bf16"] = rates(smoke.engine_phase(

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Launch-plan probes of ``axpy``, the one-row ``mx_qgemv`` walk and the
-paged decodes on the card: the device time of each plan the wrappers
-choose beside the plans they do not, called through the kernels' C entry
-points.
+"""Launch-plan probes of ``axpy``, the one-row MX walk (``mx_qgemv``, the
+fused SwiGLU) and the paged decodes on the card: the device time of each
+plan the wrappers choose beside the plans they do not, called through the
+kernels' C entry points.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 scripts/chip_probe.py [--out FILE] [--probes axpy,mx_qgemv,paged]
+    python3 scripts/chip_probe.py [--out FILE] \
+        [--probes axpy,mx_qgemv,mx_swiglu,paged]
 
 It prints the card's ``nvidia-smi`` name and power limit, then one line
 per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
@@ -24,6 +25,10 @@ per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
   read-outs the first cut tried (4 lanes across a row, 16 rows a lane, K
   in one pass where 8 warps cover it); each held to the plain version
   (5e-6, the smoke's gate);
+- ``mx_swiglu``: the fused MX SwiGLU at the smoke's gate + up shapes
+  (1024 -> 2816 and 2048 -> 5632, fp4 and fp8): two ``mx_qgemv`` calls
+  and the wrapper's cut (each stream on its own group of warps), held to
+  the plain version at the smoke's gate (6e-6 absolute and relative);
 - the paged decodes (bf16 pages of 16 rows, int8 pages of 32) over 8
   slots of a 1024-row table with lengths 64 to 448, at G = 1 (16 heads of
   64 and of 128: the engines) and at hd 128 at G = 5 and 16, at every
@@ -45,13 +50,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 MX_SHAPES = (((151936, 1024), 4), ((151936, 1024), 8), ((1024, 1024), 4),
              ((1024, 2816), 4), ((2048, 2048), 4), ((2048, 5632), 4))
+SWIGLU_SHAPES = (((2816, 1024), 4), ((2816, 1024), 8), ((5632, 2048), 4),
+                 ((5632, 2048), 8))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the probes as JSON to this file")
-    ap.add_argument("--probes", default="axpy,mx_qgemv,paged",
+    ap.add_argument("--probes", default="axpy,mx_qgemv,mx_swiglu,paged",
                     help="comma list of the probes to run (default: all)")
     args = ap.parse_args()
     import torch
@@ -137,8 +144,7 @@ def main():
             def call(w, p=p):
                 _build.check(mxlib.repro_mx_qgemv(
                     w[0].data_ptr(), w[1].data_ptr(), x.data_ptr(),
-                    y.data_ptr(), N, Kd, bits, p.cols, p.lpr.bit_length() - 1,
-                    p.warps, p.rpl, p.rounds,
+                    y.data_ptr(), N, Kd, bits, *p.args(),
                     _build.stream_handle(dev)), "mx_qgemv probe")
             call(ws[0])
             err = (y - want).abs().max().item()
@@ -147,6 +153,39 @@ def main():
                      f"{p.rpl} rounds {p.rounds}",
                  err=err, ok=err <= 5e-6,
                  us=us([lambda w=w: call(w) for w in ws]))
+        del ws, want, y
+        torch.cuda.empty_cache()
+    for (N, Kd), bits in SWIGLU_SHAPES * ("mx_swiglu" in probes):
+        elem = "fp4" if bits == 4 else "fp8"
+        ws = []
+        for _ in range(smoke.copies_for(2 * Kd * N // (2 if bits == 4
+                                                       else 1))):
+            qts = [quantize_mx(torch.randn((Kd, N), device="cuda",
+                                           generator=g) / Kd ** 0.5,
+                               elem=elem) for _ in range(2)]
+            ws.append(tuple(t for q in qts for t in (q.values, q.scales)))
+        x = torch.randn(Kd, device="cuda", generator=g).to(torch.bfloat16)
+        want = K.PLAIN["mx_qgemv_swiglu"](*ws[0], x)
+        y = torch.empty(N, device="cuda")
+        shape = f"{elem} {N}x{Kd}"
+        line(kernel="mx_qgemv_swiglu", shape=shape, plan="2 x mx_qgemv",
+             us=us([lambda w=w: (K.mx_qgemv(*w[:2], x), K.mx_qgemv(*w[2:], x))
+                    for w in ws]))
+        p = mx.swiglu_plan(N, Kd, bits, sms)
+
+        def call(w):
+            _build.check(mxlib.repro_mx_gemv_swiglu(
+                *(t.data_ptr() for t in w), x.data_ptr(), y.data_ptr(),
+                N, Kd, bits, *p.args(), _build.stream_handle(dev)),
+                "mx_qgemv_swiglu probe")
+        call(ws[0])
+        err = (y - want).abs().max().item()
+        line(kernel="mx_qgemv_swiglu", shape=shape, plan="the wrapper's",
+             cut=f"cols {p.cols} lpr {p.lpr} warps {p.warps} (a group) "
+                 f"rpl {p.rpl} rounds {p.rounds}",
+             err=err, ok=bool(torch.isclose(y, want, rtol=6e-6,
+                                            atol=6e-6).all()),
+             us=us([lambda w=w: call(w) for w in ws]))
         del ws, want, y
         torch.cuda.empty_cache()
     if "paged" in probes:

@@ -4,8 +4,8 @@
 // 2^(s - 127) per 32-row block of a column ((K/32, N)).  The fused SwiGLU
 // variant streams a gate and an up weight against the same x and writes
 // g * sigmoid(g) * u.  The grouped variant takes a stack of E such weights
-// ((E, K | K/2, N) codes, (E, K/32, N) scales), topk rows xs (topk, K) and
-// expert ids (topk,) int32 on the device, and writes y[t] = xs[t] .
+// ((E, K | K/2, N) codes, (E, K/32, N) scales), rows xs (rows, K) and
+// expert ids (rows,) int32 on the device, and writes y[t] = xs[t] .
 // dequant(W[ids[t]]) for each row t: the MoE experts' routed projections.
 //
 // Replaces: src/repro/quant/kernels.py `mx_qgemv` (`_mx_gemv_2d`: (block_k,
@@ -20,78 +20,81 @@
 // Bound on the H100: bytes.  The codes are read once (K N / 2 bytes for
 //   fp4, K N for fp8) plus K N / 32 scale bytes, for 2 K N operations:
 //   ~4 operations per byte, far below the ridge.  At the read-out shape
-//   (K = 1024, N = 151936, fp4) that is 83 MB, ~24.9 us at 3.35 TB/s; at
-//   the projections (1024 -> 1024: 0.55 MB, 0.17 us; 5632 -> 2048: 6.1
-//   MB, 1.83 us) the bound is below a launch, so the time is a chain of
+//   (K = 1024, N = 151936, fp4) that is 83 MB, ~24.9 us at 3.35 TB/s.  At
+//   the projections the bound is below a launch (1024 -> 1024: 0.55 MB,
+//   0.17 us; 5632 -> 2048: 6.1 MB, 1.83 us; the SwiGLU's gate + up at
+//   1024 -> 2816: 3.1 MB, 0.92 us, at 2048 -> 5632: 12.3 MB, 3.67 us; the
+//   grouped experts, qwen2-moe-a2.7b's top-4 of 60 at 2048 -> 1408 or
+//   1408 -> 2048: 4 x 1.53 MB, 1.84 us), so the time there is a chain of
 //   latencies: the launch, one trip to device memory, the products, the
-//   sums.  The grouped variant reads only the topk selected slices: for
-//   qwen2-moe-a2.7b's experts (top-4 of 60, 2048 -> 1408 or 1408 -> 2048)
-//   4 x 1.53 MB of fp4 codes and scales, ~1.83 us at 3.35 TB/s, also a
-//   latency chain, not a stream.
-// Design of mx_qgemv (`mx_walk_kernel`, the one-row walk): the stored
-//   layout is contiguous along N, so lanes own columns: a lane owns 16
-//   columns (8 where N is too small to give half the SMs a 16-column
-//   tile) and reads a 16- (8-) byte chunk of a code row per load; `lpr`
-//   lanes cover a row of the block's tile, the other lanes of the warp
-//   and the block's warps the rows under it, a lane a run of `rpl` rows
-//   inside one E8M0 block, and a lane issues every code, scale and x load
-//   of its run before its first product (x straight from global memory
-//   into registers, with the codes).  fp4 codes decode in registers, two
-//   at a time: the nibble's exponent and mantissa go to bits 9-11 of a
-//   half and its sign to bit 15, which makes the half code x 2^-14 exactly
-//   (the e2m1 subnormal 0.5 lands on the half subnormal 2^-15), the
-//   hardware half -> float conversion gives normal floats, so no product
-//   with x loses bits, and the 2^14 goes onto the block sum with the E8M0
-//   factor; no shared-memory table (the table's one lookup a code, 32
-//   lanes a clock an SM, held the read-out at 0.53 of its bound).  fp8
-//   pairs use the hardware e4m3x2 -> half2 conversion.  A lane sums its
-//   run in fp32 and adds the run sum times the block's scale to its
-//   accumulators.  The sums of a tile's columns meet in the same launch:
-//   the row lanes of a warp reduce-scatter through shuffles, each lane
-//   keeping a few columns' sums, which go to shared memory, one barrier,
-//   then the block adds its warps in order and writes y: one launch a
-//   call, no workspace, no atomics, the same bits twice.  The wrapper
-//   (kernels/mx_gemv.py `qgemv_plan`) cuts the shape two ways.  A wide
-//   shape (the read-outs) streams: 8 lanes across a row (128 bytes a row
-//   segment), 2 warps, 8 rows a lane, K walked in rounds of 64 rows, many
-//   blocks an SM covering each other's waits (37.6 us fp4 and 56.5 fp8 on
-//   the H100, against 40.8 and 71.2 for 16 rows a lane and K in one pass;
-//   scripts/chip_probe.py).  A narrow one (the projections) takes
-//   all of K in one block of up to 8 warps, the fewest rows a lane that
-//   still cover it, in rounds where 16 rows a lane and 8 warps do not.
-//   K is never split over blocks: a thread-block cluster of 2-8 blocks a
-//   tile, reducing through distributed shared memory, was slower than one
-//   block at every smoke shape, by 0.9 us at 1024 x 1024 (4.36 against
-//   3.46 us for 2 blocks) and by 17 us at the fp4 read-out (55.01 against
-//   37.61; H100), and no model of the port has a K that one block does
-//   not cover.  The E8M0 scale is built as the float bits s <<
-//   23 (s = 0 is 2^-127, a subnormal).  N must be a multiple of 16 and K
-//   of 32 (the wrapper checks).
-// Design of the fused SwiGLU and the grouped experts (`mx_gemv_kernel`,
-//   the walk mx_qgemv took before; the one-row walk is written so that
-//   they can move onto it): a lane owns 16 consecutive columns and reads
-//   one 16-byte chunk of a code row per load (a warp reads 512 contiguous
-//   bytes of the row), plus one 16-byte chunk of the block's scale row per
-//   32-row block.  A warp takes whole 32-row blocks, sums x_k * code over
-//   the block in fp32 (fp4 codes decode through a 16-entry table in shared
-//   memory, fp8 pairs through the hardware conversion) and adds the block
-//   sum times the block's scale to its 16 accumulators.  A block of 8
-//   warps shares one 512-column tile; its warps split the block's K range
-//   and merge through shared memory.  x is staged once per block in
-//   shared memory as fp32.  When the column tiles alone leave the card's
-//   132 SMs short, the wrapper also splits K over `ksplit` blocks per
-//   tile: each writes its partial sums to a workspace and a second kernel
-//   adds them in split order and applies the epilogue (deterministic: no
-//   atomics).  The grouped variant is the same walk with a third grid
-//   axis over the topk rows: each block reads its row's expert id from
-//   device memory itself (where the TPU kernel had it scalar-prefetched)
-//   and offsets its code and scale pointers by id x (K/pack x N) and id x
-//   (K/32 x N); x, y and the split workspace are offset by the row.  The
-//   split count counts the rows too (tiles x splits x rows blocks), so
-//   four 1408-column rows of 3 tiles (the last one ragged: its lanes past
-//   N load nothing) split K 8 ways; the second pass adds the splits in
-//   order, as for one row.  Repeated ids are two rows reading the same
-//   slice.
+//   sums.
+// Design: one walk (`mx_walk_kernel`) for all three, in one launch a call.
+//   The stored layout is contiguous along N, so lanes own columns: a lane
+//   owns 16 columns (8 where N is too small to give half the SMs a
+//   16-column tile) and reads a 16- (8-) byte chunk of a code row per
+//   load; `lpr` lanes cover a row of the block's tile, the other lanes of
+//   the warp and the block's warps the rows under it, a lane a run of
+//   `rpl` rows inside one E8M0 block, and a lane issues every code, scale
+//   and x load of its run before its first product (x straight from
+//   global memory into registers, with the codes).  fp4 codes decode in
+//   registers, two at a time: the nibble's exponent and mantissa go to
+//   bits 9-11 of a half and its sign to bit 15, which makes the half code
+//   x 2^-14 exactly (the e2m1 subnormal 0.5 lands on the half subnormal
+//   2^-15), the hardware half -> float conversion gives normal floats, so
+//   no product with x loses bits, and the 2^14 goes onto the block sum
+//   with the E8M0 factor; no shared-memory table (the table's one lookup
+//   a code, 32 lanes a clock an SM, held the read-out at 0.53 of its
+//   bound).  fp8 pairs use the hardware e4m3x2 -> half2 conversion.  A
+//   lane sums its run in fp32 and adds the run sum times the block's
+//   scale to its accumulators.  The sums of a tile's columns meet in the
+//   same launch: the row lanes of a warp reduce-scatter through shuffles,
+//   each lane keeping a few columns' sums, which go to shared memory, one
+//   barrier, then the block adds its warps in order and writes y (through
+//   the epilogue): no workspace, no atomics, the same bits twice.  The
+//   E8M0 scale is built as the float bits s << 23 (s = 0 is 2^-127, a
+//   subnormal).  N must be a multiple of 16 and K of 32 (the wrapper
+//   checks).
+// The three uses (`Use`), cut by the wrapper's plan (kernels/mx_gemv.py
+//   `qgemv_plan`), which counts the x rows and weight streams with the
+//   columns wherever it counts lanes for the card:
+//   - mx_qgemv: one stream, one row, block t the tile t.  A wide shape
+//     (the read-outs) streams: 8 lanes across a row (128 bytes a row
+//     segment), 2 warps, 8 rows a lane, K walked in rounds of 64 rows,
+//     many blocks an SM covering each other's waits (37.6 us fp4 and 56.5
+//     fp8 on the H100, against 40.8 and 71.2 for 16 rows a lane and K in
+//     one pass; scripts/chip_probe.py).  A narrow one (the projections)
+//     takes all of K in one block of up to 8 warps, the fewest rows a lane
+//     that still cover it, in rounds where 16 rows a lane and 8 warps do
+//     not.  K is never split over blocks: a thread-block cluster of 2-8
+//     blocks a tile, reducing through distributed shared memory, was
+//     slower than one block at every smoke shape, by 0.9 us at 1024 x 1024
+//     and by 17 us at the fp4 read-out (H100).  Bounded by the latency
+//     chain at the projections and by the fp4 decode's instructions at the
+//     read-out (0.65 of its bound).
+//   - the fused SwiGLU: the gate and the up stream of one tile share a
+//     block, so the epilogue g * sigmoid(g) * u is applied where a
+//     column's two sums meet, by the thread that writes y.  The block's
+//     warps are two groups, the first walking the gate and the second the
+//     up weight, each cut as one stream's block (up to 8 warps each, so a
+//     lane keeps mx_qgemv's register budget and its 16-row runs); the
+//     plan counts both streams' lanes.  Every lane walking both streams at
+//     the same rows, in runs of at most 8 rows, was measured and dropped:
+//     slower at fp4 (6.45 against 5.89 us at 1024 -> 2816, 12.23 against
+//     10.61 at 2048 -> 5632) and within 3% at fp8 (7.59 / 7.50, 18.74 /
+//     19.25; scripts/chip_probe.py, H100 80GB HBM3 at 700 W).  One launch
+//     where there were two (a split-K walk of 512-column tiles and its
+//     reduce): 5.95 us against 20.06 at 1024 -> 2816 (bound 0.92) and
+//     10.80 against 20.42 at 2048 -> 5632 (bound 3.67), a latency chain.
+//   - the grouped experts: a second grid axis over the x rows; block (t,
+//     r) reads its row's expert id from device memory itself (where the
+//     TPU kernel had it scalar-prefetched) and offsets its code and scale
+//     pointers by id x (K/pack x N) and id x (K/32 x N), x and y by the
+//     row; the plan counts the rows' blocks with the tiles.  Repeated ids
+//     are two rows reading the same slice.  At N = 1408 the tiles are 16
+//     columns (one lane across a row), so no tile is ragged.  At
+//     qwen2-moe-a2.7b's experts (top-4, fp4) 6.94 us up and 6.92 down,
+//     against 12.73 and 20.76 for the split-K walk before it and 15.10 and
+//     14.82 for four mx_qgemv calls (bound 1.84; H100): a latency chain.
 //
 // Batched variant: Y (B, N) fp32 = xs (B, K) bf16 . dequant(W) for
 //   1 <= B <= 16 rows of x against one MX weight.  Replaces
@@ -99,19 +102,21 @@
 //   batch on the sublane dimension of the x and output blocks, so the code
 //   and scale tiles stream once whatever B is).  Bound: bytes, as above
 //   (the same codes and scales, plus B K 2 + 4 B N bytes of xs and Y, for
-//   2 B N K operations).  Design: the same (K, N) column walk and split-K
-//   reduce, with xs (B rows of the block's K range, fp32) in shared
-//   memory.  A lane owns C columns (16 for B <= 2, fewer as B grows, so
-//   the B x C fp32 accumulators stay within 32 registers; `unroll` 2
-//   doubles C where that is still at most 16) and reads C bytes of a code
-//   row per load.  Per 32-row block it builds its C E8M0 factors once,
-//   dequantizes each code once (code x factor, fp32, as the JAX
-//   `_mx_dequant` and unlike the one-row walk, which scales block sums)
-//   and adds its product with each of the B rows of x (fma) to that row's
-//   accumulators, so every code byte is read and decoded once for all B
-//   rows.  The warps of a block (4 or 8, `block_n` / 32) split the block's
-//   K range and merge through shared memory; the split partials go to a
-//   workspace (B, ksplit, N) that `mx_reduce_kernel` adds in split order.
+//   2 B N K operations).  Design: a (K, N) column walk, xs (B rows of the
+//   block's K range, fp32) staged in shared memory, and a split over K
+//   where the column tiles leave the card short.  A lane owns C columns
+//   (16 for B <= 2, fewer as B grows, so the B x C fp32 accumulators stay
+//   within 32 registers; `unroll` 2 doubles C where that is still at most
+//   16) and reads C bytes of a code row per load.  Per 32-row block it
+//   builds its C E8M0 factors once, dequantizes each code once (code x
+//   factor, fp32, as the JAX `_mx_dequant` and unlike the one-row walk,
+//   which scales block sums; fp4 through a 16-entry table in shared
+//   memory) and adds its product with each of the B rows of x (fma) to
+//   that row's accumulators, so every code byte is read and decoded once
+//   for all B rows.  The warps of a block (4 or 8, `block_n` / 32) split
+//   the block's K range and merge through shared memory; the split
+//   partials go to a workspace (B, ksplit, N) that `mx_reduce_kernel`
+//   adds in split order.
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
@@ -119,9 +124,7 @@
 
 namespace {
 
-constexpr int kCols = 16;             // columns per lane: one 16-byte load
-constexpr int kTile = 32 * kCols;     // columns per block
-constexpr int kWarps = 8;
+constexpr int kCols = 16;             // columns a lane at most; N % kCols
 constexpr int kBlockRows = 32;        // rows of K per E8M0 scale
 
 __constant__ float kFp4[16] = {0.f,  0.5f,  1.f,  1.5f,  2.f,  3.f,
@@ -132,157 +135,21 @@ __device__ __forceinline__ float e8m0(unsigned s) {
   return s ? __int_as_float((int)(s << 23)) : __int_as_float(0x00400000);
 }
 
-// Adds x[k] * code(k, j) over the 32 rows of one block to blk[j] for the
-// lane's 16 columns; `codes` points at the block's first code row at the
-// lane's first column, `xs` at x[block * 32] in shared memory.
-template <int BITS>
-__device__ __forceinline__ void block_dot(const uint8_t* __restrict__ codes,
-                                          size_t row_stride, const float* xs,
-                                          const float* fp4, float* blk) {
-  constexpr int kRows = BITS == 4 ? kBlockRows / 2 : kBlockRows;
-#pragma unroll 4
-  for (int r = 0; r < kRows; ++r) {
-    const uint4 u = __ldcs(reinterpret_cast<const uint4*>(
-        codes + (size_t)r * row_stride));
-    const uint8_t* b = reinterpret_cast<const uint8_t*>(&u);
-    if constexpr (BITS == 4) {
-      const float x0 = xs[2 * r], x1 = xs[2 * r + 1];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        blk[j] = fmaf(x0, fp4[b[j] & 15], blk[j]);
-        blk[j] = fmaf(x1, fp4[b[j] >> 4], blk[j]);
-      }
-    } else {
-      const float x0 = xs[r];
-      const __nv_fp8x2_storage_t* p =
-          reinterpret_cast<const __nv_fp8x2_storage_t*>(&u);
-#pragma unroll
-      for (int j = 0; j < kCols / 2; ++j) {
-        const float2 w = __half22float2(
-            __half2(__nv_cvt_fp8x2_to_halfraw2(p[j], __NV_E4M3)));
-        blk[2 * j] = fmaf(x0, w.x, blk[2 * j]);
-        blk[2 * j + 1] = fmaf(x0, w.y, blk[2 * j + 1]);
-      }
-    }
-  }
-}
-
-// One warp's share of one weight stream: blocks kb0 + warp, + kWarps, ...
-// below kb1, accumulated into acc[16].
-template <int BITS>
-__device__ __forceinline__ void stream_dot(const uint8_t* __restrict__ w,
-                                           const uint8_t* __restrict__ s,
-                                           const float* xs, const float* fp4,
-                                           int N, int col, int kb0, int kb1,
-                                           int warp, float* acc) {
-  constexpr int kRows = BITS == 4 ? kBlockRows / 2 : kBlockRows;
-  for (int kb = kb0 + warp; kb < kb1; kb += kWarps) {
-    float blk[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) blk[j] = 0.f;
-    block_dot<BITS>(w + (size_t)kb * kRows * N + col, (size_t)N,
-                    xs + (kb - kb0) * kBlockRows, fp4, blk);
-    const uint4 su = __ldcs(reinterpret_cast<const uint4*>(
-        s + (size_t)kb * N + col));
-    const uint8_t* sb = reinterpret_cast<const uint8_t*>(&su);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      acc[j] = fmaf(blk[j], e8m0(sb[j]), acc[j]);
-  }
-}
-
 __device__ __forceinline__ float silu_gate(float g, float u) {
   return g * (1.f / (1.f + expf(-g))) * u;
 }
 
-// grid (column tiles, ksplit, rows); block kWarps warps.  Block (t, z, r)
-// covers columns [t * kTile, (t + 1) * kTile) and the 32-row blocks
-// [z * kbs, min((z + 1) * kbs, K / 32)) of row r.  SWIGLU: two streams
-// (gate w0, up w1).  ids (grouped, one stream): row r reads the weight
-// ids[r] of the stack.  ksplit == 1 writes y (with the epilogue);
-// otherwise the partial sums go to work[r][z][N] (and work[r][ksplit +
-// z][N] for up).
-template <int BITS, bool SWIGLU>
-__global__ void __launch_bounds__(kWarps * 32)
-    mx_gemv_kernel(const uint8_t* __restrict__ w0,
-                   const uint8_t* __restrict__ s0,
-                   const uint8_t* __restrict__ w1,
-                   const uint8_t* __restrict__ s1,
-                   const __nv_bfloat16* __restrict__ x, float* __restrict__ y,
-                   float* __restrict__ work, const int* __restrict__ ids,
-                   int N, int K, int kbs) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float fp4[16];
-  const int nkb = K / kBlockRows;
-  const int r = blockIdx.z;
-  if (ids != nullptr) {
-    const size_t e = (size_t)__ldg(ids + r);
-    w0 += e * (size_t)(BITS == 4 ? K / 2 : K) * N;
-    s0 += e * (size_t)nkb * N;
-  }
-  x += (size_t)r * K;
-  y += (size_t)r * N;
-  work += (size_t)r * (SWIGLU ? 2 : 1) * gridDim.y * N;
-  const int kb0 = blockIdx.y * kbs, kb1 = min(nkb, kb0 + kbs);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kTile + lane * kCols;
-  const int nstreams = SWIGLU ? 2 : 1;
-  float* xs = smem;                                     // (kb1-kb0)*32
-  float* red = smem + kbs * kBlockRows;                 // [s][warp][kTile]
-  if (threadIdx.x < 16) fp4[threadIdx.x] = kFp4[threadIdx.x];
-  for (int i = threadIdx.x; i < (kb1 - kb0) * kBlockRows; i += blockDim.x)
-    xs[i] = __bfloat162float(x[kb0 * kBlockRows + i]);
-  __syncthreads();
-
-  float acc[2][kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[0][j] = acc[1][j] = 0.f;
-  if (col < N) {
-    stream_dot<BITS>(w0, s0, xs, fp4, N, col, kb0, kb1, warp, acc[0]);
-    if constexpr (SWIGLU)
-      stream_dot<BITS>(w1, s1, xs, fp4, N, col, kb0, kb1, warp, acc[1]);
-  }
-  for (int st = 0; st < nstreams; ++st) {
-    float4* dst = reinterpret_cast<float4*>(
-        red + (st * kWarps + warp) * kTile + lane * kCols);
-#pragma unroll
-    for (int j = 0; j < kCols / 4; ++j)
-      dst[j] = make_float4(acc[st][4 * j], acc[st][4 * j + 1],
-                           acc[st][4 * j + 2], acc[st][4 * j + 3]);
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < kTile; c += blockDim.x) {
-    const int n = blockIdx.x * kTile + c;
-    if (n >= N) continue;
-    float v[2] = {0.f, 0.f};
-    for (int st = 0; st < nstreams; ++st)
-      for (int wi = 0; wi < kWarps; ++wi)
-        v[st] += red[(st * kWarps + wi) * kTile + c];
-    if (gridDim.y == 1) {
-      y[n] = SWIGLU ? silu_gate(v[0], v[1]) : v[0];
-    } else {
-      work[(size_t)blockIdx.y * N + n] = v[0];
-      if constexpr (SWIGLU)
-        work[(size_t)(gridDim.y + blockIdx.y) * N + n] = v[1];
-    }
-  }
-}
-
-// y[n] = sum over the ksplit partials (in split order), then the epilogue;
-// grid (column blocks, rows).
-template <bool SWIGLU>
+// y[n] = the sum of the ksplit partials, in split order; grid (column
+// blocks, rows).  The batched walk's second pass.
 __global__ void mx_reduce_kernel(const float* __restrict__ work,
                                  float* __restrict__ y, int N, int ksplit) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  work += (size_t)blockIdx.y * (SWIGLU ? 2 : 1) * ksplit * N;
+  work += (size_t)blockIdx.y * ksplit * N;
   y += (size_t)blockIdx.y * N;
-  float g = 0.f, u = 0.f;
-  for (int z = 0; z < ksplit; ++z) {
-    g += work[(size_t)z * N + n];
-    if constexpr (SWIGLU) u += work[(size_t)(ksplit + z) * N + n];
-  }
-  y[n] = SWIGLU ? silu_gate(g, u) : g;
+  float v = 0.f;
+  for (int z = 0; z < ksplit; ++z) v += work[(size_t)z * N + n];
+  y[n] = v;
 }
 
 template <int C>
@@ -304,14 +171,21 @@ struct Chunk<2> {
   using T = unsigned short;
 };
 
-// ------------------------------------------------------ the one-row walk
-// (mx_qgemv; see the header).  A lane owns 16 columns of one tile and a
-// run of RPL code rows inside one E8M0 block; lpr lanes of a warp cover
-// the tile's 16 lpr columns of one row, its 32 / lpr row lanes runs one
-// under the other, and the block's warps the runs under those.  Block t
-// covers tile t and all of its rows.
+// -------------------------------------------------------------- the walk
+// (see the header).  A lane owns COLS columns of one tile and a run of RPL
+// code rows inside one E8M0 block; lpr lanes of a warp cover the tile's
+// COLS lpr columns of one row, its 32 / lpr row lanes runs one under the
+// other, and a group's warps the runs under those.  Block (t, r) covers
+// tile t of x row r and all of its rows, for every weight stream.
 
-constexpr int kWalkThreads = 256;
+constexpr int kWalkThreads = 256;     // threads of one group of warps
+
+enum Use { kOne, kSwiglu, kGrouped };
+
+// Weight streams of a use: a group of warps of the block each.
+__host__ __device__ constexpr int streams_of(int use) {
+  return use == kSwiglu ? 2 : 1;
+}
 
 // Two e2m1 nibbles, at bits [SH, SH + 4) of each 16-bit half of w, as the
 // floats of their values times 2^-14: placed as the half bits sign << 15 |
@@ -458,20 +332,17 @@ __device__ __forceinline__ void halve(float* v, int o, int& off) {
   if (upper) off += M / 2;
 }
 
-// The sums of a tile's columns over the block's lanes and warps, in a
-// fixed order, to y.  part: this lane's COLS columns.  A warp's row lanes
-// of one column group reduce-scatter (a level for each row-lane bit while
-// the lane holds two sums or more; past that a plain butterfly, of which
-// one lane writes), so each lane ends with the sums of a few of the
-// group's columns; it stores them into shared memory, [warp][column].  One
-// barrier, then the block adds its warps in order and writes y.
+// One warp's sums of a tile's columns, into its row of shared memory
+// (`row`: the tile's columns).  part: this lane's COLS columns.  The row
+// lanes of one column group reduce-scatter (a level for each row-lane bit
+// while the lane holds two sums or more; past that a plain butterfly, of
+// which one lane writes), so each lane ends with the sums of a few of the
+// group's columns, in a fixed order.
 template <int COLS>
-__device__ __forceinline__ void tile_sum(float* part, float* smem,
-                                         float* __restrict__ y, int N,
-                                         int lpr_log2) {
-  const int lpr = 1 << lpr_log2, tile = COLS << lpr_log2;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
+__device__ __forceinline__ void scatter(float* part, float* row,
+                                        int lpr_log2) {
+  const int lpr = 1 << lpr_log2;
+  const int lane = threadIdx.x & 31;
   int off = 0, held = COLS, o = lpr, extra = 0;
   if constexpr (COLS == 16)
     if (o < 32) halve<16>(part, o, off), o <<= 1, held >>= 1;
@@ -486,44 +357,63 @@ __device__ __forceinline__ void tile_sum(float* part, float* smem,
   const int c0 = (lane & (lpr - 1)) * COLS + off;
 #pragma unroll
   for (int i = 0; i < COLS; ++i)
-    if (writes && i < held) smem[warp * tile + c0 + i] = part[i];
-  __syncthreads();
-  const int base = blockIdx.x * tile;
-  for (int c = threadIdx.x; c < tile; c += blockDim.x) {
-    // in warp order; eight reads issued before their adds
-    float v = 0.f;
-    for (int e0 = 0; e0 < nw; e0 += 8) {
-      float p8[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        p8[e] = e0 + e < nw ? smem[(e0 + e) * tile + c] : 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (e0 + e < nw) v = e0 + e ? v + p8[e] : p8[e];
-    }
-    if (base + c < N) y[base + c] = v;
-  }
+    if (writes && i < held) row[c0 + i] = part[i];
 }
 
-// grid (tiles); block 32 warps lanes.  The block holds `rounds` bands of
-// the tile's rows one under the other; a lane walks its run in each band
-// in turn (the other warps of the SM cover the wait: issuing the next
-// band's loads first took registers and measured slower).  A template
-// over the weight streams and the epilogue would take the fused SwiGLU
-// and the grouped experts onto this walk; only mx_qgemv takes it so far.
-template <int BITS, int RPL, int COLS>
-__global__ void __launch_bounds__(kWalkThreads, 2)
+// The sum of n warps' rows at p (one column, rows `stride` apart), in warp
+// order; eight reads issued before their adds.
+__device__ __forceinline__ float warp_sum(const float* p, int stride, int n) {
+  float v = 0.f;
+  for (int e0 = 0; e0 < n; e0 += 8) {
+    float p8[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) p8[e] = e0 + e < n ? p[(e0 + e) * stride] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e0 + e < n) v = e0 + e ? v + p8[e] : p8[e];
+  }
+  return v;
+}
+
+// grid (tiles, x rows); block streams_of(USE) groups of 32 lanes a warp,
+// group g walking stream g.  A group's warps hold `rounds` bands of the
+// tile's rows one under the other; a lane walks its run in each band in
+// turn (the other warps of the SM cover the wait: issuing the next band's
+// loads first took registers and measured slower).  Then every warp's
+// sums go to shared memory, [stream][warp of the group][column], and the
+// block adds them in warp order, stream by stream, and writes y through
+// the use's epilogue.  kOne and kGrouped read (w, s); kSwiglu's second
+// group (w1, s1), the up weight; kGrouped offsets w, s, x and y by its
+// row's expert id ids[r] and row r.
+template <int BITS, int RPL, int COLS, int USE>
+__global__ void __launch_bounds__(kWalkThreads * streams_of(USE),
+                                  2 / streams_of(USE))
     mx_walk_kernel(const uint8_t* __restrict__ w,
                    const uint8_t* __restrict__ s,
+                   const uint8_t* __restrict__ w1,
+                   const uint8_t* __restrict__ s1,
                    const __nv_bfloat16* __restrict__ x, float* __restrict__ y,
-                   int N, int rows, int lpr_log2, int rounds) {
+                   const int* __restrict__ ids, int N, int rows,
+                   int lpr_log2, int rounds) {
   extern __shared__ __align__(16) float wsmem[];
+  constexpr int kStreams = streams_of(USE);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5, rlanes = 32 >> lpr_log2;
+  const int gw = (blockDim.x >> 5) / kStreams;     // warps a group
+  const int grp = kStreams == 1 ? 0 : warp / gw, gwarp = warp - grp * gw;
+  const int rlanes = 32 >> lpr_log2, tile = COLS << lpr_log2;
   const int cl = lane & ((1 << lpr_log2) - 1), rl = lane >> lpr_log2;
-  const int col = blockIdx.x * (COLS << lpr_log2) + cl * COLS;
-  const int band = nw * rlanes * RPL;               // rows of one round
-  const int row0 = (warp * rlanes + rl) * RPL;
+  const int col = blockIdx.x * tile + cl * COLS;
+  const int band = gw * rlanes * RPL;               // rows of one round
+  const int row0 = (gwarp * rlanes + rl) * RPL;
+  if constexpr (USE == kGrouped) {
+    constexpr int kSB = BITS == 4 ? kBlockRows / 2 : kBlockRows;
+    const size_t e = (size_t)__ldg(ids + blockIdx.y);
+    w += e * rows * N;
+    s += e * (rows / kSB) * N;
+    x += (size_t)blockIdx.y * (BITS == 4 ? 2 : 1) * rows;
+    y += (size_t)blockIdx.y * N;
+  }
+  if (grp > 0) w = w1, s = s1;
   float part[COLS];
 #pragma unroll
   for (int j = 0; j < COLS; ++j) part[j] = 0.f;
@@ -533,58 +423,78 @@ __global__ void __launch_bounds__(kWalkThreads, 2)
     __syncwarp();  // keeps ptxas from sinking the loads into the products
     run.add_to(part);
   }
-  tile_sum<COLS>(part, wsmem, y, N, lpr_log2);
+  scatter<COLS>(part, wsmem + (grp * gw + gwarp) * tile, lpr_log2);
+  __syncthreads();
+  const int base = blockIdx.x * tile;
+  for (int c = threadIdx.x; c < tile; c += blockDim.x) {
+    float v = warp_sum(wsmem + c, tile, gw);
+    if constexpr (USE == kSwiglu)
+      v = silu_gate(v, warp_sum(wsmem + gw * tile + c, tile, gw));
+    if (base + c < N) y[base + c] = v;
+  }
 }
 
-template <int BITS, int RPL, int COLS>
-cudaError_t launch_walk(const void* w, const void* s, const void* x, void* y,
-                        int N, int rows, int lpr_log2, int warps, int rounds,
-                        cudaStream_t stream) {
-  const int tile = COLS << lpr_log2;
-  mx_walk_kernel<BITS, RPL, COLS>
-      <<<(N + tile - 1) / tile, 32 * warps, warps * tile * sizeof(float),
-         stream>>>((const uint8_t*)w, (const uint8_t*)s,
-                   (const __nv_bfloat16*)x, (float*)y, N, rows, lpr_log2,
-                   rounds);
+// One call of the walk: its pointers (w1, s1 the SwiGLU's up weight, ids
+// the grouped experts' ids; null where the use reads none) and its cut.
+struct Walk {
+  const void *w, *s, *w1, *s1, *x, *ids;
+  void* y;
+  int N, rows, xrows, lpr_log2, warps, rounds;
+};
+
+template <int BITS, int RPL, int COLS, int USE>
+cudaError_t launch_walk(const Walk& a, cudaStream_t stream) {
+  const int tile = COLS << a.lpr_log2;
+  mx_walk_kernel<BITS, RPL, COLS, USE>
+      <<<dim3((a.N + tile - 1) / tile, a.xrows),
+         32 * a.warps * streams_of(USE),
+         streams_of(USE) * a.warps * tile * sizeof(float), stream>>>(
+          (const uint8_t*)a.w, (const uint8_t*)a.s, (const uint8_t*)a.w1,
+          (const uint8_t*)a.s1, (const __nv_bfloat16*)a.x, (float*)a.y,
+          (const int*)a.ids, a.N, a.rows, a.lpr_log2, a.rounds);
   return cudaGetLastError();
 }
 
-template <int BITS, int COLS>
-cudaError_t walk_rpl(const void* w, const void* s, const void* x, void* y,
-                     int N, int rows, int lpr_log2, int warps, int rpl,
-                     int rounds, cudaStream_t st) {
+template <int BITS, int COLS, int USE>
+cudaError_t walk_rpl(const Walk& a, int rpl, cudaStream_t st) {
   switch (rpl) {
     case 1:
-      return launch_walk<BITS, 1, COLS>(w, s, x, y, N, rows, lpr_log2, warps,
-                                        rounds, st);
+      return launch_walk<BITS, 1, COLS, USE>(a, st);
     case 2:
-      return launch_walk<BITS, 2, COLS>(w, s, x, y, N, rows, lpr_log2, warps,
-                                        rounds, st);
+      return launch_walk<BITS, 2, COLS, USE>(a, st);
     case 4:
-      return launch_walk<BITS, 4, COLS>(w, s, x, y, N, rows, lpr_log2, warps,
-                                        rounds, st);
+      return launch_walk<BITS, 4, COLS, USE>(a, st);
     case 8:
-      return launch_walk<BITS, 8, COLS>(w, s, x, y, N, rows, lpr_log2, warps,
-                                        rounds, st);
+      return launch_walk<BITS, 8, COLS, USE>(a, st);
     case 16:
-      return launch_walk<BITS, 16, COLS>(w, s, x, y, N, rows, lpr_log2,
-                                         warps, rounds, st);
+      return launch_walk<BITS, 16, COLS, USE>(a, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <int BITS>
-cudaError_t walk_cols(const void* w, const void* s, const void* x, void* y,
-                      int N, int rows, int cols, int lpr_log2, int warps,
-                      int rpl, int rounds, cudaStream_t st) {
-  if (cols == 16)
-    return walk_rpl<BITS, 16>(w, s, x, y, N, rows, lpr_log2, warps, rpl,
-                              rounds, st);
-  if (cols == 8)
-    return walk_rpl<BITS, 8>(w, s, x, y, N, rows, lpr_log2, warps, rpl,
-                             rounds, st);
+template <int USE>
+cudaError_t walk(const Walk& a, int bits, int cols, int rpl,
+                 cudaStream_t st) {
+  if (bits == 4 && cols == 16) return walk_rpl<4, 16, USE>(a, rpl, st);
+  if (bits == 4 && cols == 8) return walk_rpl<4, 8, USE>(a, rpl, st);
+  if (bits == 8 && cols == 16) return walk_rpl<8, 16, USE>(a, rpl, st);
+  if (bits == 8 && cols == 8) return walk_rpl<8, 8, USE>(a, rpl, st);
   return cudaErrorInvalidValue;
+}
+
+// The checks common to the walk's uses: K and N as the kernel takes them,
+// at most kWalkThreads threads a group, and bands that cover the code
+// rows.
+bool walk_ok(int N, int K, int bits, int lpr_log2, int warps, int rpl,
+             int rounds) {
+  const int rows = bits == 4 ? K / 2 : K;
+  const long long rpb =
+      (long long)warps * (32 >> (lpr_log2 & 31)) * rpl * rounds;
+  return K > 0 && K % kBlockRows == 0 && N % kCols == 0 &&
+         (bits == 4 || bits == 8) && lpr_log2 >= 0 && lpr_log2 <= 5 &&
+         warps >= 1 && 32 * warps <= kWalkThreads && rounds >= 1 &&
+         rpb >= rows;
 }
 
 // Columns a lane owns in the batched walk for a batch bucket MAXB and
@@ -748,7 +658,7 @@ cudaError_t launch_batched(const void* w, const void* s, const void* xs,
       (float*)y, (float*)work, N, K, B, kbs);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || ksplit == 1) return e;
-  mx_reduce_kernel<false><<<dim3((N + 255) / 256, B), 256, 0, stream>>>(
+  mx_reduce_kernel<<<dim3((N + 255) / 256, B), 256, 0, stream>>>(
       (const float*)work, (float*)y, N, ksplit);
   return cudaGetLastError();
 }
@@ -788,57 +698,6 @@ cudaError_t batched_bucket(const void* w, const void* s, const void* xs,
                                   unroll, st);
 }
 
-template <int BITS, bool SWIGLU>
-cudaError_t launch(const void* w0, const void* s0, const void* w1,
-                   const void* s1, const void* x, void* y, void* work,
-                   const void* ids, int rows, int N, int K, int ksplit,
-                   cudaStream_t stream) {
-  const int nkb = K / kBlockRows;
-  const int kbs = (nkb + ksplit - 1) / ksplit;
-  const int tiles = (N + kTile - 1) / kTile;
-  const int smem = (kbs * kBlockRows + (SWIGLU ? 2 : 1) * kWarps * kTile) *
-                   (int)sizeof(float);
-  auto kern = mx_gemv_kernel<BITS, SWIGLU>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<dim3(tiles, ksplit, rows), kWarps * 32, smem, stream>>>(
-      (const uint8_t*)w0, (const uint8_t*)s0, (const uint8_t*)w1,
-      (const uint8_t*)s1, (const __nv_bfloat16*)x, (float*)y, (float*)work,
-      (const int*)ids, N, K, kbs);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || ksplit == 1) return e;
-  mx_reduce_kernel<SWIGLU><<<dim3((N + 255) / 256, rows), 256, 0, stream>>>(
-      (const float*)work, (float*)y, N, ksplit);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch(const void* w0, const void* s0, const void* w1,
-                     const void* s1, const void* x, void* y, void* work,
-                     const void* ids, int rows, int N, int K, int bits,
-                     int ksplit, bool swiglu, void* stream) {
-  if (N <= 0 || rows <= 0) return cudaSuccess;
-  const int nkb = K / kBlockRows;
-  if (K <= 0 || K % kBlockRows || N % kCols || ksplit < 1 || ksplit > nkb ||
-      rows > 65535 || (bits != 4 && bits != 8) || (swiglu && ids))
-    return cudaErrorInvalidValue;
-  // every split must own at least one block of rows
-  if ((ksplit - 1) * ((nkb + ksplit - 1) / ksplit) >= nkb)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bits == 4)
-    return swiglu ? launch<4, true>(w0, s0, w1, s1, x, y, work, ids, rows,
-                                    N, K, ksplit, s)
-                  : launch<4, false>(w0, s0, w1, s1, x, y, work, ids, rows,
-                                     N, K, ksplit, s);
-  return swiglu ? launch<8, true>(w0, s0, w1, s1, x, y, work, ids, rows, N,
-                                  K, ksplit, s)
-                : launch<8, false>(w0, s0, w1, s1, x, y, work, ids, rows, N,
-                                   K, ksplit, s);
-}
-
 }  // namespace
 
 // w (K/2 | K, N) uint8 codes (fp4 packed | fp8 e4m3 bytes); s (K/32, N)
@@ -853,44 +712,43 @@ extern "C" cudaError_t repro_mx_qgemv(const void* w, const void* s,
                                       int warps, int rpl, int rounds,
                                       void* stream) {
   if (N <= 0) return cudaSuccess;
-  const int rows = bits == 4 ? K / 2 : K;
-  // code rows a block
-  const long long rpb = (long long)warps * (32 >> lpr_log2) * rpl * rounds;
-  if (K <= 0 || K % kBlockRows || N % kCols || (bits != 4 && bits != 8) ||
-      lpr_log2 < 0 || lpr_log2 > 5 || warps < 1 ||
-      32 * warps > kWalkThreads || rounds < 1 || rpb < rows)
+  if (!walk_ok(N, K, bits, lpr_log2, warps, rpl, rounds))
     return cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return bits == 4 ? walk_cols<4>(w, s, x, y, N, rows, cols, lpr_log2, warps,
-                                  rpl, rounds, st)
-                   : walk_cols<8>(w, s, x, y, N, rows, cols, lpr_log2, warps,
-                                  rpl, rounds, st);
+  const Walk a{w, s, nullptr, nullptr, x, nullptr, y,
+               N, bits == 4 ? K / 2 : K, 1, lpr_log2, warps, rounds};
+  return walk<kOne>(a, bits, cols, rpl, (cudaStream_t)stream);
 }
 
 // The fused SwiGLU: gate (wg, sg) and up (wu, su) as above, y = silu(x.Wg)
-// * (x.Wu); work (2 * ksplit, N) fp32 when ksplit > 1.
-extern "C" cudaError_t repro_mx_gemv_swiglu(const void* wg, const void* sg,
-                                            const void* wu, const void* su,
-                                            const void* x, void* y,
-                                            void* work, int N, int K,
-                                            int bits, int ksplit,
-                                            void* stream) {
-  return dispatch(wg, sg, wu, su, x, y, work, nullptr, 1, N, K, bits,
-                  ksplit, true, stream);
+// * (x.Wu).  The plan as mx_qgemv's, `warps` warps a group, a group of
+// warps for each stream.
+extern "C" cudaError_t repro_mx_gemv_swiglu(
+    const void* wg, const void* sg, const void* wu, const void* su,
+    const void* x, void* y, int N, int K, int bits, int cols, int lpr_log2,
+    int warps, int rpl, int rounds, void* stream) {
+  if (N <= 0) return cudaSuccess;
+  if (!walk_ok(N, K, bits, lpr_log2, warps, rpl, rounds))
+    return cudaErrorInvalidValue;
+  const Walk a{wg, sg, wu, su, x, nullptr, y,
+               N, bits == 4 ? K / 2 : K, 1, lpr_log2, warps, rounds};
+  return walk<kSwiglu>(a, bits, cols, rpl, (cudaStream_t)stream);
 }
 
 // The grouped expert GEMV: w (E, K/2 | K, N) uint8 codes, s (E, K/32, N)
 // uint8 E8M0, xs (rows, K) bf16, ids (rows,) int32 expert ids in [0, E)
-// on the device, y (rows, N) fp32; work (rows, ksplit, N) fp32 when ksplit
-// > 1.  All 16-byte aligned, N % 16 == 0, K % 32 == 0.
-extern "C" cudaError_t repro_mx_gemv_grouped(const void* w, const void* s,
-                                             const void* xs, const void* ids,
-                                             void* y, void* work, int rows,
-                                             int N, int K, int bits,
-                                             int ksplit, void* stream) {
-  if (ids == nullptr) return cudaErrorInvalidValue;
-  return dispatch(w, s, nullptr, nullptr, xs, y, work, ids, rows, N, K,
-                  bits, ksplit, false, stream);
+// on the device, y (rows, N) fp32.  All 16-byte aligned, N % 16 == 0, K %
+// 32 == 0.  The plan as mx_qgemv's, for each row: grid (tiles, rows).
+extern "C" cudaError_t repro_mx_gemv_grouped(
+    const void* w, const void* s, const void* xs, const void* ids, void* y,
+    int rows, int N, int K, int bits, int cols, int lpr_log2, int warps,
+    int rpl, int rounds, void* stream) {
+  if (N <= 0 || rows <= 0) return cudaSuccess;
+  if (ids == nullptr || rows > 65535 ||
+      !walk_ok(N, K, bits, lpr_log2, warps, rpl, rounds))
+    return cudaErrorInvalidValue;
+  const Walk a{w, s, nullptr, nullptr, xs, ids, y,
+               N, bits == 4 ? K / 2 : K, rows, lpr_log2, warps, rounds};
+  return walk<kGrouped>(a, bits, cols, rpl, (cudaStream_t)stream);
 }
 
 // The batched MX GEMV: w (K/2 | K, N) uint8 codes, s (K/32, N) uint8 E8M0,

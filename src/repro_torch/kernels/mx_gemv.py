@@ -37,14 +37,14 @@ grouped_launches = 0
 _P, _I = _build.P, _build.I
 _ARGTYPES = {
     "repro_mx_qgemv": [_P] * 4 + [_I] * 8 + [_P],
-    "repro_mx_gemv_swiglu": [_P] * 7 + [_I] * 4 + [_P],
-    "repro_mx_gemv_grouped": [_P] * 6 + [_I] * 5 + [_P],
+    "repro_mx_gemv_swiglu": [_P] * 6 + [_I] * 8 + [_P],
+    "repro_mx_gemv_grouped": [_P] * 5 + [_I] * 9 + [_P],
     "repro_mx_gemv_batched": [_P] * 5 + [_I] * 7 + [_P],
     "repro_mx_batched_tile": [_I] * 2,
 }
 #: rows of xs one batched launch takes
 MAX_BATCH = 16
-_TILE, _WARPS, _BLOCK = 512, 8, 32      # mirror kTile, kWarps, kBlockRows
+_BLOCK = 32                             # mirrors kBlockRows
 
 
 def plain(wq, scales, x):
@@ -95,35 +95,29 @@ def _check(name, wq, scales, x, stack=False, rows=False):
     return N, K, bits
 
 
-def ksplit(N: int, K: int, sms: int, rows: int = 1, tile: int = _TILE,
-           warps: int = _WARPS) -> int:
-    """Blocks per ``tile``-column tile (of each of ``rows`` rows) along K:
-    enough tiles x splits x rows to give every SM a block, while each split
-    keeps a 32-row block per warp (``warps`` a block)."""
+def ksplit(N: int, K: int, sms: int, tile: int = 512,
+           warps: int = 8) -> int:
+    """The batched kernel's blocks per ``tile``-column tile along K (512
+    columns and 8 warps: its widest tile, at one row, and its most warps):
+    enough tiles x splits to give every SM a block, while each split keeps
+    a 32-row block per warp (``warps`` a block)."""
     nkb = K // _BLOCK
-    want = max(1, min(-(-sms // (rows * -(-N // tile))), nkb // warps))
+    want = max(1, min(-(-sms // -(-N // tile)), nkb // warps))
     per = -(-nkb // want)
     return -(-nkb // per)               # every split owns >= 1 block
 
 
-def _splits(dev, N, K, rows, streams):
-    """(ksplit, workspace): the split partials, one row per split, weight
-    stream and x row."""
-    ks = ksplit(N, K, _build.sm_count(dev), rows)
-    work = torch.empty((rows * streams * ks, N) if ks > 1 else (1,),
-                       dtype=torch.float32, device=dev)
-    return ks, work
-
-
 class QgemvPlan(NamedTuple):
-    """How ``mx_qgemv``'s walk (``csrc/mx_gemv.cu`` `mx_walk_kernel`) cuts
-    N columns by ``rows`` code rows (K/2 fp4, K fp8): ``tiles`` tiles of
+    """How the one-row walk (``csrc/mx_gemv.cu`` `mx_walk_kernel`) cuts N
+    columns by ``rows`` code rows (K/2 fp4, K fp8): ``tiles`` tiles of
     ``cols`` ``lpr`` columns (``lpr`` lanes across a row, ``cols`` columns
-    a lane: one 16- or 8-byte load a row), one block a tile taking all of
-    its rows in ``rounds`` bands of ``band`` rows; in a band, ``warps``
-    warps of 32 / ``lpr`` row lanes, each lane a run of ``rpl`` rows
-    inside one E8M0 block (row lane i of warp w: rows (w 32 / lpr + i) rpl
-    on from the band's first)."""
+    a lane: one 16- or 8-byte load a row), one block a (tile, x row)
+    taking all of its rows in ``rounds`` bands of ``band`` rows; in a
+    band, each group of ``warps`` warps of 32 / ``lpr`` row lanes, each
+    lane a run of ``rpl`` rows inside one E8M0 block (row lane i of warp w:
+    rows (w 32 / lpr + i) rpl on from the band's first).  ``xrows`` rows of
+    x (the grouped experts), ``streams`` weight streams (the SwiGLU's gate
+    and up), a group of warps of the block each."""
     cols: int
     lpr: int
     warps: int
@@ -131,6 +125,8 @@ class QgemvPlan(NamedTuple):
     rounds: int
     tiles: int
     rows: int
+    xrows: int = 1
+    streams: int = 1
 
     @property
     def tile(self) -> int:
@@ -144,18 +140,37 @@ class QgemvPlan(NamedTuple):
     def rows_per_block(self) -> int:
         return self.band * self.rounds
 
-    def runs(self):
-        """(first column, first code row) of every lane's run in every
-        round: ``cols`` columns and ``rpl`` rows from there, as the kernel
-        walks them."""
+    @property
+    def block_warps(self) -> int:
+        return self.warps * self.streams
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.xrows
+
+    def args(self):
+        """The C entry points' plan arguments: cols, lpr_log2, warps (a
+        group), rpl, rounds."""
+        return (self.cols, self.lpr.bit_length() - 1, self.warps, self.rpl,
+                self.rounds)
+
+    def lane_runs(self):
+        """(weight stream, x row, tile, first column, first code row) of
+        every lane's run in every round: ``cols`` columns and ``rpl`` rows
+        from there, as the kernel walks them; block (tile, x row), group g
+        walking stream g."""
         rlanes = 32 // self.lpr
-        for t in range(self.tiles):
-            for r in range(self.rounds):
-                for w in range(self.warps):
-                    for rl in range(rlanes):
-                        r0 = r * self.band + (w * rlanes + rl) * self.rpl
-                        for cl in range(self.lpr):
-                            yield t * self.tile + self.cols * cl, r0
+        for xr in range(self.xrows):
+            for t in range(self.tiles):
+                for g in range(self.streams):
+                    for r in range(self.rounds):
+                        for w in range(self.warps):
+                            for rl in range(rlanes):
+                                r0 = (r * self.band
+                                      + (w * rlanes + rl) * self.rpl)
+                                for cl in range(self.lpr):
+                                    yield (g, xr, t,
+                                           t * self.tile + self.cols * cl, r0)
 
 
 #: a bandwidth-bound shape's block: 8 lanes across a row (128 bytes),
@@ -164,50 +179,63 @@ STREAM_LPR, STREAM_WARPS, STREAM_RPL = 8, 2, 8
 
 
 @functools.lru_cache(maxsize=None)
-def qgemv_plan(N: int, K: int, bits: int, sms: int) -> QgemvPlan:
+def qgemv_plan(N: int, K: int, bits: int, sms: int, xrows: int = 1,
+               streams: int = 1) -> QgemvPlan:
     """The one-row walk's cut for (N, K) on ``sms`` SMs, as measured on the
-    H100 (PERF.md).  A shape whose 128-column tiles alone give every SM 4
-    blocks streams: blocks of ``STREAM_WARPS`` warps walk a tile's whole K
-    in bands of 64 rows, each lane a run of ``STREAM_RPL`` rows a band,
+    H100 (PERF.md), for ``xrows`` rows of x and ``streams`` weight streams:
+    ``m = xrows streams`` blocks' worth of lanes stand beside each tile's,
+    so every count of lanes for the card below counts the columns m
+    times.  A shape whose 128-column tiles alone give every SM 4 blocks
+    streams: blocks of ``STREAM_WARPS`` warps a group walk a tile's whole
+    K in bands of 64 rows, each lane a run of ``STREAM_RPL`` rows a band,
     many blocks an SM covering each other's waits.  Any other shape is a
     chain of latencies: 16 columns a lane where that gives half the SMs a
     lane's columns, else 8 (more SMs at 1024 columns, fewer at 2048); the
     widest tile of 8, 4 or 2 lanes across a row that still gives 16 tiles
-    an SM, else one lane; a lane's run of rows, the most (at most 16) that
-    still leave lanes for 8 warps an SM, and at least enough that one
-    block of at most 8 warps covers all of K in one round; as few warps as
-    cover it.  Where 16 rows a lane and 8 warps leave K uncovered, the
-    block walks K in as many such rounds as it takes."""
+    an SM, else one lane; a lane's run of rows, the most (at most 16 loads
+    a lane) that still leave lanes for 8 warps an SM, and at least enough
+    that one group of at most 8 warps covers all of K in one round; as few
+    warps as cover it.  Where the most rows a lane and 8
+    warps leave K uncovered, the group walks K in as many such rounds as
+    it takes.  One stream of one row (``mx_qgemv``) is cut as before."""
     rows = K // 2 if bits == 4 else K
+    m = xrows * streams
+    rest = (rows, xrows, streams)
     wide = -(-N // (16 * STREAM_LPR))
-    if wide >= 4 * sms:
-        band = STREAM_WARPS * (32 // STREAM_LPR) * STREAM_RPL
-        return QgemvPlan(16, STREAM_LPR, STREAM_WARPS, STREAM_RPL,
-                         -(-rows // band), wide, rows)
-    cols = 16 if 2 * -(-N // 16) >= sms else 8
-    groups = -(-N // cols)
+    if wide * m >= 4 * sms:
+        rpl = STREAM_RPL
+        band = STREAM_WARPS * (32 // STREAM_LPR) * rpl
+        return QgemvPlan(16, STREAM_LPR, STREAM_WARPS, rpl,
+                         -(-rows // band), wide, *rest)
+    cols = 16 if 2 * -(-N // 16) * m >= sms else 8
+    groups = -(-N // cols) * m
     lpr = next((lanes for lanes in (8, 4, 2)
-                if -(-N // (cols * lanes)) >= 16 * sms), 1)
+                if -(-N // (cols * lanes)) * m >= 16 * sms), 1)
     rlanes = 32 // lpr
     rpl = next((r for r in (16, 8, 4, 2)
                 if groups * -(-rows // r) >= 8 * 32 * sms), 1)
-    rpl = min(16, max(rpl, 1 << (-(-rows // (8 * rlanes)) - 1).bit_length()))
+    rpl = min(16, max(rpl, 1 << (-(-rows // (8 * rlanes)) - 1)
+                      .bit_length()))
     least = -(-rows // (8 * rlanes * rpl))   # rounds of 8 warps covering K
     warps = min(8, -(-rows // (least * rlanes * rpl)))
     rounds = -(-rows // (warps * rlanes * rpl))
     return QgemvPlan(cols, lpr, warps, rpl, rounds, -(-N // (cols * lpr)),
-                     rows)
+                     *rest)
 
 
-def _launch(fn, name, codes_scales, x, N, K, bits):
-    dev = x.device
-    ks, work = _splits(dev, N, K, 1, len(codes_scales) // 2)
-    y = torch.empty((N,), dtype=torch.float32, device=dev)
-    err = fn(*(t.data_ptr() for t in codes_scales), x.data_ptr(),
-             y.data_ptr(), work.data_ptr(), N, K, bits, ks,
-             _build.stream_handle(dev))
-    _build.check(err, name)
-    return y
+def swiglu_plan(N: int, K: int, bits: int, sms: int) -> QgemvPlan:
+    """``mx_qgemv_swiglu``'s cut: the walk over two streams of one row,
+    the gate and the up weight each on a group of warps of the block
+    (every lane walking both, in runs of at most 8 rows, measured slower
+    at fp4: ``csrc/mx_gemv.cu``'s header)."""
+    return qgemv_plan(N, K, bits, sms, streams=2)
+
+
+def grouped_plan(N: int, K: int, bits: int, sms: int,
+                 rows: int) -> QgemvPlan:
+    """``grouped_expert_qgemv``'s cut: the walk over ``rows`` rows of x,
+    one block a (tile, row)."""
+    return qgemv_plan(N, K, bits, sms, xrows=rows)
 
 
 def mx_qgemv(wq, scales, x):
@@ -227,8 +255,7 @@ def mx_qgemv(wq, scales, x):
     y = torch.empty((N,), dtype=torch.float32, device=wq.device)
     err = lib.repro_mx_qgemv(
         wq.data_ptr(), scales.data_ptr(), x.data_ptr(), y.data_ptr(), N, K,
-        bits, plan.cols, plan.lpr.bit_length() - 1, plan.warps, plan.rpl,
-        plan.rounds, _build.stream_handle(wq.device))
+        bits, *plan.args(), _build.stream_handle(wq.device))
     _build.check(err, "mx_qgemv")
     launches += 1
     key = f"fp{bits} {K}->{N}"
@@ -259,7 +286,7 @@ def batched_mx_qgemv(wq, scales, xs, cfg: LaunchConfig = DEFAULT):
                          f"{unroll}")
     dev = xs.device
     lib = _build.library("mx_gemv", _ARGTYPES)
-    ks = ksplit(N, K, _build.sm_count(dev), 1,
+    ks = ksplit(N, K, _build.sm_count(dev),
                 lib.repro_mx_batched_tile(B, unroll), warps)
     work = torch.empty((B * ks, N) if ks > 1 else (1,), dtype=torch.float32,
                        device=dev)
@@ -288,9 +315,15 @@ def mx_qgemv_swiglu(wg, sg, wu, su, x):
     if _check("mx_qgemv_swiglu", wu, su, x) != (N, K, bits):
         raise ValueError("mx_qgemv_swiglu: gate and up weights differ in "
                          "shape or format")
+    dev = x.device
     lib = _build.library("mx_gemv", _ARGTYPES)
-    y = _launch(lib.repro_mx_gemv_swiglu, "mx_qgemv_swiglu",
-                (wg, sg, wu, su), x, N, K, bits)
+    plan = swiglu_plan(N, K, bits, _build.sm_count(dev))
+    y = torch.empty((N,), dtype=torch.float32, device=dev)
+    err = lib.repro_mx_gemv_swiglu(
+        wg.data_ptr(), sg.data_ptr(), wu.data_ptr(), su.data_ptr(),
+        x.data_ptr(), y.data_ptr(), N, K, bits, *plan.args(),
+        _build.stream_handle(dev))
+    _build.check(err, "mx_qgemv_swiglu")
     swiglu_launches += 1
     return y
 
@@ -317,12 +350,12 @@ def grouped_expert_qgemv(wq, scales, xs, ids):
                          f"int32 ids ({rows},) on the weights' device; got "
                          f"{tuple(ids.shape)} {ids.dtype} on {ids.device}")
     dev = xs.device
-    ks, work = _splits(dev, N, K, rows, 1)
+    plan = grouped_plan(N, K, bits, _build.sm_count(dev), rows)
     y = torch.empty((rows, N), dtype=torch.float32, device=dev)
     lib = _build.library("mx_gemv", _ARGTYPES)
     err = lib.repro_mx_gemv_grouped(
         wq.data_ptr(), scales.data_ptr(), xs.data_ptr(), ids.data_ptr(),
-        y.data_ptr(), work.data_ptr(), rows, N, K, bits, ks,
+        y.data_ptr(), rows, N, K, bits, *plan.args(),
         _build.stream_handle(dev))
     _build.check(err, "grouped_expert_qgemv")
     grouped_launches += 1
@@ -334,7 +367,7 @@ def grouped_expert_qgemv(wq, scales, xs, ids):
 # --------------------------------------------------------------------------
 def _untuned(fn):
     """``fn`` under the registry's calling convention: it takes a ``cfg``
-    and reads no knob of it (the MX kernels size their K split from the
+    and reads no knob of it (the MX kernels cut their walk from the
     shape and the card), so each of their spaces is the one default."""
     @functools.wraps(fn)
     def call(*args, cfg: LaunchConfig = DEFAULT):

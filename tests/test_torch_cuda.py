@@ -409,15 +409,62 @@ def test_mx_qgemv_gives_the_same_bits_twice(N, K, elem):
     assert TK.launch_counts()["mx_qgemv"] == before + 2
 
 
-@pytest.mark.parametrize("N,K,elem", [(2816, 1024, "fp4"),
-                                      (2816, 1024, "fp8"), (48, 96, "fp4")])
+def device_kernels(fn):
+    """(the names of the device kernels one call of ``fn`` launches, from
+    ``torch.profiler``'s CUDA events; the calls made), after a first call
+    that builds and loads the library.  A window in which the profiler
+    recorded no device event at all (its activity buffer came back empty,
+    though ``fn`` launches) is profiled again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for calls in range(2, 5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names, calls
+
+
+def one_walk_launch(fn, counter):
+    """``fn`` launches exactly one device kernel a call, the MX walk, and
+    adds one to its launch count ``counter`` each time."""
+    before = TK.launch_counts()[counter]
+    names, calls = device_kernels(fn)
+    assert len(names) == 1 and "mx_walk_kernel" in names[0], names
+    assert TK.launch_counts()[counter] == before + calls
+
+
+SWIGLU_CASES = [
+    (2816, 1024, "fp4"), (2816, 1024, "fp8"),     # qwen1.5-0.5b's MLP
+    (5632, 2048, "fp4"), (5632, 2048, "fp8"),     # qwen2-moe's shared expert
+    (40016, 96, "fp4"), (40016, 96, "fp8"),       # ragged 128-column tiles
+    (2816, 1408, "fp4"),                          # K short of a band
+    (48, 96, "fp4")]                              # one partial tile
+
+
+@pytest.mark.parametrize("N,K,elem", SWIGLU_CASES)
 def test_mx_qgemv_swiglu(N, K, elem):
+    """The gate and the up weight in one walk, each stream on its own
+    warps: against the plain version, the same bits twice, one device
+    kernel a call."""
     rng = np.random.default_rng(11)
     wg, sg = mx_weight(rng, K, N, elem)
     wu, su = mx_weight(rng, K, N, elem)
     x = bf16(rng.standard_normal(K))
-    matches_plain(TK.mx_qgemv_swiglu(wg, sg, wu, su, x),
-                  TK.PLAIN["mx_qgemv_swiglu"](wg, sg, wu, su, x), MX_TOL)
+    before = TK.launch_counts()["mx_qgemv_swiglu"]
+    got = TK.mx_qgemv_swiglu(wg, sg, wu, su, x)
+    assert got.shape == (N,) and got.dtype == torch.float32
+    matches_plain(got, TK.PLAIN["mx_qgemv_swiglu"](wg, sg, wu, su, x),
+                  MX_TOL)
+    assert TK.launch_counts()["mx_qgemv_swiglu"] == before + 1
+    assert torch.equal(got, TK.mx_qgemv_swiglu(wg, sg, wu, su, x))
+    one_walk_launch(lambda: TK.mx_qgemv_swiglu(wg, sg, wu, su, x),
+                    "mx_qgemv_swiglu")
 
 
 def mx_stack(E, K, N, elem, seed):
@@ -431,12 +478,15 @@ def mx_stack(E, K, N, elem, seed):
 
 @pytest.mark.parametrize("ids", [[7, 0, 59, 31], [12, 12, 3, 12]])
 @pytest.mark.parametrize("N,K,elem", [
-    (1408, 2048, "fp4"), (2048, 1408, "fp4"),       # up/gate, down
-    (1408, 2048, "fp8"), (2048, 1408, "fp8"),
+    (1408, 2048, "fp4"), (2048, 1408, "fp4"),       # up/gate, down (K
+    (1408, 2048, "fp8"), (2048, 1408, "fp8"),       # short of a band)
+    (16912, 96, "fp4"), (16912, 96, "fp8"),         # a ragged last tile
     (48, 96, "fp4")])                               # one partial tile
 def test_grouped_expert_qgemv(N, K, elem, ids):
-    """qwen2-moe-a2.7b's experts (60, top-4); 1408 columns leave the last
-    512-column tile ragged; repeated ids read one slice twice."""
+    """qwen2-moe-a2.7b's experts (60, top-4) and a stack wide enough for
+    128-column tiles, the last one ragged; repeated ids read one slice
+    twice.  Each row is ``mx_qgemv`` of its expert; the same bits twice;
+    one device kernel a call."""
     wq, s = mx_stack(60, K, N, elem, seed=17)
     rng = np.random.default_rng(18)
     xs = bf16(rng.standard_normal((len(ids), K)))
@@ -450,6 +500,9 @@ def test_grouped_expert_qgemv(N, K, elem, ids):
     for t, e in enumerate(ids):               # row t is mx_qgemv of expert e
         matches_plain(got[t], TK.PLAIN["mx_qgemv"](wq[e], s[e], xs[t]),
                       MX_TOL)
+    assert torch.equal(got, TK.grouped_expert_qgemv(wq, s, xs, ix))
+    one_walk_launch(lambda: TK.grouped_expert_qgemv(wq, s, xs, ix),
+                    "grouped_expert_qgemv")
 
 
 def int8_pools(kp, vp):

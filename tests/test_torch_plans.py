@@ -1,14 +1,16 @@
-"""The launch plans of ``axpy``, the one-row ``mx_qgemv`` walk and the
-paged decode, as plain Python: what each block and lane of the CUDA kernels
-covers.
+"""The launch plans of ``axpy``, the one-row MX walk (``mx_qgemv``, the
+fused SwiGLU, the grouped experts) and the paged decode, as plain Python:
+what each block and lane of the CUDA kernels covers.
 
 ``axpy_plan`` takes n elements on the vector path (a 16-byte vector a
 thread) up to four waves of the card, and past that cuts them into tiles of
 16-byte vectors walked as contiguous parts through shared memory, plus a
 tail of fewer than a tile; ``qgemv_plan`` cuts (N, K) MX codes into column
-tiles, one block a tile, rounds down K and lane runs inside E8M0 blocks.  Each is held here to cover
-every element (every column and code row) exactly once, to keep its ragged
-tails right, and to fill a card of 132 SMs at the projection shapes.
+tiles, one block a (tile, x row) holding a group of warps for each weight
+stream, rounds down K and lane runs inside E8M0 blocks.  Each is held here
+to cover every element (every stream, x row, column and code row) exactly
+once, to keep its ragged tails right, and to fill a card of 132 SMs at the
+projection shapes.
 ``paged_decode_plan`` cuts each slot's valid positions into splits of whole
 pages, tiles of 16 positions a warp and m-tiles of 16 query heads; the walk
 that the kernel computes on the device from it (``PageSplit`` in
@@ -29,7 +31,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.axpy import (BARRIER_BYTES,  # noqa: E402
                                       SM_THREADS, SMEM_LIMIT, THREADS,
                                       VECTOR_WAVES, axpy_plan, stream_plan, vector_plan)
-from repro_torch.kernels.mx_gemv import QgemvPlan, qgemv_plan  # noqa: E402
+from repro_torch.kernels.mx_gemv import (QgemvPlan, grouped_plan,  # noqa: E402
+                                        qgemv_plan, swiglu_plan)
 from repro_torch.tune import REGISTRY  # noqa: E402
 from repro_torch.tune.search import enumerate_space  # noqa: E402
 
@@ -155,21 +158,23 @@ MX_SHAPES = [
     (1040, 2848), (48, 96), (16, 1024), (1024, 32), (16, 32)]
 
 
-def qgemv_counts(plan: QgemvPlan, N: int, bits: int):
-    """How often the plan's lanes touch each (group of ``cols`` columns,
-    code row), checking on the way that every live run stays inside one
-    E8M0 block."""
+def walk_counts(plan: QgemvPlan, N: int, bits: int):
+    """How often the plan's lanes touch each (stream, x row, group of
+    ``cols`` columns, code row), checking on the way that every live run
+    stays inside one E8M0 block and inside its block's tile."""
     sb = 16 if bits == 4 else 32
-    count = np.zeros((-(-N // plan.cols), plan.rows), np.int64)
-    runs = np.array(list(plan.runs()), np.int64)
-    live = (runs[:, 0] < N) & (runs[:, 1] < plan.rows)
-    runs = runs[live]
-    assert (runs[:, 0] % plan.cols == 0).all()
-    assert (runs[:, 1] % plan.rpl == 0).all()
-    assert (runs[:, 1] + plan.rpl <= plan.rows).all()
-    assert (runs[:, 1] // sb == (runs[:, 1] + plan.rpl - 1) // sb).all()
+    count = np.zeros((plan.streams, plan.xrows, -(-N // plan.cols),
+                      plan.rows), np.int64)
+    runs = np.array(list(plan.lane_runs()), np.int64)
+    st, xr, t, c, r0 = runs.T
+    assert ((t * plan.tile <= c) & (c < (t + 1) * plan.tile)).all()
+    live = (c < N) & (r0 < plan.rows)
+    st, xr, c, r0 = st[live], xr[live], c[live], r0[live]
+    assert (c % plan.cols == 0).all() and (r0 % plan.rpl == 0).all()
+    assert (r0 + plan.rpl <= plan.rows).all()
+    assert (r0 // sb == (r0 + plan.rpl - 1) // sb).all()
     for i in range(plan.rpl):
-        np.add.at(count, (runs[:, 0] // plan.cols, runs[:, 1] + i), 1)
+        np.add.at(count, (st, xr, c // plan.cols, r0 + i), 1)
     return count
 
 
@@ -189,7 +194,7 @@ def test_qgemv_plan_covers_each_column_and_row_once(N, K, bits):
     assert plan.rounds >= 1
     assert (plan.rounds - 1) * plan.band < plan.rows <= plan.rows_per_block
     assert (plan.tiles - 1) * plan.tile < N <= plan.tiles * plan.tile
-    assert (qgemv_counts(plan, N, bits) == 1).all()
+    assert (walk_counts(plan, N, bits) == 1).all()
 
 
 @pytest.mark.parametrize("N,K,bits", [
@@ -235,6 +240,92 @@ def test_qgemv_plan_streams_the_read_outs():
         assert (plan.cols, plan.lpr, plan.warps, plan.rpl) == (16, 8, 2, 8)
         assert plan.rounds == rounds and plan.tiles == 1187
         assert plan.rows_per_block == plan.rows
+
+
+@pytest.mark.parametrize("N,K,bits,want", [
+    (1024, 1024, 4, (8, 1, 8, 2, 1, 128, 512)),
+    (1024, 2816, 4, (8, 1, 6, 8, 1, 128, 1408)),
+    (2048, 2048, 4, (16, 1, 8, 4, 1, 128, 1024)),
+    (2048, 5632, 4, (16, 1, 6, 16, 1, 128, 2816)),
+    (151936, 1024, 4, (16, 8, 2, 8, 8, 1187, 512)),
+    (151936, 1024, 8, (16, 8, 2, 8, 16, 1187, 1024))])
+def test_qgemv_plan_is_unchanged_at_the_smoke_shapes(N, K, bits, want):
+    """``mx_qgemv``'s cuts at the smoke's six shapes (cols, lpr, warps,
+    rpl, rounds, tiles, rows) stay as they were before the walk took the
+    SwiGLU and the grouped experts: one stream, one row, one group."""
+    plan = qgemv_plan(N, K, bits, SMS)
+    assert tuple(plan)[:7] == want
+    assert (plan.xrows, plan.streams) == (1, 1)
+    assert plan.block_warps == plan.warps and plan.blocks == plan.tiles
+
+
+WALK_SHAPES = [(2816, 1024), (5632, 2048),    # the SwiGLU's gate + up
+               (1408, 2048), (2048, 1408),    # the experts' up and down
+               (1040, 2848), (48, 96), (16, 32), (64, 16384)]
+
+
+@pytest.mark.parametrize("bits", [4, 8], ids=["fp4", "fp8"])
+@pytest.mark.parametrize("N,K", WALK_SHAPES)
+@pytest.mark.parametrize("xrows,streams", [
+    (1, 2),                                   # mx_qgemv_swiglu
+    (4, 1), (1, 1), (7, 1)],                  # grouped_expert_qgemv
+    ids=["swiglu", "grouped-4", "grouped-1", "grouped-7"])
+def test_walk_plans_cover_each_stream_row_column_and_code_row_once(
+        N, K, bits, xrows, streams):
+    """The SwiGLU's and the grouped experts' cuts: every (weight stream, x
+    row, column, code row) by exactly one lane run, inside one E8M0 block;
+    one block a (tile, x row), whose lanes stay inside the tile; the tiles
+    cover N once (the last one at most ragged); a group of at most 8
+    warps, at most 16 code loads a lane, rounds covering K with none
+    idle."""
+    plan = qgemv_plan(N, K, bits, SMS, xrows, streams)
+    assert (plan.xrows, plan.streams) == (xrows, streams)
+    assert plan.rows == (K // 2 if bits == 4 else K)
+    assert plan.rpl <= 16 and 1 <= plan.warps <= 8
+    assert plan.block_warps == plan.warps * streams
+    assert (plan.rounds - 1) * plan.band < plan.rows <= plan.rows_per_block
+    assert (plan.tiles - 1) * plan.tile < N <= plan.tiles * plan.tile
+    assert plan.blocks == plan.tiles * xrows
+    assert (walk_counts(plan, N, bits) == 1).all()
+
+
+@pytest.mark.parametrize("bits", [4, 8], ids=["fp4", "fp8"])
+@pytest.mark.parametrize("kind,N,K", [
+    ("swiglu", 2816, 1024), ("swiglu", 5632, 2048),
+    ("grouped", 1408, 2048), ("grouped", 2048, 1408)])
+def test_walk_plans_give_every_sm_work_at_the_smoke_shapes(kind, N, K,
+                                                           bits):
+    """At the smoke's SwiGLU shapes (qwen1.5-0.5b's and qwen2-moe-a2.7b's
+    shared expert's gate + up) and grouped shapes (qwen2-moe-a2.7b's
+    experts, top-4), the wrappers' cuts give each of 132 SMs a block and
+    8 warps' lanes, in one round; 1408 columns make no ragged tile."""
+    plan = (swiglu_plan(N, K, bits, SMS) if kind == "swiglu"
+            else grouped_plan(N, K, bits, SMS, 4))
+    assert plan.blocks >= SMS
+    assert plan.blocks * plan.block_warps >= 8 * SMS
+    assert plan.rounds == 1
+    assert N % plan.tile == 0
+    if kind == "swiglu":
+        assert plan.streams == 2 and plan.xrows == 1
+    else:
+        assert plan.streams == 1 and plan.xrows == 4
+
+
+def test_mx_entry_points_take_the_wrappers_argtypes():
+    """Each ``extern "C"`` entry point of ``csrc/mx_gemv.cu`` takes, in
+    order, the pointers and ints its wrapper's ``_ARGTYPES`` pass (no
+    compiler here checks the two against each other)."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build, mx_gemv
+    src = (Path(_build.CSRC) / "mx_gemv.cu").read_text()
+    found = {}
+    for name, params in re.findall(
+            r'extern "C" \w+ (\w+)\(([^)]*)\)', src):
+        found[name] = [_build.P if "*" in p else _build.I
+                       for p in params.split(",")]
+    assert found == mx_gemv._ARGTYPES
 
 
 # ------------------------------------------------------------ paged decode
