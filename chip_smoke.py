@@ -197,7 +197,8 @@ TENSOR_CORE = {"flash_attention": (("flash_bf16_kernel", "HGMMA"),),
                "decode_attention": (("decode_mma_kernel", "HMMA"),
                                     ("decode_q8_mma_kernel", "HMMA"),
                                     ("paged_decode_mma_kernel", "HMMA")),
-               "prefill_attention": (("prefill_mma_kernel", "HMMA"),)}
+               "prefill_attention": (("prefill_mma_kernel", "HMMA"),),
+               "qgemv": (("qgemv_mma_kernel", "HMMA"),)}
 # the kernels of the tuner's path (the tune phase): every registry name is
 # tuned and then launched through its dispatching entry point, and the
 # unregistered batched gemv through its own
@@ -916,20 +917,35 @@ def kernels_phase(torch, K, dev, rng):
         return (torch.randn(shape, device=dev, generator=gen) * scale).to(
             dtype)
 
+    def twice(name, call):
+        """``call()``'s output, which a second launch on the same inputs
+        must repeat bit for bit."""
+        got = call()
+        if not torch.equal(got, call()):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 f"differ")
+        return got
+
     # rmsnorm at the row counts of the paths: decode (slots = 8), chunk slab
     # (32), one slot (1); d = 1024 (qwen1.5-0.5b) and 2048 (qwen2-moe)
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels.rmsnorm import rmsnorm_plan
     rms = []
     for T, d in ((8, 1024), (32, 1024), (1, 1024), (8, 2048), (1, 2048)):
         x = t(rng.standard_normal((T, d)))
         s = t(1 + 0.1 * rng.standard_normal(d), torch.float32)
-        err = agree(f"rmsnorm T={T} d={d}", K.rmsnorm(x, s),
+        name = f"rmsnorm T={T} d={d}"
+        err = agree(name, twice(name, lambda: K.rmsnorm(x, s)),
                     K.PLAIN["rmsnorm"](x, s))
         s16 = s.to(torch.bfloat16)
         bms, by = bound_ms(2 * T * d * 2 + d * 4, 4 * T * d)
+        plan = rmsnorm_plan(T, d, LaunchConfig().rmsnorm_threads)
         rms.append({
             "shape": f"x ({T}, {d}) bf16, scale ({d},) f32",
             "max_abs_err": err, "bound_ms": bms, "bound_by": by,
             "tolerance": TOL["rmsnorm"],
+            "plan": f"{plan.wpr} warp(s) a row, {plan.vpl} vectors a lane, "
+                    f"{plan.rows} rows a block, {plan.blocks} blocks",
             **timed(torch, [lambda x=x, s=s: K.rmsnorm(x, s)],
                     [lambda x=x, s=s: K.PLAIN["rmsnorm"](x, s)],
                     [lambda x=x, d=d, s16=s16: F.rms_norm(x, (d,), s16,
@@ -990,15 +1006,6 @@ def kernels_phase(torch, K, dev, rng):
     from repro_torch.kernels.mx_gemv import (grouped_plan, qgemv_plan,
                                              swiglu_plan)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def twice(name, call):
-        """``call()``'s output, which a second launch on the same inputs
-        must repeat bit for bit."""
-        got = call()
-        if not torch.equal(got, call()):
-            raise AssertionError(f"{name}: two launches on the same inputs "
-                                 f"differ")
-        return got
     mx = []
     for (N, Kd), elem in (((151936, 1024), "fp4"), ((151936, 1024), "fp8"),
                           ((1024, 1024), "fp4"), ((1024, 2816), "fp4"),
@@ -1132,7 +1139,8 @@ def paper_rows(torch, K, F, agree, dev, randn):
     an operand), each from its default config, axpy also at every
     candidate of its tuner space; the batched gemv at
     (2048, 4096) for 1, 2, 4, 8 and 16 rows and at qwen1.5-0.5b's read-out
-    (151936, 1024) for 8; the dense decode attention at kernel_bench's
+    (151936, 1024) for 8 and 16 (the yardsticks of batched_qgemv's rows);
+    the dense decode attention at kernel_bench's
     (B=4, H=16, KV=8, hd=128, S=4096), qwen1.5-0.5b's 8 slots (H = KV =
     16, hd=64, S=1024) and glm4-9b's heads (B=4, H=32, KV=2, hd=128,
     S=4096), each at every candidate of its tuner space."""
@@ -1179,7 +1187,8 @@ def paper_rows(torch, K, F, agree, dev, randn):
 
     for (N, Kd), B in (((2048, 4096), 1), ((2048, 4096), 2),
                        ((2048, 4096), 4), ((2048, 4096), 8),
-                       ((2048, 4096), 16), ((151936, 1024), 8)):
+                       ((2048, 4096), 16), ((151936, 1024), 8),
+                       ((151936, 1024), 16)):
         ws = [randn(N, Kd, scale=Kd ** -0.5)
               for _ in range(copies_for(N * Kd * 2))]
         xs = randn(B, Kd)
@@ -1240,8 +1249,10 @@ def paper_rows(torch, K, F, agree, dev, randn):
 def int_rows(torch, K, F, agree, dev, gen, rows):
     """The kernels of the int slice at their shapes: ``qgemv`` (int8 and
     int4) at the qwen1.5-0.5b read-out (151936, 1024) and at the registry's
-    (2048, 4096), the shapes the tune phase tunes; ``batched_qgemv`` int8 at the read-out for 8
-    rows and the registry's (2048, 4096) for 4; ``batched_mx_qgemv`` fp4 at
+    (2048, 4096), the shapes the tune phase tunes; ``batched_qgemv`` at the
+    read-out for 8 rows (int8 and int4) and 16 (int8, two n-tiles of the
+    tile walk) and the registry's (2048, 4096) for 4, each with its launch
+    plan, every row giving the same bits twice; ``batched_mx_qgemv`` fp4 at
     the read-out (1024 -> 151936) for 8 rows and the registry's (4096 ->
     2048) for 4; ``decode_attention_int8`` at the qwen1.5-0.5b engine's
     dense shape (8 slots x 1024 x 16 KV heads x 64), the registry's (B=4,
@@ -1263,9 +1274,13 @@ def int_rows(torch, K, F, agree, dev, gen, rows):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, device=dev, generator=gen) * scale
 
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels.qgemv import batched_qgemv_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (N, Kd), bits, B in (((151936, 1024), 8, 0), ((151936, 1024), 4, 0),
                              ((2048, 4096), 8, 0), ((2048, 4096), 4, 0),
-                             ((151936, 1024), 8, 8), ((2048, 4096), 8, 4)):
+                             ((151936, 1024), 8, 8), ((151936, 1024), 4, 8),
+                             ((151936, 1024), 8, 16), ((2048, 4096), 8, 4)):
         code_bytes = N * Kd * bits // 8
         ws = []
         for _ in range(copies_for(code_bytes)):
@@ -1275,8 +1290,14 @@ def int_rows(torch, K, F, agree, dev, gen, rows):
         name = "batched_qgemv" if B else "qgemv"
         x = randn(B, Kd).bfloat16() if B else randn(Kd).bfloat16()
         fn, plain = getattr(K, name), K.PLAIN[name]
-        err = agree(f"{name} int{bits} B={B} {N}x{Kd}",
-                    fn(*ws[0], x, bits=bits), plain(*ws[0], x, bits=bits))
+        label = f"{name} int{bits} B={B} {N}x{Kd}"
+        got = fn(*ws[0], x, bits=bits)
+        if not torch.equal(got, fn(*ws[0], x, bits=bits)):
+            raise AssertionError(f"{label}: two launches on the same inputs "
+                                 f"differ")
+        err = agree(label, got, plain(*ws[0], x, bits=bits))
+        plan = batched_qgemv_plan(N, Kd, Kd // 128, max(B, 1), bits,
+                                  LaunchConfig(), sms)
         rows_ = max(B, 1)
         bms, by = bound_ms(code_bytes + N * (Kd // 128) * 4
                            + rows_ * Kd * 2 + rows_ * N * 4,
@@ -1288,6 +1309,9 @@ def int_rows(torch, K, F, agree, dev, gen, rows):
                      f"{Kd // 128}), x ({f'{B}, ' if B else ''}{Kd},) bf16",
             "max_abs_err": err, "bound_ms": bms, "bound_by": by,
             "tolerance": TOL[name], "library": None, "bf16_gemv_ms": ref,
+            "plan": (f"tile walk: {plan.warps} warps, {plan.steps} k-steps "
+                     f"a round, ksplit {plan.ksplit}, {plan.blocks} blocks"
+                     if plan.route == "tile" else "SIMT walk"),
             **timed(torch, [lambda w=w: fn(*w, x, bits=bits) for w in ws],
                     [lambda w=w: plain(*w, x, bits=bits) for w in ws])})
         del ws

@@ -36,7 +36,16 @@ rounding of the float64 value (this checkout's ``paged_decode_fp64``), and
 how many of the kernel's miss the smoke's gate against the plain version;
 then the paged decodes at the engines' G = 1 shapes with every slot at
 one length, 0 to 1024, and their device time at each (``--no-paged``
-stops after the MX lines);
+stops after the MX lines); then ``rmsnorm`` at the smoke's five rows (a
+digest and the device time) and in the served path's chains, each
+captured in one CUDA graph: a residual add that writes x, rmsnorm, then
+the next projection (the one-row ``gemv`` (1024, 1024) for one row,
+``F.linear`` for 8), beside the same chain without rmsnorm; then ``qgemv``
+and ``batched_qgemv`` at the smoke's rows (a digest and the device time)
+and, for each batched row over ``ACCURACY_SETS`` fresh input sets, the
+outputs past the smoke's gate against the plain version and each side's
+distance from the float64 value (``int_fp64``) (``--lines`` picks which
+of these groups of lines to print);
 then it runs serving phases of that tree, each from a fresh seed-0 stream
 (``--engines``: ``bf16``, the default, runs ``engine_phase``, qwen1.5-0.5b
 bf16, and ``moe_phase`` for bf16, qwen2-moe-a2.7b; ``mx4`` runs
@@ -80,23 +89,37 @@ PAGED_SHAPES = ((16, 16, 64), (16, 16, 128),   # the engines, G = 1
                 (32, 2, 128), (40, 8, 128))    # glm4-9b's, qwen3-14b's heads
 # the G = 1 sweep: every slot at each of these lengths
 SWEEP_LENGTHS = (0, 16, 64, 128, 256, 448, 1024)
+# rmsnorm at the smoke's rows (T, d), and the chains of the served path: a
+# residual add that writes x, rmsnorm, then the next projection of 1024
+# columns (the one-row gemv for one slot, F.linear for 8)
+RMS_SHAPES = ((8, 1024), (32, 1024), (1, 1024), (8, 2048), (1, 2048))
+RMS_CHAINS = ((1, 1024), (8, 1024))
+# the int GEMVs at the smoke's rows: ((N, K), bits, rows of x; 0: qgemv)
+QGEMV_ROWS = (((151936, 1024), 8, 0), ((151936, 1024), 4, 0),
+              ((2048, 4096), 8, 0), ((2048, 4096), 4, 0),
+              ((151936, 1024), 8, 8), ((151936, 1024), 4, 8),
+              ((151936, 1024), 8, 16), ((2048, 4096), 8, 4))
 # the int8 dense decode: (B, H, KV, hd, S), full length
 DENSE_INT8_SHAPES = ((8, 16, 16, 64, 1024), (4, 16, 8, 128, 4096),
                      (4, 32, 2, 128, 4096))
 
 
+def sha(torch, t):
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
 def digests(torch, K):
-    def sha(t):
-        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
     for (N, Kd), name in GEMV_SHAPES:
         dtype = getattr(torch, name)
         g = torch.Generator(device="cuda").manual_seed(0)
         w = (torch.randn((N, Kd), device="cuda", generator=g)
              / Kd ** 0.5).to(dtype)
         x = torch.randn(Kd, device="cuda", generator=g).to(dtype)
-        line = f"gemv ({N}, {Kd}) {name} {sha(K.gemv(w, x))}"
+        line = f"gemv ({N}, {Kd}) {name} {sha(torch, K.gemv(w, x))}"
         if dtype == torch.bfloat16:
-            line += f", batched_gemv B=1 {sha(K.batched_gemv(w, x[None]))}"
+            line += (f", batched_gemv B=1 "
+                     f"{sha(torch, K.batched_gemv(w, x[None]))}")
         print(line, flush=True)
 
 
@@ -107,10 +130,6 @@ def kernel_lines(torch, K, smoke, referee, paged=True):
     input copies, at the default config; ``referee``: this checkout's
     ``chip_smoke.py`` (its float64 paged decode and its gates)."""
     from repro_torch.quant.tensor import quantize_kv, quantize_mx
-
-    def sha(t):
-        return hashlib.sha256(t.view(torch.uint8).cpu().numpy()
-                              .tobytes()).hexdigest()[:16]
     g = torch.Generator(device="cuda").manual_seed(0)
     for n in AXPY_SIZES:
         pairs = [tuple(torch.randn(n, device="cuda", generator=g)
@@ -118,7 +137,7 @@ def kernel_lines(torch, K, smoke, referee, paged=True):
                  for _ in range(smoke.copies_for(4 * n))]
         ms = smoke.time_ms(torch, [lambda p=p: K.axpy(1.5, *p)
                                    for p in pairs])[0]
-        print(f"axpy n={n} bf16 {sha(K.axpy(1.5, *pairs[0]))} "
+        print(f"axpy n={n} bf16 {sha(torch, K.axpy(1.5, *pairs[0]))} "
               f"{ms * 1e3:.2f} us", flush=True)
         del pairs
         torch.cuda.empty_cache()
@@ -132,8 +151,9 @@ def kernel_lines(torch, K, smoke, referee, paged=True):
         x = torch.randn(Kd, device="cuda", generator=g).to(torch.bfloat16)
         ms = smoke.time_ms(torch, [lambda w=w: K.mx_qgemv(*w, x)
                                    for w in ws])[0]
-        print(f"mx_qgemv {elem} ({N}, {Kd}) {sha(K.mx_qgemv(*ws[0], x))} "
-              f"{ms * 1e3:.2f} us", flush=True)
+        print(f"mx_qgemv {elem} ({N}, {Kd}) "
+              f"{sha(torch, K.mx_qgemv(*ws[0], x))} {ms * 1e3:.2f} us",
+              flush=True)
         del ws
         torch.cuda.empty_cache()
     for N, Kd in SWIGLU_SHAPES:
@@ -148,7 +168,7 @@ def kernel_lines(torch, K, smoke, referee, paged=True):
         ms = smoke.time_ms(torch, [lambda w=w: K.mx_qgemv_swiglu(*w, x)
                                    for w in ws])[0]
         print(f"mx_qgemv_swiglu fp4 ({N}, {Kd}) "
-              f"{sha(K.mx_qgemv_swiglu(*ws[0], x))} {ms * 1e3:.2f} us",
+              f"{sha(torch, K.mx_qgemv_swiglu(*ws[0], x))} {ms * 1e3:.2f} us",
               flush=True)
         del ws
         torch.cuda.empty_cache()
@@ -167,8 +187,9 @@ def kernel_lines(torch, K, smoke, referee, paged=True):
         ms = smoke.time_ms(torch, [lambda s=s: K.grouped_expert_qgemv(
             wq, sc, xs, s) for s in sets])[0]
         print(f"grouped_expert_qgemv fp4 ({N}, {Kd}) "
-              f"{sha(K.grouped_expert_qgemv(wq, sc, xs, sets[0]))}, repeated "
-              f"ids {sha(K.grouped_expert_qgemv(wq, sc, xs, repeated))} "
+              f"{sha(torch, K.grouped_expert_qgemv(wq, sc, xs, sets[0]))}, "
+              f"repeated ids "
+              f"{sha(torch, K.grouped_expert_qgemv(wq, sc, xs, repeated))} "
               f"{ms * 1e3:.2f} us", flush=True)
         del wq, sc
         torch.cuda.empty_cache()
@@ -224,7 +245,8 @@ def kernel_lines(torch, K, smoke, referee, paged=True):
             ms = smoke.time_ms(torch, [lambda p=p: fn(q, *p, bt, length)
                                        for p in pools])[0]
             print(f"{name} H={H} KV={KV} hd={hd} "
-                  f"{sha(fn(q, *pools[0], bt, length))} {ms * 1e3:.2f} us; "
+                  f"{sha(torch, fn(q, *pools[0], bt, length))} "
+                  f"{ms * 1e3:.2f} us; "
                   + rounding(name, q, pools, bt, length, hd), flush=True)
             del pools
             torch.cuda.empty_cache()
@@ -255,9 +277,114 @@ def kernel_lines(torch, K, smoke, referee, paged=True):
         ms = smoke.time_ms(torch, [lambda c=c: K.decode_attention_int8(
             q, *c, length) for c in caches])[0]
         print(f"decode_attention_int8 B={B} H={H} KV={KV} hd={hd} S={S} "
-              f"{sha(K.decode_attention_int8(q, *caches[0], length))} "
-              f"{ms * 1e3:.2f} us", flush=True)
+              f"{sha(torch, K.decode_attention_int8(q, *caches[0], length))}"
+              f" {ms * 1e3:.2f} us", flush=True)
         del caches
+        torch.cuda.empty_cache()
+
+
+
+def rmsnorm_lines(torch, K, smoke):
+    """rmsnorm at the smoke's rows: a digest of the output on seeded inputs
+    and the device us per call (20 launches back to back in a CUDA graph);
+    then each chain of ``RMS_CHAINS`` captured in one graph, the add
+    writing x, rmsnorm, the projection (us per chain), beside the same
+    chain without rmsnorm (the projection of a normalized copy)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def inputs(T, d):
+        return (torch.randn((T, d), device="cuda", generator=g).to(
+            torch.bfloat16), 1 + 0.1 * torch.randn(d, device="cuda",
+                                                   generator=g))
+    for T, d in RMS_SHAPES:
+        x, s = inputs(T, d)
+        ms = smoke.time_ms(torch, [lambda: K.rmsnorm(x, s)])[0]
+        print(f"rmsnorm T={T} d={d} {sha(torch, K.rmsnorm(x, s))} "
+              f"{ms * 1e3:.2f} us", flush=True)
+    for T, d in RMS_CHAINS:
+        a, s = inputs(T, d)
+        b = torch.randn((T, d), device="cuda", generator=g).to(
+            torch.bfloat16)
+        w = (torch.randn((1024, d), device="cuda", generator=g)
+             / d ** 0.5).to(torch.bfloat16)
+        h0 = K.rmsnorm(torch.add(a, b), s)
+
+        def proj(h):
+            return K.gemv(w, h[0]) if T == 1 else F.linear(h, w)
+
+        def chain():
+            return proj(K.rmsnorm(torch.add(a, b), s))
+
+        def bare():
+            torch.add(a, b)
+            return proj(h0)
+        label = "gemv" if T == 1 else "F.linear"
+        ms = smoke.time_ms(torch, [chain])[0]
+        ms0 = smoke.time_ms(torch, [bare])[0]
+        print(f"rmsnorm chain T={T} d={d}: add -> rmsnorm -> {label} "
+              f"({1024}, {d}) {sha(torch, chain())} {ms * 1e3:.2f} us; "
+              f"add -> {label} {ms0 * 1e3:.2f} us", flush=True)
+
+
+def int_fp64(torch, wq, scales, bits):
+    """The float64 value of absmax codes (N, K | K/2 packed int4) and their
+    fp32 group scales (N, G), exactly: (N, K)."""
+    from repro_torch.quant.tensor import unpack_int4
+    v = (unpack_int4(wq, axis=-1) if bits == 4 else wq).double()
+    N, Kd = v.shape
+    G = scales.shape[1]
+    return (v.reshape(N, G, Kd // G) * scales.double()[..., None]).reshape(
+        N, Kd)
+
+
+def qgemv_lines(torch, K, smoke, referee):
+    """``qgemv`` and ``batched_qgemv`` at the smoke's rows: a digest of the
+    output on seeded inputs and the device us per call over input copies
+    past twice the L2, at the default config; then, for each batched row,
+    over ``ACCURACY_SETS`` fresh input sets, the outputs past the smoke's
+    gate against the plain version and each side's distance from the
+    float64 value (``int_fp64``)."""
+    from repro_torch.quant.tensor import quantize
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def weights(gen, N, Kd, bits, n):
+        out = []
+        for _ in range(n):
+            qt = quantize(torch.randn((N, Kd), device="cuda", generator=gen)
+                          / Kd ** 0.5, bits=bits, group_size=128, axis=-1)
+            out.append((qt.values, qt.scales))
+        return out
+    for (N, Kd), bits, B in QGEMV_ROWS:
+        name = "batched_qgemv" if B else "qgemv"
+        fn = getattr(K, name)
+        ws = weights(g, N, Kd, bits, smoke.copies_for(N * Kd * bits // 8))
+        x = torch.randn((B, Kd) if B else (Kd,), device="cuda",
+                        generator=g).to(torch.bfloat16)
+        ms = smoke.time_ms(torch, [lambda w=w: fn(*w, x, bits=bits)
+                                   for w in ws])[0]
+        print(f"{name} int{bits} B={B} ({N}, {Kd}) "
+              f"{sha(torch, fn(*ws[0], x, bits=bits))} {ms * 1e3:.2f} us",
+              flush=True)
+        del ws
+        torch.cuda.empty_cache()
+    for (N, Kd), bits, B in QGEMV_ROWS:
+        if not B:
+            continue
+        pairs = []
+        for i in range(ACCURACY_SETS):
+            gen = torch.Generator(device="cuda").manual_seed(3000 + i)
+            (wq, sc), = weights(gen, N, Kd, bits, 1)
+            xs = torch.randn((B, Kd), device="cuda", generator=gen).to(
+                torch.bfloat16)
+            pairs.append((K.batched_qgemv(wq, sc, xs, bits=bits),
+                          K.PLAIN["batched_qgemv"](wq, sc, xs, bits=bits),
+                          xs.double() @ int_fp64(torch, wq, sc, bits).t()))
+            del wq, sc
+        print(f"accuracy batched_qgemv int{bits} B={B} ({N}, {Kd}) over "
+              f"{ACCURACY_SETS} input sets: "
+              + tally(referee, "batched_qgemv", pairs), flush=True)
+        del pairs
         torch.cuda.empty_cache()
 
 
@@ -274,6 +401,31 @@ def mx_fp64(torch, wq, scales):
     return (v * sc.unsqueeze(-2)).reshape(shape)
 
 
+def tally(referee, name, pairs):
+    """Over (kernel, plain, float64) output triples: the kernel's outputs
+    past the smoke's gate against the plain version, the largest distance,
+    and each side's distance from the float64 value with the outputs past
+    the gate against it."""
+    tol = referee.TOL[name]
+    past = past_k = past_p = n = 0
+    err = err_k = err_p = 0.0
+    for got, want, exact in pairs:
+        got, want = got.double(), want.double()
+
+        def off(a, b):
+            return int(((a - b).abs() > tol + tol * b.abs()).sum())
+        past += off(got, want)
+        past_k += off(got, exact)
+        past_p += off(want, exact)
+        err = max(err, (got - want).abs().max().item())
+        err_k = max(err_k, (got - exact).abs().max().item())
+        err_p = max(err_p, (want - exact).abs().max().item())
+        n += got.numel()
+    return (f"past the gate ({tol:g}) against plain {past} of {n}, "
+            f"max {err:.3g}; against float64: kernel {past_k}, max "
+            f"{err_k:.3g}; plain {past_p}, max {err_p:.3g}")
+
+
 def mx_accuracy(torch, K, referee):
     """The fused MX SwiGLU and the grouped MX experts at the smoke's
     shapes, fp4 and fp8, over ``ACCURACY_SETS`` fresh input sets made
@@ -282,26 +434,6 @@ def mx_accuracy(torch, K, referee):
     kernel's and the plain version's distances from the float64 value
     (``mx_fp64``), with the outputs of each past the gate against it."""
     from repro_torch.quant.tensor import quantize_mx
-
-    def tally(name, pairs):
-        tol = referee.TOL[name]
-        past = past_k = past_p = n = 0
-        err = err_k = err_p = 0.0
-        for got, want, exact in pairs:
-            got, want = got.double(), want.double()
-
-            def off(a, b):
-                return int(((a - b).abs() > tol + tol * b.abs()).sum())
-            past += off(got, want)
-            past_k += off(got, exact)
-            past_p += off(want, exact)
-            err = max(err, (got - want).abs().max().item())
-            err_k = max(err_k, (got - exact).abs().max().item())
-            err_p = max(err_p, (want - exact).abs().max().item())
-            n += got.numel()
-        return (f"past the gate ({tol:g}) against plain {past} of {n}, "
-                f"max {err:.3g}; against float64: kernel {past_k}, max "
-                f"{err_k:.3g}; plain {past_p}, max {err_p:.3g}")
 
     def swiglu_64(g, u):
         return g * torch.sigmoid(g) * u
@@ -325,7 +457,7 @@ def mx_accuracy(torch, K, referee):
                                         x64 @ mx_fp64(torch, *args[2:4]))))
             print(f"accuracy mx_qgemv_swiglu {elem} ({N}, {Kd}) over "
                   f"{ACCURACY_SETS} input sets: "
-                  + tally("mx_qgemv_swiglu", pairs), flush=True)
+                  + tally(referee, "mx_qgemv_swiglu", pairs), flush=True)
             del pairs
         for N, Kd in GROUPED_SHAPES:
             pairs = []
@@ -349,7 +481,7 @@ def mx_accuracy(torch, K, referee):
                 del qt, w64
             print(f"accuracy grouped_expert_qgemv {elem} ({N}, {Kd}) over "
                   f"{ACCURACY_SETS} input sets: "
-                  + tally("grouped_expert_qgemv", pairs), flush=True)
+                  + tally(referee, "grouped_expert_qgemv", pairs), flush=True)
             del pairs
             torch.cuda.empty_cache()
 
@@ -382,6 +514,11 @@ def main():
     ap.add_argument("--no-paged", action="store_true",
                     help="stop after the MX lines: no paged or int8 dense "
                          "decode lines")
+    ap.add_argument("--lines", default="gemv,axpy_mx_paged,rmsnorm,qgemv",
+                    help="comma list of the kernel lines to print: gemv "
+                         "(the gemv digests), axpy_mx_paged (axpy, the MX "
+                         "walk and, unless --no-paged, the paged and int8 "
+                         "dense decodes), rmsnorm, qgemv (default: all)")
     ap.add_argument("--engines", choices=("bf16", "mx4", "none"),
                     default="bf16", help="serving phases to run (default: "
                                          "bf16)")
@@ -407,8 +544,15 @@ def main():
                          text=True, check=True).stdout.strip())
     print(f"tree {tree}", flush=True)
     K.build()
-    digests(torch, K)
-    kernel_lines(torch, K, smoke, referee, not args.no_paged)
+    lines = set(args.lines.split(","))
+    if "gemv" in lines:
+        digests(torch, K)
+    if "axpy_mx_paged" in lines:
+        kernel_lines(torch, K, smoke, referee, not args.no_paged)
+    if "rmsnorm" in lines:
+        rmsnorm_lines(torch, K, smoke)
+    if "qgemv" in lines:
+        qgemv_lines(torch, K, smoke, referee)
     out = {}
     if args.engines == "bf16":
         out["qwen1.5 bf16"] = rates(smoke.engine_phase(

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Launch-plan probes of ``axpy``, the one-row MX walk (``mx_qgemv``, the
-fused SwiGLU) and the paged decodes on the card: the device time of each
-plan the wrappers choose beside the plans they do not, called through the
-kernels' C entry points.
+fused SwiGLU), the paged decodes, ``rmsnorm`` and ``batched_qgemv`` on the
+card: the device time of each plan the wrappers choose beside the plans
+they do not, called through the kernels' C entry points.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 scripts/chip_probe.py [--out FILE] \
-        [--probes axpy,mx_qgemv,mx_swiglu,paged]
+        [--probes axpy,mx_qgemv,mx_swiglu,paged,rmsnorm,qgemv] \
+        [--parent DIR]
 
 It prints the card's ``nvidia-smi`` name and power limit, then one line
 per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
@@ -35,11 +36,24 @@ per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
   ``decode_warps``: one split against ``wave_splits`` over the kernel's
   occupancy (the splits the plan takes at G > 1), each held to the plain
   version at the smoke's gate; a split count past one adds the combine
-  launch.
+  launch;
+- ``rmsnorm`` at the smoke's five rows: ``F.rms_norm``, this tree's
+  kernel (the wrapper's cut, then the row over 2 and 4 warps), and, with
+  ``--parent DIR`` (a checkout of another commit, e.g. the parent
+  unpacked under ``build/ab/``), that tree's ``csrc/rmsnorm.cu`` built
+  with the same ``nvcc`` flags into ``DIR/build/probe/`` and called
+  through its C entry point with the block-a-row design's arguments
+  ``(x, scale, out, T, d, eps, threads, stream)`` at 128 threads; each
+  held to the plain version at the smoke's gate;
+- ``qgemv``: ``batched_qgemv``'s tile walk at the smoke's batched rows
+  (and int4 at (2048, 4096)), every cut of warps a block (4, 8), k-steps
+  in flight (4, 8, 16) and K split the kernel takes, the wrapper's
+  marked, each held to the plain version at the smoke's gate.
 
 It exits non-zero without a CUDA device.
 """
 import argparse
+import ctypes
 import importlib
 import importlib.util
 import json
@@ -58,8 +72,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the probes as JSON to this file")
-    ap.add_argument("--probes", default="axpy,mx_qgemv,mx_swiglu,paged",
-                    help="comma list of the probes to run (default: all)")
+    ap.add_argument("--probes", default="axpy,mx_qgemv,mx_swiglu,paged,"
+                    "rmsnorm,qgemv", help="comma list of the probes to run "
+                                          "(default: all)")
+    ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
+                    help="a checkout whose csrc/rmsnorm.cu (the block-a-row "
+                         "design) the rmsnorm probe times beside this one")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -190,6 +208,10 @@ def main():
         torch.cuda.empty_cache()
     if "paged" in probes:
         paged_probes(torch, smoke, K, g, us, line)
+    if "rmsnorm" in probes:
+        rmsnorm_probes(torch, smoke, K, g, us, line, args.parent)
+    if "qgemv" in probes:
+        qgemv_probes(torch, smoke, K, g, us, line)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -260,6 +282,124 @@ def paged_probes(torch, smoke, K, g, us, line):
                          us=us([lambda p=p: call(p) for p in pools]))
             del pools, want
             torch.cuda.empty_cache()
+
+
+def rmsnorm_probes(torch, smoke, K, g, us, line, parent):
+    """rmsnorm at the smoke's rows: ``F.rms_norm``, this tree's kernel and
+    ``parent``'s (where given)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import rmsnorm_plan
+    rms = importlib.import_module("repro_torch.kernels.rmsnorm")
+    lib = _build.library("rmsnorm", rms._ARGTYPES)
+    old = None
+    if parent is not None:
+        src = parent.resolve() / "src" / "repro_torch" / "kernels" / "csrc"
+        out = parent.resolve() / "build" / "probe"
+        out.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+                        str(out / "librmsnorm.so"), str(src / "rmsnorm.cu")],
+                       check=True, capture_output=True)
+        old = ctypes.CDLL(str(out / "librmsnorm.so")).repro_rmsnorm_bf16
+        old.argtypes = [_build.P] * 3 + [_build.I] * 2 + [_build.F,
+                                                         _build.I, _build.P]
+        old.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+    for T, d in ((8, 1024), (32, 1024), (1, 1024), (8, 2048), (1, 2048)):
+        x = torch.randn((T, d), device="cuda", generator=g).to(torch.bfloat16)
+        s = 1 + 0.1 * torch.randn(d, device="cuda", generator=g)
+        s16 = s.to(torch.bfloat16)
+        want = K.PLAIN["rmsnorm"](x, s).float()
+        tol = smoke.TOL["rmsnorm"]
+        shape = f"({T}, {d})"
+        line(kernel="rmsnorm", shape=shape, plan="F.rms_norm",
+             us=us([lambda: F.rms_norm(x, (d,), s16, 1e-6)]))
+        p = rmsnorm_plan(T, d, 128)
+        err = (K.rmsnorm(x, s).float() - want).abs().max().item()
+        line(kernel="rmsnorm", shape=shape, plan="a warp a row (this tree)",
+             cut=f"wpr {p.wpr} vpl {p.vpl} rows {p.rows} blocks {p.blocks}",
+             err=err, ok=err <= tol, us=us([lambda: K.rmsnorm(x, s)]))
+        y = torch.empty_like(x)
+        for wpr in (2, 4):              # the row over more warps
+            vpl = max(1, d // 8 // (32 * wpr))
+            rows = max(1, 4 // wpr)
+
+            def cut(wpr=wpr, vpl=vpl, rows=rows):
+                _build.check(lib.repro_rmsnorm_bf16(
+                    x.data_ptr(), s.data_ptr(), y.data_ptr(), T, d, 1e-6,
+                    wpr, vpl, rows, _build.stream_handle(dev)),
+                    "rmsnorm probe")
+            cut()
+            err = (y.float() - want).abs().max().item()
+            line(kernel="rmsnorm", shape=shape, plan="warps a row",
+                 cut=f"wpr {wpr} vpl {vpl} rows {rows}", err=err,
+                 ok=err <= tol, us=us([cut]))
+        if old is None:
+            continue
+        y = torch.empty_like(x)
+
+        def call():
+            _build.check(old(x.data_ptr(), s.data_ptr(), y.data_ptr(), T, d,
+                             1e-6, 128, _build.stream_handle(dev)),
+                         "rmsnorm probe")
+        call()
+        err = (y.float() - want).abs().max().item()
+        line(kernel="rmsnorm", shape=shape,
+             plan=f"a block a row ({parent.name})", err=err, ok=err <= tol,
+             us=us([call]))
+
+
+def qgemv_probes(torch, smoke, K, g, us, line):
+    """``batched_qgemv``'s tile walk at the smoke's rows: every cut of
+    warps a block (4, 8), k-steps in flight (4, 8, 16) and K split the
+    kernel takes, the wrapper's marked, each held to the plain version at
+    the smoke's gate."""
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels import _build
+    from repro_torch.quant.tensor import quantize
+    Q = importlib.import_module("repro_torch.kernels.qgemv")
+    lib = _build.library("qgemv", Q._ARGTYPES)
+    dev = torch.device("cuda", 0)
+    sms = _build.sm_count(dev)
+    for (N, Kd), bits, B in (((151936, 1024), 8, 8), ((151936, 1024), 4, 8),
+                             ((151936, 1024), 8, 16), ((2048, 4096), 8, 4),
+                             ((2048, 4096), 4, 4)):
+        ws = []
+        for _ in range(smoke.copies_for(N * Kd * bits // 8)):
+            qt = quantize(torch.randn((N, Kd), device="cuda", generator=g)
+                          / Kd ** 0.5, bits=bits, group_size=128, axis=-1)
+            ws.append((qt.values, qt.scales))
+        xs = torch.randn((B, Kd), device="cuda", generator=g).to(
+            torch.bfloat16)
+        want = K.PLAIN["batched_qgemv"](*ws[0], xs, bits=bits)
+        base = Q.batched_qgemv_plan(N, Kd, Kd // 128, B, bits, LaunchConfig(),
+                                    sms)
+        y = torch.empty((B, N), device="cuda")
+        nsteps = Kd // base.kstep
+        shape = f"int{bits} B={B} {N}x{Kd}"
+        for warps in (4, 8):
+            for steps in (4, 8, 16):
+                for ksplit in (1, 2, 4, 8):
+                    if warps % ksplit or (ksplit - 1) * steps >= nsteps:
+                        continue
+                    blocks = -(-base.tiles // (warps // ksplit))
+
+                    def call(w, a=(warps, steps, ksplit, blocks)):
+                        _build.check(lib.repro_qgemv_mma(
+                            w[0].data_ptr(), w[1].data_ptr(), xs.data_ptr(),
+                            y.data_ptr(), N, Kd, Kd // 128, B, bits, *a,
+                            _build.stream_handle(dev)), "qgemv probe")
+                    call(ws[0])
+                    ok = bool(torch.isclose(y, want, rtol=1.4e-5,
+                                            atol=1.4e-5).all())
+                    line(kernel="batched_qgemv", shape=shape, warps=warps,
+                         steps=steps, ksplit=ksplit,
+                         plan=(warps, steps, ksplit) == (
+                             base.warps, base.steps, base.ksplit),
+                         ok=ok, us=us([lambda w=w: call(w) for w in ws]))
+        del ws, want
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ its names and with its defaults (``streams``, ``unroll``, ``block_k``;
 ``block_n`` and ``scrambled_layout`` only feed the tuner's analytic
 predictor, as in JAX), so ``repro_torch.tune`` ranks their candidates as the
 JAX tuner does.  The quantized GEMVs ``qgemv`` / ``batched_qgemv`` read
-``block_n`` (threads a block) and ``unroll`` (W rows a warp), and
+``block_n`` (threads a block) and ``unroll`` (W rows a warp on the SIMT
+walk; 4 x unroll k-steps in flight on ``batched_qgemv``'s tile walk), and
 ``batched_mx_qgemv`` ``block_n`` and ``unroll`` (columns a lane); their
 ``streams`` and ``block_k`` feed only the predictor.  The
 defaults are the simple first designs each kernel's source describes; an
@@ -26,7 +27,7 @@ import torch
 
 @dataclass(frozen=True)
 class LaunchConfig:
-    rmsnorm_threads: int = 128      # one block per row, 8 bf16 per thread
+    rmsnorm_threads: int = 128      # threads a block, a warp a row
     gemv_warps: int = 8             # one warp per output row
     decode_warps: int = 4           # paged decode: position warps of a
     #   block, 16 positions each of a staged tile

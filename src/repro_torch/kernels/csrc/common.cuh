@@ -1,5 +1,5 @@
 // Helpers shared by the port's kernels: warp reductions, bf16 and int8
-// unpacking and 16-byte vector loads.
+// unpacking, 16-byte vector loads and the bf16 tensor-core product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,5 +66,16 @@ struct Vec<float> {
     f[3] = v.w;
   }
 };
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row-major) . b (16 x 8 bf16)
+__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
 }  // namespace repro

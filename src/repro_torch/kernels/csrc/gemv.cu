@@ -76,6 +76,7 @@
 
 namespace {
 
+using repro::mma_bf16;
 using repro::Vec;
 
 constexpr int kRowVecs = 2;   // 16-byte loads a lane per step of a row
@@ -166,17 +167,6 @@ cudaError_t launch(const void* w, const void* x, const void* index, void* y,
 
 constexpr int kStep = 64;    // k a warp takes per step: 16 a lane
 constexpr int kInFlight = 4;  // steps whose loads are issued together
-
-// c (16 x 8 fp32) += a (16 x 16 bf16, row-major) . b (16 x 8 bf16)
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // NT n-tiles of 8 xs rows; warp w of a block takes tile blockIdx.x * (warps
 // / ksplit) + w / ksplit and every ksplit-th step from w % ksplit

@@ -9,12 +9,15 @@ byte along K, with ``(N, K/g)`` fp32 scales; ``bits`` says which, as in the
 JAX package (it is never inferred from the shapes).  These kernels take the
 registry's and the tuner's operands: the engine's int weights are stored
 ``(K, N)`` and dequantize in the graph, as in the JAX package.  The CUDA
-kernel is bound by the code and scale bytes; ``csrc/qgemv.cu`` says how its
-design meets that.
+kernels are bound by the code and scale bytes; ``csrc/qgemv.cu`` says how
+their design meets that: at B >= 2 a tile walk on the tensor cores
+(``mma.sync``), for one row and for groups narrower than a k-step the SIMT
+walk (``batched_qgemv_plan`` picks, and says why).
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,10 +33,90 @@ launches = 0
 batched_launches = 0
 
 _P, _I = _build.P, _build.I
-_ARGTYPES = {"repro_qgemv": [_P] * 4 + [_I] * 8 + [_P]}
+_ARGTYPES = {"repro_qgemv": [_P] * 4 + [_I] * 8 + [_P],
+             "repro_qgemv_mma": [_P] * 4 + [_I] * 9 + [_P]}
 #: rows of xs one launch takes
 MAX_BATCH = 16
 _SMEM = 227 * 1024
+#: warps a block of the tile walk (``__launch_bounds__(256)``)
+MAX_TILE_WARPS = 8
+#: k-steps of a round, per unit of ``unroll``, and at most
+STEPS_IN_FLIGHT, MAX_ROUND = 4, 16
+
+
+def k_step(bits: int) -> int:
+    """k of one k-step of the tile walk: a 16-byte vector of codes a lane,
+    four lanes across a row (64 int8 codes, 128 int4)."""
+    return 4 * (32 if bits == 4 else 16)
+
+
+class QgemvTilePlan(NamedTuple):
+    """How ``batched_qgemv`` launches: ``route`` "tile" (``mma.sync``) or
+    "walk" (the SIMT walk) and ``why``.  For the tile walk: ``warps`` a
+    block, ``steps`` k-steps a round (their loads in flight together),
+    ``ksplit`` warps on one 16-row tile (each taking every ksplit-th
+    round), ``tiles`` of 16 rows, ``blocks``; ``kstep`` and ``gsteps``
+    (k-steps a group)."""
+    route: str
+    why: str
+    warps: int = 0
+    steps: int = 0
+    ksplit: int = 0
+    tiles: int = 0
+    blocks: int = 0
+    kstep: int = 0
+    gsteps: int = 0
+
+    def rounds(self, K: int, wk: int):
+        """The first k-step of each round the ``wk``-th warp of a tile
+        walks (the kernel's loop)."""
+        return range(wk * self.steps, K // self.kstep,
+                     self.ksplit * self.steps)
+
+
+def batched_qgemv_plan(N: int, K: int, G: int, B: int, bits: int,
+                       cfg: LaunchConfig, sms: int) -> QgemvTilePlan:
+    """The tile walk for 2 <= B <= 16 where a group (K / G codes) holds
+    whole k-steps; the SIMT walk for one row of x, for narrower groups, and
+    where xs with its padding (16 bytes a row) passes the shared memory.
+
+    Tile walk: ``cfg.block_n`` / 32 warps a block (at most 8), ``cfg.unroll``
+    x 4 k-steps a round; ksplit doubles while it divides the warps, each
+    warp keeps at least one whole round, and the tiles' warps stay under 16
+    an SM.  Where K is split, the round then doubles (up to 16 steps) while
+    every warp keeps one, so a warp's share is in flight at once.
+    (2048, 4096) int8 at 8 warps: ksplit 8, 8 steps; the read-out: 1, 4."""
+    kstep = k_step(bits)
+    if B < 2:
+        return QgemvTilePlan("walk", "one row of x: the SIMT walk, "
+                             "qgemv's kernel and bits")
+    if (K // G) % kstep:
+        return QgemvTilePlan("walk", f"groups of {K // G} codes are "
+                             f"narrower than (or not a multiple of) a "
+                             f"k-step of {kstep}: the SIMT walk")
+    if B * (K // 8 + 1) * 16 > _SMEM:
+        return QgemvTilePlan("walk", f"xs of {B} rows of {K} with its "
+                             f"padding is past {_SMEM} bytes of shared "
+                             f"memory: the SIMT walk")
+    warps, steps = cfg.block_n // 32, STEPS_IN_FLIGHT * cfg.unroll
+    if cfg.block_n % 32 or not 1 <= warps <= MAX_TILE_WARPS \
+            or cfg.unroll not in (1, 2, 4):
+        raise ValueError(f"batched_qgemv: block_n {cfg.block_n} (32 "
+                         f"threads a warp, up to {MAX_TILE_WARPS} warps on "
+                         f"the tile walk) and unroll {cfg.unroll} (x "
+                         f"{STEPS_IN_FLIGHT} k-steps a round: 1, 2 or 4) "
+                         f"out of range")
+    tiles, nsteps, ksplit = -(-N // 16), K // kstep, 1
+    while (warps % (2 * ksplit) == 0 and 2 * ksplit * steps <= nsteps
+           and tiles * ksplit < 16 * sms):
+        ksplit *= 2
+    while ksplit > 1 and steps < MAX_ROUND and 2 * ksplit * steps <= nsteps:
+        steps *= 2
+    return QgemvTilePlan("tile", f"{B} rows of x, groups of {K // G} codes "
+                         f"in whole k-steps of {kstep}: mma.sync",
+                         warps, steps, ksplit, tiles,
+                         -(-tiles // (warps // ksplit)), kstep,
+                         K // G // kstep)
 
 
 def plain(wq, scales, x, *, bits: int = 8):
@@ -69,16 +152,24 @@ def _launch(name, wq, scales, xs, bits, cfg):
             f"{_SMEM} bytes, on one device; got codes {tuple(wq.shape)} "
             f"{wq.dtype}, scales {tuple(scales.shape)} {scales.dtype}, x "
             f"{tuple(xs.shape)} {xs.dtype}, bits {bits}")
+    sms = _build.sm_count(wq.device)
+    plan = batched_qgemv_plan(N, K, G, B, bits, cfg, sms)
+    y = torch.empty((B, N), dtype=torch.float32, device=wq.device)
+    lib = _build.library("qgemv", _ARGTYPES)
+    if plan.route == "tile":
+        err = lib.repro_qgemv_mma(
+            wq.data_ptr(), scales.data_ptr(), xs.data_ptr(), y.data_ptr(), N,
+            K, G, B, bits, plan.warps, plan.steps, plan.ksplit, plan.blocks,
+            _build.stream_handle(wq.device))
+        _build.check(err, name)
+        return y
     warps, rows = cfg.block_n // 32, cfg.unroll
     if not 1 <= warps <= 32 or rows not in (1, 2, 4):
         raise ValueError(f"{name}: block_n {cfg.block_n} (32 threads a "
                          f"warp, up to 32 warps) and unroll {cfg.unroll} "
                          f"(W rows a warp: 1, 2 or 4) out of range")
-    sms = _build.sm_count(wq.device)
     per_sm = max(1, min(2048 // (warps * 32), _SMEM // (B * K * 2)))
     blocks = max(1, min(-(-N // (warps * rows)), sms * per_sm))
-    y = torch.empty((B, N), dtype=torch.float32, device=wq.device)
-    lib = _build.library("qgemv", _ARGTYPES)
     err = lib.repro_qgemv(wq.data_ptr(), scales.data_ptr(), xs.data_ptr(),
                           y.data_ptr(), N, K, G, B, bits, warps, rows, blocks,
                           _build.stream_handle(wq.device))
@@ -110,7 +201,10 @@ def qgemv(wq, scales, x, cfg: LaunchConfig = DEFAULT, *, bits: int = 8):
 def batched_qgemv(wq, scales, xs, cfg: LaunchConfig = DEFAULT, *,
                   bits: int = 8):
     """Y (B, N) fp32 = xs (B, K) . dequant(wq, scales)^T: ``qgemv`` of every
-    row of xs, reading the codes once for all of them.
+    row of xs, reading the codes once for all of them.  At B >= 2 with
+    groups of whole k-steps the products run on the tensor cores
+    (``batched_qgemv_plan``: ``cfg.block_n`` / 32 warps a block,
+    ``cfg.unroll`` x 4 k-steps a round); otherwise on ``qgemv``'s walk.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (bf16 xs, 1 <= B <= 16) or raises."""
@@ -127,9 +221,10 @@ def batched_qgemv(wq, scales, xs, cfg: LaunchConfig = DEFAULT, *,
 # --------------------------------------------------------------------------
 # registry entries (the JAX package's cost models and example shapes)
 # --------------------------------------------------------------------------
-# the JAX quantized GEMVs' space: ``block_n`` / 32 warps a block and
-# ``unroll`` W rows a warp move the CUDA kernels; ``streams`` and
-# ``block_k`` feed only the predictor
+# the JAX quantized GEMVs' space: ``block_n`` / 32 warps a block, and
+# ``unroll`` W rows a warp (the SIMT walk) or 4 x unroll k-steps a round
+# (the tile walk), move the CUDA kernels; ``streams`` and ``block_k`` feed
+# only the predictor
 _QSPACE = {"streams": (1, 2), "unroll": (1, 2),
            "block_n": (128, 256), "block_k": (256, 512)}
 

@@ -109,6 +109,71 @@ def test_rmsnorm(T, d):
     assert TK.launch_counts()["rmsnorm"] == before + 1
 
 
+RMS_THREADS = (64, 128, 256)          # the tuner's space
+
+
+def rms_inputs(seed, T, d):
+    rng = np.random.default_rng(seed)
+    return (bf16(rng.standard_normal((T, d))),
+            torch.as_tensor(1 + 0.1 * rng.standard_normal(d),
+                            dtype=torch.float32, device="cuda"))
+
+
+@pytest.mark.parametrize("threads", RMS_THREADS)
+@pytest.mark.parametrize("T,d", [(13, 128), (13, 2048), (7, 4096),
+                                 (3, 32768)])
+def test_rmsnorm_every_width_and_block(T, d, threads):
+    """A warp a row up to d = 2048, several warps a row past it (4096: 2,
+    32,768: 16), at every ``rmsnorm_threads`` with a ragged last block; a
+    second launch gives the same bits."""
+    x, s = rms_inputs(6, T, d)
+    cfg = LaunchConfig(rmsnorm_threads=threads)
+    before = TK.launch_counts()["rmsnorm"]
+    got = TK.rmsnorm(x, s, cfg=cfg)
+    matches_plain(got, TK.PLAIN["rmsnorm"](x, s))
+    assert torch.equal(got, TK.rmsnorm(x, s, cfg=cfg))
+    assert TK.launch_counts()["rmsnorm"] == before + 2
+
+
+@pytest.mark.parametrize("producer", ["add", "matmul"])
+@pytest.mark.parametrize("T,d", [(8, 1024), (1, 2048), (4, 4096)])
+def test_rmsnorm_in_a_cuda_graph_reads_its_producer(producer, T, d):
+    """rmsnorm is launched as a programmatic dependent of the kernel before
+    it: captured in a CUDA graph right after a torch op that writes its x
+    (the served path's residual add, or a long matmul that keeps writing
+    while rmsnorm's blocks are scheduled), each replay on new inputs gives
+    the bits of rmsnorm launched on the finished x."""
+    rng = np.random.default_rng(7)
+    s = torch.as_tensor(1 + 0.1 * rng.standard_normal(d),
+                        dtype=torch.float32, device="cuda")
+    if producer == "add":
+        a, b = bf16(rng.standard_normal((T, d))), bf16(rng.standard_normal(
+            (T, d)))
+
+        def make():
+            return torch.add(a, b)
+    else:
+        a = bf16(rng.standard_normal((T, 1 << 15)) / 64)
+        b = bf16(rng.standard_normal((1 << 15, d)))
+
+        def make():
+            return a @ b
+    make(), TK.rmsnorm(make(), s)           # load the library outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = TK.rmsnorm(make(), s)
+    for trial in range(3):
+        a.copy_(bf16(rng.standard_normal(tuple(a.shape)))
+                / (64 if producer == "matmul" else 1))
+        graph.replay()
+        x = make()
+        want = TK.rmsnorm(x, s)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), trial
+        matches_plain(out, TK.PLAIN["rmsnorm"](x, s))
+
+
 @pytest.mark.parametrize("N,K", [(151936, 1024), (1024, 1024), (2816, 1024),
                                  (1024, 2816),
                                  (33, 2824)])   # ragged rows and vectors
@@ -938,6 +1003,70 @@ def test_qgemv(N, K, group, B, bits, cfg):
     assert got.shape == ((B, N) if B else (N,))
     within_dot_bound(got, want, wd, xs)
     assert TK.launch_counts()[name] == before + 1
+
+
+def one_device_kernel(fn, counter, kernel):
+    """``fn`` launches exactly one device kernel a call, ``kernel``, and
+    adds one to its launch count ``counter`` each time: one call captured
+    in a CUDA graph, whose nodes libcuda's ``cuGraphDebugDotPrint``
+    lists (a kernel node's label holds its function's name).  The graph
+    holds every launch of the call, where ``torch.profiler`` late in a long
+    run often records no device event in three windows running
+    (``device_kernels``)."""
+    import ctypes
+    import os
+    import re
+    import tempfile
+    fn()
+    torch.cuda.synchronize()
+    before = TK.launch_counts()[counter]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.dot")
+        err = ctypes.CDLL("libcuda.so.1").cuGraphDebugDotPrint(
+            ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(), 1)
+        assert err == 0, err
+        with open(path) as f:
+            dot = f.read()
+    nodes = re.findall(r'"(graph_\d+_node_\d+)"\s*\[', dot)
+    assert len(nodes) == 1 and kernel in dot, dot
+    assert TK.launch_counts()[counter] == before + 1
+
+
+QGEMV_SPACE = [LaunchConfig(unroll=u, block_n=n)      # the tuner's knobs
+               for u in (1, 2) for n in (128, 256)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("B", [2, 3, 8, 9, 16])
+@pytest.mark.parametrize("N,K,group", [
+    (1000, 1024, 1024),     # one group a row: 16 / 8 k-steps a group
+    (1000, 1024, 128),      # the registry's group, ragged last tile
+    (33, 2816, 128)])       # ragged rows, K = 2816 (22 groups)
+def test_batched_qgemv_tile_walk(N, K, group, B, bits):
+    """B >= 2 on the tensor cores (one and two n-tiles, ragged B), at every
+    candidate of the tuner's space: within the dot bound of the plain
+    version, the same bits twice, one launch counted; one device kernel a
+    call, the tile walk's."""
+    g = torch.Generator(device="cuda").manual_seed(45)
+    qt = quantize(torch.randn((N, K), device="cuda", generator=g), bits=bits,
+                  group_size=group, axis=-1)
+    xs = torch.randn((B, K), device="cuda", generator=g).to(torch.bfloat16)
+    want = TK.PLAIN["batched_qgemv"](qt.values, qt.scales, xs, bits=bits)
+    wd = qt.dequantize()
+    for cfg in QGEMV_SPACE:
+        before = TK.launch_counts()["batched_qgemv"]
+        got = TK.batched_qgemv(qt.values, qt.scales, xs, cfg, bits=bits)
+        assert got.shape == (B, N) and got.dtype == torch.float32
+        within_dot_bound(got, want, wd, xs)
+        assert torch.equal(got, TK.batched_qgemv(qt.values, qt.scales, xs,
+                                                 cfg, bits=bits)), cfg
+        assert TK.launch_counts()["batched_qgemv"] == before + 2
+    one_device_kernel(lambda: TK.batched_qgemv(qt.values, qt.scales, xs,
+                                               bits=bits),
+                      "batched_qgemv", "qgemv_mma_kernel")
 
 
 @pytest.mark.parametrize("cfg", [LaunchConfig(),

@@ -1,6 +1,7 @@
 """The launch plans of ``axpy``, the one-row MX walk (``mx_qgemv``, the
-fused SwiGLU, the grouped experts) and the paged decode, as plain Python:
-what each block and lane of the CUDA kernels covers.
+fused SwiGLU, the grouped experts), the paged decode, ``rmsnorm`` and
+``batched_qgemv``, as plain Python: what each block and lane of the CUDA
+kernels covers.
 
 ``axpy_plan`` takes n elements on the vector path (a 16-byte vector a
 thread) up to four waves of the card, and past that cuts them into tiles of
@@ -16,9 +17,13 @@ pages, tiles of 16 positions a warp and m-tiles of 16 query heads; the walk
 that the kernel computes on the device from it (``PageSplit`` in
 ``csrc/mma_attention.cuh``, ``paged_decode_mma_kernel`` in
 ``csrc/decode_attention.cu``) is written out here to fold every valid
-position once, in warps that never cross a page.  The kernels themselves
-are held against their plain versions on the card
-(``test_torch_cuda.py``).
+position once, in warps that never cross a page.  ``rmsnorm_plan`` gives
+a row one warp where d fits 8 vectors a lane, else the fewest warps, and a
+block ``rmsnorm_threads`` / 32 warps; ``batched_qgemv_plan`` routes B >= 2
+with groups of whole k-steps to the tensor-core tile walk (16-row tiles,
+rounds of k-steps, K split over a block's warps where the tiles are few)
+and the rest to the SIMT walk.  The kernels themselves are held against
+their plain versions on the card (``test_torch_cuda.py``).
 """
 import numpy as np
 import pytest
@@ -33,6 +38,10 @@ from repro_torch.kernels.axpy import (BARRIER_BYTES,  # noqa: E402
                                       VECTOR_WAVES, axpy_plan, stream_plan, vector_plan)
 from repro_torch.kernels.mx_gemv import (QgemvPlan, grouped_plan,  # noqa: E402
                                         qgemv_plan, swiglu_plan)
+from repro_torch.kernels.qgemv import (batched_qgemv_plan,  # noqa: E402
+                                       k_step)
+from repro_torch.kernels.rmsnorm import (MAX_VECS,  # noqa: E402
+                                         rmsnorm_plan)
 from repro_torch.tune import REGISTRY  # noqa: E402
 from repro_torch.tune.search import enumerate_space  # noqa: E402
 
@@ -452,3 +461,188 @@ def test_paged_decode_plan_splits(G, KV, nblk, resident, want):
     with pytest.raises(ValueError, match="decode_warps"):
         paged_decode_plan(8, G * KV, KV, 16, nblk,
                           LaunchConfig(decode_warps=9), resident, MAX_PAGES)
+
+
+# ----------------------------------------------------------------- rmsnorm
+RMS_THREADS = REGISTRY["rmsnorm"].space["rmsnorm_threads"]
+
+
+@pytest.mark.parametrize("threads", RMS_THREADS)
+@pytest.mark.parametrize("d,wpr,vpl", [
+    (128, 1, 1), (1024, 1, 4), (2048, 1, 8),   # qk-norm, the served widths
+    (4096, 2, 8), (32768, 16, 8)])             # several warps a row
+def test_rmsnorm_plan_covers_each_vector_and_row_once(d, wpr, vpl, threads):
+    """A warp a row where d fits 8 vectors a lane (d <= 2048), else the
+    fewest warps; the row's lanes (lane l of its warp w: vectors 32 w + l +
+    32 wpr v) cover each 16-byte vector once, with the fewest vectors a
+    lane; ``threads`` / 32 warps a block, so threads / (32 wpr) rows a block
+    (at least one); 13 rows, a ragged last block: each row has its wpr
+    warps once."""
+    T, nvec = 13, d // 8
+    plan = rmsnorm_plan(T, d, threads)
+    assert (plan.wpr, plan.vpl) == (wpr, vpl)
+    assert plan.vpl <= MAX_VECS
+    assert plan.vpl // 2 * 32 * plan.wpr < nvec <= plan.vpl * 32 * plan.wpr
+    count = np.zeros(nvec, np.int64)
+    for w in range(plan.wpr):
+        for lane in range(32):
+            for v in range(plan.vpl):
+                i = 32 * w + lane + 32 * plan.wpr * v
+                if i < nvec:
+                    count[i] += 1
+    assert (count == 1).all()
+    assert plan.rows == max(1, threads // 32 // plan.wpr)
+    assert plan.threads == plan.rows * plan.wpr * 32 <= 1024
+    warps = np.zeros(T, np.int64)
+    for b in range(plan.blocks):
+        for warp in range(plan.threads // 32):
+            row = b * plan.rows + warp // plan.wpr
+            if row < T:
+                warps[row] += 1
+    assert (warps == plan.wpr).all()
+    assert (plan.blocks - 1) * plan.rows < T <= plan.blocks * plan.rows
+
+
+@pytest.mark.parametrize("d", [12, 32776])
+def test_rmsnorm_plan_refuses_what_the_kernel_cannot_take(d):
+    """d must be a multiple of 8 and fit 16 warps of 8 vectors a lane (the
+    kernel's 512 threads)."""
+    assert rmsnorm_plan(1, 32768, 256).threads == 512
+    with pytest.raises(ValueError, match="rmsnorm"):
+        rmsnorm_plan(1, d, 128)
+
+
+@pytest.mark.parametrize("module,source", [("rmsnorm", "rmsnorm"),
+                                           ("qgemv", "qgemv")])
+def test_entry_points_take_the_wrappers_argtypes(module, source):
+    """Each ``extern "C"`` entry point of the source takes, in order, the
+    pointers, ints and floats its wrapper's ``_ARGTYPES`` pass."""
+    import importlib
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    src = (Path(_build.CSRC) / f"{source}.cu").read_text()
+    found = {}
+    for name, params in re.findall(
+            r'extern "C" \w+ (\w+)\(([^)]*)\)', src):
+        found[name] = [_build.P if "*" in p else
+                       _build.F if p.split()[0] == "float" else _build.I
+                       for p in params.split(",")]
+    assert found == mod._ARGTYPES
+
+
+# ----------------------------------------------------------- batched_qgemv
+QGEMV_SPACE = list(enumerate_space(REGISTRY["batched_qgemv"]))
+# (N, K, group): the smoke's rows and test_torch_cuda.py's
+QGEMV_SHAPES = [(151936, 1024, 128), (2048, 4096, 128), (1000, 1024, 1024),
+                (1000, 1024, 128), (33, 2816, 128)]
+
+
+def tile_walk(plan, K):
+    """How often the plan's warps take each 16-row tile (each (block, warp /
+    ksplit) pair, ksplit warps on it), how often a tile's warps walk each
+    k-step, each warp's count of rounds, and each run of steps between two
+    scale flushes (a group's end, a round's end), which must lie inside one
+    group."""
+    nsteps = K // plan.kstep
+    tiles = np.zeros(plan.tiles, np.int64)
+    per = plan.warps // plan.ksplit
+    for b in range(plan.blocks):
+        for w in range(plan.warps):
+            if b * per + w // plan.ksplit < plan.tiles:
+                tiles[b * per + w // plan.ksplit] += 1
+    steps = np.zeros(nsteps, np.int64)
+    rounds, runs = [], []
+    for wk in range(plan.ksplit):
+        rounds.append(len(plan.rounds(K, wk)))
+        for first in plan.rounds(K, wk):
+            run = []
+            for u in range(plan.steps):
+                s = first + u
+                if s >= nsteps:
+                    break
+                steps[s] += 1
+                run.append(s)
+                if (s + 1) % plan.gsteps == 0 or u == plan.steps - 1:
+                    runs.append(run)
+                    run = []
+            assert run == []
+    return tiles, steps, rounds, runs
+
+
+@pytest.mark.parametrize("B", [2, 8, 16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("N,K,group", QGEMV_SHAPES)
+def test_batched_qgemv_plan_tiles_cover_each_row_and_step_once(N, K, group,
+                                                              bits, B):
+    """At every candidate of the tuner's space: the tile walk, block_n / 32
+    warps, rounds of 4 x unroll k-steps (more only where K is split, up to
+    16); 16-row tiles over N, every k-step of every tile walked by one warp
+    once, the K split dividing the warps with each warp keeping a round
+    (the kernel's barrier after the first); and the partial between two
+    scale flushes never crosses a group."""
+    for cfg in QGEMV_SPACE:
+        plan = batched_qgemv_plan(N, K, K // group, B, bits, cfg, SMS)
+        assert plan.route == "tile" and "mma.sync" in plan.why
+        assert plan.kstep == k_step(bits) and plan.gsteps * plan.kstep == group
+        assert plan.warps == cfg.block_n // 32
+        assert plan.steps in (4 * cfg.unroll, 8, 16)
+        assert plan.steps == 4 * cfg.unroll or plan.ksplit > 1
+        assert plan.warps % plan.ksplit == 0
+        per = plan.warps // plan.ksplit
+        assert plan.tiles == -(-N // 16)
+        assert (plan.blocks - 1) * per < plan.tiles <= plan.blocks * per
+        tiles, steps, rounds, runs = tile_walk(plan, K)
+        assert (tiles == plan.ksplit).all() and (steps == 1).all()
+        assert min(rounds) >= 1
+        for run in runs:
+            assert len({s // plan.gsteps for s in run}) == 1
+
+
+@pytest.mark.parametrize("N,K,bits,B,ksplit,steps,blocks", [
+    (151936, 1024, 8, 8, 1, 4, 1187), (151936, 1024, 4, 8, 1, 4, 1187),
+    (151936, 1024, 8, 16, 1, 4, 1187),   # the read-out: 9,496 tiles
+    (2048, 4096, 8, 4, 8, 8, 128),       # 128 tiles, 64 k-steps
+    (2048, 4096, 4, 4, 8, 4, 128)])      # 32 k-steps
+def test_batched_qgemv_plan_at_the_smoke_rows(N, K, bits, B, ksplit, steps,
+                                              blocks):
+    """The smoke's rows at the default config (8 warps, rounds of 4
+    k-steps): the read-outs fill the card with tiles and take no K split;
+    (2048, 4096) has 128 tiles, so 8 warps share each one, and in int8 a
+    warp's 8 steps are one round."""
+    plan = batched_qgemv_plan(N, K, K // 128, B, bits, LaunchConfig(), SMS)
+    assert (plan.route, plan.ksplit, plan.steps, plan.blocks) == (
+        "tile", ksplit, steps, blocks)
+
+
+@pytest.mark.parametrize("N,K,group,bits,B", [
+    (2048, 4096, 128, 8, 1), (151936, 1024, 128, 4, 1),   # one row of x
+    (1000, 1024, 1024, 8, 1),
+    (256, 1024, 64, 4, 8),      # int4 groups of 64: half a k-step of 128
+    (256, 1024, 32, 8, 16),     # int8 groups of 32: half a k-step of 64
+    (256, 1536, 192, 4, 2),     # int4 groups of 192: 1.5 k-steps
+    (256, 14528, 64, 8, 8)])    # xs 232,448 bytes, padded 232,576
+def test_batched_qgemv_plan_routes_the_rest_to_the_walk(N, K, group, bits,
+                                                        B):
+    """One row of x, groups that do not hold whole k-steps, and xs that
+    fills the shared memory only without its padding take the SIMT walk,
+    and the plan says why."""
+    plan = batched_qgemv_plan(N, K, K // group, B, bits, LaunchConfig(), SMS)
+    assert plan.route == "walk"
+    why = ("one row" if B == 1 else "shared memory" if K == 14528
+           else "narrower")
+    assert why in plan.why
+
+
+@pytest.mark.parametrize("cfg", [LaunchConfig(block_n=512),
+                                 LaunchConfig(unroll=3),
+                                 LaunchConfig(block_n=48)])
+def test_batched_qgemv_plan_refuses_knobs_the_tile_walk_cannot_take(cfg):
+    """More than 8 warps (the tile kernel's launch bound), unroll outside
+    1, 2, 4 or a block of a partial warp raise; the walk's own range is
+    checked by its wrapper."""
+    with pytest.raises(ValueError, match="block_n"):
+        batched_qgemv_plan(2048, 4096, 32, 4, 8, cfg, SMS)
+
