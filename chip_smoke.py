@@ -190,15 +190,16 @@ REPLACES = {
 # the kernels built on the tensor cores, by library: the functions whose
 # SASS (``cuobjdump -sass``) must hold the instruction — the bf16 flash
 # attention's wgmma (HGMMA), and the mma.sync (HMMA) of the batched GEMV, the
-# bf16 and the int8 dense decode, the paged decode (bf16 and int8 pages)
-# and the paged prefill
+# bf16 and the int8 dense decode, the paged decode (bf16 and int8 pages),
+# the paged prefill and the int and MX tile walks
 TENSOR_CORE = {"flash_attention": (("flash_bf16_kernel", "HGMMA"),),
                "gemv": (("batched_gemv_kernel", "HMMA"),),
                "decode_attention": (("decode_mma_kernel", "HMMA"),
                                     ("decode_q8_mma_kernel", "HMMA"),
                                     ("paged_decode_mma_kernel", "HMMA")),
                "prefill_attention": (("prefill_mma_kernel", "HMMA"),),
-               "qgemv": (("qgemv_mma_kernel", "HMMA"),)}
+               "qgemv": (("qgemv_mma_kernel", "HMMA"),),
+               "mx_gemv": (("mx_mma_kernel", "HMMA"),)}
 # the kernels of the tuner's path (the tune phase): every registry name is
 # tuned and then launched through its dispatching entry point, and the
 # unregistered batched gemv through its own
@@ -1246,21 +1247,38 @@ def paper_rows(torch, K, F, agree, dev, randn):
     return rows
 
 
+# the int GEMVs' rows: ((N, K), bits, rows of x (0: the one-row qgemv),
+# codes a scale group).  Groups of 128 hold whole k-steps of the tile walk;
+# int4 groups of 64 and int8 groups of 32 are narrower than a k-step, so
+# those rows run the SIMT walk, one row of x and eight.
+INT_ROWS = (((151936, 1024), 8, 0, 128), ((151936, 1024), 4, 0, 128),
+            ((2048, 4096), 8, 0, 128), ((2048, 4096), 4, 0, 128),
+            ((151936, 1024), 8, 8, 128), ((151936, 1024), 4, 8, 128),
+            ((151936, 1024), 8, 16, 128), ((2048, 4096), 8, 4, 128),
+            ((151936, 1024), 4, 0, 64), ((151936, 1024), 8, 0, 32),
+            ((151936, 1024), 4, 8, 64), ((151936, 1024), 8, 8, 32))
+
+
 def int_rows(torch, K, F, agree, dev, gen, rows):
     """The kernels of the int slice at their shapes: ``qgemv`` (int8 and
     int4) at the qwen1.5-0.5b read-out (151936, 1024) and at the registry's
     (2048, 4096), the shapes the tune phase tunes; ``batched_qgemv`` at the
     read-out for 8 rows (int8 and int4) and 16 (int8, two n-tiles of the
-    tile walk) and the registry's (2048, 4096) for 4, each with its launch
-    plan, every row giving the same bits twice; ``batched_mx_qgemv`` fp4 at
-    the read-out (1024 -> 151936) for 8 rows and the registry's (4096 ->
-    2048) for 4; ``decode_attention_int8`` at the qwen1.5-0.5b engine's
+    tile walk) and the registry's (2048, 4096) for 4, all with groups of
+    128 (the tile walk); both at the read-out, one row and eight, with
+    groups narrower than a k-step (int4 64, int8 32: the SIMT walk);
+    each with its launch plan and route, every row giving the same bits
+    twice (``INT_ROWS``); ``batched_mx_qgemv`` at the read-out (1024 ->
+    151936) for 8 rows (fp4 and fp8) and 16 (fp4, two n-tiles) and at the
+    registry's (4096 -> 2048) for 4, each with its plan, the same bits
+    twice;
+    ``decode_attention_int8`` at the qwen1.5-0.5b engine's
     dense shape (8 slots x 1024 x 16 KV heads x 64), the registry's (B=4,
     H=16, KV=8, hd=128, S=4096) and glm4-9b's heads (B=4, H=32, KV=2,
     hd=128, S=4096), full length, each at every candidate of its tuner
-    space.  Weights are fan-in scaled
-    (outputs of order 1), groups of 128 along K.  No PyTorch call takes
-    int8/int4 codes with 128-wide absmax groups or E8M0 blocks: the GEMV
+    space.  Weights are fan-in scaled (outputs of order 1), groups along K
+    as ``INT_ROWS`` says.  No PyTorch call takes int8/int4 codes with
+    absmax groups or E8M0 blocks: the GEMV
     rows give the bf16 gemv / batched gemv of the same shape instead
     (``rows``); the int8 decode's yardstick is SDPA on the dequantized
     view with a length mask."""
@@ -1275,65 +1293,79 @@ def int_rows(torch, K, F, agree, dev, gen, rows):
         return torch.randn(shape, device=dev, generator=gen) * scale
 
     from repro_torch.core.troop import LaunchConfig
-    from repro_torch.kernels.qgemv import batched_qgemv_plan
+    from repro_torch.kernels.qgemv import batched_qgemv_plan, walk_blocks
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for (N, Kd), bits, B in (((151936, 1024), 8, 0), ((151936, 1024), 4, 0),
-                             ((2048, 4096), 8, 0), ((2048, 4096), 4, 0),
-                             ((151936, 1024), 8, 8), ((151936, 1024), 4, 8),
-                             ((151936, 1024), 8, 16), ((2048, 4096), 8, 4)):
+    for (N, Kd), bits, B, gs in INT_ROWS:
         code_bytes = N * Kd * bits // 8
         ws = []
         for _ in range(copies_for(code_bytes)):
             qt = quantize(randn(N, Kd, scale=Kd ** -0.5), bits=bits,
-                          group_size=128, axis=-1)
+                          group_size=gs, axis=-1)
             ws.append((qt.values, qt.scales))
         name = "batched_qgemv" if B else "qgemv"
         x = randn(B, Kd).bfloat16() if B else randn(Kd).bfloat16()
         fn, plain = getattr(K, name), K.PLAIN[name]
-        label = f"{name} int{bits} B={B} {N}x{Kd}"
+        label = f"{name} int{bits} B={B} {N}x{Kd} groups of {gs}"
         got = fn(*ws[0], x, bits=bits)
         if not torch.equal(got, fn(*ws[0], x, bits=bits)):
             raise AssertionError(f"{label}: two launches on the same inputs "
                                  f"differ")
         err = agree(label, got, plain(*ws[0], x, bits=bits))
-        plan = batched_qgemv_plan(N, Kd, Kd // 128, max(B, 1), bits,
+        plan = batched_qgemv_plan(N, Kd, Kd // gs, max(B, 1), bits,
                                   LaunchConfig(), sms)
         rows_ = max(B, 1)
-        bms, by = bound_ms(code_bytes + N * (Kd // 128) * 4
+        bms, by = bound_ms(code_bytes + N * (Kd // gs) * 4
                            + rows_ * Kd * 2 + rows_ * N * 4,
                            2 * rows_ * N * Kd)
         ref = (bgemv_ms.get(f"w ({N}, {Kd}) bf16, xs ({B}, {Kd}) bf16") if B
                else gemv_ms.get(f"w ({N}, {Kd})"))
         out[name].append({
             "shape": f"int{bits} codes of W ({N}, {Kd}) + fp32 scales ({N}, "
-                     f"{Kd // 128}), x ({f'{B}, ' if B else ''}{Kd},) bf16",
+                     f"{Kd // gs}), x ({f'{B}, ' if B else ''}{Kd},) bf16",
             "max_abs_err": err, "bound_ms": bms, "bound_by": by,
             "tolerance": TOL[name], "library": None, "bf16_gemv_ms": ref,
+            "route": plan.route,
             "plan": (f"tile walk: {plan.warps} warps, {plan.steps} k-steps "
                      f"a round, ksplit {plan.ksplit}, {plan.blocks} blocks"
-                     if plan.route == "tile" else "SIMT walk"),
+                     if plan.route == "tile" else
+                     "SIMT walk: {} warps, {} W rows a warp, {} blocks"
+                     .format(*walk_blocks(N, Kd, rows_, LaunchConfig(),
+                                          sms))),
             **timed(torch, [lambda w=w: fn(*w, x, bits=bits) for w in ws],
                     [lambda w=w: plain(*w, x, bits=bits) for w in ws])})
         del ws
         torch.cuda.empty_cache()
 
-    for (N, Kd), B in (((151936, 1024), 8), ((2048, 4096), 4)):
-        n = copies_for(Kd * N // 2)
+    from repro_torch.kernels.mx_gemv import batched_plan
+    for (N, Kd), elem, B in (((151936, 1024), "fp4", 8),
+                             ((151936, 1024), "fp8", 8),
+                             ((151936, 1024), "fp4", 16),
+                             ((2048, 4096), "fp4", 4)):
+        bits = 4 if elem == "fp4" else 8
+        n = copies_for(Kd * N * bits // 8)
         ws = []
         for _ in range(n):
-            qt = quantize_mx(randn(Kd, N, scale=Kd ** -0.5), elem="fp4")
+            qt = quantize_mx(randn(Kd, N, scale=Kd ** -0.5), elem=elem)
             ws.append((qt.values, qt.scales))
         xs = randn(B, Kd).bfloat16()
         fn, plain = K.batched_mx_qgemv, K.PLAIN["batched_mx_qgemv"]
-        err = agree(f"batched_mx_qgemv fp4 B={B} {Kd}->{N}", fn(*ws[0], xs),
-                    plain(*ws[0], xs))
-        bms, by = bound_ms(Kd * N // 2 + Kd * N // 32 + B * Kd * 2
+        label = f"batched_mx_qgemv {elem} B={B} {Kd}->{N}"
+        got = fn(*ws[0], xs)
+        if not torch.equal(got, fn(*ws[0], xs)):
+            raise AssertionError(f"{label}: two launches on the same inputs "
+                                 f"differ")
+        err = agree(label, got, plain(*ws[0], xs))
+        plan = batched_plan(N, Kd, bits, B, LaunchConfig(), sms)
+        bms, by = bound_ms(Kd * N * bits // 8 + Kd * N // 32 + B * Kd * 2
                            + B * N * 4, 2 * B * N * Kd)
         out["batched_mx_qgemv"].append({
-            "shape": f"fp4 codes of W ({Kd}, {N}) + E8M0 ({Kd // 32}, {N}), "
-                     f"xs ({B}, {Kd}) bf16",
+            "shape": f"{elem} codes of W ({Kd}, {N}) + E8M0 ({Kd // 32}, "
+                     f"{N}), xs ({B}, {Kd}) bf16",
             "max_abs_err": err, "bound_ms": bms, "bound_by": by,
             "tolerance": TOL["batched_mx_qgemv"], "library": None,
+            "plan": (f"tile walk: {plan.cols} columns a lane, {plan.warps} "
+                     f"warps, ksplit {plan.ksplit}, {plan.round_blocks} "
+                     f"E8M0 blocks a round, {plan.blocks} blocks"),
             "bf16_gemv_ms": bgemv_ms.get(f"w ({N}, {Kd}) bf16, xs ({B}, "
                                          f"{Kd}) bf16"),
             **timed(torch, [lambda w=w: fn(*w, xs) for w in ws],

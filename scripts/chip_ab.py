@@ -41,11 +41,15 @@ digest and the device time) and in the served path's chains, each
 captured in one CUDA graph: a residual add that writes x, rmsnorm, then
 the next projection (the one-row ``gemv`` (1024, 1024) for one row,
 ``F.linear`` for 8), beside the same chain without rmsnorm; then ``qgemv``
-and ``batched_qgemv`` at the smoke's rows (a digest and the device time)
+and ``batched_qgemv`` at the smoke's rows (a digest, the device time and
+the eager time, launched from Python)
 and, for each batched row over ``ACCURACY_SETS`` fresh input sets, the
 outputs past the smoke's gate against the plain version and each side's
-distance from the float64 value (``int_fp64``) (``--lines`` picks which
-of these groups of lines to print);
+distance from the float64 value (``int_fp64``); then ``batched_mx_qgemv``
+at the smoke's rows (a digest and the device time) and, over the same
+number of fresh input sets, its and the one-row ``qgemv``'s outputs past
+the gate and distances from the float64 value (``--lines`` picks which of
+these groups of lines to print);
 then it runs serving phases of that tree, each from a fresh seed-0 stream
 (``--engines``: ``bf16``, the default, runs ``engine_phase``, qwen1.5-0.5b
 bf16, and ``moe_phase`` for bf16, qwen2-moe-a2.7b; ``mx4`` runs
@@ -99,6 +103,9 @@ QGEMV_ROWS = (((151936, 1024), 8, 0), ((151936, 1024), 4, 0),
               ((2048, 4096), 8, 0), ((2048, 4096), 4, 0),
               ((151936, 1024), 8, 8), ((151936, 1024), 4, 8),
               ((151936, 1024), 8, 16), ((2048, 4096), 8, 4))
+# batched_mx_qgemv at the smoke's rows: ((N, K), format, rows of x)
+MX_BATCHED_ROWS = (((151936, 1024), "fp4", 8), ((151936, 1024), "fp8", 8),
+                   ((151936, 1024), "fp4", 16), ((2048, 4096), "fp4", 4))
 # the int8 dense decode: (B, H, KV, hd, S), full length
 DENSE_INT8_SHAPES = ((8, 16, 16, 64, 1024), (4, 16, 8, 128, 4096),
                      (4, 32, 2, 128, 4096))
@@ -340,11 +347,11 @@ def int_fp64(torch, wq, scales, bits):
 
 def qgemv_lines(torch, K, smoke, referee):
     """``qgemv`` and ``batched_qgemv`` at the smoke's rows: a digest of the
-    output on seeded inputs and the device us per call over input copies
-    past twice the L2, at the default config; then, for each batched row,
-    over ``ACCURACY_SETS`` fresh input sets, the outputs past the smoke's
-    gate against the plain version and each side's distance from the
-    float64 value (``int_fp64``)."""
+    output on seeded inputs and the device and eager us per call over
+    input copies past twice the L2, at the default config; then, for each
+    batched row, over ``ACCURACY_SETS`` fresh input sets, the outputs past
+    the smoke's gate against the plain version and each side's distance
+    from the float64 value (``int_fp64``)."""
     from repro_torch.quant.tensor import quantize
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -361,11 +368,11 @@ def qgemv_lines(torch, K, smoke, referee):
         ws = weights(g, N, Kd, bits, smoke.copies_for(N * Kd * bits // 8))
         x = torch.randn((B, Kd) if B else (Kd,), device="cuda",
                         generator=g).to(torch.bfloat16)
-        ms = smoke.time_ms(torch, [lambda w=w: fn(*w, x, bits=bits)
-                                   for w in ws])[0]
+        ms, eager = smoke.time_ms(torch, [lambda w=w: fn(*w, x, bits=bits)
+                                          for w in ws])
         print(f"{name} int{bits} B={B} ({N}, {Kd}) "
-              f"{sha(torch, fn(*ws[0], x, bits=bits))} {ms * 1e3:.2f} us",
-              flush=True)
+              f"{sha(torch, fn(*ws[0], x, bits=bits))} {ms * 1e3:.2f} us, "
+              f"eager {eager * 1e3:.2f} us", flush=True)
         del ws
         torch.cuda.empty_cache()
     for (N, Kd), bits, B in QGEMV_ROWS:
@@ -384,6 +391,71 @@ def qgemv_lines(torch, K, smoke, referee):
         print(f"accuracy batched_qgemv int{bits} B={B} ({N}, {Kd}) over "
               f"{ACCURACY_SETS} input sets: "
               + tally(referee, "batched_qgemv", pairs), flush=True)
+        del pairs
+        torch.cuda.empty_cache()
+
+
+def tile_walk_lines(torch, K, smoke, referee):
+    """``batched_mx_qgemv`` at the smoke's rows (``MX_BATCHED_ROWS``): a
+    digest of the output on seeded inputs and the device us per call over
+    input copies past twice the L2, at the default config; then, over
+    ``ACCURACY_SETS`` fresh input sets, the outputs past the smoke's gate
+    against the plain version and each side's distance from the float64
+    value, for each of these rows (``mx_fp64``) and for the one-row
+    ``qgemv`` at the smoke's rows (``int_fp64``)."""
+    from repro_torch.quant.tensor import quantize, quantize_mx
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def mx_weight(gen, N, Kd, elem):
+        qt = quantize_mx(torch.randn((Kd, N), device="cuda", generator=gen)
+                         / Kd ** 0.5, elem=elem)
+        return qt.values, qt.scales
+    for (N, Kd), elem, B in MX_BATCHED_ROWS:
+        ws = [mx_weight(g, N, Kd, elem) for _ in range(smoke.copies_for(
+            N * Kd * (4 if elem == "fp4" else 8) // 8))]
+        xs = torch.randn((B, Kd), device="cuda", generator=g).to(
+            torch.bfloat16)
+        ms = smoke.time_ms(torch, [lambda w=w: K.batched_mx_qgemv(*w, xs)
+                                   for w in ws])[0]
+        print(f"batched_mx_qgemv {elem} B={B} ({N}, {Kd}) "
+              f"{sha(torch, K.batched_mx_qgemv(*ws[0], xs))} "
+              f"{ms * 1e3:.2f} us", flush=True)
+        del ws
+        torch.cuda.empty_cache()
+    for (N, Kd), elem, B in MX_BATCHED_ROWS:
+        pairs = []
+        for i in range(ACCURACY_SETS):
+            gen = torch.Generator(device="cuda").manual_seed(4000 + i)
+            wq, sc = mx_weight(gen, N, Kd, elem)
+            xs = torch.randn((B, Kd), device="cuda", generator=gen).to(
+                torch.bfloat16)
+            pairs.append((K.batched_mx_qgemv(wq, sc, xs),
+                          K.PLAIN["batched_mx_qgemv"](wq, sc, xs),
+                          xs.double() @ mx_fp64(torch, wq, sc)))
+            del wq, sc
+        print(f"accuracy batched_mx_qgemv {elem} B={B} ({N}, {Kd}) over "
+              f"{ACCURACY_SETS} input sets: "
+              + tally(referee, "batched_mx_qgemv", pairs), flush=True)
+        del pairs
+        torch.cuda.empty_cache()
+    for (N, Kd), bits, B in QGEMV_ROWS:
+        if B:
+            continue
+        pairs = []
+        for i in range(ACCURACY_SETS):
+            gen = torch.Generator(device="cuda").manual_seed(5000 + i)
+            qt = quantize(torch.randn((N, Kd), device="cuda", generator=gen)
+                          / Kd ** 0.5, bits=bits, group_size=128, axis=-1)
+            x = torch.randn(Kd, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            pairs.append((K.qgemv(qt.values, qt.scales, x, bits=bits),
+                          K.PLAIN["qgemv"](qt.values, qt.scales, x,
+                                           bits=bits),
+                          int_fp64(torch, qt.values, qt.scales, bits)
+                          @ x.double()))
+            del qt
+        print(f"accuracy qgemv int{bits} ({N}, {Kd}) over {ACCURACY_SETS} "
+              f"input sets: " + tally(referee, "qgemv", pairs), flush=True)
         del pairs
         torch.cuda.empty_cache()
 
@@ -514,11 +586,14 @@ def main():
     ap.add_argument("--no-paged", action="store_true",
                     help="stop after the MX lines: no paged or int8 dense "
                          "decode lines")
-    ap.add_argument("--lines", default="gemv,axpy_mx_paged,rmsnorm,qgemv",
+    ap.add_argument("--lines",
+                    default="gemv,axpy_mx_paged,rmsnorm,qgemv,tile_walks",
                     help="comma list of the kernel lines to print: gemv "
                          "(the gemv digests), axpy_mx_paged (axpy, the MX "
                          "walk and, unless --no-paged, the paged and int8 "
-                         "dense decodes), rmsnorm, qgemv (default: all)")
+                         "dense decodes), rmsnorm, qgemv, tile_walks "
+                         "(batched_mx_qgemv, and both tile walks' accuracy) "
+                         "(default: all)")
     ap.add_argument("--engines", choices=("bf16", "mx4", "none"),
                     default="bf16", help="serving phases to run (default: "
                                          "bf16)")
@@ -553,6 +628,8 @@ def main():
         rmsnorm_lines(torch, K, smoke)
     if "qgemv" in lines:
         qgemv_lines(torch, K, smoke, referee)
+    if "tile_walks" in lines:
+        tile_walk_lines(torch, K, smoke, referee)
     out = {}
     if args.engines == "bf16":
         out["qwen1.5 bf16"] = rates(smoke.engine_phase(

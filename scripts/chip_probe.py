@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Launch-plan probes of ``axpy``, the one-row MX walk (``mx_qgemv``, the
-fused SwiGLU), the paged decodes, ``rmsnorm`` and ``batched_qgemv`` on the
-card: the device time of each plan the wrappers choose beside the plans
-they do not, called through the kernels' C entry points.
+fused SwiGLU), the paged decodes, ``rmsnorm``, ``batched_qgemv`` and
+``batched_mx_qgemv`` on the card: the device time of each plan the
+wrappers choose beside the plans they do not, called through the kernels'
+C entry points; and the host's cost of a one-row ``qgemv`` call on each
+of its routes.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 scripts/chip_probe.py [--out FILE] \
-        [--probes axpy,mx_qgemv,mx_swiglu,paged,rmsnorm,qgemv] \
+        [--probes axpy,mx_qgemv,mx_swiglu,paged,rmsnorm,qgemv,mx_batched,
+                  qgemv_host] \
         [--parent DIR]
 
 It prints the card's ``nvidia-smi`` name and power limit, then one line
@@ -46,9 +49,17 @@ per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
   ``(x, scale, out, T, d, eps, threads, stream)`` at 128 threads; each
   held to the plain version at the smoke's gate;
 - ``qgemv``: ``batched_qgemv``'s tile walk at the smoke's batched rows
-  (and int4 at (2048, 4096)), every cut of warps a block (4, 8), k-steps
+  (and int4 at (2048, 4096)) and at one row of x (the smoke's ``qgemv``
+  rows, beside the SIMT walk), every cut of warps a block (4, 8), k-steps
   in flight (4, 8, 16) and K split the kernel takes, the wrapper's
-  marked, each held to the plain version at the smoke's gate.
+  marked, each held to the plain version at the smoke's gate;
+- ``mx_batched``: ``batched_mx_qgemv``'s tile walk at the smoke's rows
+  (``MX_BATCHED_ROWS``), every cut of columns a lane (8, 2), warps a
+  block, ``unroll`` and K split, the wrapper's marked, each held to the
+  plain version at the smoke's gate;
+- ``qgemv_host``: the host's us a one-row ``qgemv`` call on the tile walk
+  and on the SIMT walk at (2048, 4096), int8 and int4 (wall time of
+  launches from Python, the routes interleaved).
 
 It exits non-zero without a CUDA device.
 """
@@ -64,8 +75,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 MX_SHAPES = (((151936, 1024), 4), ((151936, 1024), 8), ((1024, 1024), 4),
              ((1024, 2816), 4), ((2048, 2048), 4), ((2048, 5632), 4))
+# the host probe: launches a window, windows a route
+HOST_CALLS, HOST_WINDOWS = 200, 30
 SWIGLU_SHAPES = (((2816, 1024), 4), ((2816, 1024), 8), ((5632, 2048), 4),
                  ((5632, 2048), 8))
+# batched_mx_qgemv at the smoke's rows: ((N, K), format, rows of x)
+MX_BATCHED_ROWS = (((151936, 1024), "fp4", 8), ((151936, 1024), "fp8", 8),
+                   ((151936, 1024), "fp4", 16), ((2048, 4096), "fp4", 4))
 
 
 def main():
@@ -73,8 +89,8 @@ def main():
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the probes as JSON to this file")
     ap.add_argument("--probes", default="axpy,mx_qgemv,mx_swiglu,paged,"
-                    "rmsnorm,qgemv", help="comma list of the probes to run "
-                                          "(default: all)")
+                    "rmsnorm,qgemv,mx_batched,qgemv_host",
+                    help="comma list of the probes to run (default: all)")
     ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
                     help="a checkout whose csrc/rmsnorm.cu (the block-a-row "
                          "design) the rmsnorm probe times beside this one")
@@ -212,6 +228,10 @@ def main():
         rmsnorm_probes(torch, smoke, K, g, us, line, args.parent)
     if "qgemv" in probes:
         qgemv_probes(torch, smoke, K, g, us, line)
+    if "mx_batched" in probes:
+        mx_batched_probes(torch, smoke, K, g, us, line)
+    if "qgemv_host" in probes:
+        qgemv_host_probes(torch, K, g, line)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -364,7 +384,9 @@ def qgemv_probes(torch, smoke, K, g, us, line):
     sms = _build.sm_count(dev)
     for (N, Kd), bits, B in (((151936, 1024), 8, 8), ((151936, 1024), 4, 8),
                              ((151936, 1024), 8, 16), ((2048, 4096), 8, 4),
-                             ((2048, 4096), 4, 4)):
+                             ((2048, 4096), 4, 4), ((151936, 1024), 8, 1),
+                             ((151936, 1024), 4, 1), ((2048, 4096), 8, 1),
+                             ((2048, 4096), 4, 1)):
         ws = []
         for _ in range(smoke.copies_for(N * Kd * bits // 8)):
             qt = quantize(torch.randn((N, Kd), device="cuda", generator=g)
@@ -376,14 +398,28 @@ def qgemv_probes(torch, smoke, K, g, us, line):
         base = Q.batched_qgemv_plan(N, Kd, Kd // 128, B, bits, LaunchConfig(),
                                     sms)
         y = torch.empty((B, N), device="cuda")
-        nsteps = Kd // base.kstep
+        tiles, nsteps = -(-N // 16), Kd // Q.k_step(bits)
         shape = f"int{bits} B={B} {N}x{Kd}"
+        if B == 1:
+            # the SIMT walk at the default config, as the wrapper cuts it
+            cut = Q.walk_blocks(N, Kd, 1, LaunchConfig(), sms)
+
+            def walk(w):
+                _build.check(lib.repro_qgemv(
+                    w[0].data_ptr(), w[1].data_ptr(), xs.data_ptr(),
+                    y.data_ptr(), N, Kd, Kd // 128, 1, bits, *cut,
+                    _build.stream_handle(dev)), "qgemv probe")
+            walk(ws[0])
+            line(kernel="qgemv", shape=shape, route="SIMT walk",
+                 plan=base.route == "walk",
+                 ok=bool(torch.isclose(y, want, rtol=4e-6, atol=4e-6).all()),
+                 us=us([lambda w=w: walk(w) for w in ws]))
         for warps in (4, 8):
             for steps in (4, 8, 16):
                 for ksplit in (1, 2, 4, 8):
                     if warps % ksplit or (ksplit - 1) * steps >= nsteps:
                         continue
-                    blocks = -(-base.tiles // (warps // ksplit))
+                    blocks = -(-tiles // (warps // ksplit))
 
                     def call(w, a=(warps, steps, ksplit, blocks)):
                         _build.check(lib.repro_qgemv_mma(
@@ -391,13 +427,107 @@ def qgemv_probes(torch, smoke, K, g, us, line):
                             y.data_ptr(), N, Kd, Kd // 128, B, bits, *a,
                             _build.stream_handle(dev)), "qgemv probe")
                     call(ws[0])
-                    ok = bool(torch.isclose(y, want, rtol=1.4e-5,
-                                            atol=1.4e-5).all())
+                    tol = 1.4e-5 if B > 1 else 4e-6
+                    ok = bool(torch.isclose(y, want, rtol=tol,
+                                            atol=tol).all())
                     line(kernel="batched_qgemv", shape=shape, warps=warps,
                          steps=steps, ksplit=ksplit,
                          plan=(warps, steps, ksplit) == (
                              base.warps, base.steps, base.ksplit),
                          ok=ok, us=us([lambda w=w: call(w) for w in ws]))
+        del ws, want
+        torch.cuda.empty_cache()
+
+
+def qgemv_host_probes(torch, K, g, line):
+    """The host's cost of one ``qgemv`` call on each route at (2048,
+    4096), where a call's device time (6-9 us) is below it: wall us a
+    call over windows of ``HOST_CALLS`` launches from Python and one
+    synchronize, the routes' windows interleaved ``HOST_WINDOWS`` times,
+    the least and the median window.  Groups of 128 take the tile walk;
+    int8 groups of 32 and int4 groups of 64 the SIMT walk."""
+    import statistics
+    import time
+    from repro_torch.quant.tensor import quantize
+    calls = {}
+    for bits in (8, 4):
+        for gs in (128, 32 if bits == 8 else 64):
+            qt = quantize(torch.randn((2048, 4096), device="cuda",
+                                      generator=g) / 64, bits=bits,
+                          group_size=gs, axis=-1)
+            x = torch.randn(4096, device="cuda", generator=g).to(
+                torch.bfloat16)
+            route = "tile walk" if gs == 128 else "SIMT walk"
+            calls[(bits, gs, route)] = (
+                lambda q=qt, x=x, b=bits: K.qgemv(q.values, q.scales, x,
+                                                  bits=b))
+    walls = {key: [] for key in calls}
+    for fn in calls.values():
+        for _ in range(HOST_CALLS):
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(HOST_WINDOWS):
+        for key, fn in calls.items():
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            walls[key].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+    for (bits, gs, route), w in walls.items():
+        line(kernel="qgemv host", shape=f"int{bits} B=1 2048x4096",
+             groups=gs, route=route, min_us=min(w),
+             median_us=statistics.median(w))
+
+
+def mx_batched_probes(torch, smoke, K, g, us, line):
+    """``batched_mx_qgemv``'s tile walk at the smoke's rows: every cut of
+    columns a lane (8, 2), warps a block (4, 8), ``unroll`` (1, 2) and K
+    split the kernel takes, the wrapper's marked, each held to the plain
+    version at the smoke's gate."""
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels import _build
+    from repro_torch.quant.tensor import quantize_mx
+    mx = importlib.import_module("repro_torch.kernels.mx_gemv")
+    lib = _build.library("mx_gemv", mx._ARGTYPES)
+    dev = torch.device("cuda", 0)
+    sms = _build.sm_count(dev)
+    for (N, Kd), elem, B in MX_BATCHED_ROWS:
+        bits = 4 if elem == "fp4" else 8
+        ws = []
+        for _ in range(smoke.copies_for(Kd * N * bits // 8)):
+            qt = quantize_mx(torch.randn((Kd, N), device="cuda", generator=g)
+                             / Kd ** 0.5, elem=elem)
+            ws.append((qt.values, qt.scales))
+        xs = torch.randn((B, Kd), device="cuda", generator=g).to(
+            torch.bfloat16)
+        want = K.PLAIN["batched_mx_qgemv"](*ws[0], xs)
+        base = mx.batched_plan(N, Kd, bits, B, LaunchConfig(), sms)
+        y = torch.empty((B, N), device="cuda")
+        shape = f"{elem} B={B} {Kd}->{N}"
+        for cols in (8, 2):
+            tiles = -(-N // (8 * cols))
+            for warps in (4, 8):
+                for unroll in (1, 2):
+                    rb = mx.round_blocks(bits, cols, unroll)
+                    for ksplit in (1, 2, 4, 8):
+                        if warps % ksplit or (ksplit - 1) * rb >= Kd // 32:
+                            continue
+                        a = (cols, warps, rb, ksplit,
+                             -(-tiles // (warps // ksplit)))
+
+                        def call(w, a=a):
+                            _build.check(lib.repro_mx_gemv_batched(
+                                w[0].data_ptr(), w[1].data_ptr(),
+                                xs.data_ptr(), y.data_ptr(), N, Kd, B, bits,
+                                *a, _build.stream_handle(dev)),
+                                "batched_mx_qgemv probe")
+                        call(ws[0])
+                        ok = bool(torch.isclose(y, want, rtol=3e-6,
+                                                atol=3e-6).all())
+                        line(kernel="batched_mx_qgemv", shape=shape,
+                             cols=cols, warps=warps, unroll=unroll,
+                             ksplit=ksplit, plan=a == base.args(), ok=ok,
+                             us=us([lambda w=w: call(w) for w in ws]))
         del ws, want
         torch.cuda.empty_cache()
 

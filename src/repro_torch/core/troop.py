@@ -12,8 +12,9 @@ its names and with its defaults (``streams``, ``unroll``, ``block_k``;
 predictor, as in JAX), so ``repro_torch.tune`` ranks their candidates as the
 JAX tuner does.  The quantized GEMVs ``qgemv`` / ``batched_qgemv`` read
 ``block_n`` (threads a block) and ``unroll`` (W rows a warp on the SIMT
-walk; 4 x unroll k-steps in flight on ``batched_qgemv``'s tile walk), and
-``batched_mx_qgemv`` ``block_n`` and ``unroll`` (columns a lane); their
+walk; 4 x unroll k-steps in flight on the tile walk), and
+``batched_mx_qgemv`` ``block_n`` (warps a block) and ``unroll`` (the E8M0
+blocks of a round); their
 ``streams`` and ``block_k`` feed only the predictor.  The
 defaults are the simple first designs each kernel's source describes; an
 empty tune cache launches exactly these.

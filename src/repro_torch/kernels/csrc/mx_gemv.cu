@@ -102,21 +102,57 @@
 //   batch on the sublane dimension of the x and output blocks, so the code
 //   and scale tiles stream once whatever B is).  Bound: bytes, as above
 //   (the same codes and scales, plus B K 2 + 4 B N bytes of xs and Y, for
-//   2 B N K operations).  Design: a (K, N) column walk, xs (B rows of the
-//   block's K range, fp32) staged in shared memory, and a split over K
-//   where the column tiles leave the card short.  A lane owns C columns
-//   (16 for B <= 2, fewer as B grows, so the B x C fp32 accumulators stay
-//   within 32 registers; `unroll` 2 doubles C where that is still at most
-//   16) and reads C bytes of a code row per load.  Per 32-row block it
-//   builds its C E8M0 factors once, dequantizes each code once (code x
-//   factor, fp32, as the JAX `_mx_dequant` and unlike the one-row walk,
-//   which scales block sums; fp4 through a 16-entry table in shared
-//   memory) and adds its product with each of the B rows of x (fma) to
-//   that row's accumulators, so every code byte is read and decoded once
-//   for all B rows.  The warps of a block (4 or 8, `block_n` / 32) split
-//   the block's K range and merge through shared memory; the split
-//   partials go to a workspace (B, ksplit, N) that `mx_reduce_kernel`
-//   adds in split order.
+//   2 B N K operations).  Design: a tile walk on the tensor cores
+//   (`mx_mma_kernel`), one launch a call.  A CUDA-core walk (a code decoded
+//   through a shared-memory table, scaled, then B fmas, its K split summed
+//   by a second kernel) took 208 us at the fp4 read-out, B = 8, 8.0x its
+//   bound: bound by the instructions it issued a code.
+//   - `mma.sync.m16n8k16`, bf16 in, fp32 accumulators: A = W^T (16 output
+//     columns by 16 k), B = xs^T (8 x rows: one n-tile for B <= 8, two up
+//     to 16; rows past B loaded clamped and never stored).
+//   - A lane (g, q) = (lane / 4, lane % 4) owns CPL columns, g CPL .. of
+//     its warp's tile of 8 CPL, and the code rows of k 8q .. 8q + 7 of each
+//     32-row E8M0 block: 4 packed fp4 rows or 8 fp8 rows, one CPL-byte load
+//     each, so 8 lanes read a whole segment of a row a load.  An A register
+//     wants a k pair of one column: in fp4 that is one byte (the even k in
+//     the low nibble); in fp8 the same byte of two consecutive rows, paired
+//     by prmt.  m-tile j takes columns 2j (rows g) and 2j + 1 (rows g + 8)
+//     of every lane's CPL, so the lane's accumulators are its own CPL
+//     columns for x rows 2q, 2q + 1, stored as contiguous vectors.  The
+//     mma's k order is not the codes': a lane's first k16 step takes rows
+//     4q, 4q + 1 (fp4), its second 4q + 2, 4q + 3, and its B fragments are
+//     the same k of x, one 16-byte load a block and n-tile.
+//   - Codes decoded in registers, exactly, no table in shared memory: the
+//     e2m1 magnitudes are exact in bf16, and prmt picks their low and high
+//     bytes from two 8-entry tables in constant words, the sign going to
+//     bit 15 (`fp4x8_bf16`: 15 integer operations for 8 codes); e4m3 goes
+//     through the hardware e4m3x2 -> half2 conversion and half -> float ->
+//     bf16.  Every product code x x is exact in fp32.
+//   - The E8M0 scale after the block's products: each block's two k16
+//     steps sum into a fresh partial (the first mma takes a zero
+//     accumulator), and acc += 2^(s - 127) partial, the factor built from
+//     the float bits (e8m0()).  That is (sum c x) s where the JAX
+//     `_mx_dequant_block` computes sum (c s) x: the same function, summed
+//     in another order, as the one-row walk's run sums.
+//   - A lane issues a round's code and scale loads (the plan's
+//     `round_blocks`: 64 x `unroll` bytes of codes a lane) before its
+//     products.  Every
+//     instantiation builds without a spill (ptxas: 74-95 registers at
+//     unroll 1 and one n-tile, up to 155 at unroll 2 or two n-tiles).
+//   - The plan (kernels/mx_gemv.py `batched_plan`): 8 columns a lane
+//     (64-column tiles) where those tiles give every SM two, else 2
+//     (16-column tiles: 4096 -> 2048 has 32 and 128); K split over the
+//     warps of a block while the tiles' warps stay under 64 an SM, their
+//     partials added in shared memory in warp order by the tile's first
+//     warp: no workspace, no atomics, no second launch, the same bits
+//     twice.  16 columns a lane lost at two n-tiles (67.76 us against
+//     53.30 at the fp4 read-out, B = 16: twice the accumulators) and tied
+//     at one, so it went.
+//   On an NVIDIA H100 80GB HBM3 at 700 W (scripts/chip_ab.py, pairs with
+//   the CUDA-core walk): the read-out, fp4 at B = 8 47.6-47.7 us against
+//   207.2-207.6 (bound 26.1), fp8 59.4-59.8 against 361.3-362.7 (bound
+//   49.4), fp4 at B = 16 53.1-53.5 against 714.5-718.5 (bound 27.6); 4096
+//   -> 2048 at B = 4 8.65-8.67 against 18.7-18.8 (bound 1.35).
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
@@ -127,29 +163,12 @@ namespace {
 constexpr int kCols = 16;             // columns a lane at most; N % kCols
 constexpr int kBlockRows = 32;        // rows of K per E8M0 scale
 
-__constant__ float kFp4[16] = {0.f,  0.5f,  1.f,  1.5f,  2.f,  3.f,
-                               4.f,  6.f,   -0.f, -0.5f, -1.f, -1.5f,
-                               -2.f, -3.f, -4.f, -6.f};
-
 __device__ __forceinline__ float e8m0(unsigned s) {
   return s ? __int_as_float((int)(s << 23)) : __int_as_float(0x00400000);
 }
 
 __device__ __forceinline__ float silu_gate(float g, float u) {
   return g * (1.f / (1.f + expf(-g))) * u;
-}
-
-// y[n] = the sum of the ksplit partials, in split order; grid (column
-// blocks, rows).  The batched walk's second pass.
-__global__ void mx_reduce_kernel(const float* __restrict__ work,
-                                 float* __restrict__ y, int N, int ksplit) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  work += (size_t)blockIdx.y * ksplit * N;
-  y += (size_t)blockIdx.y * N;
-  float v = 0.f;
-  for (int z = 0; z < ksplit; ++z) v += work[(size_t)z * N + n];
-  y[n] = v;
 }
 
 template <int C>
@@ -497,205 +516,279 @@ bool walk_ok(int N, int K, int bits, int lpr_log2, int warps, int rpl,
          rpb >= rows;
 }
 
-// Columns a lane owns in the batched walk for a batch bucket MAXB and
-// `unroll` U: 16 U / MAXB, clamped to [2, 16] (`repro_mx_batched_tile`
-// gives the wrapper the tile width this makes).
-__host__ __device__ constexpr int batch_cols(int maxb, int u) {
-  return 16 * u / maxb > 16 ? 16 : (16 * u / maxb < 2 ? 2 : 16 * u / maxb);
+// ------------------------------------------------- the batched tile walk
+// (see the header).  A warp owns a tile of 8 CPL columns; lane (g, q) =
+// (lane / 4, lane % 4) holds the accumulators of columns tile 8 CPL + g CPL
+// .. + CPL - 1 for x rows 2q, 2q + 1 of each n-tile, and loads, in every
+// 32-row E8M0 block, the CPL code bytes of those columns in the code rows
+// of k 8q .. 8q + 7: 4 packed fp4 rows or 8 fp8 rows.
+
+// the e2m1 magnitudes {0, .5, 1, 1.5, 2, 3, 4, 6} as bf16: the low and the
+// high bytes, entries 0-3 in the first word and 4-7 in the second
+constexpr uint32_t kFp4Lo0 = 0xC0800000u, kFp4Lo1 = 0xC0804000u;
+constexpr uint32_t kFp4Hi0 = 0x3F3F3F00u, kFp4Hi1 = 0x40404040u;
+
+// The eight e2m1 codes of w as four bf16x2 words, exactly: word i = {the
+// code of byte i's low nibble (the even k), of its high nibble}.  prmt
+// takes each byte of a magnitude's bf16 from a table of 8 (the selector
+// nibbles masked to 3 bits: prmt's fourth selector bit would replicate a
+// byte's sign), the nibbles' signs go to bit 7 of the high bytes, and two
+// prmt a word interleave the low and the high bytes: 15 integer operations
+// for 8 codes.
+__device__ __forceinline__ void fp4x8_bf16(uint32_t w, uint32_t* r) {
+  const uint32_t m = w & 0x77777777u, mh = m >> 16, w4 = w << 4;
+  const uint32_t lo_a = __byte_perm(kFp4Lo0, kFp4Lo1, m);
+  const uint32_t lo_b = __byte_perm(kFp4Lo0, kFp4Lo1, mh);
+  // bit 7 of byte j: the sign of nibble j of the low (high) half of w
+  const uint32_t hi_a = __byte_perm(kFp4Hi0, kFp4Hi1, m) |
+                        (__byte_perm(w4, w, 0x5140) & 0x80808080u);
+  const uint32_t hi_b = __byte_perm(kFp4Hi0, kFp4Hi1, mh) |
+                        (__byte_perm(w4, w, 0x7362) & 0x80808080u);
+  r[0] = __byte_perm(lo_a, hi_a, 0x5140);
+  r[1] = __byte_perm(lo_a, hi_a, 0x7362);
+  r[2] = __byte_perm(lo_b, hi_b, 0x5140);
+  r[3] = __byte_perm(lo_b, hi_b, 0x7362);
 }
 
-// B's bucket: the batch size the batched kernel is compiled for.
-constexpr int batch_bucket(int B) {
-  return B <= 1 ? 1 : B <= 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8 : 16;
+// Two e4m3 codes (the low 16 bits of p, the lower k in the low byte) as a
+// bf16x2 word, exactly: the hardware e4m3x2 -> half2 conversion, then half
+// -> float -> bf16 (every e4m3 value is exact in the three).
+__device__ __forceinline__ uint32_t fp8x2_bf16(uint32_t p) {
+  const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(p & 0xFFFFu), __NV_E4M3)));
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
 }
 
-// C bytes at p (C-byte aligned), read once (L1 bypassed).
-template <int C>
-__device__ __forceinline__ void load_bytes(const uint8_t* p, uint8_t* out) {
-  using T = typename Chunk<C>::T;
-  const T v = __ldcs(reinterpret_cast<const T*>(p));
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-  for (int j = 0; j < C; ++j) out[j] = b[j];
+// The codes of bytes i of a and b (one column, code rows k and k + 1) as
+// four bf16x2 words: word i = {a's byte i, b's byte i}.
+__device__ __forceinline__ void fp8x4_bf16(uint32_t a, uint32_t b,
+                                           uint32_t* r) {
+  const uint32_t p01 = __byte_perm(a, b, 0x5140);
+  const uint32_t p23 = __byte_perm(a, b, 0x7362);
+  r[0] = fp8x2_bf16(p01);
+  r[1] = fp8x2_bf16(p01 >> 16);
+  r[2] = fp8x2_bf16(p23);
+  r[3] = fp8x2_bf16(p23 >> 16);
 }
 
-// grid (column tiles of 32 C, ksplit); block `warps` warps.  Block (t, z)
-// covers the tile's columns and the 32-row blocks [z kbs, min((z + 1) kbs,
-// K / 32)) for all B rows of xs.  Shared memory: xs of the block's K range
-// [B][kbs * 32] fp32, then the warps' partials [warps][B][tile].
-template <int BITS, int MAXB, int U>
-__global__ void mx_batched_kernel(const uint8_t* __restrict__ w,
-                                  const uint8_t* __restrict__ s,
-                                  const __nv_bfloat16* __restrict__ xs,
-                                  float* __restrict__ y,
-                                  float* __restrict__ work, int N, int K,
-                                  int B, int kbs) {
-  constexpr int C = batch_cols(MAXB, U);
-  constexpr int kTileB = 32 * C;
-  constexpr int kRows = BITS == 4 ? kBlockRows / 2 : kBlockRows;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float fp4[16];
-  const int nkb = K / kBlockRows;
-  const int kb0 = blockIdx.y * kbs, kb1 = min(nkb, kb0 + kbs);
-  const int nk = (kb1 - kb0) * kBlockRows;
-  const int xstride = kbs * kBlockRows;
+// 32-bit word t of a load (a 2-byte load is word 0, zero-extended).
+template <typename T>
+__device__ __forceinline__ uint32_t word_of(const T& v, int t) {
+  if constexpr (sizeof(T) < 4)
+    return (uint32_t)v;
+  else
+    return reinterpret_cast<const uint32_t*>(&v)[t];
+}
+
+// d = a . b (16 x 8 fp32), no accumulator in: a block's first k16 step.
+__device__ __forceinline__ void mma_bf16_first(float* d, uint32_t a0,
+                                               uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+constexpr int kMmaThreads = 256;      // 8 warps a block at most
+
+// grid: blocks of `warps` warps, ksplit of them on each tile (warp w takes
+// tile blockIdx.x (warps / ksplit) + w / ksplit and the rounds w % ksplit,
+// w % ksplit + ksplit, ...).  NT n-tiles of 8 x rows (one for B <= 8, two up
+// to 16; rows past B loaded clamped, never stored), CPL columns a lane (8
+// or 2), RB E8M0 blocks a round.  Shared memory: the K split's partials,
+// [warp][NT CPL / 2 x 4][lane].  One block an SM is the bound asked for,
+// so that ptxas does not trade registers for occupancy: without it, at
+// two n-tiles and 4 blocks a round, it held 128 registers and spilled.
+template <int BITS, int NT, int CPL, int RB>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    mx_mma_kernel(const uint8_t* __restrict__ w, const uint8_t* __restrict__ s,
+                  const __nv_bfloat16* __restrict__ xs, float* __restrict__ y,
+                  int N, int K, int B, int ksplit) {
+  using Load = typename Chunk<CPL>::T;
+  constexpr int kRows = BITS == 4 ? 4 : 8;      // code rows a lane a block
+  constexpr int kStride = BITS == 4 ? kBlockRows / 2 : kBlockRows;
+  constexpr int MT = CPL / 2;                   // m-tiles a k16 step
+  constexpr int kWords = CPL < 4 ? 1 : CPL / 4;
+  constexpr int V = NT * MT * 4;                // accumulators a lane
+  extern __shared__ __align__(16) float part[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  const int col = blockIdx.x * kTileB + lane * C;
-  float* xsh = smem;                                  // [B][xstride]
-  float* red = smem + B * xstride;                    // [nw][B][kTileB]
-  if (threadIdx.x < 16) fp4[threadIdx.x] = kFp4[threadIdx.x];
-  for (int i = threadIdx.x; i < B * nk; i += blockDim.x) {
-    const int b = i / nk, k = i - b * nk;
-    xsh[b * xstride + k] =
-        __bfloat162float(xs[(size_t)b * K + kb0 * kBlockRows + k]);
-  }
-  __syncthreads();
+  const int g = lane >> 2, q = lane & 3;
+  const int wk = warp % ksplit;
+  const int tile = blockIdx.x * ((blockDim.x >> 5) / ksplit) + warp / ksplit;
+  const int col = (tile * 8 + g) * CPL;
+  const bool live = col < N;
+  const int nkb = K / kBlockRows;
+  const uint8_t* wl = w + (size_t)(kRows * q) * N + (live ? col : 0);
+  const uint8_t* sl = s + (live ? col : 0);
+  // x row 8 nt + g, 16-byte unit q: k 8q .. 8q + 7 of block 0
+  const uint4* xr[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    xr[nt] = reinterpret_cast<const uint4*>(
+                 xs + (size_t)min(8 * nt + g, B - 1) * K) + q;
+  float acc[NT][MT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][j][e] = 0.f;
 
-  float acc[MAXB][C];
+  for (int first = wk * RB; first < nkb; first += ksplit * RB) {
+    Load code[RB][kRows], sc[RB];
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b)
+    for (int u = 0; u < RB; ++u) {
+      const int kb = first + u;
+      if (kb < nkb) {
 #pragma unroll
-    for (int j = 0; j < C; ++j) acc[b][j] = 0.f;
-  if (col < N) {
-    for (int kb = kb0 + warp; kb < kb1; kb += nw) {
-      uint8_t sb[C];
-      load_bytes<C>(s + (size_t)kb * N + col, sb);
-      float sc[C];
+        for (int r = 0; r < kRows; ++r)
+          code[u][r] = __ldcs(reinterpret_cast<const Load*>(
+              wl + ((size_t)kb * kStride + r) * N));
+        sc[u] = __ldcs(reinterpret_cast<const Load*>(sl + (size_t)kb * N));
+      }
+    }
+    // ptxas keeps loads above a warp barrier (it orders memory): without
+    // it, it sinks each load to just before its products
+    __syncwarp();
 #pragma unroll
-      for (int j = 0; j < C; ++j) sc[j] = e8m0(sb[j]);
-      const uint8_t* codes = w + (size_t)kb * kRows * N + col;
-      const float* xk = xsh + (kb - kb0) * kBlockRows;
-#pragma unroll 2
-      for (int r = 0; r < kRows; ++r) {
-        uint8_t cb[C];
-        load_bytes<C>(codes + (size_t)r * N, cb);
-        if constexpr (BITS == 4) {
-          float lo[C], hi[C];
+    for (int u = 0; u < RB; ++u) {
+      const int kb = first + u;
+      if (kb >= nkb) break;
+      // the x rows' bf16 pairs of k 8q .. 8q + 7: words 0, 1 feed the
+      // block's first k16 step, 2, 3 its second
+      uint4 xv[NT];
 #pragma unroll
-          for (int j = 0; j < C; ++j) {
-            lo[j] = fp4[cb[j] & 15] * sc[j];
-            hi[j] = fp4[cb[j] >> 4] * sc[j];
+      for (int nt = 0; nt < NT; ++nt) xv[nt] = __ldg(xr[nt] + 4 * kb);
+#pragma unroll
+      for (int t = 0; t < kWords; ++t) {
+        // a[step][half][i]: column 4t + i; half 0 the k pair of rows g and
+        // g + 8 of the A fragment's first two words, half 1 of its last two
+        uint32_t a[2][2][4];
+#pragma unroll
+        for (int st = 0; st < 2; ++st)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if constexpr (BITS == 4)
+              fp4x8_bf16(word_of(code[u][2 * st + h], t), a[st][h]);
+            else
+              fp8x4_bf16(word_of(code[u][4 * st + 2 * h], t),
+                         word_of(code[u][4 * st + 2 * h + 1], t), a[st][h]);
           }
+        const uint32_t sw = word_of(sc[u], t);
 #pragma unroll
-          for (int b = 0; b < MAXB; ++b) {
-            if (b < B) {
-              // x[2r], x[2r + 1] in one (broadcast) 8-byte read
-              const float2 x01 = *reinterpret_cast<const float2*>(
-                  xk + b * xstride + 2 * r);
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * t + jj;
+          if (j >= MT) break;
+          // 2^(s - 127) of columns 2j and 2j + 1
+          float f[2];
 #pragma unroll
-              for (int j = 0; j < C; ++j) {
-                acc[b][j] = fmaf(x01.x, lo[j], acc[b][j]);
-                acc[b][j] = fmaf(x01.y, hi[j], acc[b][j]);
-              }
-            }
-          }
-        } else {
-          float wv[C];
+          for (int h = 0; h < 2; ++h)
+            f[h] = e8m0((sw >> (16 * jj + 8 * h)) & 0xFFu);
 #pragma unroll
-          for (int j = 0; j < C / 2; ++j) {
-            const __nv_fp8x2_storage_t pair = (__nv_fp8x2_storage_t)(
-                cb[2 * j] | ((unsigned)cb[2 * j + 1] << 8));
-            const float2 f = __half22float2(
-                __half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
-            wv[2 * j] = f.x * sc[2 * j];
-            wv[2 * j + 1] = f.y * sc[2 * j + 1];
-          }
+          for (int nt = 0; nt < NT; ++nt) {
+            float p[4];
+            mma_bf16_first(p, a[0][0][2 * jj], a[0][0][2 * jj + 1],
+                           a[0][1][2 * jj], a[0][1][2 * jj + 1], xv[nt].x,
+                           xv[nt].y);
+            repro::mma_bf16(p, a[1][0][2 * jj], a[1][0][2 * jj + 1],
+                            a[1][1][2 * jj], a[1][1][2 * jj + 1], xv[nt].z,
+                            xv[nt].w);
+            // c[0..1]: column 2j, x rows 2q, 2q + 1; c[2..3]: column 2j + 1
 #pragma unroll
-          for (int b = 0; b < MAXB; ++b) {
-            if (b < B) {
-              const float x0 = xk[b * xstride + r];
-#pragma unroll
-              for (int j = 0; j < C; ++j)
-                acc[b][j] = fmaf(x0, wv[j], acc[b][j]);
-            }
+            for (int e = 0; e < 4; ++e)
+              acc[nt][j][e] = fmaf(f[e >> 1], p[e], acc[nt][j][e]);
           }
         }
       }
     }
   }
+
+  float* flat = &acc[0][0][0];
+  if (ksplit > 1) {
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b) {
-    if (b < B) {
+    for (int v = 0; v < V; ++v) part[(warp * V + v) * 32 + lane] = flat[v];
+    __syncthreads();
+    if (wk != 0) return;
+    for (int k2 = 1; k2 < ksplit; ++k2)
 #pragma unroll
-      for (int j = 0; j < C; ++j)
-        red[(warp * B + b) * kTileB + lane * C + j] = acc[b][j];
+      for (int v = 0; v < V; ++v)
+        flat[v] += part[((warp + k2) * V + v) * 32 + lane];
+  }
+  if (!live) return;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * nt + 2 * q + e;
+      if (n >= B) continue;
+      float* yr = y + (size_t)n * N + col;
+      if constexpr (CPL == 2) {
+        *reinterpret_cast<float2*>(yr) =
+            make_float2(acc[nt][0][e], acc[nt][0][2 + e]);
+      } else {
+#pragma unroll
+        for (int c4 = 0; c4 < CPL / 4; ++c4)
+          reinterpret_cast<float4*>(yr)[c4] =
+              make_float4(acc[nt][2 * c4][e], acc[nt][2 * c4][2 + e],
+                          acc[nt][2 * c4 + 1][e], acc[nt][2 * c4 + 1][2 + e]);
+      }
     }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < B * kTileB; i += blockDim.x) {
-    const int b = i / kTileB, c = i - b * kTileB;
-    const int n = blockIdx.x * kTileB + c;
-    if (n >= N) continue;
-    float v = 0.f;
-    for (int wi = 0; wi < nw; ++wi) v += red[(wi * B + b) * kTileB + c];
-    if (gridDim.y == 1)
-      y[(size_t)b * N + n] = v;
-    else
-      work[((size_t)b * gridDim.y + blockIdx.y) * N + n] = v;
-  }
 }
 
-template <int BITS, int MAXB, int U>
-cudaError_t launch_batched(const void* w, const void* s, const void* xs,
-                           void* y, void* work, int N, int K, int B,
-                           int ksplit, int warps, cudaStream_t stream) {
-  constexpr int tile = 32 * batch_cols(MAXB, U);
-  const int nkb = K / kBlockRows;
-  const int kbs = (nkb + ksplit - 1) / ksplit;
+template <int BITS, int NT, int CPL, int RB>
+cudaError_t launch_mma(const void* w, const void* s, const void* xs, void* y,
+                       int N, int K, int B, int warps, int ksplit, int blocks,
+                       cudaStream_t stream) {
+  auto kern = mx_mma_kernel<BITS, NT, CPL, RB>;
   const int smem =
-      (B * kbs * kBlockRows + warps * B * tile) * (int)sizeof(float);
-  // the static fp4 table (64 bytes) counts against the 48 KB default too
-  if (smem + 64 > 227 * 1024) return cudaErrorInvalidValue;
-  auto kern = mx_batched_kernel<BITS, MAXB, U>;
-  if (smem + 64 > 48 * 1024) {
+      ksplit > 1 ? warps * NT * (CPL / 2) * 4 * 32 * (int)sizeof(float) : 0;
+  if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3((N + tile - 1) / tile, ksplit), warps * 32, smem, stream>>>(
+  kern<<<blocks, 32 * warps, smem, stream>>>(
       (const uint8_t*)w, (const uint8_t*)s, (const __nv_bfloat16*)xs,
-      (float*)y, (float*)work, N, K, B, kbs);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || ksplit == 1) return e;
-  mx_reduce_kernel<<<dim3((N + 255) / 256, B), 256, 0, stream>>>(
-      (const float*)work, (float*)y, N, ksplit);
+      (float*)y, N, K, B, ksplit);
   return cudaGetLastError();
 }
 
-template <int BITS, int MAXB>
-cudaError_t batched_unroll(const void* w, const void* s, const void* xs,
-                           void* y, void* work, int N, int K, int B,
-                           int ksplit, int warps, int unroll,
-                           cudaStream_t stream) {
-  if (unroll == 1)
-    return launch_batched<BITS, MAXB, 1>(w, s, xs, y, work, N, K, B, ksplit,
-                                         warps, stream);
-  if (unroll == 2)
-    return launch_batched<BITS, MAXB, 2>(w, s, xs, y, work, N, K, B, ksplit,
-                                         warps, stream);
+// The plan's round of `rb` E8M0 blocks (kernels/mx_gemv.py `round_blocks`:
+// 64 or 128 bytes of codes a lane) is one of the two each (format, cols)
+// is built for.
+template <int BITS, int NT>
+cudaError_t mma_cut(const void* w, const void* s, const void* xs, void* y,
+                    int N, int K, int B, int cols, int warps, int rb,
+                    int ksplit, int blocks, cudaStream_t st) {
+  constexpr int R8 = BITS == 4 ? 2 : 1, R2 = 4 * R8;   // unroll 1
+  if (cols == 8 && rb == R8)
+    return launch_mma<BITS, NT, 8, R8>(w, s, xs, y, N, K, B, warps, ksplit,
+                                       blocks, st);
+  if (cols == 8 && rb == 2 * R8)
+    return launch_mma<BITS, NT, 8, 2 * R8>(w, s, xs, y, N, K, B, warps,
+                                           ksplit, blocks, st);
+  if (cols == 2 && rb == R2)
+    return launch_mma<BITS, NT, 2, R2>(w, s, xs, y, N, K, B, warps, ksplit,
+                                       blocks, st);
+  if (cols == 2 && rb == 2 * R2)
+    return launch_mma<BITS, NT, 2, 2 * R2>(w, s, xs, y, N, K, B, warps,
+                                           ksplit, blocks, st);
   return cudaErrorInvalidValue;
 }
 
 template <int BITS>
-cudaError_t batched_bucket(const void* w, const void* s, const void* xs,
-                           void* y, void* work, int N, int K, int B,
-                           int ksplit, int warps, int unroll,
-                           cudaStream_t st) {
-  if (B == 1)
-    return batched_unroll<BITS, 1>(w, s, xs, y, work, N, K, B, ksplit, warps,
-                                   unroll, st);
-  if (B == 2)
-    return batched_unroll<BITS, 2>(w, s, xs, y, work, N, K, B, ksplit, warps,
-                                   unroll, st);
-  if (B <= 4)
-    return batched_unroll<BITS, 4>(w, s, xs, y, work, N, K, B, ksplit, warps,
-                                   unroll, st);
+cudaError_t mma_batch(const void* w, const void* s, const void* xs, void* y,
+                      int N, int K, int B, int cols, int warps, int rb,
+                      int ksplit, int blocks, cudaStream_t st) {
   if (B <= 8)
-    return batched_unroll<BITS, 8>(w, s, xs, y, work, N, K, B, ksplit, warps,
-                                   unroll, st);
-  return batched_unroll<BITS, 16>(w, s, xs, y, work, N, K, B, ksplit, warps,
-                                  unroll, st);
+    return mma_cut<BITS, 1>(w, s, xs, y, N, K, B, cols, warps, rb, ksplit,
+                            blocks, st);
+  return mma_cut<BITS, 2>(w, s, xs, y, N, K, B, cols, warps, rb, ksplit,
+                          blocks, st);
 }
 
 }  // namespace
@@ -752,34 +845,27 @@ extern "C" cudaError_t repro_mx_gemv_grouped(
 }
 
 // The batched MX GEMV: w (K/2 | K, N) uint8 codes, s (K/32, N) uint8 E8M0,
-// xs (B, K) bf16 with 1 <= B <= 16, y (B, N) fp32; work (B, ksplit, N)
-// fp32 when ksplit > 1.  warps 4 or 8 a block, unroll 1 or 2 (columns a
-// lane: batch_cols).  All 16-byte aligned, N % 16 == 0, K % 32 == 0.
+// xs (B, K) bf16 with 1 <= B <= 16, y (B, N) fp32.  All 16-byte aligned,
+// N % 16 == 0, K % 32 == 0.  The plan (kernels/mx_gemv.py `batched_plan`):
+// `cols` columns a lane (8 or 2: warp tiles of 8 cols), `warps` warps a
+// block (1..8), `ksplit` of them on each tile (a divisor of warps),
+// `rb` E8M0 blocks a round (`round_blocks`), `blocks` covering the tiles.
 extern "C" cudaError_t repro_mx_gemv_batched(const void* w, const void* s,
-                                             const void* xs, void* y,
-                                             void* work, int N, int K, int B,
-                                             int bits, int ksplit, int warps,
-                                             int unroll, void* stream) {
+                                             const void* xs, void* y, int N,
+                                             int K, int B, int bits, int cols,
+                                             int warps, int rb, int ksplit,
+                                             int blocks, void* stream) {
   if (N <= 0) return cudaSuccess;
-  const int nkb = K / kBlockRows;
   if (K <= 0 || K % kBlockRows || N % kCols || B < 1 || B > 16 ||
-      ksplit < 1 || ksplit > nkb || (warps != 4 && warps != 8) ||
-      (bits != 4 && bits != 8) || (ksplit > 1 && work == nullptr))
-    return cudaErrorInvalidValue;
-  if ((ksplit - 1) * ((nkb + ksplit - 1) / ksplit) >= nkb)
+      (bits != 4 && bits != 8) || (cols != 8 && cols != 2) || warps < 1 ||
+      32 * warps > kMmaThreads || ksplit < 1 || warps % ksplit ||
+      blocks < 1 ||
+      (long long)blocks * (warps / ksplit) * 8 * cols < N)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bits == 4)
-    return batched_bucket<4>(w, s, xs, y, work, N, K, B, ksplit, warps,
-                             unroll, st);
-  return batched_bucket<8>(w, s, xs, y, work, N, K, B, ksplit, warps, unroll,
-                           st);
-}
-
-// Output columns one block of the batched MX GEMV covers for B rows and
-// `unroll` (0 when either is out of range): the wrapper's split-K count
-// tiles N by it.
-extern "C" int repro_mx_batched_tile(int B, int unroll) {
-  if (B < 1 || B > 16 || (unroll != 1 && unroll != 2)) return 0;
-  return 32 * batch_cols(batch_bucket(B), unroll);
+    return mma_batch<4>(w, s, xs, y, N, K, B, cols, warps, rb, ksplit,
+                        blocks, st);
+  return mma_batch<8>(w, s, xs, y, N, K, B, cols, warps, rb, ksplit, blocks,
+                      st);
 }

@@ -20,9 +20,9 @@
 // Two kernels, picked by the wrapper's plan (kernels/qgemv.py
 // `batched_qgemv_plan`, which says which and why):
 //
-// The tile walk, B >= 2 (`qgemv_mma_kernel`).  The SIMT walk below decodes
-//   and scales each code, then spends B fp32 FMAs on it, each after a
-//   shared-memory read of xs and a bf16 -> fp32 conversion: at B = 8 that
+// The tile walk, 1 <= B <= 16 (`qgemv_mma_kernel`).  The SIMT walk below
+//   decodes and scales each code, then spends B fp32 FMAs on it, each after
+//   a shared-memory read of xs and a bf16 -> fp32 conversion: at B = 8 that
 //   is bound by the instructions it issues, not by bytes.  So the products
 //   go to the tensor cores, on the tile structure of gemv.cu's batched
 //   kernel: `mma.sync.m16n8k16`, bf16 in, fp32 accumulators, W as A (16
@@ -69,8 +69,16 @@
 //     measured slower at the int8 read-out, B = 8, on an NVIDIA H100 80GB
 //     HBM3 at 700 W: 76.1 us, against 70.4 for this walk while it still
 //     spent a division a step on the group (separate runs).
+//   - One row of x (the one-row `qgemv`) is one n-tile with seven dead
+//     columns: the x rows past the first are loaded clamped (the block
+//     copies one row of xs, every lane reads it), and the idle tensor-core
+//     columns cost nothing that shows, as the walk is bound by bytes.  On
+//     the H100 (scripts/chip_ab.py pairs with the SIMT walk): the read-out
+//     39.4-40.2 us in int4 against 64.4-64.5 (bound 24.85) and 56.7-57.1
+//     in int8 against 71.4-71.6 (bound 48.08); (2048, 4096) 5.8-5.9
+//     against 6.4 in int4 and 7.2 against 8.0-8.1 in int8.
 //
-// The SIMT walk, B = 1 and groups narrower than a k-step (`qgemv_kernel`):
+// The SIMT walk, groups narrower than a k-step (`qgemv_kernel`):
 //   gemv.cu's warp-per-row walk with batched_gemv's shared xs.  Each block
 //   first copies xs (B K bf16) into shared memory; each warp then takes R
 //   rows of W at a time (R = `unroll`: 1, 2 or 4), the warps of the grid
@@ -631,7 +639,7 @@ extern "C" cudaError_t repro_qgemv(const void* w, const void* scales,
                          s);
 }
 
-// The tile walk: w, scales, xs, y as above with 2 <= B <= 16 and a group a
+// The tile walk: w, scales, xs, y as above with 1 <= B <= 16 and a group a
 // whole number of k-steps ((K / G) % 64 in int8, % 128 in int4), xs
 // padded to B (K / 8 + 1) 16-byte units at most 227 KB; ``warps`` 1..8 a
 // block, ``ksplit`` of them (a divisor of warps, each with at least one
@@ -646,7 +654,7 @@ extern "C" cudaError_t repro_qgemv_mma(const void* w, const void* scales,
   if (N <= 0) return cudaSuccess;
   const int ks = bits == 4 ? 128 : 64;
   if ((bits != 4 && bits != 8) || warps < 1 || warps > 8 || ksplit < 1 ||
-      warps % ksplit != 0 || B < 2 || B > 16 || K <= 0 || G < 1 ||
+      warps % ksplit != 0 || B < 1 || B > 16 || K <= 0 || G < 1 ||
       K % G || (K / G) % ks || ksplit * steps > K / ks + steps - 1 ||
       B * (K / 8 + 1) * 16 > 227 * 1024 ||
       blocks * (warps / ksplit) < (N + 15) / 16)

@@ -39,11 +39,12 @@ _ARGTYPES = {
     "repro_mx_qgemv": [_P] * 4 + [_I] * 8 + [_P],
     "repro_mx_gemv_swiglu": [_P] * 6 + [_I] * 8 + [_P],
     "repro_mx_gemv_grouped": [_P] * 5 + [_I] * 9 + [_P],
-    "repro_mx_gemv_batched": [_P] * 5 + [_I] * 7 + [_P],
-    "repro_mx_batched_tile": [_I] * 2,
+    "repro_mx_gemv_batched": [_P] * 4 + [_I] * 9 + [_P],
 }
 #: rows of xs one batched launch takes
 MAX_BATCH = 16
+#: warps of the batched tile walk an SM past which K is split no further
+SPLIT_WARPS = 64
 _BLOCK = 32                             # mirrors kBlockRows
 
 
@@ -95,16 +96,93 @@ def _check(name, wq, scales, x, stack=False, rows=False):
     return N, K, bits
 
 
-def ksplit(N: int, K: int, sms: int, tile: int = 512,
-           warps: int = 8) -> int:
-    """The batched kernel's blocks per ``tile``-column tile along K (512
-    columns and 8 warps: its widest tile, at one row, and its most warps):
-    enough tiles x splits to give every SM a block, while each split keeps
-    a 32-row block per warp (``warps`` a block)."""
-    nkb = K // _BLOCK
-    want = max(1, min(-(-sms // -(-N // tile)), nkb // warps))
-    per = -(-nkb // want)
-    return -(-nkb // per)               # every split owns >= 1 block
+class BatchedPlan(NamedTuple):
+    """How ``batched_mx_qgemv``'s tile walk (``csrc/mx_gemv.cu``
+    `mx_mma_kernel`) cuts N columns of (K, N) codes for B rows of x, and
+    ``why``: warp tiles of 8 ``cols`` columns (``cols`` a lane: 8, or 2
+    where the 64-column tiles are few), ``warps`` a block,
+    ``ksplit`` of them on each tile (warp wk of a tile taking the rounds
+    wk, wk + ksplit, ...), rounds of ``round_blocks`` E8M0 blocks (2
+    ``round_blocks`` k16 steps), ``nt`` n-tiles of 8 x rows, ``tiles``,
+    ``blocks``."""
+    why: str
+    cols: int
+    warps: int
+    round_blocks: int
+    ksplit: int
+    tiles: int
+    blocks: int
+    nt: int
+
+    @property
+    def tile(self) -> int:
+        return 8 * self.cols
+
+    def rounds(self, K: int, wk: int):
+        """The first E8M0 block of each round the ``wk``-th warp of a tile
+        walks (the kernel's loop)."""
+        return range(wk * self.round_blocks, K // _BLOCK,
+                     self.ksplit * self.round_blocks)
+
+    def args(self):
+        """The C entry point's plan arguments: cols, warps, round_blocks,
+        ksplit, blocks."""
+        return (self.cols, self.warps, self.round_blocks, self.ksplit,
+                self.blocks)
+
+
+def round_blocks(bits: int, cols: int, unroll: int) -> int:
+    """E8M0 blocks a round of the tile walk, the template argument of
+    ``csrc/mx_gemv.cu`` `mx_mma_kernel` that the C entry point takes from
+    the plan: ``unroll`` x 64 bytes of codes a lane (fp4 2 blocks an
+    unroll at 8 columns, 8 at 2; fp8 half as many)."""
+    return 16 // cols * unroll // (2 if bits == 8 else 1)
+
+
+def batched_plan(N: int, K: int, bits: int, B: int, cfg: LaunchConfig,
+                 sms: int) -> BatchedPlan:
+    """The tile walk's cut for B rows of x against (N, K) MX codes on
+    ``sms`` SMs: ``cfg.block_n`` / 32 warps a block (4 or 8), ``cfg.unroll``
+    (1 or 2) sizing the rounds (``round_blocks``).  A lane owns 8 columns
+    (64-column warp tiles, one 8-byte load a code row) where those tiles
+    give every SM two, else 2 (16-column tiles, as the int tile walk's 16
+    rows: 4096 -> 2048 has 32 tiles of 64 columns and 128 of 16).
+    ``ksplit`` doubles while it divides the warps, every warp keeps a whole
+    round, and the tiles' warps stay under ``SPLIT_WARPS`` an SM; the
+    split's partials meet in shared memory in warp order (one launch, the
+    same bits twice).  One n-tile of 8 x rows for B <= 8, two up to 16.
+    On the H100 (``scripts/chip_probe.py``; PERF.md), at 8 warps: the fp4
+    read-out 57.75 / 49.25 / 48.06 / 51.27 us at a K split of 1 / 2 / 4 / 8
+    for B = 8 (fp8 61.29 / 64.48 / 58.54 / 67.42, B = 16 61.68 / 54.84 /
+    53.30 / 59.46), at 2 columns a lane 59.80 (B = 8); 4096 -> 2048 at
+    B = 4 8.55 us at 2 columns, 13.36 at 8.  The default config's 8 warps
+    are knowingly not the fastest cut at the fp4 read-out, B = 8: 4 warps
+    took 42.62 us there against 48.06.  The warps stay ``cfg.block_n`` /
+    32, the tuner's knob (block_n 128 is in its space), and the plan does
+    not override them."""
+    warps, unroll = cfg.block_n // 32, cfg.unroll
+    if cfg.block_n % 32 or warps not in (4, 8) or unroll not in (1, 2) \
+            or not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"batched_mx_qgemv kernel takes 1 <= rows <= "
+                         f"{MAX_BATCH}, block_n 128 or 256 and unroll 1 or "
+                         f"2; got rows {B}, block_n {cfg.block_n}, unroll "
+                         f"{unroll}")
+    wide = -(-N // 64)
+    cols = 8 if wide >= 2 * sms else 2
+    rb = round_blocks(bits, cols, unroll)
+    tiles, nkb, ks = -(-N // (8 * cols)), K // _BLOCK, 1
+    while (warps % (2 * ks) == 0 and 2 * ks * rb <= nkb
+           and tiles * ks < SPLIT_WARPS * sms):
+        ks *= 2
+    nt = 1 if B <= 8 else 2
+    why = (f"{B} rows of x on mma.sync ({nt} n-tile{'s' * (nt > 1)}): "
+           + (f"{wide} tiles of 64 columns give every SM two, 8 columns a "
+              f"lane" if cols == 8 else
+              f"{wide} tiles of 64 columns leave SMs idle, 2 columns a lane "
+              f"({tiles} tiles of 16)")
+           + f", K split over {ks} warps")
+    return BatchedPlan(why, cols, warps, rb, ks, tiles,
+                       -(-tiles // (warps // ks)), nt)
 
 
 class QgemvPlan(NamedTuple):
@@ -265,9 +343,9 @@ def mx_qgemv(wq, scales, x):
 
 def batched_mx_qgemv(wq, scales, xs, cfg: LaunchConfig = DEFAULT):
     """Y (B, N) fp32 = xs (B, K) . dequant(wq, scales): ``mx_qgemv`` of
-    every row of xs, reading the codes once for all of them.
-    ``cfg.block_n`` / 32 warps a block (4 or 8), ``cfg.unroll`` 2 doubles
-    the columns a lane owns where the registers allow.
+    every row of xs, reading the codes once for all of them, on the tensor
+    cores in one launch cut by ``batched_plan`` (``cfg.block_n`` / 32 warps
+    a block, 4 or 8; ``cfg.unroll`` 1 or 2 sizes the rounds).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (1 <= B <= 16) or raises."""
@@ -277,24 +355,13 @@ def batched_mx_qgemv(wq, scales, xs, cfg: LaunchConfig = DEFAULT):
     if wq.device.type != "cuda":
         raise ValueError(f"batched_mx_qgemv: unsupported device {wq.device}")
     N, K, bits = _check("batched_mx_qgemv", wq, scales, xs, rows=True)
-    B = xs.shape[0]
-    warps, unroll = cfg.block_n // 32, cfg.unroll
-    if not 1 <= B <= MAX_BATCH or warps not in (4, 8) or unroll not in (1, 2):
-        raise ValueError(f"batched_mx_qgemv kernel takes 1 <= rows <= "
-                         f"{MAX_BATCH}, block_n 128 or 256 and unroll 1 or "
-                         f"2; got rows {B}, block_n {cfg.block_n}, unroll "
-                         f"{unroll}")
     dev = xs.device
+    plan = batched_plan(N, K, bits, xs.shape[0], cfg, _build.sm_count(dev))
     lib = _build.library("mx_gemv", _ARGTYPES)
-    ks = ksplit(N, K, _build.sm_count(dev),
-                lib.repro_mx_batched_tile(B, unroll), warps)
-    work = torch.empty((B * ks, N) if ks > 1 else (1,), dtype=torch.float32,
-                       device=dev)
-    y = torch.empty((B, N), dtype=torch.float32, device=dev)
+    y = torch.empty((xs.shape[0], N), dtype=torch.float32, device=dev)
     err = lib.repro_mx_gemv_batched(
-        wq.data_ptr(), scales.data_ptr(), xs.data_ptr(), y.data_ptr(),
-        work.data_ptr(), N, K, B, bits, ks, warps, unroll,
-        _build.stream_handle(dev))
+        wq.data_ptr(), scales.data_ptr(), xs.data_ptr(), y.data_ptr(), N, K,
+        xs.shape[0], bits, *plan.args(), _build.stream_handle(dev))
     _build.check(err, "batched_mx_qgemv")
     batched_launches += 1
     return y
@@ -456,7 +523,7 @@ batched_mx_qgemv_tuned = troop_kernel(
     flops=lambda wq, s, xs: 2.0 * xs.shape[0] * wq.shape[-1] * xs.shape[-1],
     bytes=_mx_qgemv_bytes, streamed=_mx_qgemv_streamed,
     # the JAX quantized GEMVs' space: ``block_n`` / 32 warps a block and
-    # ``unroll`` (columns a lane) move the kernel; ``streams`` and
+    # ``unroll`` (the loads of a round) move the kernel; ``streams`` and
     # ``block_k`` feed only the predictor
     space={"streams": (1, 2), "unroll": (1, 2), "block_n": (128, 256),
            "block_k": (256, 512)},

@@ -10,9 +10,9 @@ JAX package (it is never inferred from the shapes).  These kernels take the
 registry's and the tuner's operands: the engine's int weights are stored
 ``(K, N)`` and dequantize in the graph, as in the JAX package.  The CUDA
 kernels are bound by the code and scale bytes; ``csrc/qgemv.cu`` says how
-their design meets that: at B >= 2 a tile walk on the tensor cores
-(``mma.sync``), for one row and for groups narrower than a k-step the SIMT
-walk (``batched_qgemv_plan`` picks, and says why).
+their design meets that: a tile walk on the tensor cores (``mma.sync``),
+for groups narrower than a k-step the SIMT walk (``batched_qgemv_plan``
+picks, and says why).
 """
 from __future__ import annotations
 
@@ -76,9 +76,14 @@ class QgemvTilePlan(NamedTuple):
 
 def batched_qgemv_plan(N: int, K: int, G: int, B: int, bits: int,
                        cfg: LaunchConfig, sms: int) -> QgemvTilePlan:
-    """The tile walk for 2 <= B <= 16 where a group (K / G codes) holds
-    whole k-steps; the SIMT walk for one row of x, for narrower groups, and
-    where xs with its padding (16 bytes a row) passes the shared memory.
+    """The tile walk for 1 <= B <= 16 where a group (K / G codes) holds
+    whole k-steps; the SIMT walk for narrower groups, and where xs with its
+    padding (16 bytes a row) passes the shared memory.  One row of x is one
+    n-tile with seven dead columns: the walk is bound by bytes, and on the
+    H100 it beat the SIMT walk at every smoke row (int4 / int8 read-out
+    40.50 / 59.23 us against 64.96 / 70.90, (2048, 4096) 5.95 / 7.60
+    against 6.22 / 8.53; PERF.md), so no shape of tiles and K keeps the
+    SIMT walk for whole groups.
 
     Tile walk: ``cfg.block_n`` / 32 warps a block (at most 8), ``cfg.unroll``
     x 4 k-steps a round; ksplit doubles while it divides the warps, each
@@ -87,9 +92,6 @@ def batched_qgemv_plan(N: int, K: int, G: int, B: int, bits: int,
     every warp keeps one, so a warp's share is in flight at once.
     (2048, 4096) int8 at 8 warps: ksplit 8, 8 steps; the read-out: 1, 4."""
     kstep = k_step(bits)
-    if B < 2:
-        return QgemvTilePlan("walk", "one row of x: the SIMT walk, "
-                             "qgemv's kernel and bits")
     if (K // G) % kstep:
         return QgemvTilePlan("walk", f"groups of {K // G} codes are "
                              f"narrower than (or not a multiple of) a "
@@ -112,11 +114,27 @@ def batched_qgemv_plan(N: int, K: int, G: int, B: int, bits: int,
         ksplit *= 2
     while ksplit > 1 and steps < MAX_ROUND and 2 * ksplit * steps <= nsteps:
         steps *= 2
-    return QgemvTilePlan("tile", f"{B} rows of x, groups of {K // G} codes "
+    rows = "one row of x (seven dead columns)" if B == 1 \
+        else f"{B} rows of x"
+    return QgemvTilePlan("tile", f"{rows}, groups of {K // G} codes "
                          f"in whole k-steps of {kstep}: mma.sync",
                          warps, steps, ksplit, tiles,
                          -(-tiles // (warps // ksplit)), kstep,
                          K // G // kstep)
+
+
+def walk_blocks(N: int, K: int, B: int, cfg: LaunchConfig, sms: int):
+    """(warps, rows, blocks) of the SIMT walk: ``cfg.block_n`` / 32 warps a
+    block, ``cfg.unroll`` W rows a warp, as many blocks as the rows need
+    up to what ``sms`` SMs hold at once (threads, and xs in shared
+    memory)."""
+    warps, rows = cfg.block_n // 32, cfg.unroll
+    if not 1 <= warps <= 32 or rows not in (1, 2, 4):
+        raise ValueError(f"qgemv: block_n {cfg.block_n} (32 threads a "
+                         f"warp, up to 32 warps) and unroll {cfg.unroll} "
+                         f"(W rows a warp: 1, 2 or 4) out of range")
+    per_sm = max(1, min(2048 // (warps * 32), _SMEM // (B * K * 2)))
+    return warps, rows, max(1, min(-(-N // (warps * rows)), sms * per_sm))
 
 
 def plain(wq, scales, x, *, bits: int = 8):
@@ -163,13 +181,7 @@ def _launch(name, wq, scales, xs, bits, cfg):
             _build.stream_handle(wq.device))
         _build.check(err, name)
         return y
-    warps, rows = cfg.block_n // 32, cfg.unroll
-    if not 1 <= warps <= 32 or rows not in (1, 2, 4):
-        raise ValueError(f"{name}: block_n {cfg.block_n} (32 threads a "
-                         f"warp, up to 32 warps) and unroll {cfg.unroll} "
-                         f"(W rows a warp: 1, 2 or 4) out of range")
-    per_sm = max(1, min(2048 // (warps * 32), _SMEM // (B * K * 2)))
-    blocks = max(1, min(-(-N // (warps * rows)), sms * per_sm))
+    warps, rows, blocks = walk_blocks(N, K, B, cfg, sms)
     err = lib.repro_qgemv(wq.data_ptr(), scales.data_ptr(), xs.data_ptr(),
                           y.data_ptr(), N, K, G, B, bits, warps, rows, blocks,
                           _build.stream_handle(wq.device))
@@ -180,8 +192,10 @@ def _launch(name, wq, scales, xs, bits, cfg):
 def qgemv(wq, scales, x, cfg: LaunchConfig = DEFAULT, *, bits: int = 8):
     """y (N,) fp32 = dequant(wq, scales) . x for codes wq (N, K) int8
     (``bits=8``) or (N, K/2) packed int4 (``bits=4``), scales (N, K/g) fp32
-    and x (K,).  ``cfg.block_n`` / 32 warps a block, ``cfg.unroll`` W rows
-    a warp.
+    and x (K,): ``batched_qgemv``'s kernels at one row, as
+    ``batched_qgemv_plan`` routes it (``cfg.block_n`` / 32 warps a block;
+    ``cfg.unroll`` x 4 k-steps a round on the tile walk, W rows a warp on
+    the SIMT walk).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (bf16 x) or raises."""
@@ -201,8 +215,8 @@ def qgemv(wq, scales, x, cfg: LaunchConfig = DEFAULT, *, bits: int = 8):
 def batched_qgemv(wq, scales, xs, cfg: LaunchConfig = DEFAULT, *,
                   bits: int = 8):
     """Y (B, N) fp32 = xs (B, K) . dequant(wq, scales)^T: ``qgemv`` of every
-    row of xs, reading the codes once for all of them.  At B >= 2 with
-    groups of whole k-steps the products run on the tensor cores
+    row of xs, reading the codes once for all of them.  With groups of
+    whole k-steps the products run on the tensor cores
     (``batched_qgemv_plan``: ``cfg.block_n`` / 32 warps a block,
     ``cfg.unroll`` x 4 k-steps a round); otherwise on ``qgemv``'s walk.
 

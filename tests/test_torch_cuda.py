@@ -982,10 +982,16 @@ def within_dot_bound(got, want, w, xs):
     (151936, 1024, 128, 0),                         # the read-out, one row
     (2048, 4096, 128, 0), (2048, 4096, 128, 4),     # the registry example
     (1000, 1024, 1024, 1), (1000, 1024, 128, 16),   # one group a row
-    (33, 2816, 128, 5)])                            # ragged rows
+    (33, 2816, 128, 5),                             # ragged rows
+    # groups narrower than a k-step (int4 128 codes, int8 64): the SIMT
+    # walk, at the read-out (one row), the registry example (B = 4) and
+    # ragged rows (int8 groups of 64 are one k-step: the tile walk)
+    (151936, 1024, 32, 0), (2048, 4096, 32, 4), (1000, 1024, 64, 3)])
 def test_qgemv(N, K, group, B, bits, cfg):
     """B = 0: the one-row ``qgemv``; else ``batched_qgemv``, W read once
-    for all B rows."""
+    for all B rows; the same bits twice, and at the default config one
+    device kernel a call, the one the plan routes to (the tile walk's or
+    the SIMT walk's)."""
     g = torch.Generator(device="cuda").manual_seed(40)
     w = torch.randn((N, K), device="cuda", generator=g)
     qt = quantize(w, bits=bits, group_size=group, axis=-1)
@@ -1003,6 +1009,24 @@ def test_qgemv(N, K, group, B, bits, cfg):
     assert got.shape == ((B, N) if B else (N,))
     within_dot_bound(got, want, wd, xs)
     assert TK.launch_counts()[name] == before + 1
+    if B:
+        again = TK.batched_qgemv(qt.values, qt.scales, xs, cfg, bits=bits)
+    else:
+        again = TK.qgemv(qt.values, qt.scales, xs[0], cfg, bits=bits)
+    assert torch.equal(got, again)
+    if cfg == LaunchConfig():
+        from repro_torch.kernels._build import sm_count
+        from repro_torch.kernels.qgemv import batched_qgemv_plan
+        plan = batched_qgemv_plan(N, K, K // group, max(B, 1), bits, cfg,
+                                  sm_count(torch.device("cuda")))
+        kernel = "qgemv_mma_kernel" if plan.route == "tile" else \
+            "qgemv_kernel"
+        if B:
+            one_device_kernel(lambda: TK.batched_qgemv(
+                qt.values, qt.scales, xs, cfg, bits=bits), name, kernel)
+        else:
+            one_device_kernel(lambda: TK.qgemv(
+                qt.values, qt.scales, xs[0], cfg, bits=bits), name, kernel)
 
 
 def one_device_kernel(fn, counter, kernel):
@@ -1069,25 +1093,33 @@ def test_batched_qgemv_tile_walk(N, K, group, B, bits):
                       "batched_qgemv", "qgemv_mma_kernel")
 
 
-@pytest.mark.parametrize("cfg", [LaunchConfig(),
-                                 LaunchConfig(block_n=128, unroll=2)])
-@pytest.mark.parametrize("B", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 8, 9, 16])
 @pytest.mark.parametrize("N,K,elem", [
-    (151936, 1024, "fp4"),                          # the read-out
+    (151936, 1024, "fp4"), (151936, 1024, "fp8"),   # the read-out
     (2048, 4096, "fp4"), (2048, 4096, "fp8"),       # the registry example
     (1040, 2848, "fp8"), (48, 96, "fp4")])          # ragged tiles
-def test_batched_mx_qgemv(N, K, elem, B, cfg):
+def test_batched_mx_qgemv(N, K, elem, B):
+    """The tile walk at every candidate of the tuner's space (8 and 2
+    columns a lane, one and two n-tiles, ragged B): within the dot bound of
+    the plain version, the same bits twice, one launch counted; its last
+    row within MX_TOL of the one-row ``mx_qgemv``; one device kernel a
+    call, the tile walk's (no reduce kernel)."""
     rng = np.random.default_rng(41)
     wq, s = mx_weight(rng, K, N, elem)
     xs = bf16(rng.standard_normal((B, K)))
-    before = TK.launch_counts()["batched_mx_qgemv"]
-    got = TK.batched_mx_qgemv(wq, s, xs, cfg)
-    assert got.shape == (B, N) and got.dtype == torch.float32
+    want = TK.PLAIN["batched_mx_qgemv"](wq, s, xs)
     wd = TR._mx_dequant(wq, s).t()
-    within_dot_bound(got, TK.PLAIN["batched_mx_qgemv"](wq, s, xs), wd, xs)
-    assert TK.launch_counts()["batched_mx_qgemv"] == before + 1
+    for cfg in QGEMV_SPACE:
+        before = TK.launch_counts()["batched_mx_qgemv"]
+        got = TK.batched_mx_qgemv(wq, s, xs, cfg)
+        assert got.shape == (B, N) and got.dtype == torch.float32
+        within_dot_bound(got, want, wd, xs)
+        assert torch.equal(got, TK.batched_mx_qgemv(wq, s, xs, cfg)), cfg
+        assert TK.launch_counts()["batched_mx_qgemv"] == before + 2
     matches_plain(got[B - 1], TK.mx_qgemv(wq, s, xs[B - 1].contiguous()),
                   MX_TOL)
+    one_device_kernel(lambda: TK.batched_mx_qgemv(wq, s, xs),
+                      "batched_mx_qgemv", "mx_mma_kernel")
 
 
 @pytest.mark.parametrize("cfg", [

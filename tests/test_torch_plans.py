@@ -22,8 +22,12 @@ a row one warp where d fits 8 vectors a lane, else the fewest warps, and a
 block ``rmsnorm_threads`` / 32 warps; ``batched_qgemv_plan`` routes B >= 2
 with groups of whole k-steps to the tensor-core tile walk (16-row tiles,
 rounds of k-steps, K split over a block's warps where the tiles are few)
-and the rest to the SIMT walk.  The kernels themselves are held against
-their plain versions on the card (``test_torch_cuda.py``).
+and the rest to the SIMT walk; ``batched_plan`` cuts ``batched_mx_qgemv``'s
+MX tile walk (8 or 2 columns a lane, K split over a block's warps), held
+here to cover every column, code row and output once, and its lanes'
+fragments are emulated in numpy against the plain version.  The kernels
+themselves are held against their plain versions on the card
+(``test_torch_cuda.py``).
 """
 import numpy as np
 import pytest
@@ -36,10 +40,12 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.axpy import (BARRIER_BYTES,  # noqa: E402
                                       SM_THREADS, SMEM_LIMIT, THREADS,
                                       VECTOR_WAVES, axpy_plan, stream_plan, vector_plan)
-from repro_torch.kernels.mx_gemv import (QgemvPlan, grouped_plan,  # noqa: E402
-                                        qgemv_plan, swiglu_plan)
+from repro_torch.kernels.mx_gemv import (BatchedPlan,  # noqa: E402
+                                        QgemvPlan, batched_plan,
+                                        grouped_plan, qgemv_plan,
+                                        round_blocks, swiglu_plan)
 from repro_torch.kernels.qgemv import (batched_qgemv_plan,  # noqa: E402
-                                       k_step)
+                                       k_step, walk_blocks)
 from repro_torch.kernels.rmsnorm import (MAX_VECS,  # noqa: E402
                                          rmsnorm_plan)
 from repro_torch.tune import REGISTRY  # noqa: E402
@@ -572,14 +578,14 @@ def tile_walk(plan, K):
     return tiles, steps, rounds, runs
 
 
-@pytest.mark.parametrize("B", [2, 8, 16])
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("N,K,group", QGEMV_SHAPES)
 def test_batched_qgemv_plan_tiles_cover_each_row_and_step_once(N, K, group,
                                                               bits, B):
-    """At every candidate of the tuner's space: the tile walk, block_n / 32
-    warps, rounds of 4 x unroll k-steps (more only where K is split, up to
-    16); 16-row tiles over N, every k-step of every tile walked by one warp
+    """At every candidate of the tuner's space, one row of x (the one-row
+    ``qgemv``) too: the tile walk, block_n / 32 warps, rounds of 4 x unroll
+    k-steps (more only where K is split, up to 16); 16-row tiles over N, every k-step of every tile walked by one warp
     once, the K split dividing the warps with each warp keeping a round
     (the kernel's barrier after the first); and the partial between two
     scale flushes never crosses a group."""
@@ -605,34 +611,37 @@ def test_batched_qgemv_plan_tiles_cover_each_row_and_step_once(N, K, group,
     (151936, 1024, 8, 8, 1, 4, 1187), (151936, 1024, 4, 8, 1, 4, 1187),
     (151936, 1024, 8, 16, 1, 4, 1187),   # the read-out: 9,496 tiles
     (2048, 4096, 8, 4, 8, 8, 128),       # 128 tiles, 64 k-steps
-    (2048, 4096, 4, 4, 8, 4, 128)])      # 32 k-steps
+    (2048, 4096, 4, 4, 8, 4, 128),       # 32 k-steps
+    (2048, 4096, 8, 1, 8, 8, 128),       # one row of x: the same cut
+    (151936, 1024, 4, 1, 1, 4, 1187)])
 def test_batched_qgemv_plan_at_the_smoke_rows(N, K, bits, B, ksplit, steps,
                                               blocks):
     """The smoke's rows at the default config (8 warps, rounds of 4
     k-steps): the read-outs fill the card with tiles and take no K split;
     (2048, 4096) has 128 tiles, so 8 warps share each one, and in int8 a
-    warp's 8 steps are one round."""
+    warp's 8 steps are one round.  One row of x is cut as many."""
     plan = batched_qgemv_plan(N, K, K // 128, B, bits, LaunchConfig(), SMS)
     assert (plan.route, plan.ksplit, plan.steps, plan.blocks) == (
         "tile", ksplit, steps, blocks)
 
 
 @pytest.mark.parametrize("N,K,group,bits,B", [
-    (2048, 4096, 128, 8, 1), (151936, 1024, 128, 4, 1),   # one row of x
-    (1000, 1024, 1024, 8, 1),
+    (256, 1024, 64, 4, 1),      # one row, groups of half a k-step
     (256, 1024, 64, 4, 8),      # int4 groups of 64: half a k-step of 128
     (256, 1024, 32, 8, 16),     # int8 groups of 32: half a k-step of 64
     (256, 1536, 192, 4, 2),     # int4 groups of 192: 1.5 k-steps
-    (256, 14528, 64, 8, 8)])    # xs 232,448 bytes, padded 232,576
+    (256, 14528, 64, 8, 8),     # xs 232,448 bytes, padded 232,576
+    # the smoke's SIMT walk rows: the read-out, one row and eight
+    (151936, 1024, 64, 4, 1), (151936, 1024, 32, 8, 1),
+    (151936, 1024, 64, 4, 8), (151936, 1024, 32, 8, 8)])
 def test_batched_qgemv_plan_routes_the_rest_to_the_walk(N, K, group, bits,
                                                         B):
-    """One row of x, groups that do not hold whole k-steps, and xs that
-    fills the shared memory only without its padding take the SIMT walk,
-    and the plan says why."""
+    """Groups that do not hold whole k-steps (at one row of x too) and xs
+    that fills the shared memory only without its padding take the SIMT
+    walk, and the plan says why."""
     plan = batched_qgemv_plan(N, K, K // group, B, bits, LaunchConfig(), SMS)
     assert plan.route == "walk"
-    why = ("one row" if B == 1 else "shared memory" if K == 14528
-           else "narrower")
+    why = "shared memory" if K == 14528 else "narrower"
     assert why in plan.why
 
 
@@ -646,3 +655,293 @@ def test_batched_qgemv_plan_refuses_knobs_the_tile_walk_cannot_take(cfg):
     with pytest.raises(ValueError, match="block_n"):
         batched_qgemv_plan(2048, 4096, 32, 4, 8, cfg, SMS)
 
+
+@pytest.mark.parametrize("N,K,B,cfg,want", [
+    (151936, 1024, 1, LaunchConfig(), (8, 1, 8 * SMS)),   # the read-out
+    (151936, 1024, 8, LaunchConfig(), (8, 1, 8 * SMS)),
+    (151936, 1024, 8, LaunchConfig(block_n=128, unroll=2), (4, 2, 14 * SMS)),
+    (2048, 4096, 4, LaunchConfig(), (8, 1, 256)),         # rows run out
+    (256, 14528, 8, LaunchConfig(), (8, 1, 32))])         # xs fills an SM
+def test_walk_blocks_fill_the_card_until_the_rows_run_out(N, K, B, cfg,
+                                                          want):
+    """The SIMT walk's cut, which its wrapper launches and the chip probe
+    times: block_n / 32 warps, unroll W rows a warp, and blocks for every
+    row up to the blocks the SMs hold at once (2,048 threads, xs in 227
+    KiB of shared memory an SM: at least one)."""
+    warps, rows, blocks = walk_blocks(N, K, B, cfg, SMS)
+    assert (warps, rows, blocks) == want
+    assert blocks * warps * rows >= N or blocks % SMS == 0
+
+
+# -------------------------------------------------------- batched_mx_qgemv
+MX_BATCHED_SPACE = list(enumerate_space(REGISTRY["batched_mx_qgemv"]))
+# (N, K, bits): the smoke's rows, the cuda tests' and the ragged ones
+MX_BATCHED_SHAPES = [(151936, 1024, 4), (151936, 1024, 8), (2048, 4096, 4),
+                     (2048, 4096, 8), (1040, 2848, 8), (48, 96, 4)]
+
+
+def mx_tile_walk(plan: BatchedPlan, N: int, K: int, bits: int):
+    """The tile walk's cut as counts: how often the plan's warps take each
+    tile (each (block, warp / ksplit) pair, ksplit warps on it, each with
+    its own wk), how often a tile's warps walk each E8M0 block, how often
+    the lanes of one warp load each (column of its tile, code row of a
+    block), and how often each (x row, column) is stored (by the tile's
+    first warp, lane (g, q) the x rows 8 nt + 2q + e < B of columns g cols
+    .. + cols - 1)."""
+    per = plan.warps // plan.ksplit
+    takes = np.zeros((plan.tiles, plan.ksplit), np.int64)
+    for b in range(plan.blocks):
+        for w in range(plan.warps):
+            if b * per + w // plan.ksplit < plan.tiles:
+                takes[b * per + w // plan.ksplit, w % plan.ksplit] += 1
+    nkb = K // 32
+    walked = np.zeros(nkb, np.int64)
+    for wk in range(plan.ksplit):
+        for first in plan.rounds(K, wk):
+            walked[first:min(first + plan.round_blocks, nkb)] += 1
+    stride, rows = (16, 4) if bits == 4 else (32, 8)
+    cells = np.zeros((plan.tile, stride), np.int64)
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        cells[g * plan.cols:(g + 1) * plan.cols,
+              rows * q:rows * (q + 1)] += 1
+    return takes, walked, cells
+
+
+@pytest.mark.parametrize("B", [1, 8, 16])
+@pytest.mark.parametrize("N,K,bits", MX_BATCHED_SHAPES)
+def test_batched_plan_covers_each_column_code_row_and_output_once(N, K,
+                                                                  bits, B):
+    """At every candidate of the tuner's space: every tile by ksplit warps,
+    one each wk; every E8M0 block of K by one warp of a tile (so a partial,
+    one block's products, never crosses a block); every (column, code
+    row) of a block and tile by one lane; every Y[b][n] written once."""
+    for cfg in MX_BATCHED_SPACE:
+        plan = batched_plan(N, K, bits, B, cfg, SMS)
+        assert "mma.sync" in plan.why
+        assert plan.warps == cfg.block_n // 32 and plan.warps % plan.ksplit == 0
+        assert plan.nt == (1 if B <= 8 else 2)
+        assert plan.tiles == -(-N // plan.tile)
+        per = plan.warps // plan.ksplit
+        assert (plan.blocks - 1) * per < plan.tiles <= plan.blocks * per
+        takes, walked, cells = mx_tile_walk(plan, N, K, bits)
+        assert (takes == 1).all() and (walked == 1).all() and (cells == 1).all()
+        assert min(len(plan.rounds(K, wk)) for wk in range(plan.ksplit)) >= 1
+        stored = np.zeros((B, plan.tiles * plan.tile), np.int64)
+        for t in range(plan.tiles):
+            for lane in range(32):
+                g, q = divmod(lane, 4)
+                c = (t * 8 + g) * plan.cols
+                for nt in range(plan.nt):
+                    for e in range(2):
+                        n = 8 * nt + 2 * q + e
+                        if n < B and c < N:
+                            stored[n, c:c + plan.cols] += 1
+        assert (stored[:, :N] == 1).all() and (stored[:, N:] == 0).all()
+
+
+@pytest.mark.parametrize("N,K,bits,B,cols,ksplit,blocks", [
+    (151936, 1024, 4, 8, 8, 4, 1187),    # 2,374 tiles of 64 columns
+    (151936, 1024, 8, 8, 8, 4, 1187),
+    (151936, 1024, 4, 16, 8, 4, 1187),   # two n-tiles
+    (2048, 4096, 4, 4, 2, 8, 128),       # 32 tiles of 64 columns: 2 a lane
+    (2048, 4096, 8, 4, 2, 8, 128), (2048, 4096, 4, 16, 2, 8, 128)])
+def test_batched_plan_at_the_smoke_rows(N, K, bits, B, cols, ksplit, blocks):
+    """The smoke's rows at the default config (8 warps, unroll 1): the
+    read-outs take 64-column tiles, K split over 4 warps (at 8 the tiles'
+    warps would pass 64 an SM); 4096 -> 2048 takes 16-column tiles, 8
+    warps on each."""
+    plan = batched_plan(N, K, bits, B, LaunchConfig(), SMS)
+    assert (plan.cols, plan.ksplit, plan.blocks) == (cols, ksplit, blocks)
+    assert plan.round_blocks == round_blocks(bits, cols, 1)
+
+
+@pytest.mark.parametrize("cfg,B", [(LaunchConfig(block_n=512), 4),
+                                   (LaunchConfig(unroll=4), 4),
+                                   (LaunchConfig(), 17), (LaunchConfig(), 0)])
+def test_batched_plan_refuses_what_the_kernel_cannot_take(cfg, B):
+    with pytest.raises(ValueError, match="rows <= 16"):
+        batched_plan(2048, 4096, 4, B, cfg, SMS)
+
+
+def byte_perm(x, y, s):
+    """CUDA's ``__byte_perm(x, y, s)`` on uint32 arrays: byte i of the
+    result is byte (s >> 4i) & 7 of the eight bytes {x, y}, or that byte's
+    sign replicated where bit 3 of the selector nibble is set."""
+    x, y, s = (np.asarray(v, np.uint64) for v in (x, y, s))
+    both = x | (y << np.uint64(32))
+    out = np.zeros(np.broadcast(x, y, s).shape, np.uint64)
+    for i in range(4):
+        sel = (s >> np.uint64(4 * i)) & np.uint64(15)
+        b = (both >> ((sel & np.uint64(7)) * np.uint64(8))) & np.uint64(255)
+        b = np.where(sel & np.uint64(8),
+                     np.where(b & np.uint64(128), np.uint64(255),
+                              np.uint64(0)), b)
+        out |= b << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def fp4x8_bf16(w):
+    """``csrc/mx_gemv.cu`` `fp4x8_bf16`, op for op: uint32 words -> their
+    four bf16x2 words (..., 4)."""
+    w = np.asarray(w, np.uint32)
+    m = w & np.uint32(0x77777777)
+    mh, w4 = m >> np.uint32(16), w << np.uint32(4)
+    lo_a = byte_perm(0xC0800000, 0xC0804000, m)
+    lo_b = byte_perm(0xC0800000, 0xC0804000, mh)
+    hi_a = byte_perm(0x3F3F3F00, 0x40404040, m) | (
+        byte_perm(w4, w, 0x5140) & np.uint32(0x80808080))
+    hi_b = byte_perm(0x3F3F3F00, 0x40404040, mh) | (
+        byte_perm(w4, w, 0x7362) & np.uint32(0x80808080))
+    return np.stack([byte_perm(lo_a, hi_a, 0x5140),
+                     byte_perm(lo_a, hi_a, 0x7362),
+                     byte_perm(lo_b, hi_b, 0x5140),
+                     byte_perm(lo_b, hi_b, 0x7362)], -1)
+
+
+def bf16x2(words):
+    """bf16x2 words -> (..., 2) float32: the low half, then the high."""
+    words = np.asarray(words, np.uint32)
+    return np.stack([(words << np.uint32(16)).view(np.float32),
+                     (words & np.uint32(0xFFFF0000)).view(np.float32)], -1)
+
+
+def test_fp4_decode_in_registers_is_exact():
+    """Every byte of two e2m1 codes decodes to the JAX package's values
+    (``fp4_decode``) in the order the A fragment takes: low nibble (the
+    even k) in the low half."""
+    from repro_torch.quant.tensor import fp4_decode
+    b = np.arange(256, dtype=np.uint32)
+    words = b | (b << 8) | (b << 16) | (b << 24)
+    got = bf16x2(fp4x8_bf16(words))                  # (256, 4, 2)
+    lo = fp4_decode(torch.as_tensor(b & 15, dtype=torch.uint8)).numpy()
+    hi = fp4_decode(torch.as_tensor(b >> 4, dtype=torch.uint8)).numpy()
+    for i in range(4):
+        np.testing.assert_array_equal(got[:, i, 0], lo)
+        np.testing.assert_array_equal(got[:, i, 1], hi)
+
+
+def emulate_batched(wq, scales, xs, plan: BatchedPlan):
+    """``mx_mma_kernel`` in numpy, lane by lane: each warp's tile, each of
+    its E8M0 blocks, each k16 step's A fragments decoded from the lane's
+    loads (fp4 by ``fp4x8_bf16``, fp8 byte pairs of consecutive code
+    rows), B fragments from x words 4q + 2 step (+ 1), the mma as its
+    16 x 8 product, the block's partial times 2^(s - 127), the K split's
+    partials added in warp order, and the stores of lane (g, q)."""
+    fp8 = wq.dtype == torch.float8_e4m3fn
+    codes = wq.view(torch.uint8).numpy().astype(np.uint32)
+    if fp8:
+        vals = torch.arange(256, dtype=torch.uint8).view(
+            torch.float8_e4m3fn).float().numpy()
+    sc = scales.numpy().astype(np.int64)
+    x = xs.float().numpy()
+    B, K = x.shape
+    N = codes.shape[1]
+    rows, stride = (8, 32) if fp8 else (4, 16)
+    cols, nt_n = plan.cols, plan.nt
+    y = np.zeros((B, N), np.float32)
+    for t in range(plan.tiles):
+        parts = []
+        for wk in range(plan.ksplit):
+            acc = np.zeros((32, nt_n, cols // 2, 4), np.float32)
+            for first in plan.rounds(K, wk):
+                for kb in range(first, min(first + plan.round_blocks,
+                                           K // 32)):
+                    # A[st][j]: 16 x 16, B[st][nt]: 16 x 8
+                    A = np.zeros((2, cols // 2, 16, 16), np.float32)
+                    Bm = np.zeros((2, nt_n, 16, 8), np.float32)
+                    f = np.zeros((32, cols), np.float32)
+                    for lane in range(32):
+                        g, q = divmod(lane, 4)
+                        c = (t * 8 + g) * cols
+                        c = c if c < N else 0
+                        r0 = kb * stride + rows * q
+                        chunk = codes[r0:r0 + rows, c:c + cols]  # (rows, cols)
+                        s = sc[kb, c:c + cols]
+                        f[lane] = np.where(s > 0, np.ldexp(1.0, s - 127),
+                                           np.float32(2.0 ** -127))
+                        for st in range(2):
+                            for h in range(2):
+                                if fp8:
+                                    a = vals[chunk[4 * st + 2 * h]]
+                                    b = vals[chunk[4 * st + 2 * h + 1]]
+                                    pairs = np.stack([a, b], -1)
+                                else:
+                                    byte = chunk[2 * st + h]
+                                    pad = np.zeros(-cols % 4, np.uint32)
+                                    wd = np.concatenate([byte, pad]).reshape(
+                                        -1, 4)
+                                    wd = (wd[:, 0] | wd[:, 1] << 8
+                                          | wd[:, 2] << 16 | wd[:, 3] << 24)
+                                    pairs = bf16x2(fp4x8_bf16(wd)).reshape(
+                                        -1, 2)[:cols]
+                                for j in range(cols // 2):
+                                    k0 = 2 * q + 8 * h
+                                    A[st, j, g, k0:k0 + 2] = pairs[2 * j]
+                                    A[st, j, g + 8, k0:k0 + 2] = pairs[2 * j + 1]
+                        for nt in range(nt_n):
+                            xr = x[min(8 * nt + g, B - 1)]
+                            k = kb * 32 + 8 * q
+                            for st in range(2):
+                                for h in range(2):
+                                    kk = k + 4 * st + 2 * h
+                                    Bm[st, nt, 2 * q + 8 * h:2 * q + 8 * h + 2,
+                                       g] = xr[kk:kk + 2]
+                    for nt in range(nt_n):
+                        for j in range(cols // 2):
+                            p = (A[0, j] @ Bm[0, nt]).astype(np.float32)
+                            p = (p + A[1, j] @ Bm[1, nt]).astype(np.float32)
+                            for lane in range(32):
+                                g, q = divmod(lane, 4)
+                                frag = np.array([p[g, 2 * q], p[g, 2 * q + 1],
+                                                 p[g + 8, 2 * q],
+                                                 p[g + 8, 2 * q + 1]])
+                                fj = f[lane, [2 * j, 2 * j, 2 * j + 1,
+                                              2 * j + 1]]
+                                acc[lane, nt, j] += fj * frag
+            parts.append(acc)
+        acc = parts[0]
+        for more in parts[1:]:
+            acc = acc + more
+        for lane in range(32):
+            g, q = divmod(lane, 4)
+            c = (t * 8 + g) * cols
+            if c >= N:
+                continue
+            for nt in range(nt_n):
+                for e in range(2):
+                    n = 8 * nt + 2 * q + e
+                    if n < B:
+                        row = np.stack([acc[lane, nt, :, e],
+                                        acc[lane, nt, :, 2 + e]], -1)
+                        y[n, c:c + cols] = row.reshape(-1)
+    return y
+
+
+@pytest.mark.parametrize("elem,cols,B", [("fp4", 8, 3), ("fp4", 2, 9),
+                                         ("fp8", 8, 9), ("fp8", 2, 3),
+                                         ("fp4", 8, 16)])
+def test_batched_lane_mapping_reproduces_the_plain_version(elem, cols, B):
+    """The lane-to-(column, k) mapping of the tile walk, emulated in numpy
+    from the codes' bytes, gives ``ref.batched_mx_qgemv`` on a small shape
+    (fp32 sums in another order: 1e-5 of sum |w x|), at 8 and 2 columns
+    a lane, one and two n-tiles, a K split in two, a ragged last
+    tile."""
+    from repro_torch.kernels import ref
+    from repro_torch.quant.tensor import quantize_mx
+    rng = np.random.default_rng(7)
+    N, K = (144, 128) if cols > 2 else (48, 128)
+    wq = quantize_mx(torch.as_tensor(rng.standard_normal((K, N)) / 8,
+                                     dtype=torch.float32), elem=elem)
+    xs = torch.as_tensor(rng.standard_normal((B, K)),
+                         dtype=torch.float32).to(torch.bfloat16)
+    bits = 4 if elem == "fp4" else 8
+    rb = round_blocks(bits, cols, 1)
+    tiles = -(-N // (8 * cols))
+    plan = BatchedPlan("", cols, 4, rb, 2, tiles, -(-tiles // 2),
+                       1 if B <= 8 else 2)
+    got = emulate_batched(wq.values, wq.scales, xs, plan)
+    want = ref.batched_mx_qgemv(wq.values, wq.scales, xs).numpy()
+    wd = ref._mx_dequant(wq.values, wq.scales).numpy()
+    bound = 1e-5 * (np.abs(xs.float().numpy()) @ np.abs(wd))
+    assert (np.abs(got - want) <= bound).all()

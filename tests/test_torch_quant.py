@@ -379,15 +379,22 @@ def test_new_wrappers_run_plain_on_cpu_and_do_not_count():
 
 
 def test_mx_split_policy_gives_every_split_a_block():
+    """``batched_mx_qgemv``'s K split (``batched_plan``): every warp of a
+    tile walks at least one round of E8M0 blocks, for one and two
+    n-tiles, at both block sizes of the tuner's space."""
+    from repro_torch.core.troop import LaunchConfig
     for nkb in range(1, 300):
         for N in (16, 512, 1024, 2816, 151936):
             for sms in (1, 132):
-                ks = TMX.ksplit(N, 32 * nkb, sms)
-                per = -(-nkb // ks)
-                assert 1 <= ks <= nkb and (ks - 1) * per < nkb
-    assert TMX.ksplit(151936, 1024, 132) == 1       # the read-out: one pass
-    assert TMX.ksplit(1024, 1024, 132) == 4
-    assert TMX.ksplit(1024, 2816, 132) == 11
+                for B, block_n in ((1, 256), (16, 128)):
+                    plan = TMX.batched_plan(N, 32 * nkb, 4, B, LaunchConfig(
+                        block_n=block_n), sms)
+                    ks, rb = plan.ksplit, plan.round_blocks
+                    assert 1 <= ks <= plan.warps and (ks - 1) * rb < nkb
+    cfg = LaunchConfig()
+    assert TMX.batched_plan(151936, 1024, 4, 8, cfg, 132).ksplit == 4
+    assert TMX.batched_plan(1024, 1024, 4, 8, cfg, 132).ksplit == 4
+    assert TMX.batched_plan(1024, 2816, 4, 8, cfg, 132).ksplit == 8
 
 
 # ---------------------------------------------------------------- modules
