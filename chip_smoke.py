@@ -1439,13 +1439,18 @@ def scan_rows(torch, K, F, agree, dev, gen):
     exp(-exp(N(0, 1))), u = 0.5 as the model's init) from a zero and from
     a nonzero state; ``mamba_scan`` at the registry's (2, 512, 512, 16) and
     jamba's Mamba layer (b = 1, T = 2048, d_inner 2 x 4096, d_state 16,
-    fp32) from a zero and from a nonzero state.  No PyTorch call computes
-    either scan.  A causal row's bound counts the unmasked scores; the
+    fp32) from a zero and from a nonzero state; each scan row with the
+    default's launch plan (``wkv6_plan``, ``mamba_plan``).  No PyTorch
+    call computes either scan.  A causal row's bound counts the unmasked scores; the
     registry's cost model, which counts all T x S, gives
     ``registry_bound_ms`` beside it."""
     from repro_torch import tune
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.mamba_scan import mamba_plan
+    from repro_torch.kernels.rwkv6 import wkv6_plan
     from repro_torch.tune.search import enumerate_space
     rows = {"flash_attention": [], "rwkv6": [], "mamba_scan": []}
+    sms = sm_count(dev)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -1530,10 +1535,15 @@ def scan_rows(torch, K, F, agree, dev, gen):
             + 2 * s0.numel() * 4
         sets = [args] + [tuple(a.clone() for a in args)
                          for _ in range(copies_for(nbytes) - 1)]
+        p = wkv6_plan(*r.shape[:3], r.shape[3],
+                      tune.REGISTRY["rwkv6"].default.block_n // 8, sms)
         row("rwkv6", label, sets, {}, "rwkv6",
             f"{label}: r, k, v, w {tuple(r.shape)} fp32, u {tuple(u.shape)},"
             f" {'nonzero' if state else 'zero'} state {tuple(s0.shape)}",
-            nbytes, 6.0 * n * r.shape[3], F32_OPS_PER_S, library=None)
+            nbytes, 6.0 * n * r.shape[3], F32_OPS_PER_S, library=None,
+            plan=(f"{p.cols} columns a block, {p.col_blocks} blocks a head, "
+                  f"{p.blocks} blocks of {p.threads}, {p.smem} B shared, "
+                  f"chunks of {p.chunk}, sub-chunks of {p.sub}"))
         del sets, args
         torch.cuda.empty_cache()
 
@@ -1556,11 +1566,16 @@ def scan_rows(torch, K, F, agree, dev, gen):
             + (A.numel() + args[5].numel() + 2 * s0.numel()) * 4
         sets = [args] + [tuple(a.clone() for a in args)
                          for _ in range(copies_for(nbytes) - 1)]
+        p = mamba_plan(*x.shape,
+                       tune.REGISTRY["mamba_scan"].default.block_n // 8, sms)
         row("mamba_scan", label, sets, {}, "mamba_scan",
             f"{label}: x, dt {tuple(x.shape)}, B, C {tuple(Bm.shape)} fp32, "
             f"A {tuple(A.shape)}, {'nonzero' if state else 'zero'} state "
             f"{tuple(s0.shape)}", nbytes, 6.0 * n * A.shape[1], F32_OPS_PER_S,
-            library=None)
+            library=None,
+            plan=(f"{p.lanes} lanes of {p.states} states a channel, "
+                  f"{p.channels} channels a block of {p.threads}, "
+                  f"{p.blocks} blocks, tiles of {p.chunk}"))
         del sets, args
         torch.cuda.empty_cache()
     return rows

@@ -48,8 +48,11 @@ outputs past the smoke's gate against the plain version and each side's
 distance from the float64 value (``int_fp64``); then ``batched_mx_qgemv``
 at the smoke's rows (a digest and the device time) and, over the same
 number of fresh input sets, its and the one-row ``qgemv``'s outputs past
-the gate and distances from the float64 value (``--lines`` picks which of
-these groups of lines to print);
+the gate and distances from the float64 value; then ``wkv6`` and
+``mamba_scan`` at the smoke's scan rows (the registry examples, rwkv6-3b
+and jamba from a zero and a nonzero state: digests of y and of the final
+state, the device and eager time, the largest distance from the plain
+version) (``--lines`` picks which of these groups of lines to print);
 then it runs serving phases of that tree, each from a fresh seed-0 stream
 (``--engines``: ``bf16``, the default, runs ``engine_phase``, qwen1.5-0.5b
 bf16, and ``moe_phase`` for bf16, qwen2-moe-a2.7b; ``mx4`` runs
@@ -558,6 +561,64 @@ def mx_accuracy(torch, K, referee):
             torch.cuda.empty_cache()
 
 
+def scan_inputs(torch, name, label, state, g):
+    """The smoke's scan rows' inputs: the registry example, or rwkv6-3b's
+    time mix / jamba's Mamba layer (fp32, seeded) from a zero or a nonzero
+    state."""
+    from repro_torch import tune
+    dev = torch.device("cuda", 0)
+    if label == "registry example":
+        return tune.REGISTRY[name].example(small=False, device=dev)[0]
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+    if name == "rwkv6":
+        B, T, H, hd = 1, 2048, 40, 64
+        return (randn(B, T, H, hd), randn(B, T, H, hd), randn(B, T, H, hd),
+                torch.exp(-torch.exp(randn(B, T, H, hd))),
+                torch.full((H, hd), 0.5, device=dev),
+                randn(B, H, hd, hd) if state
+                else torch.zeros((B, H, hd, hd), device=dev))
+    b, T, di = 1, 2048, 8192
+    return (randn(b, T, di), torch.nn.functional.softplus(randn(b, T, di)),
+            randn(b, T, 16), randn(b, T, 16), -torch.exp(randn(di, 16)),
+            torch.ones((di,), device=dev),
+            randn(b, di, 16) if state
+            else torch.zeros((b, di, 16), device=dev))
+
+
+def scan_lines(torch, K, smoke):
+    """``wkv6`` and ``mamba_scan`` at the smoke's scan rows (the registry
+    examples, rwkv6-3b and jamba from a zero and a nonzero state): digests
+    of y and of the final state, the device and eager us per call over
+    input copies past twice the L2 at the default config, and the largest
+    distance from the plain version (the smoke's gates: 2.8e-4, 1.4e-4)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, fn, shapes in (
+            ("rwkv6", K.wkv6, ("registry example", "rwkv6-3b")),
+            ("mamba_scan", K.mamba_scan, ("registry example", "jamba"))):
+        for label in shapes:
+            for state in ((False,) if label == "registry example"
+                          else (False, True)):
+                args = scan_inputs(torch, name, label, state, g)
+                nbytes = sum(a.numel() * a.element_size() for a in args)
+                sets = [args] + [tuple(a.clone() for a in args) for _ in
+                                 range(smoke.copies_for(nbytes) - 1)]
+                ms, eager = smoke.time_ms(torch, [lambda s=s: fn(*s)
+                                                  for s in sets])
+                got = fn(*args)
+                want = K.PLAIN[name](*args)
+                err = max((a - b).abs().max().item()
+                          for a, b in zip(got, want))
+                print(f"{name} {label} {'nonzero' if state else 'zero'} "
+                      f"state y {sha(torch, got[0])} state "
+                      f"{sha(torch, got[1])} {ms * 1e3:.2f} us, eager "
+                      f"{eager * 1e3:.2f} us, max_abs_err {err:.3g}",
+                      flush=True)
+                del sets, args, got, want
+                torch.cuda.empty_cache()
+
+
 def load_smoke(path):
     spec = importlib.util.spec_from_file_location(f"smoke_{abs(hash(path))}",
                                                   path)
@@ -587,13 +648,14 @@ def main():
                     help="stop after the MX lines: no paged or int8 dense "
                          "decode lines")
     ap.add_argument("--lines",
-                    default="gemv,axpy_mx_paged,rmsnorm,qgemv,tile_walks",
+                    default="gemv,axpy_mx_paged,rmsnorm,qgemv,tile_walks,"
+                            "scans",
                     help="comma list of the kernel lines to print: gemv "
                          "(the gemv digests), axpy_mx_paged (axpy, the MX "
                          "walk and, unless --no-paged, the paged and int8 "
                          "dense decodes), rmsnorm, qgemv, tile_walks "
-                         "(batched_mx_qgemv, and both tile walks' accuracy) "
-                         "(default: all)")
+                         "(batched_mx_qgemv, and both tile walks' accuracy), "
+                         "scans (wkv6 and mamba_scan) (default: all)")
     ap.add_argument("--engines", choices=("bf16", "mx4", "none"),
                     default="bf16", help="serving phases to run (default: "
                                          "bf16)")
@@ -630,6 +692,8 @@ def main():
         qgemv_lines(torch, K, smoke, referee)
     if "tile_walks" in lines:
         tile_walk_lines(torch, K, smoke, referee)
+    if "scans" in lines:
+        scan_lines(torch, K, smoke)
     out = {}
     if args.engines == "bf16":
         out["qwen1.5 bf16"] = rates(smoke.engine_phase(

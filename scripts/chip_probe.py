@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Launch-plan probes of ``axpy``, the one-row MX walk (``mx_qgemv``, the
-fused SwiGLU), the paged decodes, ``rmsnorm``, ``batched_qgemv`` and
-``batched_mx_qgemv`` on the card: the device time of each plan the
-wrappers choose beside the plans they do not, called through the kernels'
-C entry points; and the host's cost of a one-row ``qgemv`` call on each
-of its routes.
+fused SwiGLU), the paged decodes, ``rmsnorm``, ``batched_qgemv``,
+``batched_mx_qgemv``, ``wkv6`` and ``mamba_scan`` on the card: the device
+time of each plan the wrappers choose beside the plans they do not,
+called through the kernels' C entry points; and the host's cost of a
+one-row ``qgemv`` call on each of its routes.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 scripts/chip_probe.py [--out FILE] \
         [--probes axpy,mx_qgemv,mx_swiglu,paged,rmsnorm,qgemv,mx_batched,
-                  qgemv_host] \
+                  qgemv_host,scans] \
         [--parent DIR]
 
 It prints the card's ``nvidia-smi`` name and power limit, then one line
@@ -59,7 +59,18 @@ per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
   plain version at the smoke's gate;
 - ``qgemv_host``: the host's us a one-row ``qgemv`` call on the tile walk
   and on the SIMT walk at (2048, 4096), int8 and int4 (wall time of
-  launches from Python, the routes interleaved).
+  launches from Python, the routes interleaved);
+- ``scans``: ``wkv6`` at rwkv6-3b's time mix with every column slice (8,
+  16, 32 columns a block: 320, 160, 80 blocks) and chunk, with its
+  blocks resident an SM, and ``mamba_scan`` at jamba's Mamba layer with
+  both lane splits (4 lanes of 4 states, 16 of 1) and every tile, the
+  wrappers' plans marked, each held to the plain version at the smoke's
+  gate; and the clocks of one ``wkv6`` block's chunk by step, the
+  producers' (the wait for the chunk and the hand-over, the decays, the
+  factored rows, the pair scores within sub-chunks) and the consumers'
+  (the wait for the hand-over, the pair scores across sub-chunks with y,
+  the state update), from ``csrc/rwkv6.cu`` built with
+  ``REPRO_WKV6_PHASES`` into ``build/probe/``.
 
 It exits non-zero without a CUDA device.
 """
@@ -89,7 +100,7 @@ def main():
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the probes as JSON to this file")
     ap.add_argument("--probes", default="axpy,mx_qgemv,mx_swiglu,paged,"
-                    "rmsnorm,qgemv,mx_batched,qgemv_host",
+                    "rmsnorm,qgemv,mx_batched,qgemv_host,scans",
                     help="comma list of the probes to run (default: all)")
     ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
                     help="a checkout whose csrc/rmsnorm.cu (the block-a-row "
@@ -232,6 +243,8 @@ def main():
         mx_batched_probes(torch, smoke, K, g, us, line)
     if "qgemv_host" in probes:
         qgemv_host_probes(torch, K, g, line)
+    if "scans" in probes:
+        scan_probes(torch, smoke, K, g, us, line)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -530,6 +543,110 @@ def mx_batched_probes(torch, smoke, K, g, us, line):
                              us=us([lambda w=w: call(w) for w in ws]))
         del ws, want
         torch.cuda.empty_cache()
+
+
+def scan_probes(torch, smoke, K, g, us, line):
+    """``wkv6`` at rwkv6-3b's time mix (1, 2048, 40, 64, fp32, zero state)
+    with every column slice (8, 16, 32 columns a block) and chunk, and
+    ``mamba_scan`` at jamba's Mamba layer (1, 2048, 8192, fp32) with both
+    lane splits (4 lanes of 4 states, 16 of 1) and every tile, through the
+    C entry points; the wrappers' plans marked, each held to the plain
+    version at the smoke's gate (2.8e-4, 1.4e-4)."""
+    from repro_torch.kernels import _build
+    mb = importlib.import_module("repro_torch.kernels.mamba_scan")
+    rw = importlib.import_module("repro_torch.kernels.rwkv6")
+    dev = torch.device("cuda", 0)
+    sms = _build.sm_count(dev)
+    lib = _build.library("rwkv6", rw._ARGTYPES)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+    B, T, H, hd = 1, 2048, 40, 64
+    args = (randn(B, T, H, hd), randn(B, T, H, hd), randn(B, T, H, hd),
+            torch.exp(-torch.exp(randn(B, T, H, hd))),
+            torch.full((H, hd), 0.5, device=dev),
+            torch.zeros((B, H, hd, hd), device=dev))
+    sets = [args] + [tuple(a.clone() for a in args)
+                     for _ in range(smoke.copies_for(
+                         sum(a.numel() * 4 for a in args)) - 1)]
+    want = K.PLAIN["rwkv6"](*args)
+    y = torch.empty((B, T, H, hd), device="cuda")
+    st = torch.empty((B, H, hd, hd), device="cuda")
+    for chunk in (8, 16, 32):
+        base = rw.wkv6_plan(B, T, H, hd, chunk, sms)
+        for cols in (8, 16, 32):
+            def call(a, chunk=chunk, cols=cols):
+                _build.check(lib.repro_wkv6_f32(
+                    *(t.data_ptr() for t in a), y.data_ptr(), st.data_ptr(),
+                    B, T, H, hd, chunk, cols, _build.stream_handle(dev)),
+                    "wkv6 probe")
+            call(args)
+            err = max((y - want[0]).abs().max().item(),
+                      (st - want[1]).abs().max().item())
+            line(kernel="wkv6", shape="rwkv6-3b", chunk=chunk, cols=cols,
+                 blocks=B * H * hd // cols,
+                 resident=lib.repro_wkv6_resident(hd, chunk, cols, 0),
+                 plan=cols == base.cols, err=err, ok=err <= 2.8e-4,
+                 us=us([lambda a=a: call(a) for a in sets]))
+    # where a chunk's clocks go: csrc/rwkv6.cu built with REPRO_WKV6_PHASES
+    out = ROOT / "build" / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DREPRO_WKV6_PHASES",
+                    "-o", str(out / "librwkv6_phases.so"),
+                    str(_build.CSRC / "rwkv6.cu")], check=True,
+                   capture_output=True)
+    plib = ctypes.CDLL(str(out / "librwkv6_phases.so"))
+    plib.repro_wkv6_f32.argtypes = rw._ARGTYPES["repro_wkv6_f32"]
+    plib.repro_wkv6_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    clocks = (ctypes.c_ulonglong * 7)()
+    for chunk in (16, 32):
+        for cols in (16, 32):
+            plib.repro_wkv6_phase_clocks(clocks, 1)
+            _build.check(plib.repro_wkv6_f32(
+                *(t.data_ptr() for t in args), y.data_ptr(), st.data_ptr(),
+                B, T, H, hd, chunk, cols, _build.stream_handle(dev)),
+                "wkv6 phases")
+            torch.cuda.synchronize()
+            plib.repro_wkv6_phase_clocks(clocks, 0)
+            per = [c / (T // chunk) for c in clocks]
+            line(kernel="wkv6 phases", shape="rwkv6-3b", chunk=chunk,
+                 cols=cols, producers=round(sum(per[:4])),
+                 consumers=round(sum(per[4:])),
+                 **{name: round(c) for name, c in zip(
+                     ("wait", "decays", "rows", "pairs", "cross_and_y",
+                      "state", "consumers_wait"),
+                     per)})
+    del sets, args, want, y, st
+    torch.cuda.empty_cache()
+    lib = _build.library("mamba_scan", mb._ARGTYPES)
+    b, T, di = 1, 2048, 8192
+    args = (randn(b, T, di), torch.nn.functional.softplus(randn(b, T, di)),
+            randn(b, T, 16), randn(b, T, 16), -torch.exp(randn(di, 16)),
+            torch.ones((di,), device=dev),
+            torch.zeros((b, di, 16), device=dev))
+    sets = [args] + [tuple(a.clone() for a in args)
+                     for _ in range(smoke.copies_for(
+                         sum(a.numel() * 4 for a in args)) - 1)]
+    want = K.PLAIN["mamba_scan"](*args)
+    y = torch.empty((b, T, di), device="cuda")
+    st = torch.empty((b, di, 16), device="cuda")
+    for chunk in (8, 16, 32):
+        base = mb.mamba_plan(b, T, di, chunk, sms)
+        for lanes in (4, 16):
+            def call(a, chunk=chunk, lanes=lanes):
+                _build.check(lib.repro_mamba_scan_f32(
+                    *(t.data_ptr() for t in a), y.data_ptr(), st.data_ptr(),
+                    b, T, di, 16, chunk, lanes, _build.stream_handle(dev)),
+                    "mamba_scan probe")
+            call(args)
+            err = max((y - want[0]).abs().max().item(),
+                      (st - want[1]).abs().max().item())
+            line(kernel="mamba_scan", shape="jamba", chunk=chunk,
+                 lanes=lanes, blocks=b * -(-di // (128 // lanes)),
+                 plan=lanes == base.lanes, err=err, ok=err <= 1.4e-4,
+                 us=us([lambda a=a: call(a) for a in sets]))
+    del sets, args, want, y, st
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

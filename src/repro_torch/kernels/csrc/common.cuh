@@ -1,5 +1,6 @@
-// Helpers shared by the port's kernels: warp reductions, bf16 and int8
-// unpacking, 16-byte vector loads and the bf16 tensor-core product.
+// Helpers shared by the port's kernels: warp reductions (a transpose-reduce
+// of many sums over a few lanes among them), bf16 and int8 unpacking,
+// 16-byte vector loads and the bf16 tensor-core product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +15,44 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
+}
+
+// Sums each of v[0..N) over G consecutive lanes (G a power of two up to
+// 32; g = the lane's index among them) without a shuffle tree per value:
+// each round a lane keeps one half of its values and adds its partner's
+// copy of that half; once a lane holds one value, plain pairwise sums.
+// Returns the index of the first of the max(N / G, 1) sums the lane then
+// holds in v[0 ..]; where N < G, the lanes g with reduce_writer<N, G>(g)
+// hold each sum once.  Every lane of the warp must call it.
+template <int N, int G>
+__device__ __forceinline__ int transpose_reduce(float (&v)[N], int g) {
+  int first = 0;
+  int cnt = N;
+#pragma unroll
+  for (int o = G / 2; o >= 1; o /= 2) {
+    if (cnt >= 2) {
+      const bool upper = (g & o) != 0;
+      const int half = cnt / 2;
+#pragma unroll
+      for (int m = 0; m < N / 2; ++m) {
+        if (m < half) {
+          const float lo = v[m], hi = v[m + half];
+          v[m] = (upper ? hi : lo) +
+                 __shfl_xor_sync(kFull, upper ? lo : hi, o);
+        }
+      }
+      if (upper) first += half;
+      cnt = half;
+    } else {
+      v[0] += __shfl_xor_sync(kFull, v[0], o);
+    }
+  }
+  return first;
+}
+
+template <int N, int G>
+__device__ __forceinline__ bool reduce_writer(int g) {
+  return (g & (G > N ? G / N - 1 : 0)) == 0;
 }
 
 __device__ __forceinline__ float warp_max(float v) {

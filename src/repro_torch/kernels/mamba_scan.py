@@ -11,6 +11,8 @@ at zero state.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.troop import DEFAULT, LaunchConfig
@@ -22,8 +24,45 @@ from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
 #: kernel launches so far (the CPU path and the plain version do not count)
 launches = 0
 
-_ARGS = [_build.P] * 9 + [_build.I] * 5 + [_build.P]
+_ARGS = [_build.P] * 9 + [_build.I] * 6 + [_build.P]
 _ARGTYPES = {"repro_mamba_scan_f32": _ARGS, "repro_mamba_scan_bf16": _ARGS}
+#: threads a block (``kThreads`` in ``csrc/mamba_scan.cu``), d_state, and
+#: the lanes a channel the kernel is built for
+THREADS, DS, LANES = 128, 16, (4, 16)
+
+
+class MambaPlan(NamedTuple):
+    """A launch of ``csrc/mamba_scan.cu``: ``lanes`` lanes a channel, lane
+    g holding states g ``states`` .. (g + 1) ``states`` - 1; ``channels``
+    channels a block of ``threads``; a grid of (``col_blocks``, b); T in
+    tiles of ``chunk`` steps."""
+    lanes: int
+    states: int
+    channels: int
+    threads: int
+    col_blocks: int
+    blocks: int
+    chunk: int
+
+
+def mamba_plan(b: int, T: int, di: int, chunk: int, sms: int = 132,
+               lanes: int | None = None) -> MambaPlan:
+    """4 lanes of 4 states a channel where a block of 32 channels still
+    gives each of the card's ``sms`` SMs a block (b ceil(di / 32) >= sms:
+    fewer lanes, so fewer loads and shuffles a state), else 16 lanes of 1
+    (the most blocks); ``lanes`` forces a split (the probes).  jamba's (1,
+    2048, 8192) takes 4 lanes, 256 blocks, 32,768 threads; the registry's
+    (2, 512, 512) 16 lanes, 128 blocks."""
+    if b < 1 or b > 65535 or T < 1 or di < 1 or chunk not in (8, 16, 32):
+        raise ValueError(f"mamba_scan: b {b}, T {T}, di {di} or chunk "
+                         f"{chunk} (8, 16 or 32) out of range")
+    if lanes is None:
+        lanes = 4 if b * -(-di // (THREADS // 4)) >= sms else 16
+    if lanes not in LANES:
+        raise ValueError(f"mamba_scan: lanes {lanes} (4 or 16)")
+    cpb = THREADS // lanes
+    return MambaPlan(lanes, DS // lanes, cpb, THREADS, -(-di // cpb),
+                     b * -(-di // cpb), chunk)
 
 
 def plain(x, dt, B, C, A, D, state0):
@@ -35,7 +74,8 @@ def mamba_scan(x, dt, B, C, A, D, state0, cfg: LaunchConfig = DEFAULT):
     """x, dt (b,T,di); B, C (b,T,ds); A (di,ds) < 0; D (di,); state0
     (b,di,ds) -> (y (b,T,di) fp32, state (b,di,ds) fp32), from ``state0``.
     The kernel walks T in tiles of ``cfg.block_n // 8`` steps (8, 16 or
-    32).  A CPU tensor takes the plain version; a CUDA tensor launches the
+    32), the 16 states of a channel over 4 or 16 lanes (``mamba_plan``).
+    A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (x, dt, B, C contiguous in one dtype, fp32 or bf16; A, D and
     state0 contiguous fp32; ds = 16) or raises."""
     global launches
@@ -65,6 +105,7 @@ def mamba_scan(x, dt, B, C, A, D, state0, cfg: LaunchConfig = DEFAULT):
     if cfg.block_n % 8 or chunk not in (8, 16, 32):
         raise ValueError(f"mamba_scan takes block_n 64, 128 or 256 (tiles "
                          f"of 8, 16 or 32 steps); got {cfg.block_n}")
+    plan = mamba_plan(b, T, di, chunk, _build.sm_count(x.device))
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     state = torch.empty_like(state0)
     lib = _build.library("mamba_scan", _ARGTYPES)
@@ -72,7 +113,7 @@ def mamba_scan(x, dt, B, C, A, D, state0, cfg: LaunchConfig = DEFAULT):
         else lib.repro_mamba_scan_bf16
     err = fn(x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
              A.data_ptr(), D.data_ptr(), state0.data_ptr(), y.data_ptr(),
-             state.data_ptr(), b, T, di, ds, chunk,
+             state.data_ptr(), b, T, di, ds, chunk, plan.lanes,
              _build.stream_handle(x.device))
     _build.check(err, "mamba_scan")
     launches += 1

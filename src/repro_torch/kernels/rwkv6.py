@@ -12,6 +12,8 @@ zeros into the kernel, the carried state folded in afterwards.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.troop import DEFAULT, LaunchConfig
@@ -23,8 +25,77 @@ from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
 #: kernel launches so far (the CPU path and the plain version do not count)
 launches = 0
 
-_ARGS = [_build.P] * 8 + [_build.I] * 5 + [_build.P]
-_ARGTYPES = {"repro_wkv6_f32": _ARGS, "repro_wkv6_bf16": _ARGS}
+_ARGS = [_build.P] * 8 + [_build.I] * 6 + [_build.P]
+_ARGTYPES = {"repro_wkv6_f32": _ARGS, "repro_wkv6_bf16": _ARGS,
+             "repro_wkv6_resident": [_build.I] * 4}
+#: threads a block (``kThreads``: two groups of 8 warps), steps a sub-chunk
+#: (``kSub``), the column slices the kernel is built for (``csrc/rwkv6.cu``)
+#: and the shared memory a block may take
+THREADS, SUB, COLS, SMEM_LIMIT = 512, 4, (32, 16, 8), 227 * 1024
+
+
+class Wkv6Plan(NamedTuple):
+    """A launch of ``csrc/rwkv6.cu``: ``col_blocks`` = hd / ``cols``
+    blocks a (batch, head), block (bh, c) owning columns c cols .. (c + 1)
+    cols - 1 of the state and of y; T walked in chunks of ``chunk`` steps,
+    their pair scores factored at sub-chunk boundaries every ``sub`` steps;
+    ``smem`` bytes of shared memory a block (``Layout::bytes``)."""
+    cols: int
+    col_blocks: int
+    chunk: int
+    sub: int
+    threads: int
+    blocks: int
+    smem: int
+
+    @property
+    def grid(self):
+        """(B H, hd / cols), as the kernel is launched."""
+        return (self.blocks // self.col_blocks, self.col_blocks)
+
+
+def wkv6_smem(hd: int, chunk: int, cols: int, itemsize: int) -> int:
+    """Bytes of shared memory a block takes (``Layout<T, HD, L, CB>``):
+    the fp32 rows (lcm; two buffers each of rq, kq, the pair scores, v
+    transposed, exp(cm_L), the factors that make rq and kq rd and kd, and
+    the sums at the sub-chunk boundaries, the producers' hand-over; two of
+    the state's slice; the decays between sub-chunks, the sub-chunk totals
+    and u), and before them staged chunks of r, k, w (rows padded by 16
+    bytes) and v: two where they fit in the 227 KB, else one."""
+    P, RP, AP = hd + 4, hd + 16 // itemsize, chunk + 4
+    nsub = chunk // SUB
+    f32 = 4 * (5 * chunk * P + 2 * chunk * AP + 2 * cols * AP + 2 * hd
+               + 4 * nsub * hd + 2 * cols * P + 2 * (nsub + 1) * hd
+               + nsub * hd + hd)
+    stage = (3 * chunk * RP + chunk * cols) * itemsize
+    return f32 + (2 if 2 * stage + f32 <= SMEM_LIMIT else 1) * stage
+
+
+def wkv6_plan(B: int, T: int, H: int, hd: int, chunk: int, sms: int = 132,
+              itemsize: int = 4, cols: int | None = None) -> Wkv6Plan:
+    """A block holds one SM (512 threads), so the plan takes the narrowest
+    column slice (8, 16, 32) whose B H hd / cols blocks all run in one
+    wave of the card's ``sms`` SMs; where none does, the widest that fits
+    the shared memory (fewest waves, and fewest blocks forming the same
+    decays and pair scores).  ``cols`` forces a slice (the probes).
+    rwkv6-3b's (1, 2048, 40, 64) takes 32 columns, 80 blocks; the
+    registry's (1, 256, 4, 64) 8 columns, 32 blocks."""
+    if (hd not in (32, 64, 128) or chunk not in (8, 16, 32) or T < 1
+            or B < 1 or H < 1):
+        raise ValueError(f"wkv6: hd {hd} (32, 64 or 128), chunk {chunk} "
+                         f"(8, 16 or 32) or B, T, H ({B}, {T}, {H}) out of "
+                         f"range")
+    fit = [c for c in COLS if c <= hd
+           and wkv6_smem(hd, chunk, c, itemsize) <= SMEM_LIMIT]
+    if cols is None:
+        wave = [c for c in fit if B * H * (hd // c) <= sms]
+        cols = min(wave) if wave else max(fit)
+    if cols not in fit:
+        raise ValueError(f"wkv6: cols {cols} (8, 16 or 32, at most hd, "
+                         f"within {SMEM_LIMIT} B of shared memory)")
+    return Wkv6Plan(cols, hd // cols, chunk, SUB, THREADS,
+                    B * H * (hd // cols), wkv6_smem(hd, chunk, cols,
+                                                    itemsize))
 
 
 def plain(r, k, v, w, u, state0):
@@ -35,7 +106,8 @@ def plain(r, k, v, w, u, state0):
 def wkv6(r, k, v, w, u, state0, cfg: LaunchConfig = DEFAULT):
     """r, k, v, w (B,T,H,hd); u (H,hd); state0 (B,H,hd,hd) -> (y (B,T,H,hd)
     fp32, state (B,H,hd,hd) fp32), from ``state0``.  The kernel walks T in
-    chunks of ``cfg.block_n // 8`` steps (8, 16 or 32).  A CPU tensor takes
+    chunks of ``cfg.block_n // 8`` steps (8, 16 or 32), hd / cols blocks
+    a (batch, head) (``wkv6_plan``).  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (r, k, v, w
     contiguous in one dtype, fp32 or bf16; u and state0 contiguous fp32;
     hd 32, 64 or 128) or raises."""
@@ -65,6 +137,8 @@ def wkv6(r, k, v, w, u, state0, cfg: LaunchConfig = DEFAULT):
     if cfg.block_n % 8 or chunk not in (8, 16, 32):
         raise ValueError(f"wkv6 takes block_n 64, 128 or 256 (chunks of 8, "
                          f"16 or 32 steps); got {cfg.block_n}")
+    plan = wkv6_plan(B, T, H, hd, chunk, _build.sm_count(r.device),
+                     r.element_size())
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     state = torch.empty_like(state0)
     lib = _build.library("rwkv6", _ARGTYPES)
@@ -72,7 +146,7 @@ def wkv6(r, k, v, w, u, state0, cfg: LaunchConfig = DEFAULT):
         else lib.repro_wkv6_bf16
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), state0.data_ptr(), y.data_ptr(), state.data_ptr(),
-             B, T, H, hd, chunk, _build.stream_handle(r.device))
+             B, T, H, hd, chunk, plan.cols, _build.stream_handle(r.device))
     _build.check(err, "wkv6")
     launches += 1
     return y, state

@@ -1300,6 +1300,120 @@ def test_mamba_scan(b, T, di, dtype, state, cfg):
     assert TK.launch_counts()["mamba_scan"] == before + 1
 
 
+def mamba_case(g, b, T, di, dtype, state):
+    x = torch.randn((b, T, di), device="cuda", generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, T, di), device="cuda", generator=g)).to(dtype)
+    B, C = (torch.randn((b, T, 16), device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    A = -torch.exp(torch.randn((di, 16), device="cuda", generator=g))
+    D = 1 + 0.1 * torch.randn((di,), device="cuda", generator=g)
+    s0 = (torch.randn((b, di, 16), device="cuda", generator=g) if state
+          else torch.zeros((b, di, 16), device="cuda"))
+    return x, dt, B, C, A, D, s0
+
+
+def same_bits_twice(fn, *args):
+    first = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    return first
+
+
+@pytest.mark.parametrize("cfg", SCAN_SPACE, ids=lambda c: f"n{c.block_n}")
+@pytest.mark.parametrize("dtype,state", [(torch.float32, False),
+                                         (torch.float32, True),
+                                         (torch.bfloat16, True)])
+def test_wkv6_split_over_columns_at_full_width(dtype, state, cfg):
+    """rwkv6-3b's 40 heads of 64 over a short T: 2 blocks of 32 columns a
+    head (``wkv6_plan``), the same bits twice, one launch a call."""
+    from repro_torch.kernels.rwkv6 import wkv6_plan
+    assert wkv6_plan(1, 128, 40, 64, cfg.block_n // 8).cols == 32
+    g = torch.Generator(device="cuda").manual_seed(54)
+    args = wkv6_case(g, 1, 128, 40, 64, dtype, state)
+    before = TK.launch_counts()["rwkv6"]
+    y, s = same_bits_twice(lambda *a: TK.wkv6(*a, cfg), *args)
+    assert TK.launch_counts()["rwkv6"] == before + 2
+    want_y, want_s = TK.PLAIN["rwkv6"](*args)
+    matches_plain(y, want_y, SCAN_TOL)
+    matches_plain(s, want_s, SCAN_TOL)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_wkv6_every_column_slice(hd, chunk):
+    """Each slice the kernel is built for (8, 16, 32 columns a block) that
+    fits the shared memory, called through the C entry point at a ragged T
+    from a nonzero state, against the plain version; one block holds an
+    SM, as the plan counts on."""
+    from repro_torch.kernels import _build
+    rw = importlib.import_module("repro_torch.kernels.rwkv6")
+    lib = _build.library("rwkv6", rw._ARGTYPES)
+    g = torch.Generator(device="cuda").manual_seed(55)
+    B, T, H = 1, 45, 3
+    args = wkv6_case(g, B, T, H, hd, torch.float32, True)
+    want_y, want_s = TK.PLAIN["rwkv6"](*args)
+    for cols in (8, 16, 32):
+        if cols > hd or rw.wkv6_smem(hd, chunk, cols, 4) > rw.SMEM_LIMIT:
+            assert lib.repro_wkv6_resident(hd, chunk, cols, 0) == 0
+            continue
+        y = torch.empty((B, T, H, hd), device="cuda")
+        s = torch.empty((B, H, hd, hd), device="cuda")
+        _build.check(lib.repro_wkv6_f32(
+            *(a.data_ptr() for a in args), y.data_ptr(), s.data_ptr(), B, T,
+            H, hd, chunk, cols, _build.stream_handle(y.device)), "wkv6")
+        matches_plain(y, want_y, SCAN_TOL)
+        matches_plain(s, want_s, SCAN_TOL)
+        assert lib.repro_wkv6_resident(hd, chunk, cols, 0) == 1
+
+
+@pytest.mark.parametrize("cfg", SCAN_SPACE, ids=lambda c: f"n{c.block_n}")
+@pytest.mark.parametrize("b,T,di,dtype,state,lanes", [
+    (1, 128, 8192, torch.float32, False, 4),   # jamba's width
+    (1, 128, 8192, torch.float32, True, 4),
+    (1, 128, 8192, torch.bfloat16, True, 4),
+    (1, 64, 4232, torch.float32, True, 4),     # a ragged last block of 32
+    (1, 37, 200, torch.float32, True, 16),     # 16 lanes, ragged
+])
+def test_mamba_scan_states_over_lanes(b, T, di, dtype, state, lanes, cfg):
+    """The states of a channel over ``mamba_plan``'s lanes at full width
+    over a short T and at ragged channel blocks: the same bits twice, one
+    launch a call."""
+    from repro_torch.kernels.mamba_scan import mamba_plan
+    assert mamba_plan(b, T, di, cfg.block_n // 8).lanes == lanes
+    g = torch.Generator(device="cuda").manual_seed(56)
+    args = mamba_case(g, b, T, di, dtype, state)
+    before = TK.launch_counts()["mamba_scan"]
+    y, s = same_bits_twice(lambda *a: TK.mamba_scan(*a, cfg), *args)
+    assert TK.launch_counts()["mamba_scan"] == before + 2
+    want_y, want_s = TK.PLAIN["mamba_scan"](*args)
+    matches_plain(y, want_y, SCAN_TOL)
+    matches_plain(s, want_s, SCAN_TOL)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("lanes", [4, 16])
+def test_mamba_scan_either_lane_split(lanes, chunk):
+    """Both lane splits through the C entry point on one input (ragged T
+    and channels, nonzero state), each against the plain version."""
+    from repro_torch.kernels import _build
+    mb = importlib.import_module("repro_torch.kernels.mamba_scan")
+    lib = _build.library("mamba_scan", mb._ARGTYPES)
+    g = torch.Generator(device="cuda").manual_seed(57)
+    b, T, di = 2, 45, 300
+    args = mamba_case(g, b, T, di, torch.float32, True)
+    want_y, want_s = TK.PLAIN["mamba_scan"](*args)
+    y = torch.empty((b, T, di), device="cuda")
+    s = torch.empty((b, di, 16), device="cuda")
+    _build.check(lib.repro_mamba_scan_f32(
+        *(a.data_ptr() for a in args), y.data_ptr(), s.data_ptr(), b, T, di,
+        16, chunk, lanes, _build.stream_handle(y.device)), "mamba_scan")
+    matches_plain(y, want_y, SCAN_TOL)
+    matches_plain(s, want_s, SCAN_TOL)
+
+
 def test_attention_and_scans_raise_instead_of_falling_back():
     f32 = dict(device="cuda", dtype=torch.float32)
     q = torch.ones((1, 8, 4, 64), **f32)

@@ -25,9 +25,12 @@ rounds of k-steps, K split over a block's warps where the tiles are few)
 and the rest to the SIMT walk; ``batched_plan`` cuts ``batched_mx_qgemv``'s
 MX tile walk (8 or 2 columns a lane, K split over a block's warps), held
 here to cover every column, code row and output once, and its lanes'
-fragments are emulated in numpy against the plain version.  The kernels
-themselves are held against their plain versions on the card
-(``test_torch_cuda.py``).
+fragments are emulated in numpy against the plain version.  ``wkv6_plan``
+cuts a (batch, head) of ``wkv6`` into slices of the state's columns and
+``mamba_plan`` spreads a channel's 16 states over 4 or 16 lanes; each is
+held to cover every (column | state, step) once and to fill the card at
+rwkv6-3b's and jamba's widths.  The kernels themselves are held against
+their plain versions on the card (``test_torch_cuda.py``).
 """
 import numpy as np
 import pytest
@@ -46,8 +49,10 @@ from repro_torch.kernels.mx_gemv import (BatchedPlan,  # noqa: E402
                                         round_blocks, swiglu_plan)
 from repro_torch.kernels.qgemv import (batched_qgemv_plan,  # noqa: E402
                                        k_step, walk_blocks)
+from repro_torch.kernels.mamba_scan import mamba_plan  # noqa: E402
 from repro_torch.kernels.rmsnorm import (MAX_VECS,  # noqa: E402
                                          rmsnorm_plan)
+from repro_torch.kernels.rwkv6 import wkv6_plan, wkv6_smem  # noqa: E402
 from repro_torch.tune import REGISTRY  # noqa: E402
 from repro_torch.tune.search import enumerate_space  # noqa: E402
 
@@ -519,7 +524,9 @@ def test_rmsnorm_plan_refuses_what_the_kernel_cannot_take(d):
 
 
 @pytest.mark.parametrize("module,source", [("rmsnorm", "rmsnorm"),
-                                           ("qgemv", "qgemv")])
+                                           ("qgemv", "qgemv"),
+                                           ("rwkv6", "rwkv6"),
+                                           ("mamba_scan", "mamba_scan")])
 def test_entry_points_take_the_wrappers_argtypes(module, source):
     """Each ``extern "C"`` entry point of the source takes, in order, the
     pointers, ints and floats its wrapper's ``_ARGTYPES`` pass."""
@@ -945,3 +952,146 @@ def test_batched_lane_mapping_reproduces_the_plain_version(elem, cols, B):
     wd = ref._mx_dequant(wq.values, wq.scales).numpy()
     bound = 1e-5 * (np.abs(xs.float().numpy()) @ np.abs(wd))
     assert (np.abs(got - want) <= bound).all()
+
+
+# ------------------------------------------------------ the scans' splits
+RWKV6_3B, JAMBA = (1, 2048, 40, 64), (1, 2048, 8192)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("B,T,H,hd", [
+    (1, 256, 4, 64),        # the registry example
+    (2, 77, 3, 32),         # ragged T
+    (1, 100, 2, 128),
+    (1, 5, 2, 64),          # shorter than a chunk
+    (1, 160, 40, 64),       # rwkv6-3b's heads
+    (3, 33, 50, 128),       # B H past the card: the widest slice
+])
+def test_wkv6_plan_covers_every_column_and_chunk_once(B, T, H, hd, chunk):
+    """Block (bh, c) of the grid (B H, hd / cols) owns columns c cols ..
+    (c + 1) cols - 1 of (batch, head) bh and walks every chunk of T: each
+    (batch, head, column, chunk) once; the sub-chunks tile the chunk."""
+    plan = wkv6_plan(B, T, H, hd, chunk)
+    nchunks = -(-T // chunk)
+    count = np.zeros((B * H, hd, nchunks), np.int64)
+    gx, gy = plan.grid
+    assert gx * gy == plan.blocks and gy == plan.col_blocks == hd // plan.cols
+    for bh in range(gx):
+        for c in range(gy):
+            for ch in range(nchunks):
+                count[bh, c * plan.cols:(c + 1) * plan.cols, ch] += 1
+    assert (count == 1).all()
+    assert plan.chunk == chunk and chunk % plan.sub == 0
+    assert plan.cols in (8, 16, 32) and plan.cols <= hd
+    assert plan.smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+def test_wkv6_plan_at_rwkv6_3b(chunk, itemsize):
+    """A block of 16 warps holds an SM (its producers and consumers), so
+    rwkv6-3b's 40 heads of 64 take 32 columns a block: 80 blocks, all in
+    one wave; 16 columns would give 160 blocks, a second wave."""
+    plan = wkv6_plan(*RWKV6_3B, chunk, SMS, itemsize)
+    assert (plan.cols, plan.blocks, plan.threads) == (32, 80, 512)
+    assert plan.blocks <= SMS < wkv6_plan(*RWKV6_3B, chunk, SMS, itemsize,
+                                          cols=16).blocks
+    assert plan.smem + 1024 <= 228 * 1024
+
+
+def test_wkv6_plan_takes_the_narrowest_slice_in_one_wave():
+    """The most blocks that still run in one wave; where even the widest
+    slice needs more, the widest that fits the shared memory."""
+    assert wkv6_plan(1, 64, 4, 64, 32).cols == 8            # 32 blocks
+    assert wkv6_plan(1, 64, 16, 64, 32).cols == 8           # 128 blocks
+    assert wkv6_plan(1, 64, 17, 64, 32).cols == 16          # 68 blocks
+    assert wkv6_plan(4, 64, 40, 64, 32).cols == 32          # 320 blocks
+    assert wkv6_plan(3, 33, 50, 128, 32).cols == 32         # 600 blocks
+    assert wkv6_plan(1, 64, 40, 64, 32, cols=8).cols == 8   # forced
+    for bad in (dict(hd=48), dict(chunk=64), dict(cols=64),
+                dict(hd=32, cols=64)):
+        kw = {"B": 1, "T": 8, "H": 1, "hd": 64, "chunk": 32, **bad}
+        with pytest.raises(ValueError, match="wkv6"):
+            wkv6_plan(**kw)
+
+
+@pytest.mark.parametrize("hd,chunk,cols,itemsize,want", [
+    (64, 32, 16, 4, 137_984), (64, 32, 16, 2, 111_360),
+    (128, 32, 16, 4, 199_168), (32, 8, 8, 4, 19_456)])
+def test_wkv6_smem_is_the_kernels_layout(hd, chunk, cols, itemsize, want):
+    """``Layout<T, HD, L, CB>::bytes`` of ``csrc/rwkv6.cu``, worked out by
+    hand (two staged chunks, or one at hd 128 and chunks of 32, where two
+    do not fit); every slice the plan may take fits a block's 227 KB."""
+    assert wkv6_smem(hd, chunk, cols, itemsize) == want
+    for h in (32, 64, 128):
+        for L in (8, 16, 32):
+            assert wkv6_plan(1, 8, 1, h, L).smem <= 227 * 1024
+            assert wkv6_plan(9, 8, 50, h, L).smem <= 227 * 1024
+
+
+def reduce_owner(lanes, L):
+    """The tile-end transpose-reduce of ``csrc/mamba_scan.cu``: for each
+    lane of a channel, the first sum it holds at the end and how many;
+    the lanes that write (the lower lane of each pair that holds the same
+    sum when L < lanes)."""
+    out = {}
+    for g in range(lanes):
+        first, cnt, o = 0, L, lanes // 2
+        while o >= 1:
+            if cnt >= 2:
+                if g & o:
+                    first += cnt // 2
+                cnt //= 2
+            o //= 2
+        if not g & max(lanes // L - 1, 0):
+            out[g] = (first, cnt)
+    return out
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("b,T,di", [
+    (2, 512, 512),          # the registry example
+    (1, 100, 300),          # ragged T and channels
+    (1, 3, 128),            # shorter than a tile
+    (1, 40, 4224),          # 4 lanes a channel
+    (3, 17, 1000),
+])
+def test_mamba_plan_covers_every_state_and_step_once(b, T, di, chunk):
+    """Lane g of channel cl in block (cb, batch) holds states g states ..
+    (g + 1) states - 1 of channel cb channels + cl and walks every step:
+    each (batch, channel, state, step) once; at a tile's end each step's
+    sum of a channel is written by one lane."""
+    plan = mamba_plan(b, T, di, chunk)
+    assert plan.lanes * plan.states == 16
+    assert plan.channels * plan.lanes == plan.threads
+    count = np.zeros((b, di, 16), np.int64)
+    for bb in range(b):
+        for cb in range(plan.col_blocks):
+            for tid in range(plan.threads):
+                c = cb * plan.channels + tid // plan.lanes
+                g = tid % plan.lanes
+                if c < di:
+                    count[bb, c, g * plan.states:(g + 1) * plan.states] += 1
+    assert (count == 1).all()
+    assert plan.blocks == b * plan.col_blocks
+    assert (plan.col_blocks - 1) * plan.channels < di <= (plan.col_blocks
+                                                          * plan.channels)
+    steps = np.zeros(chunk, np.int64)
+    for first, cnt in reduce_owner(plan.lanes, chunk).values():
+        steps[first:first + cnt] += 1
+    assert (steps == 1).all()          # every step of every tile once
+
+
+def test_mamba_plan_fills_the_card_at_jamba():
+    """jamba's 8192 channels: 4 lanes of 4 states, 32 channels a block of
+    128 threads, 256 blocks (32,768 threads): at least one block an SM;
+    the registry's (2, 512, 512) takes 16 lanes of 1 (128 blocks, the
+    most it has)."""
+    plan = mamba_plan(*JAMBA, 32, SMS)
+    assert (plan.lanes, plan.states, plan.blocks) == (4, 4, 256)
+    assert plan.blocks >= SMS and plan.blocks * plan.threads == 32768
+    assert mamba_plan(2, 512, 512, 32, SMS).lanes == 16
+    assert mamba_plan(2, 512, 512, 32, SMS).blocks == 128
+    assert mamba_plan(*JAMBA, 8, SMS, lanes=16).blocks == 1024
+    with pytest.raises(ValueError, match="lanes"):
+        mamba_plan(1, 8, 64, 8, lanes=8)

@@ -35,6 +35,8 @@ from repro.kernels.mamba_scan import mamba_scan as jax_mamba_scan  # noqa: E402
 from repro_torch.core.troop import LaunchConfig  # noqa: E402
 from repro_torch.kernels import ops as TK  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_plan  # noqa: E402
+from repro_torch.kernels.rwkv6 import wkv6_plan  # noqa: E402
 
 INTERPRET = TroopConfig(interpret=True)     # explicit: no tune-cache lookup
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -205,6 +207,227 @@ def test_mamba_scan_starts_from_state0_where_pallas_does_not():
     zy, _ = jax_mamba_scan(*args_j[:6], jnp.zeros_like(args_j[6]), INTERPRET)
     np.testing.assert_array_equal(np.asarray(py), np.asarray(zy))
     assert np.abs(np.asarray(py) - np.asarray(want_y)).max() > 1e-2
+
+
+# ------------------------------------ the CUDA kernels' arithmetic, in numpy
+# ``csrc/rwkv6.cu`` and ``csrc/mamba_scan.cu`` run only on the card; these
+# emulations follow their arithmetic step for step in fp32 (exp2 of
+# log2-scaled sums, the sub-chunk factoring, the column slices and lane
+# splits of the launch plans, the tile-end reduction order) and are held
+# to the JAX oracles at SCAN_TOL.  Every exponent they pass to exp2 is
+# recorded and must be <= 0.  Inputs come from explicit numpy seeds.
+F32 = np.float32
+LOG2E = F32(1.4426950408889634)
+
+
+class Exp2:
+    """exp2 in fp32 that keeps the largest exponent it was given."""
+
+    def __init__(self):
+        self.top = -np.inf
+
+    def __call__(self, x):
+        x = np.asarray(x, F32)
+        if x.size:
+            self.top = max(self.top, float(x.max()))
+        return np.exp2(x).astype(F32)
+
+
+def wkv6_emulate(r, k, v, w, u, s0, chunk, ex2):
+    """``csrc/rwkv6.cu``'s walk: per block of ``wkv6_plan`` (a (batch,
+    head) and a slice of ``cols`` state columns), per chunk of ``chunk``
+    steps, the decays in log2 units summed inside sub-chunks of 8, the
+    rows factored at the sub-chunk boundaries, the pair scores (within a
+    sub-chunk directly, across them as a product with the decay between
+    the sub-chunks), then y and the state's slice."""
+    r, k, v, w, u, s0 = (np.asarray(a, F32) for a in (r, k, v, w, u, s0))
+    B, T, H, hd = r.shape
+    plan = wkv6_plan(B, T, H, hd, chunk)
+    L, G, nsub = chunk, plan.sub, chunk // plan.sub
+    y = np.zeros((B, T, H, hd), F32)
+    S = s0.copy()
+    for b in range(B):
+        for h in range(H):
+            for cb in range(plan.col_blocks):
+                cols = slice(cb * plan.cols, (cb + 1) * plan.cols)
+                St = s0[b, h][:, cols].copy()                 # (hd, cols)
+                for t0 in range(0, T, L):
+                    n = min(L, T - t0)
+                    rr, kk = (np.zeros((L, hd), F32) for _ in range(2))
+                    vv = np.zeros((L, plan.cols), F32)
+                    rr[:n], kk[:n] = r[b, t0:t0 + n, h], k[b, t0:t0 + n, h]
+                    vv[:n] = v[b, t0:t0 + n, h, cols]
+                    lw = np.zeros((L, hd), F32)
+                    lw[:n] = np.log(np.maximum(w[b, t0:t0 + n, h],
+                                               F32(1e-30))) * LOG2E
+                    lcm = np.zeros((L, hd), F32)
+                    for q in range(nsub):
+                        cum = np.zeros(hd, F32)
+                        for s in range(G):
+                            cum = cum + lw[q * G + s]
+                            lcm[q * G + s] = cum
+                    tot = lcm[G - 1::G]                       # (nsub, hd)
+                    Cb = np.zeros((nsub + 1, hd), F32)        # boundaries
+                    for q in range(nsub):
+                        Cb[q + 1] = Cb[q] + tot[q]
+                    rq, rd, kq, kd = (np.zeros((L, hd), F32)
+                                      for _ in range(4))
+                    for q in range(nsub):
+                        ts = slice(q * G, (q + 1) * G)
+                        lcx = np.concatenate([np.zeros((1, hd), F32),
+                                              lcm[ts][:-1]])
+                        rq[ts] = rr[ts] * ex2(lcx)
+                        rd[ts] = rq[ts] * ex2(Cb[q])
+                        kq[ts] = kk[ts] * ex2(tot[q] - lcm[ts])
+                        kd[ts] = kq[ts] * ex2(Cb[nsub] - Cb[q + 1])
+                    A = np.zeros((L, L), F32)
+                    for t in range(L):
+                        q = t // G
+                        for s in range(q * G):                # across
+                            p = s // G
+                            A[t, s] = np.dot(rq[t] * ex2(Cb[q] - Cb[p + 1]),
+                                             kq[s])
+                        for s in range(q * G, t):             # within
+                            A[t, s] = np.dot(rr[t] * kk[s],
+                                             ex2(lcm[t - 1] - lcm[s]))
+                        A[t, t] = np.dot(rr[t] * u[h], kk[t])
+                    yc = rd @ St + A @ vv
+                    y[b, t0:t0 + n, h, cols] = yc[:n]
+                    St = ex2(Cb[nsub])[:, None] * St + kd.T @ vv
+                S[b, h][:, cols] = St
+    return y, S
+
+
+def mamba_emulate(x, dt, B, C, A, D, s0, chunk, ex2):
+    """``csrc/mamba_scan.cu``'s walk: ``mamba_plan``'s lanes a channel,
+    each lane's states advanced with exp(dt A) and its partial sums of h C
+    kept for a tile, then the transpose-reduce over the channel's lanes at
+    the tile's end in the kernel's order (each round a lane keeps one half
+    of its sums and adds its partner's copy of that half; past one sum a
+    lane, plain pairwise adds), then + x D.  ``ex2`` takes the exponent in
+    log2 units (dt A log2(e))."""
+    x, dt, B, C, A, D, s0 = (np.asarray(a, F32)
+                             for a in (x, dt, B, C, A, D, s0))
+    b, T, di = x.shape
+    plan = mamba_plan(b, T, di, chunk)
+    L, lanes, spl = chunk, plan.lanes, plan.states
+    an = A.reshape(di, lanes, spl)                            # (di, g, s)
+    h = s0.reshape(b, di, lanes, spl).copy()
+    y = np.zeros((b, T, di), F32)
+    g = np.arange(lanes)
+    for t0 in range(0, T, L):
+        n = min(L, T - t0)
+        xs, dts = (np.zeros((b, L, di), F32) for _ in range(2))
+        bs, cs = (np.zeros((b, L, 16), F32) for _ in range(2))
+        xs[:, :n], dts[:, :n] = x[:, t0:t0 + n], dt[:, t0:t0 + n]
+        bs[:, :n], cs[:, :n] = B[:, t0:t0 + n], C[:, t0:t0 + n]
+        part = np.zeros((b, di, lanes, L), F32)
+        for t in range(L):
+            dtv = dts[:, t][..., None, None]                  # (b, di, 1, 1)
+            dtx = dtv * xs[:, t][..., None, None]
+            bv = bs[:, t].reshape(b, 1, lanes, spl)
+            cv = cs[:, t].reshape(b, 1, lanes, spl)
+            e = ex2(dtv * an[None] * LOG2E)
+            acc = np.zeros((b, di, lanes), F32)
+            for s in range(spl):
+                h[..., s] = e[..., s] * h[..., s] + dtx[..., 0] * bv[..., s]
+                acc = acc + h[..., s] * cv[..., s]
+            part[..., t] = acc
+        first, cnt = np.zeros(lanes, np.int64), L
+        o = lanes // 2
+        while o >= 1:
+            partner = g ^ o
+            if cnt >= 2:
+                half, upper = cnt // 2, (g & o) != 0
+                lo, hi = part[..., :half], part[..., half:cnt]
+                keep = np.where(upper[:, None], hi, lo)
+                got = np.where(upper[:, None], hi[..., partner, :],
+                               lo[..., partner, :])
+                part = np.concatenate([keep + got, part[..., half:]], -1)
+                first = first + upper * half
+                cnt = half
+            else:
+                part[..., 0] = part[..., 0] + part[..., partner, 0]
+            o //= 2
+        for lane in range(lanes):
+            if lane & max(lanes // L - 1, 0):
+                continue                  # its pair's lower lane writes
+            for m in range(max(L // lanes, 1)):
+                t = first[lane] + m
+                if t < n:
+                    y[:, t0 + t] = part[:, :, lane, m] + xs[:, t] * D
+    return y, h.reshape(b, di, 16)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("B,T,H,hd,state,w_kind", [
+    (1, 64, 2, 64, False, "model"),         # whole chunks, zero state
+    (2, 77, 3, 32, True, "model"),          # ragged T, nonzero state
+    (1, 40, 1, 128, True, "model"),
+    (1, 45, 2, 64, True, "extreme"),        # w in {1e-30, 1} and between
+    (1, 37, 1, 32, True, "floor"),          # every w = 1e-30: lw = -69.08
+    (1, 36, 1, 32, True, "one"),            # every w = 1: no decay
+])
+def test_wkv6_kernel_arithmetic_matches_jax(B, T, H, hd, state, w_kind,
+                                            chunk):
+    """The kernel's chunk walk (numpy, fp32) against the JAX oracle, and
+    at zero state against the interpret-mode Pallas kernel; every
+    exponent <= 0, every output finite."""
+    rng = np.random.default_rng(100 + chunk)
+    r, k, v, w, u, s0 = wkv6_inputs(rng, B, T, H, hd, state)
+    if w_kind != "model":
+        pick = {"extreme": rng.integers(0, 3, w.shape),
+                "floor": np.zeros(w.shape, int),
+                "one": np.ones(w.shape, int)}[w_kind]
+        w = np.choose(pick, [np.full(w.shape, 1e-30), np.ones(w.shape), w])
+    ex2 = Exp2()
+    y, s = wkv6_emulate(r, k, v, w, u, s0, chunk, ex2)
+    assert ex2.top <= 0.0
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    args_j = [jnp.asarray(np.asarray(a, np.float32))
+              for a in (r, k, v, w, u, s0)]
+    want_y, want_s = JR.wkv6(*args_j)
+    close(y, want_y, SCAN_TOL)
+    close(s, want_s, SCAN_TOL)
+    if not state and T % chunk == 0:
+        py, ps = JK.wkv6(*args_j, TroopConfig(interpret=True,
+                                              block_n=8 * chunk))
+        close(y, py, SCAN_TOL)
+        close(s, ps, SCAN_TOL)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("b,T,di,state", [
+    (1, 64, 512, False),      # one lane group of 16 (few blocks)
+    (2, 45, 300, True),       # ragged T and channels
+    (1, 40, 4224, True),      # 4 lanes of 4 states (132 blocks of 32)
+])
+def test_mamba_kernel_arithmetic_matches_jax(b, T, di, state, chunk):
+    """The kernel's lane split and tile-end reduction (numpy, fp32)
+    against the JAX oracle, and at zero state against the interpret-mode
+    Pallas kernel; every exponent <= 0."""
+    rng = np.random.default_rng(200 + chunk)
+    x, dt, B, C, A, D, s0 = mamba_inputs(rng, b, T, di, 16, state)
+    ex2 = Exp2()
+    y, s = mamba_emulate(x, dt, B, C, A, D, s0, chunk, ex2)
+    assert ex2.top <= 0.0
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    args_j = [jnp.asarray(np.asarray(a, np.float32))
+              for a in (x, dt, B, C, A, D, s0)]
+    want_y, want_s = JR.mamba_scan(*args_j)
+    close(y, want_y, SCAN_TOL)
+    close(s, want_s, SCAN_TOL)
+    if not state and di % 256 == 0:
+        py, ps = jax_mamba_scan(*args_j, TroopConfig(interpret=True,
+                                                     block_n=8 * chunk))
+        close(y, py, SCAN_TOL)
+        close(s, ps, SCAN_TOL)
+
+
+def test_mamba_plans_of_the_emulated_shapes():
+    """The emulations above reach both lane splits."""
+    assert mamba_plan(1, 64, 512, 32).lanes == 16
+    assert mamba_plan(1, 40, 4224, 32).lanes == 4
 
 
 # -------------------------------------------------------------- wrapper rules
