@@ -1441,8 +1441,8 @@ def scan_rows(torch, K, F, agree, dev, gen):
     jamba's Mamba layer (b = 1, T = 2048, d_inner 2 x 4096, d_state 16,
     fp32) from a zero and from a nonzero state; each scan row with the
     default's launch plan (``wkv6_plan``, ``mamba_plan``).  No PyTorch
-    call computes either scan.  A causal row's bound counts the unmasked scores; the
-    registry's cost model, which counts all T x S, gives
+    call computes either scan.  A causal row's bound counts the unmasked
+    scores; the registry's cost model, which counts all T x S, gives
     ``registry_bound_ms`` beside it."""
     from repro_torch import tune
     from repro_torch.kernels._build import sm_count

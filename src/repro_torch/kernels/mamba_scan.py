@@ -26,9 +26,8 @@ launches = 0
 
 _ARGS = [_build.P] * 9 + [_build.I] * 6 + [_build.P]
 _ARGTYPES = {"repro_mamba_scan_f32": _ARGS, "repro_mamba_scan_bf16": _ARGS}
-#: threads a block (``kThreads`` in ``csrc/mamba_scan.cu``), d_state, and
-#: the lanes a channel the kernel is built for
-THREADS, DS, LANES = 128, 16, (4, 16)
+#: threads a block (``kThreads`` in ``csrc/mamba_scan.cu``) and d_state
+THREADS, DS = 128, 16
 
 
 class MambaPlan(NamedTuple):
@@ -45,21 +44,18 @@ class MambaPlan(NamedTuple):
     chunk: int
 
 
-def mamba_plan(b: int, T: int, di: int, chunk: int, sms: int = 132,
-               lanes: int | None = None) -> MambaPlan:
+def mamba_plan(b: int, T: int, di: int, chunk: int,
+               sms: int = 132) -> MambaPlan:
     """4 lanes of 4 states a channel where a block of 32 channels still
     gives each of the card's ``sms`` SMs a block (b ceil(di / 32) >= sms:
     fewer lanes, so fewer loads and shuffles a state), else 16 lanes of 1
-    (the most blocks); ``lanes`` forces a split (the probes).  jamba's (1,
+    (the most blocks).  jamba's (1,
     2048, 8192) takes 4 lanes, 256 blocks, 32,768 threads; the registry's
     (2, 512, 512) 16 lanes, 128 blocks."""
     if b < 1 or b > 65535 or T < 1 or di < 1 or chunk not in (8, 16, 32):
         raise ValueError(f"mamba_scan: b {b}, T {T}, di {di} or chunk "
                          f"{chunk} (8, 16 or 32) out of range")
-    if lanes is None:
-        lanes = 4 if b * -(-di // (THREADS // 4)) >= sms else 16
-    if lanes not in LANES:
-        raise ValueError(f"mamba_scan: lanes {lanes} (4 or 16)")
+    lanes = 4 if b * -(-di // (THREADS // 4)) >= sms else 16
     cpb = THREADS // lanes
     return MambaPlan(lanes, DS // lanes, cpb, THREADS, -(-di // cpb),
                      b * -(-di // cpb), chunk)

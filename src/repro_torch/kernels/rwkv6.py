@@ -72,14 +72,15 @@ def wkv6_smem(hd: int, chunk: int, cols: int, itemsize: int) -> int:
 
 
 def wkv6_plan(B: int, T: int, H: int, hd: int, chunk: int, sms: int = 132,
-              itemsize: int = 4, cols: int | None = None) -> Wkv6Plan:
+              itemsize: int = 4) -> Wkv6Plan:
     """A block holds one SM (512 threads), so the plan takes the narrowest
     column slice (8, 16, 32) whose B H hd / cols blocks all run in one
     wave of the card's ``sms`` SMs; where none does, the widest that fits
     the shared memory (fewest waves, and fewest blocks forming the same
-    decays and pair scores).  ``cols`` forces a slice (the probes).
-    rwkv6-3b's (1, 2048, 40, 64) takes 32 columns, 80 blocks; the
-    registry's (1, 256, 4, 64) 8 columns, 32 blocks."""
+    decays and pair scores).  rwkv6-3b's (1, 2048, 40, 64) takes 32
+    columns, 80 blocks; the registry's (1, 256, 4, 64) 8 columns, 32
+    blocks.  (160 blocks of 16 columns measured slower at rwkv6-3b: the
+    SMs that hold two set the pace; PERF.md, row 15.)"""
     if (hd not in (32, 64, 128) or chunk not in (8, 16, 32) or T < 1
             or B < 1 or H < 1):
         raise ValueError(f"wkv6: hd {hd} (32, 64 or 128), chunk {chunk} "
@@ -87,12 +88,8 @@ def wkv6_plan(B: int, T: int, H: int, hd: int, chunk: int, sms: int = 132,
                          f"range")
     fit = [c for c in COLS if c <= hd
            and wkv6_smem(hd, chunk, c, itemsize) <= SMEM_LIMIT]
-    if cols is None:
-        wave = [c for c in fit if B * H * (hd // c) <= sms]
-        cols = min(wave) if wave else max(fit)
-    if cols not in fit:
-        raise ValueError(f"wkv6: cols {cols} (8, 16 or 32, at most hd, "
-                         f"within {SMEM_LIMIT} B of shared memory)")
+    wave = [c for c in fit if B * H * (hd // c) <= sms]
+    cols = min(wave) if wave else max(fit)
     return Wkv6Plan(cols, hd // cols, chunk, SUB, THREADS,
                     B * H * (hd // cols), wkv6_smem(hd, chunk, cols,
                                                     itemsize))
