@@ -60,17 +60,15 @@ per probe, each device us per call from ``chip_smoke.py``'s ``time_ms``
 - ``qgemv_host``: the host's us a one-row ``qgemv`` call on the tile walk
   and on the SIMT walk at (2048, 4096), int8 and int4 (wall time of
   launches from Python, the routes interleaved);
-- ``scans``: ``wkv6`` at rwkv6-3b's time mix with every column slice (8,
-  16, 32 columns a block: 320, 160, 80 blocks) and chunk, with its
-  blocks resident an SM, and ``mamba_scan`` at jamba's Mamba layer with
-  both lane splits (4 lanes of 4 states, 16 of 1) and every tile, the
-  wrappers' plans marked, each held to the plain version at the smoke's
-  gate; and the clocks of one ``wkv6`` block's chunk by step, the
-  producers' (the wait for the chunk and the hand-over, the decays, the
-  factored rows, the pair scores within sub-chunks) and the consumers'
-  (the wait for the hand-over, the pair scores across sub-chunks with y,
-  the state update), from ``csrc/rwkv6.cu`` built with
-  ``REPRO_WKV6_PHASES`` into ``build/probe/``.
+- ``scans``: ``wkv6`` at the registry's (1, 256, 4, 64), at 20 heads
+  and at rwkv6-3b's time mix with every column slice (8, 16, 32 columns
+  a block) and chunk, this tree's kernel beside a variant built into
+  ``build/probe/`` whose y and state update are fp32 SIMT products in
+  place of 3xTF32 ``mma.sync`` (with its ptxas registers and spills), and
+  ``mamba_scan`` at the registry's (2, 512, 512) and at jamba's Mamba
+  layer with both lane splits (4 lanes of 4 states, 16 of 1) and every
+  tile; the wrappers' plans marked, each held to the plain version at
+  the smoke's gate.
 
 It exits non-zero without a CUDA device.
 """
@@ -545,109 +543,186 @@ def mx_batched_probes(torch, smoke, K, g, us, line):
         torch.cuda.empty_cache()
 
 
+# wkv6's steps 4 and 5 (y and the state update) as fp32 SIMT products, 2 x 2
+# outputs of y and 2 x 4 of the state a consumer thread, in place of the
+# 3xTF32 tensor-core tiles of csrc/rwkv6.cu: the probe's variant of the
+# kernel, built from a copy of the source
+WKV6_SIMT = """\
+      // 4. y[t][j] = rd[t] . S[:, j] + A[t] . v[:, j], 2 x 2 a thread
+      for (int e = gt; e < (L / 2) * (CB / 2); e += kGroup) {
+        const int t = 2 * (e / (CB / 2)), j = 2 * (e % (CB / 2));
+        const float* ea = ec + (t / kSub) * HD;       // t, t + 1: one sub
+        float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
+        for (int k = 0; k < HD; k += 4) {
+          const float4 ee = ld4(ea + k);
+          const float4 r0 = mul4(ld4(rq + t * P + k), ee);
+          const float4 r1 = mul4(ld4(rq + (t + 1) * P + k), ee);
+          const float4 s0 = ld4(Sc + j * P + k), s1 = ld4(Sc + (j + 1) * P + k);
+          a00 = dot4(r0, s0, a00), a01 = dot4(r0, s1, a01);
+          a10 = dot4(r1, s0, a10), a11 = dot4(r1, s1, a11);
+        }
+        for (int s = 0; s < L; s += 4) {
+          const float4 x0 = ld4(A + t * AP + s), x1 = ld4(A + (t + 1) * AP + s);
+          const float4 v0 = ld4(vT + j * AP + s), v1 = ld4(vT + (j + 1) * AP + s);
+          a00 = dot4(x0, v0, a00), a01 = dot4(x0, v1, a01);
+          a10 = dot4(x1, v0, a10), a11 = dot4(x1, v1, a11);
+        }
+        float* yo = y + (((size_t)b * T_ + t0 + t) * H + h) * HD + j0 + j;
+        if (t < n) *reinterpret_cast<float2*>(yo) = make_float2(a00, a01);
+        if (t + 1 < n)
+          *reinterpret_cast<float2*>(yo + (size_t)H * HD) =
+              make_float2(a10, a11);
+      }
+      // 5. S[:, j] <- exp(cm_L) S[:, j] + kd^T v[:, j], 2 x 4 a thread
+      for (int e = gt; e < (CB / 2) * (HD / 4); e += kGroup) {
+        const int j = 2 * (e / (HD / 4)), i = 4 * (e % (HD / 4));
+        float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+        for (int s = 0; s < L; s += 4) {
+          const float4 v0 = ld4(vT + j * AP + s), v1 = ld4(vT + (j + 1) * AP + s);
+          const float4 ee = ld4(et + (s / kSub) * HD + i);
+          const float va[4] = {v0.x, v0.y, v0.z, v0.w};
+          const float vb[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float4 kd = mul4(ld4(kq + (s + x) * P + i), ee);
+            a0 = make_float4(fmaf(va[x], kd.x, a0.x), fmaf(va[x], kd.y, a0.y),
+                             fmaf(va[x], kd.z, a0.z), fmaf(va[x], kd.w, a0.w));
+            a1 = make_float4(fmaf(vb[x], kd.x, a1.x), fmaf(vb[x], kd.y, a1.y),
+                             fmaf(vb[x], kd.z, a1.z), fmaf(vb[x], kd.w, a1.w));
+          }
+        }
+        const float4 l = ld4(el + i);
+        const float4 c0 = ld4(Sc + j * P + i), c1 = ld4(Sc + (j + 1) * P + i);
+        *reinterpret_cast<float4*>(Sn + j * P + i) = make_float4(
+            fmaf(l.x, c0.x, a0.x), fmaf(l.y, c0.y, a0.y),
+            fmaf(l.z, c0.z, a0.z), fmaf(l.w, c0.w, a0.w));
+        *reinterpret_cast<float4*>(Sn + (j + 1) * P + i) = make_float4(
+            fmaf(l.x, c1.x, a1.x), fmaf(l.y, c1.y, a1.y),
+            fmaf(l.z, c1.z, a1.z), fmaf(l.w, c1.w, a1.w));
+      }
+"""
+# (name, (B, T, H, hd)) and (name, (b, T, di)) of the scans probe
+WKV6_SHAPES = (("registry", (1, 256, 4, 64)), ("20 heads", (1, 2048, 20, 64)),
+               ("rwkv6-3b", (1, 2048, 40, 64)))
+MAMBA_SHAPES = (("registry", (2, 512, 512)), ("jamba", (1, 2048, 8192)))
+
+
+def wkv6_simt_source(src: str) -> str:
+    """``src`` (``csrc/rwkv6.cu``) with steps 4 and 5 as ``WKV6_SIMT``."""
+    start = "      // 4. y[t][j] = rd[t] . S[:, j] + A[t] . v[:, j] on"
+    end = "    }\n    __syncthreads();             // chunk it handed over"
+    assert src.count(start) == 1 and src.count(end) == 1, "anchors moved"
+    return src[:src.index(start)] + WKV6_SIMT + src[src.index(end):]
+
+
+def ptxas_of(report: str, mangled: str) -> str:
+    """Registers and spills ptxas reported for the entry ``mangled``."""
+    block = report.split(f"Compiling entry function '{mangled}")[1]
+    block = block.split("Compiling entry function")[0]
+    return " ".join(ln.strip() for ln in block.splitlines()
+                    if "registers" in ln or "spill" in ln)
+
+
 def scan_probes(torch, smoke, K, g, us, line):
-    """``wkv6`` at rwkv6-3b's time mix (1, 2048, 40, 64, fp32, zero state)
-    with every column slice (8, 16, 32 columns a block) and chunk, and
-    ``mamba_scan`` at jamba's Mamba layer (1, 2048, 8192, fp32) with both
-    lane splits (4 lanes of 4 states, 16 of 1) and every tile, through the
-    C entry points; the wrappers' plans marked, each held to the plain
-    version at the smoke's gate (2.8e-4, 1.4e-4)."""
+    """``wkv6`` at ``WKV6_SHAPES`` (fp32, zero state) with every column
+    slice (8, 16, 32 columns a block) and chunk, this tree's kernel beside
+    its variant with fp32 SIMT products for y and the state
+    (``WKV6_SIMT``, built into ``build/probe/``), and ``mamba_scan`` at
+    ``MAMBA_SHAPES`` with both lane splits (4 lanes of 4 states, 16 of 1)
+    and every tile, through the C entry points; the wrappers' plans
+    marked, each held to the plain version at the smoke's gate (2.8e-4,
+    1.4e-4)."""
     from repro_torch.kernels import _build
     mb = importlib.import_module("repro_torch.kernels.mamba_scan")
     rw = importlib.import_module("repro_torch.kernels.rwkv6")
     dev = torch.device("cuda", 0)
     sms = _build.sm_count(dev)
-    lib = _build.library("rwkv6", rw._ARGTYPES)
+    out = ROOT / "build" / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "rwkv6_simt.cu").write_text(
+        wkv6_simt_source((_build.CSRC / "rwkv6.cu").read_text()))
+    build = subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         str(out / "librwkv6_simt.so"), str(out / "rwkv6_simt.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {"tensor cores": _build.library("rwkv6", rw._ARGTYPES)}
 
     def randn(*shape):
         return torch.randn(shape, device="cuda", generator=g)
-    B, T, H, hd = 1, 2048, 40, 64
-    args = (randn(B, T, H, hd), randn(B, T, H, hd), randn(B, T, H, hd),
-            torch.exp(-torch.exp(randn(B, T, H, hd))),
-            torch.full((H, hd), 0.5, device=dev),
-            torch.zeros((B, H, hd, hd), device=dev))
-    sets = [args] + [tuple(a.clone() for a in args)
-                     for _ in range(smoke.copies_for(
-                         sum(a.numel() * 4 for a in args)) - 1)]
-    want = K.PLAIN["rwkv6"](*args)
-    y = torch.empty((B, T, H, hd), device="cuda")
-    st = torch.empty((B, H, hd, hd), device="cuda")
-    for chunk in (8, 16, 32):
-        base = rw.wkv6_plan(B, T, H, hd, chunk, sms)
-        for cols in (8, 16, 32):
-            def call(a, chunk=chunk, cols=cols):
-                _build.check(lib.repro_wkv6_f32(
-                    *(t.data_ptr() for t in a), y.data_ptr(), st.data_ptr(),
-                    B, T, H, hd, chunk, cols, _build.stream_handle(dev)),
-                    "wkv6 probe")
-            call(args)
-            err = max((y - want[0]).abs().max().item(),
-                      (st - want[1]).abs().max().item())
-            line(kernel="wkv6", shape="rwkv6-3b", chunk=chunk, cols=cols,
-                 blocks=B * H * hd // cols,
-                 resident=lib.repro_wkv6_resident(hd, chunk, cols, 0),
-                 plan=cols == base.cols, err=err, ok=err <= 2.8e-4,
-                 us=us([lambda a=a: call(a) for a in sets]))
-    # where a chunk's clocks go: csrc/rwkv6.cu built with REPRO_WKV6_PHASES
-    out = ROOT / "build" / "probe"
-    out.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DREPRO_WKV6_PHASES",
-                    "-o", str(out / "librwkv6_phases.so"),
-                    str(_build.CSRC / "rwkv6.cu")], check=True,
-                   capture_output=True)
-    plib = ctypes.CDLL(str(out / "librwkv6_phases.so"))
-    plib.repro_wkv6_f32.argtypes = rw._ARGTYPES["repro_wkv6_f32"]
-    plib.repro_wkv6_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    clocks = (ctypes.c_ulonglong * 7)()
-    for chunk in (16, 32):
-        for cols in (16, 32):
-            plib.repro_wkv6_phase_clocks(clocks, 1)
-            _build.check(plib.repro_wkv6_f32(
-                *(t.data_ptr() for t in args), y.data_ptr(), st.data_ptr(),
-                B, T, H, hd, chunk, cols, _build.stream_handle(dev)),
-                "wkv6 phases")
-            torch.cuda.synchronize()
-            plib.repro_wkv6_phase_clocks(clocks, 0)
-            per = [c / (T // chunk) for c in clocks]
-            line(kernel="wkv6 phases", shape="rwkv6-3b", chunk=chunk,
-                 cols=cols, producers=round(sum(per[:4])),
-                 consumers=round(sum(per[4:])),
-                 **{name: round(c) for name, c in zip(
-                     ("wait", "decays", "rows", "pairs", "cross_and_y",
-                      "state", "consumers_wait"),
-                     per)})
-    del sets, args, want, y, st
-    torch.cuda.empty_cache()
+    for shape, (B, T, H, hd) in WKV6_SHAPES:
+        args = (randn(B, T, H, hd), randn(B, T, H, hd), randn(B, T, H, hd),
+                torch.exp(-torch.exp(randn(B, T, H, hd))),
+                torch.full((H, hd), 0.5, device=dev),
+                torch.zeros((B, H, hd, hd), device=dev))
+        sets = [args] + [tuple(a.clone() for a in args)
+                         for _ in range(smoke.copies_for(
+                             sum(a.numel() * 4 for a in args)) - 1)]
+        want = K.PLAIN["rwkv6"](*args)
+        y = torch.empty((B, T, H, hd), device="cuda")
+        st = torch.empty((B, H, hd, hd), device="cuda")
+        if build is not None:
+            report, _ = build.communicate()
+            rc, build = build.returncode, None
+            entries = [e.split("'")[0] for e in report.split(
+                "Compiling entry function '")[1:]]
+            main = next((e for e in entries
+                         if "wkv6_kernelIfLi64ELi32ELi32EE" in e), None)
+            line(kernel="wkv6 SIMT build", rc=rc,
+                 entry="<float, 64, 32, 32>",
+                 ptxas=ptxas_of(report, main) if main else report[-2000:])
+            if rc == 0:
+                simt = ctypes.CDLL(str(out / "librwkv6_simt.so"))
+                simt.repro_wkv6_f32.argtypes = rw._ARGTYPES["repro_wkv6_f32"]
+                simt.repro_wkv6_f32.restype = ctypes.c_int
+                libs["SIMT"] = simt
+        for chunk in (8, 16, 32):
+            base = rw.wkv6_plan(B, T, H, hd, chunk, sms)
+            for cols in (8, 16, 32):
+                for products, lib in libs.items():
+                    def call(a, chunk=chunk, cols=cols, lib=lib):
+                        _build.check(lib.repro_wkv6_f32(
+                            *(t.data_ptr() for t in a), y.data_ptr(),
+                            st.data_ptr(), B, T, H, hd, chunk, cols,
+                            _build.stream_handle(dev)), "wkv6 probe")
+                    call(args)
+                    err = max((y - want[0]).abs().max().item(),
+                              (st - want[1]).abs().max().item())
+                    line(kernel="wkv6", shape=shape, chunk=chunk, cols=cols,
+                         products=products, blocks=B * H * hd // cols,
+                         plan=cols == base.cols, err=err, ok=err <= 2.8e-4,
+                         us=us([lambda a=a: call(a) for a in sets]))
+        del sets, args, want, y, st
+        torch.cuda.empty_cache()
     lib = _build.library("mamba_scan", mb._ARGTYPES)
-    b, T, di = 1, 2048, 8192
-    args = (randn(b, T, di), torch.nn.functional.softplus(randn(b, T, di)),
-            randn(b, T, 16), randn(b, T, 16), -torch.exp(randn(di, 16)),
-            torch.ones((di,), device=dev),
-            torch.zeros((b, di, 16), device=dev))
-    sets = [args] + [tuple(a.clone() for a in args)
-                     for _ in range(smoke.copies_for(
-                         sum(a.numel() * 4 for a in args)) - 1)]
-    want = K.PLAIN["mamba_scan"](*args)
-    y = torch.empty((b, T, di), device="cuda")
-    st = torch.empty((b, di, 16), device="cuda")
-    for chunk in (8, 16, 32):
-        base = mb.mamba_plan(b, T, di, chunk, sms)
-        for lanes in (4, 16):
-            def call(a, chunk=chunk, lanes=lanes):
-                _build.check(lib.repro_mamba_scan_f32(
-                    *(t.data_ptr() for t in a), y.data_ptr(), st.data_ptr(),
-                    b, T, di, 16, chunk, lanes, _build.stream_handle(dev)),
-                    "mamba_scan probe")
-            call(args)
-            err = max((y - want[0]).abs().max().item(),
-                      (st - want[1]).abs().max().item())
-            line(kernel="mamba_scan", shape="jamba", chunk=chunk,
-                 lanes=lanes, blocks=b * -(-di // (128 // lanes)),
-                 plan=lanes == base.lanes, err=err, ok=err <= 1.4e-4,
-                 us=us([lambda a=a: call(a) for a in sets]))
-    del sets, args, want, y, st
-    torch.cuda.empty_cache()
-
+    for shape, (b, T, di) in MAMBA_SHAPES:
+        args = (randn(b, T, di),
+                torch.nn.functional.softplus(randn(b, T, di)),
+                randn(b, T, 16), randn(b, T, 16), -torch.exp(randn(di, 16)),
+                torch.ones((di,), device=dev),
+                torch.zeros((b, di, 16), device=dev))
+        sets = [args] + [tuple(a.clone() for a in args)
+                         for _ in range(smoke.copies_for(
+                             sum(a.numel() * 4 for a in args)) - 1)]
+        want = K.PLAIN["mamba_scan"](*args)
+        y = torch.empty((b, T, di), device="cuda")
+        st = torch.empty((b, di, 16), device="cuda")
+        for chunk in (8, 16, 32):
+            base = mb.mamba_plan(b, T, di, chunk, sms)
+            for lanes in (4, 16):
+                def call(a, chunk=chunk, lanes=lanes):
+                    _build.check(lib.repro_mamba_scan_f32(
+                        *(t.data_ptr() for t in a), y.data_ptr(),
+                        st.data_ptr(), b, T, di, 16, chunk, lanes,
+                        _build.stream_handle(dev)), "mamba_scan probe")
+                call(args)
+                err = max((y - want[0]).abs().max().item(),
+                          (st - want[1]).abs().max().item())
+                line(kernel="mamba_scan", shape=shape, chunk=chunk,
+                     lanes=lanes, blocks=b * -(-di // (128 // lanes)),
+                     plan=lanes == base.lanes, err=err, ok=err <= 1.4e-4,
+                     us=us([lambda a=a: call(a) for a in sets]))
+        del sets, args, want, y, st
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

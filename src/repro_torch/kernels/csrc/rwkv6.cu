@@ -56,13 +56,14 @@
 //   run on the tensor cores as 3xTF32 (each fp32 operand split into two
 //   tf32 parts, three mma.sync products: fp32 to ~2^-21, the 2.8e-4 gate
 //   held as by fp32 SIMT; plain TF32 keeps too few digits for states of
-//   order 1 to 10).  Every exponent is <= 0 before the exp (the sums only
-//   fall), as in the JAX kernel: the separable exp(+cm) form overflows in
-//   fp32.  The exponentials are ex2.approx of log2-scaled sums; the
-//   logarithm is the accurate logf.  Rows in shared memory are padded by
-//   16 bytes, so threads on distinct rows hit distinct banks.  hd is 32,
-//   64 or 128, CB 8, 16 or 32 (at most hd, within the 227 KB of shared
-//   memory).
+//   order 1 to 10; faster than fp32 SIMT products at rwkv6-3b's default
+//   chunks of 32, PERF.md row 15).  Every exponent is <= 0 before the exp
+//   (the sums only fall), as in the JAX kernel: the separable exp(+cm)
+//   form overflows in fp32.  The exponentials are ex2.approx of
+//   log2-scaled sums; the logarithm is the accurate logf.  Rows in shared
+//   memory are padded by 16 bytes, so threads on distinct rows hit
+//   distinct banks.  hd is 32, 64 or 128, CB 8, 16 or 32 (at most hd,
+//   within the 227 KB of shared memory).
 #include "common.cuh"
 
 namespace {
@@ -71,26 +72,6 @@ constexpr int kThreads = 512;          // two groups of 8 warps
 constexpr int kGroup = kThreads / 2;
 constexpr int kSub = 4;                 // steps a sub-chunk
 constexpr float kLog2e = 1.4426950408889634f;
-
-#ifdef REPRO_WKV6_PHASES
-// Built only by scripts/chip_probe.py: thread 0 of block (0, 0) adds the
-// clocks of each step of the chunk walk (the producers' 0: the wait for
-// the chunk and the hand-over, 1-3; the consumers' 6: the wait for the
-// hand-over, 4: 3b and 4, 5), summed over the chunks.
-__device__ unsigned long long phase_clocks[7];
-#define REPRO_PHASE(k)                                             \
-  do {                                                             \
-    if (tid % kGroup == 0 && blockIdx.x == 0 && blockIdx.y == 0) { \
-      const unsigned long long now = clock64();                    \
-      phase_clocks[k] += now - mark;                               \
-      mark = now;                                                  \
-    }                                                              \
-  } while (0)
-#else
-#define REPRO_PHASE(k) \
-  do {                 \
-  } while (0)
-#endif
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -314,9 +295,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid < HD) us[tid] = u[h * HD + tid];
   __syncthreads();
 
-#ifdef REPRO_WKV6_PHASES
-  unsigned long long mark = clock64();
-#endif
   // Iteration it: the producers (warps 0-7) form chunk it's decays, rows
   // and pair scores into the buffers of its parity while the consumers
   // (warps 8-15) take chunk it - 1's y and state update from the others.
@@ -340,7 +318,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       else
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       producers_sync();
-      REPRO_PHASE(0);
 
       // 1. log2 decays: inclusive sums inside each sub-chunk, its total
       float lc[NIT][kSub];
@@ -361,7 +338,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       producers_sync();
-      REPRO_PHASE(1);
 
       // 2. the factored rows, the decays between sub-chunks, v transposed
 #pragma unroll
@@ -399,7 +375,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = gt; e < L * CB; e += kGroup)
         vT[(e % CB) * AP + e / CB] = Raw<T>::at(vb + e);
       producers_sync();
-      REPRO_PHASE(2);
 
       // 3. the pair scores within each sub-chunk (the direct form and the
       //    bonus), a 4 x 4 tile each; across them the consumers
@@ -445,8 +420,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       producers_sync();          // r, k, w, v read for the last time above
       if (STAGES == 2 && it + 2 < nchunks) issue(t0 + 2 * L, buf);
       if (STAGES == 1 && it + 1 < nchunks) issue(t0 + L, 0);
-
-      REPRO_PHASE(3);
     } else if (!producer && it > 0) {
       const int c = it - 1, t0 = c * L, n = min(L, T_ - t0), buf = c & 1;
       const float* rq = F + Lay::rq + buf * L * P;
@@ -459,7 +432,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* el = F + Lay::el + buf * HD;
       const float* Sc = St + (c & 1) * CB * P;
       float* Sn = St + ((c + 1) & 1) * CB * P;
-      REPRO_PHASE(6);
 
       // 3b. the pair scores across sub-chunks p < q, a 4 x 4 tile each: the
       //     factored product with D_qp = exp(Cb_q - Cb_{p+1}), into A
@@ -541,7 +513,6 @@ __global__ void __launch_bounds__(kThreads, 1)
               y + (((size_t)b * T_ + t0 + rb) * H + h) * HD + j0 + j) =
               make_float2(acc[2], acc[3]);
       }
-      REPRO_PHASE(4);
 
       // 5. S[:, j] <- exp(cm_L) S[:, j] + kd^T v[:, j] on the tensor cores:
       //    S^T (j, i) = v^T (j, s) . kd (s, i), 16 x 8 tiles, into the
@@ -571,7 +542,6 @@ __global__ void __launch_bounds__(kThreads, 1)
               fmaf(el[i + 1], Sc[jr1 * P + i + 1], acc[3]);
         }
       }
-      REPRO_PHASE(5);
     }
     __syncthreads();             // chunk it handed over, chunk it - 1 done
   }
@@ -601,35 +571,28 @@ cudaError_t launch_t(const void* r, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int HD, int L, int CB>
-int resident_t() {
-  const size_t smem = Layout<T, HD, L, CB>::bytes;
-  if (smem > 227 * 1024) return 0;
-  if (cudaFuncSetAttribute(wkv6_kernel<T, HD, L, CB>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return 0;
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, wkv6_kernel<T, HD, L, CB>, kThreads, smem) != cudaSuccess)
-    return 0;
-  return blocks;
-}
-
-// f.template run<HD, L, CB>() for the instantiation of (hd, chunk, cols),
-// or `bad` where there is none.
-template <typename R, typename Fn>
-R dispatch(int hd, int chunk, int cols, R bad, const Fn& f) {
+// The kernel instantiated for (hd, chunk, cols), launched
+// (cudaErrorInvalidValue where there is none).
+template <typename T>
+cudaError_t launch(const void* r, const void* k, const void* v,
+                   const void* w, const void* u, const void* s0, void* y,
+                   void* sout, int B, int T_, int H, int hd, int chunk,
+                   int cols, void* stream) {
+  if (B < 1 || T_ < 1 || H < 1 || cols > hd) return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_WKV6_L(HD, CB)                                              \
   switch (chunk) {                                                        \
     case 8:                                                               \
-      return f.template run<HD, 8, CB>();                                 \
+      return launch_t<T, HD, 8, CB>(r, k, v, w, u, s0, y, sout, B, T_, H, \
+                                    st);                                  \
     case 16:                                                              \
-      return f.template run<HD, 16, CB>();                                \
+      return launch_t<T, HD, 16, CB>(r, k, v, w, u, s0, y, sout, B, T_,   \
+                                     H, st);                              \
     case 32:                                                              \
-      return f.template run<HD, 32, CB>();                                \
+      return launch_t<T, HD, 32, CB>(r, k, v, w, u, s0, y, sout, B, T_,   \
+                                     H, st);                              \
     default:                                                              \
-      return bad;                                                         \
+      return cudaErrorInvalidValue;                                       \
   }
 #define REPRO_WKV6_CB(HD)                                                 \
   switch (cols) {                                                         \
@@ -640,7 +603,7 @@ R dispatch(int hd, int chunk, int cols, R bad, const Fn& f) {
     case 32:                                                              \
       REPRO_WKV6_L(HD, 32)                                                \
     default:                                                              \
-      return bad;                                                         \
+      return cudaErrorInvalidValue;                                       \
   }
   switch (hd) {
     case 32:
@@ -650,43 +613,10 @@ R dispatch(int hd, int chunk, int cols, R bad, const Fn& f) {
     case 128:
       REPRO_WKV6_CB(128)
     default:
-      return bad;
+      return cudaErrorInvalidValue;
   }
 #undef REPRO_WKV6_CB
 #undef REPRO_WKV6_L
-}
-
-template <typename T>
-struct Launch {
-  const void *r, *k, *v, *w, *u, *s0;
-  void *y, *sout;
-  int B, T_, H;
-  cudaStream_t stream;
-  template <int HD, int L, int CB>
-  cudaError_t run() const {
-    return launch_t<T, HD, L, CB>(r, k, v, w, u, s0, y, sout, B, T_, H,
-                                  stream);
-  }
-};
-
-template <typename T>
-struct Resident {
-  template <int HD, int L, int CB>
-  int run() const {
-    return resident_t<T, HD, L, CB>();
-  }
-};
-
-template <typename T>
-cudaError_t launch(const void* r, const void* k, const void* v,
-                   const void* w, const void* u, const void* s0, void* y,
-                   void* sout, int B, int T_, int H, int hd, int chunk,
-                   int cols, void* stream) {
-  if (B < 1 || T_ < 1 || H < 1 || cols > hd) return cudaErrorInvalidValue;
-  return dispatch<cudaError_t>(
-      hd, chunk, cols, cudaErrorInvalidValue,
-      Launch<T>{r, k, v, w, u, s0, y, sout, B, T_, H,
-                (cudaStream_t)stream});
 }
 
 }  // namespace
@@ -714,25 +644,3 @@ extern "C" cudaError_t repro_wkv6_bf16(const void* r, const void* k,
                                chunk, cols, stream);
 }
 
-#ifdef REPRO_WKV6_PHASES
-// The probe's build only: the clocks of phase_clocks, then reset if asked.
-extern "C" __host__ int repro_wkv6_phase_clocks(unsigned long long* out,
-                                                int reset) {
-  if (cudaMemcpyFromSymbol(out, phase_clocks, sizeof(phase_clocks)) !=
-      cudaSuccess)
-    return 1;
-  if (reset) {
-    const unsigned long long zero[7] = {};
-    return cudaMemcpyToSymbol(phase_clocks, zero, sizeof(zero)) != cudaSuccess;
-  }
-  return 0;
-}
-#endif
-
-// Blocks of the kernel for (hd, chunk, cols) that one SM holds at once (0
-// where it cannot launch).
-extern "C" int repro_wkv6_resident(int hd, int chunk, int cols, int bf16) {
-  if (cols > hd) return 0;
-  return bf16 ? dispatch<int>(hd, chunk, cols, 0, Resident<__nv_bfloat16>{})
-              : dispatch<int>(hd, chunk, cols, 0, Resident<float>{});
-}

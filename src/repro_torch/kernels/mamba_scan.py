@@ -51,7 +51,8 @@ def mamba_plan(b: int, T: int, di: int, chunk: int,
     fewer lanes, so fewer loads and shuffles a state), else 16 lanes of 1
     (the most blocks).  jamba's (1,
     2048, 8192) takes 4 lanes, 256 blocks, 32,768 threads; the registry's
-    (2, 512, 512) 16 lanes, 128 blocks."""
+    (2, 512, 512) 16 lanes, 128 blocks.  Each measured the faster split
+    at its shape at every tile (PERF.md, row 16)."""
     if b < 1 or b > 65535 or T < 1 or di < 1 or chunk not in (8, 16, 32):
         raise ValueError(f"mamba_scan: b {b}, T {T}, di {di} or chunk "
                          f"{chunk} (8, 16 or 32) out of range")

@@ -26,8 +26,7 @@ from repro_torch.tune.registry import (itemsize, meta, numel, seeded,
 launches = 0
 
 _ARGS = [_build.P] * 8 + [_build.I] * 6 + [_build.P]
-_ARGTYPES = {"repro_wkv6_f32": _ARGS, "repro_wkv6_bf16": _ARGS,
-             "repro_wkv6_resident": [_build.I] * 4}
+_ARGTYPES = {"repro_wkv6_f32": _ARGS, "repro_wkv6_bf16": _ARGS}
 #: threads a block (``kThreads``: two groups of 8 warps), steps a sub-chunk
 #: (``kSub``), the column slices the kernel is built for (``csrc/rwkv6.cu``)
 #: and the shared memory a block may take
@@ -79,8 +78,10 @@ def wkv6_plan(B: int, T: int, H: int, hd: int, chunk: int, sms: int = 132,
     the shared memory (fewest waves, and fewest blocks forming the same
     decays and pair scores).  rwkv6-3b's (1, 2048, 40, 64) takes 32
     columns, 80 blocks; the registry's (1, 256, 4, 64) 8 columns, 32
-    blocks.  (160 blocks of 16 columns measured slower at rwkv6-3b: the
-    SMs that hold two set the pace; PERF.md, row 15.)"""
+    blocks.  At those two shapes and at 20 heads (16 columns) the plan's
+    slice measured the fastest of the three at chunks of 32 (PERF.md, row
+    15): a wider one leaves SMs idle, a narrower one puts two blocks on an
+    SM, which then set the pace."""
     if (hd not in (32, 64, 128) or chunk not in (8, 16, 32) or T < 1
             or B < 1 or H < 1):
         raise ValueError(f"wkv6: hd {hd} (32, 64 or 128), chunk {chunk} "

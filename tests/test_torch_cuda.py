@@ -1346,8 +1346,8 @@ def test_wkv6_split_over_columns_at_full_width(dtype, state, cfg):
 def test_wkv6_every_column_slice(hd, chunk):
     """Each slice the kernel is built for (8, 16, 32 columns a block) that
     fits the shared memory, called through the C entry point at a ragged T
-    from a nonzero state, against the plain version; one block holds an
-    SM, as the plan counts on."""
+    from a nonzero state, against the plain version; a slice wider than hd
+    or past the shared memory is refused."""
     from repro_torch.kernels import _build
     rw = importlib.import_module("repro_torch.kernels.rwkv6")
     lib = _build.library("rwkv6", rw._ARGTYPES)
@@ -1356,17 +1356,17 @@ def test_wkv6_every_column_slice(hd, chunk):
     args = wkv6_case(g, B, T, H, hd, torch.float32, True)
     want_y, want_s = TK.PLAIN["rwkv6"](*args)
     for cols in (8, 16, 32):
-        if cols > hd or rw.wkv6_smem(hd, chunk, cols, 4) > rw.SMEM_LIMIT:
-            assert lib.repro_wkv6_resident(hd, chunk, cols, 0) == 0
-            continue
         y = torch.empty((B, T, H, hd), device="cuda")
         s = torch.empty((B, H, hd, hd), device="cuda")
-        _build.check(lib.repro_wkv6_f32(
+        err = lib.repro_wkv6_f32(
             *(a.data_ptr() for a in args), y.data_ptr(), s.data_ptr(), B, T,
-            H, hd, chunk, cols, _build.stream_handle(y.device)), "wkv6")
+            H, hd, chunk, cols, _build.stream_handle(y.device))
+        if cols > hd or rw.wkv6_smem(hd, chunk, cols, 4) > rw.SMEM_LIMIT:
+            assert err != 0
+            continue
+        _build.check(err, "wkv6")
         matches_plain(y, want_y, SCAN_TOL)
         matches_plain(s, want_s, SCAN_TOL)
-        assert lib.repro_wkv6_resident(hd, chunk, cols, 0) == 1
 
 
 @pytest.mark.parametrize("cfg", SCAN_SPACE, ids=lambda c: f"n{c.block_n}")

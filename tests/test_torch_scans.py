@@ -236,7 +236,7 @@ class Exp2:
 def wkv6_emulate(r, k, v, w, u, s0, chunk, ex2):
     """``csrc/rwkv6.cu``'s walk: per block of ``wkv6_plan`` (a (batch,
     head) and a slice of ``cols`` state columns), per chunk of ``chunk``
-    steps, the decays in log2 units summed inside sub-chunks of 8, the
+    steps, the decays in log2 units summed inside sub-chunks of 4, the
     rows factored at the sub-chunk boundaries, the pair scores (within a
     sub-chunk directly, across them as a product with the decay between
     the sub-chunks), then y and the state's slice."""
