@@ -20,7 +20,11 @@ qwen1.5-0.5b with bf16 weights and KV pages, with mx4 weights and int8 KV
 pages, with int8 weights and bf16 pages and with int4 weights and int8
 pages (int weights dequantize in the graph, as in the JAX package), then
 full-width qwen2-moe-a2.7b (60 experts, top-4, a gated shared expert) in
-bf16 and in mx4 + int8 pages, then trains full-width qwen1.5-0.5b (fp32
+bf16 and in mx4 + int8 pages — each engine's chunk and decode steps
+captured once as CUDA graphs and replayed, and each kernel path run again
+with eager steps on the same requests (the same greedy tokens bit for bit,
+the same launches; host ms per cycle and device busy share of both) —,
+then trains full-width qwen1.5-0.5b (fp32
 masters, bf16 compute) for a few steps through the fused AdamW kernel,
 against a run with the plain optimizer, and checks a failure's restore on a 4-layer cut.  It
 checks that each path went through its kernels (for the MoE, the exact
@@ -1864,6 +1868,79 @@ def check_balanced(engine):
         raise AssertionError("pages leaked after clearing the prefix index")
 
 
+#: the bindings of a served engine: its chunk and its decode step, each
+#: captured once as a CUDA graph (``ServingEngine.captures``)
+STEP_CAPTURES = {"chunk": 1, "decode": 1}
+
+
+def check_captures(eng, what):
+    if eng.captures != STEP_CAPTURES:
+        raise AssertionError(f"{what}: the engine captured {eng.captures}, "
+                             f"not {STEP_CAPTURES}")
+
+
+def eager_path(torch, K, M, model, ecfg, specs, V, graph_reqs,
+               graph_launches):
+    """The kernel path's 8-slot run again, its steps launched eagerly
+    (``capture=False``) on the same requests: the graph run's greedy tokens
+    bit for bit (the same kernels in the same order) and its launch counts
+    (each replay adds what its capture recorded)."""
+    from repro_torch.serve import build_engine
+    eng = build_engine(model, ecfg, capture=False)
+    K.reset_launch_counts()
+    with M.kernel_routing():
+        reqs, wall = serve(torch, eng, specs, V)
+    launches = K.launch_counts()
+    differ = [g.rid for g, e in zip(graph_reqs, reqs) if g.out != e.out]
+    if differ:
+        raise AssertionError(f"graph and eager greedy tokens differ in "
+                             f"requests {differ}")
+    if launches != graph_launches:
+        raise AssertionError(f"the graph run launched {graph_launches}, the "
+                             f"eager run {launches}")
+    if any(eng.captures.values()):
+        raise AssertionError(f"the eager engine captured {eng.captures}")
+    res = {"wall_s": wall, "metrics": eng.metrics(),
+           "identical_streams": len(reqs)}
+    check_balanced(eng)
+    return res
+
+
+def profiles(torch, np, M, model_k, ecfg, rng, record, name, cycles=10):
+    """``decode_profile`` of the graph path, then of the eager path."""
+    return {"decode_profile": decode_profile(
+                torch, np, M, model_k, ecfg, rng, record, name, cycles),
+            "decode_profile_eager": decode_profile(
+                torch, np, M, model_k, ecfg, rng, record, name, cycles,
+                capture=False)}
+
+
+def log_graph_vs_eager(res, top=6):
+    """The graph-against-eager lines of a served path: tokens, captures,
+    then for each host ms per 8-slot cycle, device busy share, decode
+    steps/s and tok/s; then the graph window's top kernels."""
+    n = res["eager_path"]["identical_streams"]
+    log(f"  graph vs eager, kernel path: greedy tokens identical ({n}/{n} "
+        f"streams), launches equal; captures per engine {res['captures']} "
+        f"({res['kernel_path']['metrics']['capture_s']:.2f} s of warm-up "
+        f"and capture in the graph run)")
+    for what, path, prof in (
+            ("graph", "kernel_path", "decode_profile"),
+            ("eager", "eager_path", "decode_profile_eager")):
+        m, p = res[path]["metrics"], res[prof]
+        steady = m["tokens_generated"] / (m["prefill_s"] + m["decode_s"]
+                                          - m["capture_s"])
+        log(f"    {what}: {p['host_ms_per_cycle']:.2f} ms host per 8-slot "
+            f"cycle, device busy {p['device_busy_share']:.4f} of the window "
+            f"({p['device_events']} device events, "
+            f"{p['empty_windows']} empty windows), "
+            f"{m['decode_steps_per_s']:.2f} decode steps/s, "
+            f"{m['tokens_per_s']:.2f} tok/s ({steady:.2f} without the "
+            f"capture; {res[path]['wall_s']:.2f} s wall)")
+    for name, us in res["decode_profile"]["top_kernels_us"][:top]:
+        log(f"    {us:10.1f} us  {name}")
+
+
 class RoutingPins:
     """The MoE expert picks of one run, replayed in others.
 
@@ -2091,20 +2168,25 @@ def logits_phase(torch, np, K, M, model_k, model_p, dev, rng,
 
 
 def decode_profile(torch, np, M, model_k, ecfg, rng, record,
-                   name="decode_trace.json", cycles=10):
-    """Steady decode of 8 slots on the kernel path: host wall of ``cycles``
-    engine cycles, then as many more under ``torch.profiler`` — the
-    device's busy share of that window (union of kernel/copy intervals in
-    the trace) and the kernels that take the device time."""
+                   name="decode_trace.json", cycles=10, capture=True):
+    """Steady decode of 8 slots on the kernel path, its steps captured as
+    CUDA graphs (``capture=False``: launched eagerly): host wall of
+    ``cycles`` engine cycles, then as many more under ``torch.profiler`` —
+    the device's busy share of that window (union of kernel/copy intervals
+    in the trace) and the kernels that take the device time.  A window in
+    which the profiler recorded no device event (seen late in long
+    processes) is profiled once more; a second empty window fails.  With ``record``, the graph windows' traces are
+    written there."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Request, build_engine
     V = model_k.cfg.vocab_size
-    eng = build_engine(model_k, dataclasses.replace(ecfg,
-                                                    prefix_cache=False))
-    for i in range(8):              # no slot finishes inside the window
+    eng = build_engine(model_k, dataclasses.replace(ecfg, prefix_cache=False),
+                       capture=capture)
+    # no slot finishes inside the windows; the requests are left unfinished
+    for i in range(8):
         eng.submit(Request(rid=i, prompt=rng.integers(1, V, 32).astype(
             np.int32), max_new_tokens=18 + 3 * cycles))
     with M.kernel_routing():
@@ -2118,20 +2200,31 @@ def decode_profile(torch, np, M, model_k, ecfg, rng, record,
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(cycles):
-                eng.step()
-            torch.cuda.synchronize()
-            wall_prof = time.perf_counter() - t0
-        eng.run_until_drained()
-    busy, by_name, n = trace_stats(prof, record, name)
+        empty = 0
+        while True:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(cycles):
+                    eng.step()
+                torch.cuda.synchronize()
+                wall_prof = time.perf_counter() - t0
+            busy, by_name, n = trace_stats(prof, record if capture else None,
+                                           name if capture else "")
+            if n:
+                break
+            empty += 1
+            if empty == 2:
+                raise AssertionError(f"two profiled windows of {name} "
+                                     f"(capture={capture}) hold no device "
+                                     f"event")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"cycles": cycles, "wall_s": wall, "profiled_wall_s": wall_prof,
-            "device_events": n,
-            "device_busy_s": busy / 1e6 if n else None,
-            "device_busy_share": busy / 1e6 / wall_prof if n else None,
+    return {"capture": capture, "captures": eng.captures, "cycles": cycles,
+            "wall_s": wall, "host_ms_per_cycle": wall / cycles * 1e3,
+            "profiled_wall_s": wall_prof, "device_events": n,
+            "empty_windows": empty,
+            "device_busy_s": busy / 1e6,
+            "device_busy_share": busy / 1e6 / wall_prof,
             "top_kernels_us": [(n_[:80], d) for n_, d in top]}
 
 
@@ -2140,7 +2233,7 @@ def trace_stats(prof, record, name):
     by kernel name, device events) of a ``torch.profiler`` window; with
     ``record``, the trace goes there gzipped (traces are tens of MB)."""
     with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / name
+        path = Path(tmp) / (name or "trace.json")
         prof.export_chrome_trace(str(path))
         trace = path.read_text()
     if record is not None:
@@ -2200,6 +2293,7 @@ def engine_phase(torch, dev, rng, record=None):
 
     cfg = get_config("qwen1.5-0.5b")
     V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model_k = build_model(cfg, RuntimeConfig(paged_kernel_decode=True),
                           device=dev, seed=0)
@@ -2213,7 +2307,8 @@ def engine_phase(torch, dev, rng, record=None):
                         prefix_cache=True, kernel_decode=True)
     specs = make_requests(np, rng, V, DENSE_REQUESTS)
 
-    # the main path: kernel routing on, every kernel counted
+    # the main path: kernel routing on, the steps captured as CUDA graphs,
+    # every kernel counted
     eng = build_engine(model_k, ecfg)
     res["kv_pool_bytes"] = sum(2 * c.k_pool.numel() * c.k_pool.element_size()
                                for c in eng.caches)
@@ -2226,6 +2321,8 @@ def engine_phase(torch, dev, rng, record=None):
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
     res["kernel_path"] = {"wall_s": wall, "metrics": eng.metrics()}
+    res["captures"] = eng.captures
+    check_captures(eng, "kernel path")
     check_balanced(eng)
     del eng
     torch.cuda.empty_cache()
@@ -2238,8 +2335,12 @@ def engine_phase(torch, dev, rng, record=None):
     if any(K.launch_counts().values()):
         raise AssertionError(f"plain path launched {K.launch_counts()}")
     res["plain_path"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_captures(eng, "plain path")
     check_balanced(eng)
     del eng
+    torch.cuda.empty_cache()
+    res["eager_path"] = eager_path(torch, K, M, model_k, ecfg, specs, V,
+                                   reqs_k, res["launches"])
     torch.cuda.empty_cache()
     same = sum(a == b for rk, rp in zip(reqs_k, reqs_p)
                for a, b in zip(rk.out, rp.out))
@@ -2258,19 +2359,21 @@ def engine_phase(torch, dev, rng, record=None):
     if not all(res["launches_one_slot"][k] for k in BF16_PATH):
         raise AssertionError(f"one-slot run: {res['launches_one_slot']}")
     res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_captures(eng, "one-slot run")
     check_balanced(eng)
     del eng
     torch.cuda.empty_cache()
 
     res.update(logits_phase(torch, np, K, M, model_k, model_p, dev, rng))
-    res["decode_profile"] = decode_profile(torch, np, M, model_k, ecfg, rng,
-                                            record)
+    res.update(profiles(torch, np, M, model_k, ecfg, rng, record,
+                        "decode_trace.json"))
     res["embed_us"] = embed_us(torch, M, model_k, dev, ecfg.slots)
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     mk, mp = res["kernel_path"]["metrics"], res["plain_path"]["metrics"]
     log(f"  qwen1.5-0.5b full width: {res['weight_bytes'] / 1e9:.3f} GB "
-        f"weights, {res['kv_pool_bytes'] / 1e9:.3f} GB KV pools")
+        f"weights, {res['kv_pool_bytes'] / 1e9:.3f} GB KV pools, peak "
+        f"{res['max_memory_allocated'] / 1e9:.2f} GB allocated")
     log(f"  kernel path: {mk['tokens_per_s']:.1f} tok/s, "
         f"{mk['decode_steps_per_s']:.1f} decode steps/s, "
         f"{res['kernel_path']['wall_s']:.2f} s wall, launches "
@@ -2290,13 +2393,7 @@ def engine_phase(torch, dev, rng, record=None):
     log(f"  one-slot decode step: logits err "
         f"{res['decode_one_slot_logits']}, launches "
         f"{res['decode_one_slot_launches']}")
-    prof = res["decode_profile"]
-    per_cycle = prof['wall_s'] / prof['cycles'] * 1e3
-    log(f"  steady decode, 8 slots: {per_cycle:.2f} ms host "
-        f"wall per cycle; under the profiler the device is busy "
-        f"{prof['device_busy_share']} of the window")
-    for name, us in prof["top_kernels_us"][:6]:
-        log(f"    {us:10.1f} us  {name}")
+    log_graph_vs_eager(res)
     log(f"  embedding of one decode step's {ecfg.slots} ids, device us: "
         f"{res['embed_us']}")
     return res
@@ -2349,6 +2446,7 @@ def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
                         chunked_prefill=True, chunk_size=32,
                         prefix_cache=True, kv_cache_dtype=kv,
                         quantize_weights=weights, kernel_decode=True)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = build_engine("qwen1.5-0.5b", ecfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -2385,6 +2483,8 @@ def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
     res["mx_qgemv_by_shape"] = K.mx_qgemv_launches_by_shape()
     check_path("8-slot run", res["launches"], path8)
     res["kernel_path"] = {"wall_s": wall, "metrics": eng.metrics()}
+    res["captures"] = eng.captures
+    check_captures(eng, f"{fmt} kernel path")
     check_balanced(eng)
     del eng
     torch.cuda.empty_cache()
@@ -2396,8 +2496,12 @@ def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
     if any(K.launch_counts().values()):
         raise AssertionError(f"plain path launched {K.launch_counts()}")
     res["plain_path"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_captures(eng, f"{fmt} plain path")
     check_balanced(eng)
     del eng
+    torch.cuda.empty_cache()
+    res["eager_path"] = eager_path(torch, K, M, model_k, ecfg, specs, V,
+                                   reqs_k, res["launches"])
     torch.cuda.empty_cache()
     res["token_agreement"] = sum(
         a == b for rk, rp in zip(reqs_k, reqs_p)
@@ -2414,16 +2518,17 @@ def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
     res["mx_qgemv_by_shape_one_slot"] = K.mx_qgemv_launches_by_shape()
     check_path("one-slot run", res["launches_one_slot"], path1)
     res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_captures(eng, f"{fmt} one-slot run")
     check_balanced(eng)
     del eng
     torch.cuda.empty_cache()
 
     res.update(logits_phase(torch, np, K, M, model_k, model_p, dev, rng,
                             kv_dtype=kv or "bfloat16"))
-    res["decode_profile"] = decode_profile(
-        torch, np, M, model_k, ecfg, rng, record,
-        "decode_trace_quant.json" if fmt == "mx4"
-        else f"decode_trace_{fmt}.json")
+    res.update(profiles(torch, np, M, model_k, ecfg, rng, record,
+                        "decode_trace_quant.json" if fmt == "mx4"
+                        else f"decode_trace_{fmt}.json"))
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     mk, mp = res["kernel_path"]["metrics"], res["plain_path"]["metrics"]
     qs = res["quantized_stats"]
@@ -2433,7 +2538,8 @@ def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
         f"{qs['quantized_fp32_bytes']:,} B fp32; {qs['raw_bytes']:,} B raw), "
         f"{res['kv_pool_bytes'] / 1e9:.3f} GB KV pools"
         + (f" with scale pages (+ {res['stage_bytes'] / 1e6:.1f} MB bf16 "
-           f"stage)" if kv else ""))
+           f"stage)" if kv else "")
+        + f", peak {res['max_memory_allocated'] / 1e9:.2f} GB allocated")
     log(f"  kernel path: {mk['tokens_per_s']:.1f} tok/s, "
         f"{mk['decode_steps_per_s']:.1f} decode steps/s, "
         f"{res['kernel_path']['wall_s']:.2f} s wall, launches "
@@ -2453,20 +2559,17 @@ def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
     log(f"  one-slot decode step: logits err "
         f"{res['decode_one_slot_logits']}, launches "
         f"{res['decode_one_slot_launches']}")
-    prof = res["decode_profile"]
-    per_cycle = prof['wall_s'] / prof['cycles'] * 1e3
-    log(f"  steady decode, 8 slots: {per_cycle:.2f} ms host "
-        f"wall per cycle; under the profiler the device is busy "
-        f"{prof['device_busy_share']} of the window")
-    for name, us in prof["top_kernels_us"][:8]:
-        log(f"    {us:10.1f} us  {name}")
+    log_graph_vs_eager(res, top=8)
     return res
 
 
 def decode_step_launches(torch, np, K, M, model, rng):
     """The launches of one one-slot decode step on the kernel path (after a
-    one-slab prefill of 32 seeded tokens on fresh caches)."""
+    one-slab prefill of 32 seeded tokens on fresh caches): launched
+    eagerly, and replayed from a captured ``StepGraph`` (both write the
+    same KV row)."""
     from repro_torch.serve import PageSpec
+    from repro_torch.serve.graphs import StepGraph
     int8 = model.rt.kv_dtype() == "int8"
     page = 32 if int8 else 16
     spec = PageSpec.for_engine(1, 256, page, dtype=model.rt.kv_dtype())
@@ -2477,20 +2580,26 @@ def decode_step_launches(torch, np, K, M, model, rng):
     def i32(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=dev)
 
-    bt = i32(np.arange(1, spec.blocks_per_slot + 1)[None])
+    bt = np.arange(1, spec.blocks_per_slot + 1, dtype=np.int32)[None]
     prompt = rng.integers(1, model.cfg.vocab_size, 32)
+    counts = {}
     with M.kernel_routing():
         logits, _ = model.chunk_step(
             {"tokens": i32(prompt[None]), "offset": i32([0]),
-             "valid": i32([32]), "block_tables": bt}, caches)
-        tok = logits.argmax(-1)[:, None].to(torch.int32)
-        torch.cuda.synchronize()
+             "valid": i32([32]), "block_tables": i32(bt)}, caches)
+        tok = logits.argmax(-1)[:, None].to(torch.int32).cpu().numpy()
+        host = {"tokens": tok, "pos": np.asarray([32], np.int32),
+                "block_tables": bt}
         K.reset_launch_counts()
-        model.decode_step({"tokens": tok, "pos": i32([32]),
-                           "block_tables": bt}, caches)
+        model.decode_step({k: i32(a) for k, a in host.items()}, caches)
         torch.cuda.synchronize()
-    counts = K.launch_counts()
-    del caches
+        counts["eager"] = K.launch_counts()
+        graph = StepGraph(model.decode_step, caches, dev)
+        K.reset_launch_counts()
+        graph.run(host)
+        torch.cuda.synchronize()
+        counts["graph"] = K.launch_counts()
+    del graph, caches
     return counts
 
 
@@ -2551,6 +2660,8 @@ def moe_phase(torch, dev, rng, fmt, record=None):
     if missing:
         raise AssertionError(f"the {fmt} MoE path never launched {missing}")
     res["kernel_path"] = {"wall_s": wall, "metrics": eng.metrics()}
+    res["captures"] = eng.captures
+    check_captures(eng, f"MoE {fmt} kernel path")
     check_balanced(eng)
     del eng
     torch.cuda.empty_cache()
@@ -2562,8 +2673,12 @@ def moe_phase(torch, dev, rng, fmt, record=None):
     if any(K.launch_counts().values()):
         raise AssertionError(f"plain path launched {K.launch_counts()}")
     res["plain_path"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_captures(eng, f"MoE {fmt} plain path")
     check_balanced(eng)
     del eng
+    torch.cuda.empty_cache()
+    res["eager_path"] = eager_path(torch, K, M, model_k, ecfg, specs, V,
+                                   reqs_k, res["launches"])
     torch.cuda.empty_cache()
     res["token_agreement"] = sum(
         a == b for rk, rp in zip(reqs_k, reqs_p)
@@ -2583,17 +2698,20 @@ def moe_phase(torch, dev, rng, fmt, record=None):
         raise AssertionError(f"one-slot {fmt} MoE run never launched "
                              f"{missing}: {res['launches_one_slot']}")
     res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
+    check_captures(eng, f"MoE {fmt} one-slot run")
     check_balanced(eng)
     del eng
     torch.cuda.empty_cache()
 
-    # one one-slot decode step launches exactly the JAX account's kernels
+    # one one-slot decode step launches exactly the JAX account's kernels,
+    # eager and replayed
     res["decode_step_launches"] = decode_step_launches(torch, np, K, M,
                                                        model_k, rng)
     want = {k: MOE_DECODE_LAUNCHES[fmt].get(k, 0) for k in REPLACES}
-    if res["decode_step_launches"] != want:
-        raise AssertionError(f"one-slot {fmt} MoE decode step launched "
-                             f"{res['decode_step_launches']}, not {want}")
+    for how, got in res["decode_step_launches"].items():
+        if got != want:
+            raise AssertionError(f"one-slot {fmt} MoE decode step ({how}) "
+                                 f"launched {got}, not {want}")
 
     # logits against fp32 on a depth cut: the first MOE_CUT layers, sharing
     # the weight tensors (an fp32 copy of all 24 does not fit beside them)
@@ -2609,9 +2727,9 @@ def moe_phase(torch, dev, rng, fmt, record=None):
         kv_dtype="int8" if quant else "bfloat16"))
     del shallow
     torch.cuda.empty_cache()
-    res["decode_profile"] = decode_profile(
-        torch, np, M, model_k, ecfg, rng, record,
-        f"decode_trace_moe_{fmt}.json", cycles=3 if quant else 10)
+    res.update(profiles(torch, np, M, model_k, ecfg, rng, record,
+                        f"decode_trace_moe_{fmt}.json",
+                        cycles=3 if quant else 10))
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
     mk, mp = res["kernel_path"]["metrics"], res["plain_path"]["metrics"]
@@ -2639,7 +2757,8 @@ def moe_phase(torch, dev, rng, fmt, record=None):
         f"{len(specs)} identical streams)")
     log(f"  one slot: {one_slot(res)}, launches {res['launches_one_slot']}")
     log(f"  one one-slot decode step: launches "
-        f"{res['decode_step_launches']} (as the JAX account)")
+        f"{res['decode_step_launches']['graph']}, eager and replayed (as "
+        f"the JAX account)")
     log(f"  {MOE_CUT}-layer cut, chunk step: logits err "
         f"{res['chunk_logits']}, rows routed otherwise than the kernel path "
         f"{res['chunk_route_flips']}")
@@ -2650,13 +2769,7 @@ def moe_phase(torch, dev, rng, fmt, record=None):
         f"err {res['decode_one_slot_logits']}, rows routed otherwise than "
         f"the kernel path {res['decode_one_slot_route_flips']}, launches "
         f"{res['decode_one_slot_launches']}")
-    prof = res["decode_profile"]
-    per_cycle = prof['wall_s'] / prof['cycles'] * 1e3
-    log(f"  steady decode, 8 slots: {per_cycle:.2f} ms host wall per cycle; "
-        f"under the profiler the device is busy "
-        f"{prof['device_busy_share']} of the window")
-    for name, us in prof["top_kernels_us"][:8]:
-        log(f"    {us:10.1f} us  {name}")
+    log_graph_vs_eager(res, top=8)
     return res
 
 

@@ -628,14 +628,21 @@ def load_smoke(path):
 
 
 def rates(res):
+    """A phase's serving rates; a tree whose engines capture their steps
+    also gives its eager run's (``eager_path``, ``eager_`` keys)."""
     out = {}
-    for run in ("kernel_path", "plain_path", "one_slot"):
-        m = res[run]["metrics"]
-        out[run] = {"tokens_per_s": m["tokens_per_s"],
-                    "decode_steps_per_s": m["decode_steps_per_s"]}
-    prof = res["decode_profile"]
-    out["host_ms_per_cycle"] = prof["wall_s"] / prof["cycles"] * 1e3
-    out["device_busy_share"] = prof["device_busy_share"]
+    for run in ("kernel_path", "eager_path", "plain_path", "one_slot"):
+        if run in res:
+            m = res[run]["metrics"]
+            out[run] = {"tokens_per_s": m["tokens_per_s"],
+                        "decode_steps_per_s": m["decode_steps_per_s"]}
+    for key, pre in (("decode_profile", ""), ("decode_profile_eager",
+                                              "eager_")):
+        if key in res:
+            prof = res[key]
+            out[pre + "host_ms_per_cycle"] = (prof["wall_s"] / prof["cycles"]
+                                              * 1e3)
+            out[pre + "device_busy_share"] = prof["device_busy_share"]
     return out
 
 

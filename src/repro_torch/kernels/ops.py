@@ -10,7 +10,8 @@ these with the configs its engine resolved at build, and the tuner times
 them.  ``repro_torch.kernels`` exports the registry-dispatching wrappers
 of the same kernels (no ``cfg``: the tuned one).  ``launch_counts`` /
 ``reset_launch_counts`` read and zero the per-kernel launch counters, which
-is how a run shows that its path went through the kernels.
+is how a run shows that its path went through the kernels
+(``add_launches`` adds what a CUDA-graph replay launched).
 """
 from __future__ import annotations
 
@@ -96,6 +97,27 @@ def mx_qgemv_launches_by_shape() -> Dict[str, int]:
     return dict(_mx.shape_launches)
 
 
+def launch_snapshot():
+    """(``launch_counts()``, ``mx_qgemv_launches_by_shape()``) now."""
+    return launch_counts(), mx_qgemv_launches_by_shape()
+
+
+def add_launches(counts: Dict[str, int], by_shape: Dict[str, int]):
+    """Add ``counts`` (kernel name -> launches) to the counters and
+    ``by_shape`` to ``mx_qgemv``'s launches by shape: what a CUDA-graph
+    replay launched, which runs no wrapper (``serve.graphs``).  Negative
+    values take launches back."""
+    for name, n in counts.items():
+        mod, attr, _ = _KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+    for key, n in by_shape.items():
+        total = _mx.shape_launches.get(key, 0) + n
+        if total:
+            _mx.shape_launches[key] = total
+        else:
+            _mx.shape_launches.pop(key, None)
+
+
 def lse_combine(partials):
     """Combine split-S decode partials [(acc, m, l), ...] -> (B,KV,G,hd)
     fp32: the associative log-sum-exp combine of the JAX package's
@@ -143,4 +165,5 @@ __all__ = ["rmsnorm", "gemv", "paged_decode_attention",
            "qgemv", "batched_qgemv", "batched_mx_qgemv",
            "decode_attention_int8", "flash_attention", "wkv6",
            "wkv6_with_state", "mamba_scan",
-           "PLAIN", "launch_counts", "reset_launch_counts", "build"]
+           "PLAIN", "launch_counts", "reset_launch_counts", "launch_snapshot",
+           "add_launches", "build"]

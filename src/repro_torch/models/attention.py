@@ -81,47 +81,78 @@ def apply_attention(p, cfg, x, *, positions, dtype, causal=True):
     return M.apply_dense(p["wo"], out.reshape(B, T, -1), dtype)
 
 
-def update_paged_cache(pool, new, pos, block_tables):
-    """Paged cache write, in place: token ``pos`` of slot ``b`` lands at
-    page ``block_tables[b, pos // page]`` row ``pos % page``.
-
-    pool (P, page, KV, hd); new (B, 1, KV, hd); pos (B,); block_tables
-    (B, nblk).  JAX drops out-of-range writes (``mode="drop"``), while
-    torch raises on an index past the end and wraps a negative one; here a
-    position outside [0, nblk * page) is sent to the never-read NULL page
-    instead, which needs no host sync."""
-    page = pool.shape[1]
+def _decode_targets(pos, block_tables, page):
+    """(page id, row) of each slot's token ``pos`` (B,): page
+    ``block_tables[b, pos // page]`` row ``pos % page``.  JAX drops
+    out-of-range writes (``mode="drop"``), while torch raises on an index
+    past the end and wraps a negative one; here a position outside
+    [0, nblk * page) is sent to the NULL page instead, which needs no host
+    sync."""
     nblk = block_tables.shape[1]
     pos = pos.long()
     ok = (pos >= 0) & (pos < nblk * page)
     blk = torch.clamp(pos // page, 0, nblk - 1)
     pid = torch.gather(block_tables.long(), 1, blk[:, None])[:, 0]
-    pid = torch.where(ok, pid, NULL_PAGE)
-    row = torch.where(ok, pos % page, 0)
-    pool.index_put_((pid, row), new[:, 0].to(pool.dtype))
-    return pool
+    return torch.where(ok, pid, NULL_PAGE), torch.where(ok, pos % page, 0)
 
 
-def update_paged_cache_chunk(pool, new, offset, valid, block_tables):
-    """Chunked-prefill cache write, in place: row r of slot b lands at page
-    ``block_tables[b, (offset+r) // page]`` row ``(offset+r) % page``.
-
-    pool (P, page, KV, hd); new (B, C, KV, hd); offset (B,) absolute
-    position of row 0; valid (B,) real rows; block_tables (B, nblk).  Pad
-    rows (r >= valid) go to the never-read NULL page (duplicate indices
-    there are harmless for that reason), so a partial final slab cannot
-    clobber a live page — in particular never a shared prefix page, which
-    is only ever mapped at positions < offset."""
-    page = pool.shape[1]
-    B, C = new.shape[:2]
-    r = torch.arange(C, device=new.device)
+def _chunk_targets(offset, valid, block_tables, page, C):
+    """(page id, row) of each row r of each slot's slab, flattened to
+    (B * C,): page ``block_tables[b, (offset+r) // page]`` row
+    ``(offset+r) % page``.  Pad rows (r >= valid) go to the NULL page, so a
+    partial final slab cannot clobber a live page — in particular never a
+    shared prefix page, which is only ever mapped at positions < offset."""
+    r = torch.arange(C, device=offset.device)
     pos = offset.long()[:, None] + r[None, :]                   # (B, C)
     blk = torch.clamp(pos // page, 0, block_tables.shape[1] - 1)
     pid = torch.gather(block_tables.long(), 1, blk)             # (B, C)
     pid = torch.where(r[None, :] < valid.long()[:, None], pid, NULL_PAGE)
-    rows = new.to(pool.dtype).reshape((B * C,) + new.shape[2:])
-    pool.index_put_((pid.reshape(-1), (pos % page).reshape(-1)), rows)
-    return pool
+    return pid.reshape(-1), (pos % page).reshape(-1)
+
+
+def _paged_writer(pid, row, page):
+    """``write(pool, rows)``: ``pool[pid[i], row[i]] = rows[i]`` for every
+    i, in place.  Where several rows target one position (pad and idle
+    rows sent to the NULL page, which idle decode slots read back), each
+    writes the last such row's values: one value whatever order the card
+    applies the writes in, and the one a sequential write (the CPU's, and
+    the JAX package's scatter there) leaves.  Left to the card, the winner
+    changes from run to run, and so, through a MoE whose capacity idle
+    rows share with live ones, can a live token's route."""
+    key = pid * page + row
+    idx = torch.arange(key.shape[0], device=key.device)
+    last = torch.where(key[:, None] == key[None, :], idx, -1).amax(dim=1)
+
+    def write(pool, rows):
+        pool.index_put_((pid, row), rows[last].to(pool.dtype))
+        return pool
+    return write
+
+
+def update_paged_cache(pool, new, pos, block_tables):
+    """Paged cache write, in place: token ``pos`` of slot ``b`` lands at
+    page ``block_tables[b, pos // page]`` row ``pos % page``
+    (``_decode_targets``, ``_paged_writer``).
+
+    pool (P, page, KV, hd); new (B, 1, KV, hd); pos (B,); block_tables
+    (B, nblk)."""
+    page = pool.shape[1]
+    return _paged_writer(*_decode_targets(pos, block_tables, page),
+                         page)(pool, new[:, 0])
+
+
+def update_paged_cache_chunk(pool, new, offset, valid, block_tables):
+    """Chunked-prefill cache write, in place: row r of slot b lands at page
+    ``block_tables[b, (offset+r) // page]`` row ``(offset+r) % page``
+    (``_chunk_targets``, ``_paged_writer``).
+
+    pool (P, page, KV, hd); new (B, C, KV, hd); offset (B,) absolute
+    position of row 0; valid (B,) real rows; block_tables (B, nblk)."""
+    page = pool.shape[1]
+    B, C = new.shape[:2]
+    write = _paged_writer(*_chunk_targets(offset, valid, block_tables, page,
+                                          C), page)
+    return write(pool, new.reshape((B * C,) + new.shape[2:]))
 
 
 def gather_paged_kv(cache: PagedKVCache, block_tables,
@@ -142,8 +173,9 @@ def gather_paged_kv(cache: PagedKVCache, block_tables,
 
 
 def _write_rows(cache: PagedKVCache, k_new, v_new, write):
-    """``write(pool, rows)`` for K and V — quantized to int8 rows plus their
-    scale rows (written through the same table entry) for int8 pools."""
+    """``write(pool, rows)`` for K and V rows (n, KV, hd) — quantized to
+    int8 rows plus their scale rows (written through the same table entry)
+    for int8 pools."""
     if cache.quantized:
         k8, ks = quantize_kv(k_new)
         v8, vs = quantize_kv(v_new)
@@ -165,9 +197,10 @@ def apply_attention_decode_paged(p, cfg, x, cache: PagedKVCache, pos,
         "paged caches need batch['block_tables'] in the decode batch"
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None], dtype)
-    _write_rows(cache, k_new, v_new,
-                lambda pool, rows: update_paged_cache(pool, rows, pos,
-                                                      block_tables))
+    page = cache.k_pool.shape[1]
+    # one set of targets for the layer's K, V (and scale) writes
+    _write_rows(cache, k_new[:, 0], v_new[:, 0], _paged_writer(
+        *_decode_targets(pos, block_tables, page), page))
     length = (pos + 1).to(torch.int32)
     if use_kernel:
         from repro_torch.kernels import ops as KO
@@ -207,9 +240,11 @@ def apply_attention_chunk_paged(p, cfg, x, cache: PagedKVCache, offset,
     B, C = x.shape[:2]
     positions = offset.long()[:, None] + torch.arange(C, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions, dtype)
-    _write_rows(cache, k_new, v_new,
-                lambda pool, rows: update_paged_cache_chunk(
-                    pool, rows, offset, valid, block_tables))
+    page = cache.k_pool.shape[1]
+    rows = (B * C,) + k_new.shape[2:]
+    _write_rows(cache, k_new.reshape(rows), v_new.reshape(rows),
+                _paged_writer(*_chunk_targets(offset, valid, block_tables,
+                                              page, C), page))
     length = (offset + valid).to(torch.int32)
     if use_kernel and not cache.quantized:
         from repro_torch.kernels import ops as KO

@@ -118,7 +118,8 @@ def resolve_page_size(engine_cfg: EngineConfig) -> int:
 
 
 def build_engine(arch, engine_cfg: EngineConfig, *,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0,
+                 capture: bool = True):
     """The one engine factory: ``(arch, EngineConfig) -> ServingEngine``.
 
     ``arch`` is a registry id (``"qwen1.5-0.5b"``), a model config object
@@ -132,7 +133,11 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
     ``"int4"`` (those dequantize in the graph).  The engine's kernels
     launch with the configs ``serve.step.tuned_kernel_configs`` resolves
     from the tune cache at the engine's shapes
-    (``serve_step.troop_configs``); an empty cache gives the defaults."""
+    (``serve_step.troop_configs``); an empty cache gives the defaults.
+    The engine runs its steps as captured CUDA graphs; ``capture=False``
+    steps eagerly (the counterpart of ``jax.disable_jit()``: a keyword,
+    not an ``EngineConfig`` field, since that record mirrors the JAX
+    one)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, RuntimeConfig, build_model
     from repro_torch.quant import quantize_params
@@ -161,4 +166,5 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
         model.cfg, engine_cfg.slots, engine_cfg.cache_len,
         page_size=resolve_page_size(engine_cfg),
         num_pages=engine_cfg.num_pages, chunk_size=engine_cfg.chunk_size)
-    return ServingEngine(model, engine_cfg, troop_configs=configs)
+    return ServingEngine(model, engine_cfg, troop_configs=configs,
+                         capture=capture)

@@ -11,12 +11,22 @@ Scheduling policy: admission, chunk order and capacity-pressure deferral
 are strictly FIFO; each cycle runs at most ``chunks_per_step`` prefill slabs
 and then one decode step over every decoding slot.
 
-Async dispatch (the default): PyTorch launches are asynchronous already,
-so the decode step submitted in cycle N (``_submit_decode``, which never
-waits on the device) is consumed at the start of cycle N+1 (``_consume``,
-whose ``.cpu()`` of the tokens is the engine's sync point), and host-side
-admission overlaps the in-flight step.  Host->device inputs go through
-pinned memory with non-blocking copies for the same reason.
+Compiled steps (the default): the chunk step and the decode step run as
+CUDA graphs (``serve.graphs.StepGraph``), each captured once at the
+engine's fixed shapes on its first call and replayed every cycle, as the
+JAX scheduler ``jax.jit``s its steps; the scheduler hands them host arrays.
+On the CPU the same binding calls the steps on their static buffers.
+``capture=False`` steps eagerly, launch by launch from Python: the port's
+counterpart of ``jax.disable_jit()``.
+
+Async dispatch (the default): graph replays and PyTorch launches are
+asynchronous, so the decode step submitted in cycle N (``_submit_decode``,
+which never waits on the device) is consumed at the start of cycle N+1
+(``_consume``, whose ``.cpu()`` of the tokens is the engine's sync point),
+and host-side admission overlaps the in-flight step.  Host->device inputs
+go through pinned memory with non-blocking copies for the same reason.
+The decode graph's tokens are one static buffer, so a cycle consumes them
+before it submits the next step.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.serve.config import EngineConfig, resolve_page_size
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.kvcache import PagedBackend, copy_page, kv_row_bytes
 
 
@@ -73,9 +84,12 @@ class ServingEngine:
     ``repro_torch.models.Model``; the engine runs on the model's device.
     ``troop_configs`` (``serve.step.tuned_kernel_configs``, which
     ``build_engine`` resolves) sets the kernels' launch parameters; without
-    them they launch with ``LaunchConfig()``."""
+    them they launch with ``LaunchConfig()``.  The steps run as captured
+    CUDA graphs (on the CPU: bound to static buffers) unless
+    ``capture=False``, which steps eagerly."""
 
-    def __init__(self, model, config: EngineConfig, troop_configs=None):
+    def __init__(self, model, config: EngineConfig, troop_configs=None, *,
+                 capture: bool = True):
         config.validate().check_ported()
         self.backend = PagedBackend(
             page_size=resolve_page_size(config), num_pages=config.num_pages,
@@ -106,6 +120,12 @@ class ServingEngine:
             self.backend.chunk_stage = self.chunk_size
         self.caches = self.backend.init_caches(model, slots, cache_len)
         self.kv_dtype = self.backend.kv_dtype
+        self.chunk_graph = self.decode_graph = None
+        if capture:
+            self.chunk_graph = StepGraph(self.chunk_step, self.caches,
+                                         self.device)
+            self.decode_graph = StepGraph(self.serve_step, self.caches,
+                                          self.device)
         self._kv_row_bytes = kv_row_bytes(model.cfg, self.kv_dtype)
 
         self.active: Dict[int, Optional[Request]] = {
@@ -149,6 +169,23 @@ class ServingEngine:
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _run(self, graph: Optional[StepGraph], step, host) -> torch.Tensor:
+        """One step on the host arrays ``host``: through its graph, or
+        eagerly on fresh device tensors when the engine does not capture."""
+        if graph is not None:
+            return graph.run(host)
+        tok, self.caches = step({k: self._dev(a) for k, a in host.items()},
+                                self.caches)
+        return tok
+
+    @property
+    def captures(self) -> Dict[str, int]:
+        """Bindings of each step kind (``StepGraph.captures``): one each
+        for an engine that has run both, none with ``capture=False``."""
+        return {name: 0 if g is None else g.captures
+                for name, g in (("chunk", self.chunk_graph),
+                                ("decode", self.decode_graph))}
+
     # -------------------------------------------------------------- admit
     def submit(self, req: Request):
         # impossible requests fail here, loudly — once queued, a request is
@@ -185,6 +222,8 @@ class ServingEngine:
                 cow = self.backend.take_cow(slot)
                 if cow is not None:
                     src, dst = cow
+                    # eager, not captured: rare, and its pages are host
+                    # integers (a graph would need them as device buffers)
                     copy_page(self.caches, src, dst)
                     self.backend.cow_done(slot)
             else:
@@ -222,17 +261,13 @@ class ServingEngine:
         valid = end - off
         tokens = np.zeros((1, C), np.int32)
         tokens[0, :valid] = req.prompt[off:end]
-        batch = {
-            "tokens": self._dev(tokens),
-            "offset": self._dev(np.asarray([off], np.int32)),
-            "valid": self._dev(np.asarray([valid], np.int32)),
-            "stage_base": self._dev(np.asarray([self._stage_base[slot]],
-                                               np.int32)),
-            "block_tables": self._dev(
-                self.backend.block_tables[slot:slot + 1]),
-        }
+        host = {"tokens": tokens,
+                "offset": np.asarray([off], np.int32),
+                "valid": np.asarray([valid], np.int32),
+                "stage_base": np.asarray([self._stage_base[slot]], np.int32),
+                "block_tables": self.backend.block_tables[slot:slot + 1]}
         t0 = time.perf_counter()
-        next_tok, self.caches = self.chunk_step(batch, self.caches)
+        next_tok = self._run(self.chunk_graph, self.chunk_step, host)
         self.prefill_s += time.perf_counter() - t0
         self.chunk_calls += 1
         self.chunk_tokens += valid
@@ -286,12 +321,15 @@ class ServingEngine:
         """Enqueue one decode step over the decoding slots and return
         without waiting on the device: the token tensor, the decoding-slot
         snapshot and the submit timestamps park in ``_inflight`` until
-        ``_consume`` reads the tokens."""
-        batch = {"tokens": self._dev(self.last_tok[:, None]),
-                 "pos": self._dev(self.pos),
-                 "block_tables": self._dev(self._decode_block_tables())}
+        ``_consume`` reads the tokens.  The decode graph writes them to one
+        static buffer, so the step before must have been consumed."""
+        if self._inflight is not None:
+            raise RuntimeError("a decode step is submitted before the last "
+                               "one's tokens were consumed")
+        host = {"tokens": self.last_tok[:, None], "pos": self.pos,
+                "block_tables": self._decode_block_tables()}
         t0 = time.perf_counter()
-        next_tok, self.caches = self.serve_step(batch, self.caches)
+        next_tok = self._run(self.decode_graph, self.serve_step, host)
         t_sub = time.perf_counter()
         rows = int(sum(int(self.pos[s]) + 1 for s in self._decoding))
         self.kv_bytes_streamed += rows * self._kv_row_bytes
@@ -407,6 +445,9 @@ class ServingEngine:
                 if self.chunk_calls else 0.0),
             "prefix_hit_rate": (self.shared_tokens / self.prefill_tokens
                                 if self.prefill_tokens else 0.0),
+            "capture_s": sum(g.capture_s for g in (self.chunk_graph,
+                                                   self.decode_graph)
+                             if g is not None),
         }
         m.update(self.backend.stats())
         return m

@@ -1470,3 +1470,149 @@ def test_tune_attention_and_scans_on_the_card(tmp_path):
         again = tune.tune(name, *args, kernel_kwargs=kw, cache=cache)
         assert again.from_cache and again.timings_run == 0
         assert again.best == res.best
+
+
+# ------------------------------------------- the serving steps as CUDA graphs
+GRAPH_ENGINE = dict(slots=3, cache_len=128, backend="paged",
+                    chunked_prefill=True, chunk_size=16, prefix_cache=True,
+                    kernel_decode=True)
+
+
+def graph_model(kv):
+    """The reduced qwen1.5-0.5b (2 layers, 4 heads of 32 on 4 KV heads:
+    G = 1) in bf16 on the card, seed 0, its paged attention on the
+    kernels; ``kv`` "int8" for int8 pages."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import RuntimeConfig, build_model
+    return build_model(reduced(get_config("qwen1.5-0.5b")),
+                       RuntimeConfig(paged_kernel_decode=True,
+                                     kv_cache_dtype=kv),
+                       device="cuda", seed=0)
+
+
+def graph_engine(model, kv, capture=True):
+    from repro_torch.serve import EngineConfig, build_engine
+    return build_engine(model, EngineConfig(**GRAPH_ENGINE,
+                                            kv_cache_dtype=kv),
+                        capture=capture)
+
+
+def graph_requests(eng):
+    """Five seeded prompts behind a shared 40-token prefix (prefix hits,
+    a copy-on-write), 8 new tokens each, submitted to ``eng``."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(11)
+    V = eng.model.cfg.vocab_size
+    sysp = rng.integers(1, V, 40)
+    reqs = [Request(rid=i, prompt=np.concatenate(
+        [sysp, rng.integers(1, V, int(n))]).astype(np.int32),
+        max_new_tokens=8) for i, n in enumerate(rng.integers(8, 60, 5))]
+    for r in reqs:
+        eng.submit(r)
+    return reqs
+
+
+@pytest.mark.parametrize("kv", ["", "int8"], ids=["bf16", "int8"])
+def test_engine_graph_against_eager(kv):
+    """The engine's captured chunk and decode steps (the whole step, the
+    programmatic dependent ``rmsnorm`` after the ops that write its x
+    included) emit the eager steps' greedy tokens bit for bit, and the
+    launch counters read what the eager launches count: the same kernels
+    in the same order.  One capture per step kind."""
+    from repro_torch.models import modules as TM
+    model = graph_model(kv)
+    out = {}
+    for capture in (True, False):
+        eng = graph_engine(model, kv, capture)
+        reqs = graph_requests(eng)
+        TK.reset_launch_counts()
+        with TM.kernel_routing():
+            eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert all(r.done and len(r.out) == 8 for r in reqs)
+        out[capture] = ([r.out for r in reqs], TK.launch_counts(),
+                        eng.captures)
+    (got, launches, captures), (want, eager, none) = out[True], out[False]
+    assert got == want
+    assert launches == eager
+    decode = "paged_decode_attention_int8" if kv else \
+        "paged_decode_attention"
+    assert launches["rmsnorm"] and launches[decode] and launches["gemv"]
+    assert captures == {"chunk": 1, "decode": 1}
+    assert none == {"chunk": 0, "decode": 0}
+
+
+def test_graph_replay_does_not_sync_the_host():
+    """Once captured, a step's ``run`` (pinned host copies, non-blocking
+    transfers, the replay) makes no host sync: replays under
+    ``set_sync_debug_mode("error")``, after the engine drained, on batches
+    whose tables point at the NULL page."""
+    from repro_torch.models import modules as TM
+    model = graph_model("")
+    eng = graph_engine(model, "")
+    graph_requests(eng)
+    with TM.kernel_routing():
+        while eng.decode_graph.out is None:
+            eng.step()
+        eng.run_until_drained()
+        hosts = [(g, {k: np.zeros(tuple(t.shape), np.int32)
+                      for k, t in g.inputs.items()})
+                 for g in (eng.chunk_graph, eng.decode_graph)]
+        hosts[0][1]["valid"][:] = 1        # a slab has a last valid row
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                for g, host in hosts:
+                    g.run(host)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert eng.captures == {"chunk": 1, "decode": 1}
+
+
+def test_a_failed_capture_raises_and_never_steps_eagerly():
+    """A step the card cannot capture (``.item()`` syncs the host) raises
+    from ``run``, every time: after the warm-up and the refused capture
+    nothing runs the step eagerly in the replay's place, no output is
+    bound and the launch counters are as they were.  The card works on
+    after it."""
+    from repro_torch.serve.graphs import StepGraph
+    calls = []
+    x = torch.zeros(4, device="cuda")
+
+    def step(batch, caches):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if (batch["tokens"].float().sum() + x.sum()).item() < 0:
+            raise AssertionError("unreachable")
+        return batch["tokens"] + 1, caches
+    g = StepGraph(step, [], torch.device("cuda"))
+    before = TK.launch_snapshot()
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            g.run({"tokens": np.ones((2, 1), np.int32)})
+    assert calls == [False, True, False, True]
+    assert g.out is None and g.captures == 0
+    assert TK.launch_snapshot() == before
+    torch.cuda.synchronize()
+    assert torch.equal(x + 1, torch.ones(4, device="cuda"))
+
+
+def test_duplicate_paged_writes_leave_the_last_row():
+    """Rows that target one position of a page pool (the idle slots' and
+    pad rows' writes into the NULL page) leave the last such row's values,
+    the same bits in every repeat: the sequential write of the CPU and of
+    the JAX package's scatter there."""
+    from repro_torch.models import attention as TA
+    rng = np.random.default_rng(3)
+    B, page, KV, hd = 64, 16, 4, 64
+    pool = bf16(rng.standard_normal((3, page, KV, hd)))
+    new = bf16(rng.standard_normal((B, 1, KV, hd)))
+    pos = i32(np.arange(B) % 4)          # 16 rows each into rows 0..3
+    tables = i32(np.zeros((B, 2), np.int32))        # all on the NULL page
+    want = pool.clone()
+    for b in range(B):
+        want[0, b % 4] = new[b, 0]
+    for _ in range(5):
+        got = TA.update_paged_cache(pool.clone(), new, pos, tables)
+        assert torch.equal(got, want)
