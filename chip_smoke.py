@@ -1141,8 +1141,8 @@ def sdpa_decode(torch, F, q, k, v, mask):
 def paper_rows(torch, K, F, agree, dev, randn):
     """The kernels of the tuner's slice at their shapes: dotp and axpy at
     the registry's full size (2^20 bf16) and past the L2 (2^27 bf16, 256 MB
-    an operand), each from its default config, axpy also at every
-    candidate of its tuner space; the batched gemv at
+    an operand), each from its default config and at every candidate of
+    its tuner space (dotp's with its plan's grid cut); the batched gemv at
     (2048, 4096) for 1, 2, 4, 8 and 16 rows and at qwen1.5-0.5b's read-out
     (151936, 1024) for 8 and 16 (the yardsticks of batched_qgemv's rows);
     the dense decode attention at kernel_bench's
@@ -1151,26 +1151,47 @@ def paper_rows(torch, K, F, agree, dev, randn):
     S=4096), each at every candidate of its tuner space."""
     rows = {"dotp": [], "axpy": [], "batched_gemv": [],
             "decode_attention": []}
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dotp import dotp_plan
+    sms = _build.sm_count(dev)
     for n in (1 << 20, 1 << 27):
         pairs = [(randn(n), randn(n)) for _ in range(copies_for(4 * n))]
         x, y = pairs[0]
-        got, want = K.dotp(x, y), K.PLAIN["dotp"](x, y)
+        want = K.PLAIN["dotp"](x, y)
         bound = TOL["dotp"] * (x.float() * y.float()).abs().sum().item()
-        err = abs(got.item() - want.item())
-        again = K.dotp(x, y)
-        if err > bound or not math.isfinite(got.item()) \
-                or not torch.equal(got, again):
-            raise AssertionError(f"dotp n={n}: kernel disagrees with its "
-                                 f"plain version ({err} > {bound}) or with "
-                                 f"itself ({got.item()} vs {again.item()})")
+
+        def dot_gate(label, got, want, key=None, exact=None, bound=bound):
+            """The kernel's sum within 1e-5 of sum |x_i y_i| of its plain
+            version's, and finite."""
+            err = abs(got.item() - want.item())
+            if err > bound or not math.isfinite(got.item()):
+                raise AssertionError(f"{label}: kernel disagrees with its "
+                                     f"plain version ({err} > {bound})")
+            return err
+        got, again = K.dotp(x, y), K.dotp(x, y)
+        err = dot_gate(f"dotp n={n}", got, want)
+        if not torch.equal(got, again):
+            raise AssertionError(f"dotp n={n}: two launches differ "
+                                 f"({got.item()} vs {again.item()})")
+        cands = candidate_rows(
+            torch, "dotp", lambda p, c: K.dotp(*p, cfg=c), want, dot_gate,
+            f"n={n}", "dotp", pairs)
+        for c in cands:
+            cut = dotp_plan(n, 2, LaunchConfig(**c["knobs"]), sms)
+            c["plan"] = {k: getattr(cut, k) for k in
+                         ("threads", "vpt", "blocks", "steps", "combine")}
         bms, by = bound_ms(4 * n + 4, 2 * n)
         rows["dotp"].append({
-            "shape": f"x, y ({n},) bf16", "max_abs_err": err,
+            "shape": f"x, y ({n},) bf16",
+            "max_abs_err": max([err] + [c["max_abs_err"] for c in cands]),
             "tolerance": bound, "bound_ms": bms, "bound_by": by,
-            "library": "torch.dot",
+            "library": "torch.dot", "candidates": cands,
+            "plan": dotp_plan(n, 2, LaunchConfig(), sms)._asdict(),
             **timed(torch, [lambda p=p: K.dotp(*p) for p in pairs],
                     [lambda p=p: K.PLAIN["dotp"](*p) for p in pairs],
                     [lambda p=p: torch.dot(*p) for p in pairs])})
+        del want
         want = K.PLAIN["axpy"](1.5, x, y)
         err = agree(f"axpy n={n}", K.axpy(1.5, x, y), want)
         cands = candidate_rows(
@@ -3096,7 +3117,8 @@ def main():
                        if "library_max_abs_err" in r else ""))
                 for c in r.get("candidates", ()):
                     log(f"      {c['knobs']}  {us(c['ms'])}  err "
-                        f"{c['max_abs_err']:.3g}")
+                        f"{c['max_abs_err']:.3g}"
+                        + (f"  [plan {c['plan']}]" if "plan" in c else ""))
     # launches on the main paths: each run with the counts zeroed before it
     # and read after it (the tuner's path; the engine's 8-slot run; the
     # quantized, MoE bf16 and MoE mx4 paths' 8-slot and one-slot runs; the

@@ -52,7 +52,9 @@ the gate and distances from the float64 value; then ``wkv6`` and
 ``mamba_scan`` at the smoke's scan rows (the registry examples, rwkv6-3b
 and jamba from a zero and a nonzero state: digests of y and of the final
 state, the device and eager time, the largest distance from the plain
-version) (``--lines`` picks which of these groups of lines to print);
+version); then ``dotp`` at 2^20 and 2^27 bf16 and 2^20 fp32 (a digest,
+the device and eager time, and ``torch.dot``'s device time) (``--lines``
+picks which of these groups of lines to print);
 then it runs serving phases of that tree, each from a fresh seed-0 stream
 (``--engines``: ``bf16``, the default, runs ``engine_phase``, qwen1.5-0.5b
 bf16, and ``moe_phase`` for bf16, qwen2-moe-a2.7b; ``mx4`` runs
@@ -79,6 +81,9 @@ GEMV_SHAPES = (((151936, 1024), "bfloat16"),   # qwen1.5-0.5b's read-out
                ((1024, 1024), "bfloat16"),
                ((1408, 2048), "bfloat16"))
 AXPY_SIZES = (1 << 20, 1 << 27)
+# dotp's rows: (n, dtype)
+DOTP_ROWS = ((1 << 20, "bfloat16"), (1 << 27, "bfloat16"),
+             (1 << 20, "float32"))
 MX_SHAPES = (((151936, 1024), "fp4"), ((151936, 1024), "fp8"),
              ((1024, 1024), "fp4"), ((1024, 2816), "fp4"),
              ((2048, 2048), "fp4"), ((2048, 5632), "fp4"))
@@ -619,6 +624,29 @@ def scan_lines(torch, K, smoke):
                 torch.cuda.empty_cache()
 
 
+def dotp_lines(torch, K, smoke):
+    """``dotp`` at ``DOTP_ROWS`` (seeded inputs, the default config): a
+    digest of its output, its device and eager us per call and
+    ``torch.dot``'s device us, over input copies past twice the L2."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for n, name in DOTP_ROWS:
+        dtype = getattr(torch, name)
+        size = torch.empty((), dtype=dtype).element_size()
+        pairs = [tuple(torch.randn(n, device="cuda", generator=g).to(dtype)
+                       for _ in range(2))
+                 for _ in range(smoke.copies_for(2 * n * size))]
+        ms, eager = smoke.time_ms(torch, [lambda p=p: K.dotp(*p)
+                                          for p in pairs])
+        lib = smoke.time_ms(torch, [lambda p=p: torch.dot(*p)
+                                    for p in pairs])[0]
+        digest = sha(torch, K.dotp(*pairs[0]).reshape(1))
+        print(f"dotp n={n} {name} {digest} {ms * 1e3:.2f} us, eager "
+              f"{eager * 1e3:.2f} us, torch.dot {lib * 1e3:.2f} us",
+              flush=True)
+        del pairs
+        torch.cuda.empty_cache()
+
+
 def load_smoke(path):
     spec = importlib.util.spec_from_file_location(f"smoke_{abs(hash(path))}",
                                                   path)
@@ -656,13 +684,14 @@ def main():
                          "decode lines")
     ap.add_argument("--lines",
                     default="gemv,axpy_mx_paged,rmsnorm,qgemv,tile_walks,"
-                            "scans",
+                            "scans,dotp",
                     help="comma list of the kernel lines to print: gemv "
                          "(the gemv digests), axpy_mx_paged (axpy, the MX "
                          "walk and, unless --no-paged, the paged and int8 "
                          "dense decodes), rmsnorm, qgemv, tile_walks "
                          "(batched_mx_qgemv, and both tile walks' accuracy), "
-                         "scans (wkv6 and mamba_scan) (default: all)")
+                         "scans (wkv6 and mamba_scan), dotp (default: "
+                         "all)")
     ap.add_argument("--engines", choices=("bf16", "mx4", "none"),
                     default="bf16", help="serving phases to run (default: "
                                          "bf16)")
@@ -701,6 +730,8 @@ def main():
         tile_walk_lines(torch, K, smoke, referee)
     if "scans" in lines:
         scan_lines(torch, K, smoke)
+    if "dotp" in lines:
+        dotp_lines(torch, K, smoke)
     out = {}
     if args.engines == "bf16":
         out["qwen1.5 bf16"] = rates(smoke.engine_phase(

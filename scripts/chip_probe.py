@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Launch-plan probes of ``axpy``, the one-row MX walk (``mx_qgemv``, the
 fused SwiGLU), the paged decodes, ``rmsnorm``, ``batched_qgemv``,
-``batched_mx_qgemv``, ``wkv6`` and ``mamba_scan`` on the card: the device
-time of each plan the wrappers choose beside the plans they do not,
-called through the kernels' C entry points; and the host's cost of a
-one-row ``qgemv`` call on each of its routes.
+``batched_mx_qgemv``, ``wkv6``, ``mamba_scan`` and ``dotp`` on the card:
+the device time of each plan the wrappers choose beside the plans they
+do not, called through the kernels' C entry points; and the host's cost
+of a one-row ``qgemv`` call on each of its routes.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 scripts/chip_probe.py [--out FILE] \
         [--probes axpy,mx_qgemv,mx_swiglu,paged,rmsnorm,qgemv,mx_batched,
-                  qgemv_host,scans] \
+                  qgemv_host,scans,dotp] \
         [--parent DIR]
 
 It prints the card's ``nvidia-smi`` name and power limit, then one line
@@ -74,6 +74,7 @@ It exits non-zero without a CUDA device.
 """
 import argparse
 import ctypes
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -98,7 +99,7 @@ def main():
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the probes as JSON to this file")
     ap.add_argument("--probes", default="axpy,mx_qgemv,mx_swiglu,paged,"
-                    "rmsnorm,qgemv,mx_batched,qgemv_host,scans",
+                    "rmsnorm,qgemv,mx_batched,qgemv_host,scans,dotp",
                     help="comma list of the probes to run (default: all)")
     ap.add_argument("--parent", type=Path, default=None, metavar="DIR",
                     help="a checkout whose csrc/rmsnorm.cu (the block-a-row "
@@ -243,6 +244,8 @@ def main():
         qgemv_host_probes(torch, K, g, line)
     if "scans" in probes:
         scan_probes(torch, smoke, K, g, us, line)
+    if "dotp" in probes:
+        dotp_probes(torch, smoke, K, g, us, line)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -723,6 +726,220 @@ def scan_probes(torch, smoke, K, g, us, line):
                      us=us([lambda a=a: call(a) for a in sets]))
         del sets, args, want, y, st
         torch.cuda.empty_cache()
+
+
+# dotp's combine in the one launch (in place of the programmatic dependent
+# second kernel of csrc/dotp.cu): each block stores its partial, fences it
+# and draws a ticket with atomicInc(ticket, blocks - 1), which wraps the
+# word back to 0; the block that draws blocks - 1 folds the partials in the
+# same fixed order with its own threads.  The probe's variant of the
+# kernel, built from a copy of the source; its one ticket word serves the
+# probe's one stream.
+DOTP_TRIGGER = """\
+    // the combine may be scheduled once this block's loads are out
+    if (c == blockIdx.x)
+      asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");
+"""
+DOTP_SIGNATURE = """\
+template <typename T, int S, int VPT>
+__global__ void dotp_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                            float* __restrict__ partial, int nv, int part,
+                            int steps) {
+"""
+DOTP_TICKET_SIGNATURE = """\
+__device__ unsigned int g_ticket = 0;
+
+template <typename T, int S, int VPT>
+__global__ void dotp_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                            float* __restrict__ partial,
+                            float* __restrict__ out, int nv, int part,
+                            int steps) {
+"""
+DOTP_TICKET_TAIL = """\
+  acc = block_sum(acc);
+  __shared__ unsigned int drawn;
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = acc;
+    __threadfence();                  // the partial before the ticket
+    drawn = atomicInc(&g_ticket, gridDim.x - 1);
+  }
+  __syncthreads();
+  if (drawn != gridDim.x - 1) return;
+  __threadfence();                    // every other block's partial is in
+  const float s = combine(partial, gridDim.x);
+  if (threadIdx.x == 0) out[0] = s;
+}
+
+template <typename T, int S, int VPT>
+cudaError_t launch_k(const void* x, const void* y, void* partial, void* out,
+                     int nv, int part, int steps, int threads, int blocks,
+                     int combine, cudaStream_t s) {
+  dotp_kernel<T, S, VPT><<<blocks, threads, 0, s>>>(
+      (const T*)x, (const T*)y, (float*)partial, (float*)out, nv, part,
+      steps);
+  return cudaGetLastError();
+}
+
+"""
+# dotp chained: csrc/dotp.cu with its first kernel also launched as a
+# programmatic dependent (of whatever precedes it on the stream), its
+# loads after ``griddepcontrol.wait``, and the combine triggering its own
+# dependents as it starts, so that back-to-back calls overlap one call's
+# combine with the next one's launch
+DOTP_CHAIN_WAIT = """\
+  float acc = 0.f;
+  asm volatile("griddepcontrol.wait;\\n" ::: "memory");
+"""
+DOTP_CHAIN_TRIGGER = """\
+  asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\\n" ::: "memory");
+  const float s = combine(partial, blocks);
+"""
+DOTP_CHAIN_LAUNCH = """\
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t first = {};
+  first.gridDim = dim3(blocks);
+  first.blockDim = dim3(threads);
+  first.stream = s;
+  first.attrs = &attr;
+  first.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &first, dotp_kernel<T, S, VPT>, (const T*)x, (const T*)y,
+      (float*)partial, nv, part, steps);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(combine);
+  cfg.stream = s;
+"""
+# the probe's sizes (bf16 elements), the grid cuts of the default config
+# and the threads of its combine
+DOTP_SIZES = tuple(1 << e for e in (16, 18, 20, 22, 24, 27))
+DOTP_VPT = (1, 2, 4, 8)
+DOTP_COMBINE = (32, 256, 1024)
+
+
+def dotp_ticket_source(src: str) -> str:
+    """``src`` (``csrc/dotp.cu``) with the combine in the one launch, by
+    the last block to draw a ticket (``DOTP_TICKET_*``)."""
+    tail0 = "  acc = block_sum(acc);\n  if (threadIdx.x == 0) partial"
+    tail1 = "template <typename T>\ncudaError_t launch("
+    for anchor in (DOTP_TRIGGER, DOTP_SIGNATURE, tail0, tail1):
+        assert src.count(anchor) == 1, "anchors moved"
+    src = src.replace(DOTP_TRIGGER, "").replace(DOTP_SIGNATURE,
+                                                DOTP_TICKET_SIGNATURE)
+    return (src[:src.index(tail0)] + DOTP_TICKET_TAIL
+            + src[src.index(tail1):])
+
+
+def dotp_chain_source(src: str) -> str:
+    """``src`` (``csrc/dotp.cu``) with both kernels programmatic
+    dependents (``DOTP_CHAIN_*``)."""
+    wait = "  float acc = 0.f;\n"
+    combine = ("  asm volatile(\"griddepcontrol.wait;\\n\" ::: \"memory\");\n"
+               "  const float s = combine(partial, blocks);\n")
+    launch0 = "  dotp_kernel<T, S, VPT><<<blocks, threads, 0, s>>>("
+    launch1 = "  cfg.stream = s;\n  cudaLaunchAttribute attr;\n"
+    for anchor in (wait, combine, launch0, launch1):
+        assert src.count(anchor) == 1, "anchors moved"
+    src = src.replace(wait, DOTP_CHAIN_WAIT).replace(combine,
+                                                     DOTP_CHAIN_TRIGGER)
+    i, j = src.index(launch0), src.index(launch1) + len(launch1)
+    return src[:i] + DOTP_CHAIN_LAUNCH + src[j:]
+
+
+def dotp_probes(torch, smoke, K, g, us, line):
+    """``dotp`` (bf16) at ``DOTP_SIZES``: ``torch.dot``; every candidate of
+    its tuner space at the wrapper's cut, with this tree's combine (a
+    programmatic dependent second kernel) and two variants' (the last
+    block's ticket, ``DOTP_TICKET_*``; a chain of programmatic dependents,
+    ``DOTP_CHAIN_*``; both built into ``build/probe/``); the default
+    config at each ``DOTP_VPT`` and at a half and a quarter of the blocks,
+    with all three, and with each ``DOTP_COMBINE`` threads of this tree's;
+    each held to the plain version at the smoke's gate (1e-5 of sum |x y|)
+    and to its own bits on a second launch."""
+    from repro_torch import tune
+    from repro_torch.kernels import _build
+    from repro_torch.tune.search import enumerate_space
+    dp = importlib.import_module("repro_torch.kernels.dotp")
+    dev = torch.device("cuda", 0)
+    sms = _build.sm_count(dev)
+    out = ROOT / "build" / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / "dotp.cu").read_text()
+    libs = {"dependent": _build.library("dotp", dp._ARGTYPES)}
+    for label, name, text in (("last block", "dotp_ticket",
+                               dotp_ticket_source(src)),
+                              ("chained", "dotp_chain",
+                               dotp_chain_source(src))):
+        (out / f"{name}.cu").write_text(text)
+        rc = subprocess.run(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        line(kernel=f"dotp {label} build", rc=rc.returncode,
+             ptxas=rc.stdout[-1500:] if rc.returncode else "ok")
+        if rc.returncode == 0:
+            lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+            lib.repro_dotp_bf16.argtypes = dp._ARGTYPES["repro_dotp_bf16"]
+            lib.repro_dotp_bf16.restype = ctypes.c_int
+            libs[label] = lib
+    spec = tune.REGISTRY["dotp"]
+    default = spec.default
+    for n in DOTP_SIZES:
+        pairs = [tuple(torch.randn(n, device="cuda", generator=g)
+                       .to(torch.bfloat16) for _ in range(2))
+                 for _ in range(smoke.copies_for(4 * n))]
+        x, y = pairs[0]
+        want = K.PLAIN["dotp"](x, y).item()
+        gate = smoke.TOL["dotp"] * (x.float() * y.float()).abs().sum().item()
+        bound = smoke.bound_ms(4 * n + 4, 2 * n)[0] * 1e3
+        line(kernel="dotp", n=n, cut="torch.dot", bound_us=bound,
+             us=us([lambda p=p: torch.dot(*p) for p in pairs]))
+        base = dp.dotp_plan(n, 2, default, sms)
+        cuts = [(f"s{cfg.streams} u{cfg.unroll} k{cfg.block_k}",
+                 dp.dotp_plan(n, 2, cfg, sms))
+                for cfg in enumerate_space(spec)]
+        for vpt in DOTP_VPT:
+            plan = dp.dotp_plan(n, 2, dataclasses.replace(default,
+                                                          unroll=vpt), sms)
+            if plan != base:
+                cuts.append(("default, other cut", plan))
+        for div in (2, 4):
+            cuts.append(("default, other cut",
+                         base._replace(blocks=max(1, base.blocks // div))))
+        runs = [(knobs, plan, combine, lib) for knobs, plan in cuts
+                for combine, lib in libs.items()]
+        runs += [("default, other combine", base._replace(combine=t),
+                  "dependent", libs["dependent"])
+                 for t in DOTP_COMBINE if t != base.combine]
+        res = torch.empty((), dtype=torch.float32, device=dev)
+        for knobs, plan, combine, lib in runs:
+            def call(p, plan=plan, lib=lib):
+                part = torch.empty((-(-plan.blocks // 4) * 4,),
+                                   dtype=torch.float32, device=dev)
+                _build.check(lib.repro_dotp_bf16(
+                    p[0].data_ptr(), p[1].data_ptr(), part.data_ptr(),
+                    res.data_ptr(), n, plan.streams, plan.vpt, plan.threads,
+                    plan.blocks, plan.combine, _build.stream_handle(dev)),
+                    "dotp probe")
+            call(pairs[0])
+            got = res.item()
+            call(pairs[0])
+            err = abs(got - want)
+            folds = plan.threads if combine == "last block" else plan.combine
+            line(kernel="dotp", n=n, combine=combine, knobs=knobs,
+                 cut=f"threads {plan.threads} vpt {plan.vpt} blocks "
+                     f"{plan.blocks} steps {plan.steps} combine {folds}",
+                 default=plan == base, err=err,
+                 ok=err <= gate and got == res.item(),
+                 us=us([lambda p=p: call(p) for p in pairs]))
+        del pairs, x, y
+        torch.cuda.empty_cache()
+
 
 if __name__ == "__main__":
     main()

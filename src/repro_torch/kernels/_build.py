@@ -130,13 +130,6 @@ def sm_count(device) -> int:
                      else torch.cuda.current_device())
 
 
-def resident_blocks(device, threads: int) -> int:
-    """Blocks of ``threads`` threads that the card's SMs hold at once (2048
-    threads and 32 blocks an SM on Hopper): the grid of a kernel whose
-    blocks stride over their work."""
-    return sm_count(device) * max(1, min(32, 2048 // threads))
-
-
 _RESIDENT: Dict[tuple, int] = {}
 
 

@@ -842,6 +842,90 @@ def test_dotp_is_deterministic(dtype, streams, n, unroll, block_k):
     assert abs(a.item() - TK.PLAIN["dotp"](x, y).item()) <= bound
 
 
+def dotp_pair(seed, n, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+                 .to("cuda", dtype) for _ in range(2))
+
+
+def dotp_emulated(x, y, cfg=LaunchConfig()):
+    """``csrc/dotp.cu``'s order in numpy (``test_torch_plans.py``) on the
+    card's plan: for bf16, the kernel's bits."""
+    from test_torch_plans import dotp_emulate
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dotp import dotp_plan
+    plan = dotp_plan(x.shape[0], x.element_size(), cfg,
+                     _build.sm_count(x.device))
+    return float(dotp_emulate(x.float().cpu().numpy(),
+                              y.float().cpu().numpy(), plan))
+
+
+@pytest.mark.parametrize("cfg", [
+    LaunchConfig(streams=s, unroll=u, block_k=b)
+    for s in (1, 2) for u in (1, 2, 4) for b in (256, 512, 1024)],
+    ids=lambda c: f"s{c.streams}u{c.unroll}k{c.block_k}")
+@pytest.mark.parametrize("n", [8, 4096, 65536 + 8, 1 << 20, (1 << 24) + 8])
+def test_dotp_gives_the_emulated_bits(n, cfg):
+    """bf16 products are exact in fp32, so the numpy emulation of the
+    kernel's order (each thread's FMAs, the xor-shuffle tree, the block
+    step, the combine's fixed order) gives its bits, up to a wave of the
+    card (one step a block) and past it (the grid strides); one launch a
+    call."""
+    x, y = dotp_pair(50, n)
+    before = TK.launch_counts()["dotp"]
+    got = TK.dotp(x, y, cfg=cfg)
+    assert TK.launch_counts()["dotp"] == before + 1
+    assert got.item() == dotp_emulated(x, y, cfg)
+
+
+def test_dotp_graph_replays_give_the_eager_bits():
+    """200 calls captured in one CUDA graph (inputs of three sizes, so
+    three grids, each followed by its dependent combine) and replayed twice
+    give the bits of the same calls made eagerly."""
+    pairs = [dotp_pair(51 + i, n) for i, n in
+             enumerate((1 << 20, 4096, (1 << 24) + 8))]
+    want = [TK.dotp(*p) for p in pairs]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [TK.dotp(*pairs[i % 3]) for i in range(200)]
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for i, o in enumerate(outs):
+            assert torch.equal(o, want[i % 3]), i
+    assert all(torch.equal(TK.dotp(*p), w) for p, w in zip(pairs, want))
+
+
+def test_dotp_on_two_streams():
+    """Calls alternating on two streams, each launched before the other's
+    has finished, give the eager bits: a combine waits for its own grid
+    only."""
+    pairs = [dotp_pair(60 + i, n) for i, n in
+             enumerate((1 << 20, (1 << 22) + 8))]
+    want = [TK.dotp(*p) for p in pairs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(100):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(TK.dotp(*pairs[i % 2]))
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        assert torch.equal(o, want[i % 2]), i
+
+
+def test_dotp_grids_after_many_calls():
+    """After 1,000 calls of one grid, calls of other grids (one block, a
+    few, a strided wave) still give the emulated bits."""
+    x, y = dotp_pair(70, 1 << 20)
+    for _ in range(1000):
+        TK.dotp(x, y)
+    for n in (8, 4096 + 8, 1 << 20, (1 << 24) + 8, 8):
+        a, b = dotp_pair(71, n)
+        assert TK.dotp(a, b).item() == dotp_emulated(a, b), n
+
+
 @pytest.mark.parametrize("streams,unroll,block_k", [
     (s, u, b) for s in (1, 2) for u in (1, 2) for b in (256, 512)]
     + [(1, 4, 128), (2, 4, 128)])

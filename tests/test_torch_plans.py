@@ -29,8 +29,14 @@ fragments are emulated in numpy against the plain version.  ``wkv6_plan``
 cuts a (batch, head) of ``wkv6`` into slices of the state's columns and
 ``mamba_plan`` spreads a channel's 16 states over 4 or 16 lanes; each is
 held to cover every (column | state, step) once and to fill the card at
-rwkv6-3b's and jamba's widths.  The kernels themselves are held against
-their plain versions on the card (``test_torch_cuda.py``).
+rwkv6-3b's and jamba's widths.  ``dotp_plan`` cuts two operands into
+contiguous parts walked by one step a block up to a wave of the card and
+by a striding wave past it; it is held to cover every 16-byte vector
+once, and a numpy emulation of ``csrc/dotp.cu``'s summation order (which
+``test_torch_cuda.py`` holds the card's bf16 bits to) is held to the JAX
+oracle and the interpret-mode Pallas ``dotp``.  The kernels themselves
+are held against their plain versions on the card
+(``test_torch_cuda.py``).
 """
 import numpy as np
 import pytest
@@ -524,6 +530,7 @@ def test_rmsnorm_plan_refuses_what_the_kernel_cannot_take(d):
 
 
 @pytest.mark.parametrize("module,source", [("rmsnorm", "rmsnorm"),
+                                           ("dotp", "dotp"),
                                            ("qgemv", "qgemv"),
                                            ("rwkv6", "rwkv6"),
                                            ("mamba_scan", "mamba_scan")])
@@ -1091,3 +1098,206 @@ def test_mamba_plan_fills_the_card_at_jamba():
     assert mamba_plan(2, 512, 512, 32, SMS).blocks == 128
     with pytest.raises(ValueError, match="mamba_scan"):
         mamba_plan(1, 8, 64, 64)
+
+
+# -------------------------------------------------------------------- dotp
+DOTP_SPACE = list(enumerate_space(REGISTRY["dotp"]))
+# the smoke's two sizes (bf16 elements)
+DOTP_SMOKE = (1 << 20, 1 << 27)
+
+
+def dotp_vectors(plan):
+    """(threads of the grid, folds): the 16-byte vectors each thread of
+    ``csrc/dotp.cu`` folds, in its order (its steps, then each part, then
+    each of its ``vpt`` vectors), -1 where it holds none."""
+    iters = -(-plan.steps // plan.blocks)
+    b = np.arange(plan.blocks)[:, None]
+    t = np.arange(plan.threads)[None, :]
+    cols = []
+    for k in range(iters):
+        c = b + k * plan.blocks
+        for s in range(plan.streams):
+            for u in range(plan.vpt):
+                i = c * plan.chunk + u * plan.threads + t
+                g = s * plan.part + i
+                live = (c < plan.steps) & (i < plan.part) & (g < plan.nv)
+                cols.append(np.where(live, g, -1).reshape(-1))
+    return np.stack(cols, axis=1)
+
+
+def xor_tree(v):
+    """``repro::warp_sum`` over the last axis (32 lanes): v += the value of
+    lane ^ o for o = 16, 8, 4, 2, 1 (every lane ends with the same sum)."""
+    lane = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    return v[..., 0]
+
+
+def block_sum(v):
+    """``block_sum`` of ``csrc/dotp.cu`` over the last axis (threads, a
+    multiple of 32): each warp's xor tree, then the warps' sums as the
+    first lanes of one warp, the others 0."""
+    w = xor_tree(v.reshape(*v.shape[:-1], -1, 32))
+    lanes = np.zeros((*w.shape[:-1], 32), np.float32)
+    lanes[..., :w.shape[-1]] = w
+    return xor_tree(lanes)
+
+
+def dotp_emulate(x, y, plan):
+    """``csrc/dotp.cu``'s sum of x . y (numpy float32 arrays) walked as
+    ``plan`` says, in numpy float32: each thread's FMAs over its vectors,
+    the block's xor-shuffle and shared-memory step, then the combine
+    (thread t of ``plan.combine`` folds the float4 groups of partials t,
+    t + combine, ..., each group's four in order) and its block step.
+    Products of bf16 values are exact in fp32, so there each FMA is the
+    float32 sum this takes: the kernel's bits.  For fp32 inputs it rounds
+    each product, which the FMA does not (within the gate)."""
+    p = (x.astype(np.float32) * y.astype(np.float32)).reshape(plan.nv,
+                                                              plan.vec)
+    acc = np.zeros(plan.blocks * plan.threads, np.float32)
+    for col in dotp_vectors(plan).T:
+        live = col >= 0
+        prod = p[np.where(live, col, 0)]
+        for j in range(plan.vec):
+            acc = np.where(live, acc + prod[:, j], acc)
+    partial = block_sum(acc.reshape(plan.blocks, plan.threads))
+    groups = -(-plan.blocks // 4)
+    rounds = -(-groups // plan.combine)
+    q = np.zeros(rounds * plan.combine * 4, np.float32)
+    q[:plan.blocks] = partial
+    q = q.reshape(rounds, plan.combine, 4)
+    s = np.zeros(plan.combine, np.float32)
+    for r in range(rounds):
+        for k in range(4):
+            s = s + q[r, :, k]
+    return block_sum(s)
+
+
+def dotp_tiles(plan):
+    """Every vector of both operands once, counted by the plan's arithmetic
+    (no array of the operands' size): the (part, step) ranges tile [0, nv),
+    each step falls to one block, and a step's (vector, thread) slots are
+    [0, chunk)."""
+    c = np.arange(plan.steps)
+    starts = (np.arange(plan.streams)[:, None] * plan.part
+              + c[None, :] * plan.chunk)
+    ends = (np.arange(plan.streams)[:, None] * plan.part
+            + np.minimum((c[None, :] + 1) * plan.chunk, plan.part))
+    starts, ends = np.minimum(starts, plan.nv), np.minimum(ends, plan.nv)
+    keep = ends > starts
+    starts, ends = starts[keep], ends[keep]
+    order = np.argsort(starts)
+    starts, ends = starts[order], ends[order]
+    assert starts[0] == 0 and ends[-1] == plan.nv
+    assert (starts[1:] == ends[:-1]).all()
+    owners = np.bincount(c % plan.blocks, minlength=plan.blocks)
+    assert owners.sum() == plan.steps and (owners > 0).all()
+    slots = (np.arange(plan.vpt)[:, None] * plan.threads
+             + np.arange(plan.threads)[None, :]).reshape(-1)
+    assert (np.sort(slots) == np.arange(plan.chunk)).all()
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("cfg", DOTP_SPACE,
+                         ids=lambda c: f"s{c.streams}u{c.unroll}k{c.block_k}")
+@pytest.mark.parametrize("n", [8, 4096, 65536 + 8, 1 << 20])
+def test_dotp_plan_covers_every_vector_once(itemsize, cfg, n):
+    """Every thread's vectors over the grid: each 16-byte vector of both
+    operands once (n of one vector, a few blocks, a ragged part, 2^20); up
+    to a wave one step a block (all of a thread's loads before its first
+    FMA), every block within the card's residency; one combine of
+    ``COMBINE`` threads."""
+    from repro_torch.kernels.dotp import (COMBINE, SM_BLOCKS, SM_THREADS,
+                                          dotp_plan)
+    plan = dotp_plan(n, itemsize, cfg, SMS)
+    vec = 16 // itemsize
+    assert (plan.vec, plan.nv, plan.streams) == (vec, n // vec, cfg.streams)
+    assert plan.threads == cfg.block_k // vec and plan.vpt == cfg.unroll
+    assert plan.chunk == plan.threads * plan.vpt
+    assert plan.part == -(-plan.nv // cfg.streams)
+    assert plan.steps == -(-plan.part // plan.chunk)
+    resident = SMS * min(SM_BLOCKS, SM_THREADS // plan.threads)
+    assert plan.blocks == min(plan.steps, resident)
+    assert plan.combine == COMBINE
+    idx = dotp_vectors(plan)
+    assert (np.bincount(idx[idx >= 0], minlength=plan.nv) == 1).all()
+    dotp_tiles(plan)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("cfg", DOTP_SPACE,
+                         ids=lambda c: f"s{c.streams}u{c.unroll}k{c.block_k}")
+def test_dotp_plan_covers_2_27_once(itemsize, cfg):
+    """2^27 elements (256 or 512 MB an operand), counted by the plan's
+    arithmetic: past a wave, one wave of blocks strides over the steps."""
+    from repro_torch.kernels.dotp import dotp_plan
+    plan = dotp_plan(1 << 27, itemsize, cfg, SMS)
+    assert plan.steps > plan.blocks
+    dotp_tiles(plan)
+
+
+def test_dotp_plan_at_the_smoke_sizes():
+    """The registry's space is the JAX one; at the default (2 parts,
+    unroll 1, 512 elements a block-step) 2^20 bf16 is 1,024 blocks of 64
+    threads, a step each, and 2^27 bf16 strides 131,072 steps over 4,224
+    blocks; at 2^20 every candidate takes one step a block."""
+    from repro_torch.kernels.dotp import dotp_plan
+    spec = REGISTRY["dotp"]
+    assert spec.space == {"streams": (1, 2), "unroll": (1, 2, 4),
+                          "block_k": (256, 512, 1024)}
+    assert len(DOTP_SPACE) == 18
+    small, large = (dotp_plan(n, 2, spec.default, SMS) for n in DOTP_SMOKE)
+    assert (small.threads, small.vpt, small.part, small.steps,
+            small.blocks) == (64, 1, 1 << 16, 1024, 1024)
+    assert (large.threads, large.vpt, large.part, large.steps,
+            large.blocks) == (64, 1, 1 << 23, 131072, 4224)
+    for cfg in DOTP_SPACE:
+        plan = dotp_plan(DOTP_SMOKE[0], 2, cfg, SMS)
+        assert plan.steps == plan.blocks
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [4096, 65536])
+def test_dotp_order_matches_the_jax_oracle_and_pallas(n, dtype):
+    """The kernel's summation order (``dotp_emulate``) at every candidate
+    on 132 SMs, within 1e-5 of sum |x_i y_i| (the smoke's gate) of the JAX
+    oracle and of the interpret-mode Pallas ``dotp`` at both streams."""
+    import jax.numpy as jnp
+    from repro.core.troop import TroopConfig
+    from repro.kernels import ops as JK
+    from repro.kernels import ref as JR
+    from repro_torch.kernels.dotp import dotp_plan
+    rng = np.random.default_rng(40)
+    x, y = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            .to(getattr(torch, dtype)).float().numpy() for _ in range(2))
+    xj, yj = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in (x, y))
+    gate = 1e-5 * float(np.abs(x.astype(np.float64) * y).sum())
+    wants = [float(JR.dotp(xj, yj))] + [
+        float(JK.dotp(xj, yj, TroopConfig(streams=s, interpret=True)))
+        for s in (1, 2)]
+    itemsize = 2 if dtype == "bfloat16" else 4
+    for cfg in DOTP_SPACE:
+        got = float(dotp_emulate(x, y, dotp_plan(n, itemsize, cfg, SMS)))
+        for want in wants:
+            assert abs(got - want) <= gate, (cfg, got, want)
+
+
+@pytest.mark.parametrize("n", [4096, 65536 + 8])
+def test_dotp_order_is_the_exact_sum_rounded_in_stages(n):
+    """bf16 products are exact in fp32: the emulation's sum is within the
+    fp32 rounding of its stages of the float64 sum, and matches the plain
+    version (``ref.dotp``) within the gate at every candidate."""
+    from repro_torch.kernels import ref as TR
+    from repro_torch.kernels.dotp import dotp_plan
+    rng = np.random.default_rng(41)
+    xt, yt = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+              .bfloat16() for _ in range(2))
+    x, y = xt.float().numpy(), yt.float().numpy()
+    exact = float((x.astype(np.float64) * y).sum())
+    mass = float(np.abs(x.astype(np.float64) * y).sum())
+    plain = float(TR.dotp(xt, yt))
+    for cfg in DOTP_SPACE:
+        got = float(dotp_emulate(x, y, dotp_plan(n, 2, cfg, SMS)))
+        assert abs(got - exact) <= 1e-5 * mass
+        assert abs(got - plain) <= 1e-5 * mass
