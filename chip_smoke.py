@@ -20,15 +20,19 @@ qwen1.5-0.5b with bf16 weights and KV pages, with mx4 weights and int8 KV
 pages, with int8 weights and bf16 pages and with int4 weights and int8
 pages (int weights dequantize in the graph, as in the JAX package), then
 full-width qwen2-moe-a2.7b (60 experts, top-4, a gated shared expert) in
-bf16 and in mx4 + int8 pages — each engine's chunk and decode steps
-captured once as CUDA graphs and replayed, and each kernel path run again
-with eager steps on the same requests (the same greedy tokens bit for bit,
-the same launches; host ms per cycle and device busy share of both) —,
-then trains full-width qwen1.5-0.5b (fp32
+bf16 and in mx4 + int8 pages, then the other dense archs at their
+published widths: glm4-9b (32 query heads on 2 KV heads) and qwen3-14b (40
+on 8, qk-norm) in bf16 at 8 slots and one and in mx4 + int8 pages at one,
+qwen1.5-32b in mx4 + int8 pages at 8 slots and one — each engine's chunk
+and decode steps captured once as CUDA graphs and replayed, and each
+8-slot kernel path run again with eager steps on the same requests (the
+same greedy tokens bit for bit, the same launches; host ms per cycle and
+device busy share of both) —, then trains full-width qwen1.5-0.5b (fp32
 masters, bf16 compute) for a few steps through the fused AdamW kernel,
 against a run with the plain optimizer, and checks a failure's restore on a 4-layer cut.  It
-checks that each path went through its kernels (for the MoE, the exact
-launches of a one-slot decode step; for training, one launch per leaf of
+checks that each path went through its kernels (for the MoE and the
+other dense archs, the exact launches of a one-slot decode step; for
+training, one launch per leaf of
 the JAX parameter tree per step), that the allocator balances, that the
 kernel path's logits agree with the plain path's and that the loss falls.
 Every phase fails loudly.  It prints the card's ``nvidia-smi`` name and
@@ -39,12 +43,13 @@ and prints no result.  ``--record DIR`` also writes the full record
 (``chip_smoke.json``: nvcc/ptxas output, every timing and engine metric)
 and the profiler traces of the decode windows and of two training steps
 (``*trace*.json.gz``) to DIR.  ``--phases`` runs a subset (kernels, tune,
-engine, quant, moe, train).
+engine, quant, moe, glm4, qwen3, qwen32b, train).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import gzip
 import json
 import math
@@ -55,6 +60,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory rate,
 # the bf16 tensor-core rate and the fp32 rate outside the tensor cores.  A
@@ -245,19 +251,14 @@ QUANT_RUNS = {
     "int4": ("int4", "int8", ("rmsnorm", "paged_decode_attention_int8"),
              ("rmsnorm", "paged_decode_attention_int8"), INT_NEVER),
 }
-# the MoE paths (qwen2-moe-a2.7b): every kernel of the bf16 path, and of the
-# mx4 + int8 path, launches in its one-slot run; the 8-slot runs take the
-# gather path for the experts and launch the rest
-MOE_PATHS = {
-    "bf16": ("rmsnorm", "gemv", "paged_decode_attention",
-             "prefill_attention_paged"),
-    "mx4": ("rmsnorm", "gemv", "paged_decode_attention_int8", "mx_qgemv",
-            "mx_qgemv_swiglu", "grouped_expert_qgemv"),
-}
-MOE_PATHS_8_SLOTS = {
-    "bf16": MOE_PATHS["bf16"],
-    "mx4": ("rmsnorm", "paged_decode_attention_int8", "mx_qgemv"),
-}
+# the kernels each served arch run (``arch_phase``) must launch, by weight
+# format: at 8 slots (a MoE's experts take the gather path there) and at
+# one slot, where a MoE also takes its routed path (``MOE_ROUTED``: in mx4
+# the fp32 router gemv and the grouped expert kernel)
+SERVED_PATHS = {"bf16": (BF16_PATH, BF16_PATH),
+                "mx4": (("rmsnorm",) + QUANT_PATH[:2],
+                        ("rmsnorm",) + QUANT_PATH)}
+MOE_ROUTED = {"bf16": (), "mx4": ("gemv", "grouped_expert_qgemv")}
 # requests of each qwen1.5-0.5b engine run: few enough that the whole run,
 # MoE phases included, stays well inside its time limit (PERF.md §4)
 DENSE_REQUESTS = 8
@@ -292,6 +293,28 @@ MOE_DECODE_LAUNCHES = {
     "mx4": {"rmsnorm": 49, "gemv": 48, "mx_qgemv": 121,
             "mx_qgemv_swiglu": 24, "grouped_expert_qgemv": 72,
             "paged_decode_attention_int8": 24},
+}
+
+# The exact launches of one one-slot decode step of the other dense archs
+# at full width: the JAX account's kernels (obs/energy.py
+# decode_step_account; tests/test_torch_archs.py holds the two equal) plus
+# qk-norm's two rmsnorm launches a layer, which that account leaves out.
+# bf16 per layer: norm1, norm2 (and q_norm, k_norm), 4 attention and 3 MLP
+# projections, the paged decode; then final_norm and the read-out.  mx4 +
+# int8 pages: 4 + 1 MX projections and the fused SwiGLU a layer, the int8
+# decode, then the MX read-out.  qwen1.5-32b serves mx4 only.
+DENSE_DECODE_LAUNCHES = {
+    "glm4-9b": {
+        "bf16": {"rmsnorm": 81, "gemv": 281, "paged_decode_attention": 40},
+        "mx4": {"rmsnorm": 81, "mx_qgemv": 201, "mx_qgemv_swiglu": 40,
+                "paged_decode_attention_int8": 40}},
+    "qwen3-14b": {
+        "bf16": {"rmsnorm": 161, "gemv": 281, "paged_decode_attention": 40},
+        "mx4": {"rmsnorm": 161, "mx_qgemv": 201, "mx_qgemv_swiglu": 40,
+                "paged_decode_attention_int8": 40}},
+    "qwen1.5-32b": {
+        "mx4": {"rmsnorm": 129, "mx_qgemv": 321, "mx_qgemv_swiglu": 64,
+                "paged_decode_attention_int8": 64}},
 }
 
 
@@ -548,10 +571,11 @@ def attention_rows(torch, K, F, t, agree, dev, rng, hd):
     C = 32
     PK = K.PLAIN["prefill_attention_paged"]
 
-    def prefill_row(H_, KV_, pools_, bt1, off, valid, label):
+    def prefill_row(H_, KV_, pools_, bt1, off, valid, label, rng_=rng):
         """One prefill row: one slab of C rows at ``off`` over the pools'
-        first table row, every candidate, SDPA (GQA inside) beside it."""
-        q1 = t(rng.standard_normal((1, C, H_, hd)))
+        first table row, every candidate, SDPA (GQA inside) beside it;
+        ``q`` drawn from ``rng_``."""
+        q1 = t(rng_.standard_normal((1, C, H_, hd)))
         q_off = torch.as_tensor([off], dtype=torch.int32, device=dev)
         ln = torch.as_tensor([off + valid], dtype=torch.int32, device=dev)
         kp_, vp_ = pools_[0]
@@ -607,6 +631,20 @@ def attention_rows(torch, K, F, t, agree, dev, rng, hd):
             pre.append(prefill_row(Hg, KVg, pools_g, bt_g, off, valid,
                                    "glm4-9b heads"))
         del pools_g
+        # qwen3-14b's heads: 40 query heads on 8 KV heads, G = 5 (160 rows
+        # a KV head in a slab of 32), from a generator of their own so the
+        # rows after them keep their inputs
+        Hq, KVq = 40, 8
+        rq = np.random.default_rng(DENSE_ROWS_SEED)
+        pools_q = [(t(rq.standard_normal((P, page, KVq, hd))),
+                    t(rq.standard_normal((P, page, KVq, hd))))
+                   for _ in range(copies_for(2 * P * page * KVq * hd * 2))]
+        bt_q = torch.as_tensor((rq.permutation(P - 1)[:nblk] + 1)
+                               .astype(np.int32)[None], device=dev)
+        for off, valid in ((224, 32), (401, 23)):
+            pre.append(prefill_row(Hq, KVq, pools_q, bt_q, off, valid,
+                                   "qwen3-14b heads", rq))
+        del pools_q
 
     # paged decode over int8 pools: the same slots and heads at the int8
     # page of 32 rows (cache_len 1024 -> 32 blocks per slot)
@@ -796,6 +834,77 @@ def gemv_row(torch, K, F, agree, key, ws, x, experts=None):
             "bound_ms": bms, "bound_by": by, "tolerance": TOL[key],
             "library": "F.linear", "candidates": cands,
             **timed(torch, fns, plain, lib)}
+
+
+def mx_weights(torch, gen, K_, N, elem):
+    """Copies (``copies_for``) of a seeded (K_, N) weight from ``gen``, each
+    MX-quantized along K_: (codes, E8M0 scales)."""
+    import numpy as np
+
+    from repro_torch.quant.tensor import quantize_mx
+    n = copies_for(K_ * N // (2 if elem == "fp4" else 1))
+    qts = [quantize_mx(torch.randn((K_, N), device=gen.device, generator=gen)
+                       / np.sqrt(K_), elem=elem) for _ in range(n)]
+    return [(qt.values, qt.scales) for qt in qts]
+
+
+def mx_row(torch, K, agree, twice, ws, x, elem, gemv_ms, sms, **kw):
+    """One ``mx_qgemv`` row: the first of the ``ws`` copies held against the
+    plain version (the same bits twice), its bound and cut, the time over
+    all copies, and the bf16 gemv of the same (N, K) beside it
+    (``gemv_ms``: "w (N, K)" -> ms); ``kw`` goes to ``timed``.  No PyTorch
+    call takes 32-row E8M0 blocks, so the library time is None."""
+    from repro_torch.kernels.mx_gemv import qgemv_plan
+    Kd, N = x.shape[0], ws[0][1].shape[1]
+    name = f"mx_qgemv {elem} {N}x{Kd}"
+    err = agree(name, twice(name, lambda: K.mx_qgemv(*ws[0], x)),
+                K.PLAIN["mx_qgemv"](*ws[0], x))
+    code_bytes = N * Kd // (2 if elem == "fp4" else 1)
+    bms, by = bound_ms(code_bytes + N * Kd // 32 + Kd * 2 + N * 4, 2 * N * Kd)
+    return {
+        "shape": f"{elem} codes of W ({Kd}, {N}) + E8M0 ({Kd // 32}, {N}), "
+                 f"x ({Kd},) bf16",
+        "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+        "tolerance": TOL["mx_qgemv"], "library": None,
+        "bf16_gemv_ms": gemv_ms.get(f"w ({N}, {Kd})"),
+        "plan": qgemv_plan(N, Kd, 4 if elem == "fp4" else 8, sms)._asdict(),
+        **timed(torch, [lambda w=w: K.mx_qgemv(*w, x) for w in ws],
+                [lambda w=w: K.PLAIN["mx_qgemv"](*w, x) for w in ws], **kw)}
+
+
+def swiglu_row(torch, K, agree, twice, gs, us, x, gemv_ms, sms, fp8=None,
+               **kw):
+    """One ``mx_qgemv_swiglu`` row: the first of the fp4 gate and up copies
+    ``gs`` / ``us`` (and ``fp8``, one fp8 gate and up pair, where given)
+    held against the plain version (the same bits twice), its bound and
+    cut, the time over all copies, and two bf16 gemv of the same (N, K)
+    beside it; ``kw`` goes to ``timed``."""
+    from repro_torch.kernels.mx_gemv import swiglu_plan
+    Kd, N = x.shape[0], gs[0][1].shape[1]
+    name = f"mx_qgemv_swiglu {N}x{Kd}"
+    err = agree(name, twice(name, lambda: K.mx_qgemv_swiglu(
+                    *gs[0], *us[0], x)),
+                K.PLAIN["mx_qgemv_swiglu"](*gs[0], *us[0], x))
+    extra = {}
+    if fp8 is not None:
+        name8 = f"mx_qgemv_swiglu fp8 {N}x{Kd}"
+        err = max(err, agree(name8, twice(name8, lambda: K.mx_qgemv_swiglu(
+                      *fp8[0], *fp8[1], x)),
+                  K.PLAIN["mx_qgemv_swiglu"](*fp8[0], *fp8[1], x)))
+        extra["plan_fp8"] = swiglu_plan(N, Kd, 8, sms)._asdict()
+    bms, by = bound_ms(2 * (N * Kd // 2 + N * Kd // 32) + Kd * 2 + N * 4,
+                       4 * N * Kd)
+    ref = gemv_ms.get(f"w ({N}, {Kd})")
+    return {
+        "shape": f"fp4 gate + up W ({Kd}, {N}) + E8M0, x ({Kd},) bf16",
+        "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+        "tolerance": TOL["mx_qgemv_swiglu"], "library": None,
+        "bf16_gemv_ms": None if ref is None else 2 * ref,
+        "plan": swiglu_plan(N, Kd, 4, sms)._asdict(), **extra,
+        **timed(torch, [lambda g=g, u=u: K.mx_qgemv_swiglu(*g, *u, x)
+                        for g, u in zip(gs, us)],
+                [lambda g=g, u=u: K.PLAIN["mx_qgemv_swiglu"](*g, *u, x)
+                 for g, u in zip(gs, us)], **kw)}
 
 
 def adamw_rows(torch, K, dev, gen):
@@ -1001,69 +1110,28 @@ def kernels_phase(torch, K, dev, rng):
     # the same (N, K) (rows["gemv"])
     gemv_ms = {r["shape"].split(" bf16")[0]: r["ms"] for r in gem
                if "experts" not in r["shape"]}
-
-    def mx_weights(K_, N, elem):
-        n = copies_for(K_ * N // (2 if elem == "fp4" else 1))
-        qts = [quantize_mx(torch.randn((K_, N), device=dev, generator=gen)
-                           / np.sqrt(K_), elem=elem) for _ in range(n)]
-        return [(qt.values, qt.scales) for qt in qts]
-
-    from repro_torch.kernels.mx_gemv import (grouped_plan, qgemv_plan,
-                                             swiglu_plan)
+    from repro_torch.kernels.mx_gemv import grouped_plan
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mx = []
     for (N, Kd), elem in (((151936, 1024), "fp4"), ((151936, 1024), "fp8"),
                           ((1024, 1024), "fp4"), ((1024, 2816), "fp4"),
                           ((2048, 2048), "fp4"), ((2048, 5632), "fp4")):
-        ws = mx_weights(Kd, N, elem)
-        x = t(rng.standard_normal(Kd))
-        err = agree(f"mx_qgemv {elem} {N}x{Kd}", K.mx_qgemv(*ws[0], x),
-                    K.PLAIN["mx_qgemv"](*ws[0], x))
-        code_bytes = N * Kd // (2 if elem == "fp4" else 1)
-        bms, by = bound_ms(code_bytes + N * Kd // 32 + Kd * 2 + N * 4,
-                           2 * N * Kd)
-        mx.append({
-            "shape": f"{elem} codes of W ({Kd}, {N}) + E8M0 ({Kd // 32}, {N})"
-                     f", x ({Kd},) bf16",
-            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
-            "tolerance": TOL["mx_qgemv"], "library": None,
-            "bf16_gemv_ms": gemv_ms.get(f"w ({N}, {Kd})"),
-            "plan": qgemv_plan(N, Kd, 4 if elem == "fp4" else 8,
-                               sms)._asdict(),
-            **timed(torch, [lambda w=w: K.mx_qgemv(*w, x) for w in ws],
-                    [lambda w=w: K.PLAIN["mx_qgemv"](*w, x) for w in ws])})
+        ws = mx_weights(torch, gen, Kd, N, elem)
+        mx.append(mx_row(torch, K, agree, twice, ws,
+                         t(rng.standard_normal(Kd)), elem, gemv_ms, sms))
         del ws
     rows["mx_qgemv"] = mx
 
     swi = []
     for N, Kd in ((2816, 1024), (5632, 2048)):     # gate + up of the MLPs
-        gs, us = mx_weights(Kd, N, "fp4"), mx_weights(Kd, N, "fp4")
+        gs = mx_weights(torch, gen, Kd, N, "fp4")
+        us = mx_weights(torch, gen, Kd, N, "fp4")
         x = t(rng.standard_normal(Kd))
-        name = f"mx_qgemv_swiglu {N}x{Kd}"
-        err = agree(name, twice(name, lambda: K.mx_qgemv_swiglu(
-                        *gs[0], *us[0], x)),
-                    K.PLAIN["mx_qgemv_swiglu"](*gs[0], *us[0], x))
-        wg8, sg8 = mx_weights(Kd, N, "fp8")[0]
-        wu8, su8 = mx_weights(Kd, N, "fp8")[0]
-        name8 = f"mx_qgemv_swiglu fp8 {N}x{Kd}"
-        err8 = agree(name8, twice(name8, lambda: K.mx_qgemv_swiglu(
-                         wg8, sg8, wu8, su8, x)),
-                     K.PLAIN["mx_qgemv_swiglu"](wg8, sg8, wu8, su8, x))
-        bms, by = bound_ms(2 * (N * Kd // 2 + N * Kd // 32) + Kd * 2 + N * 4,
-                           4 * N * Kd)
-        ref = gemv_ms.get(f"w ({N}, {Kd})")
-        swi.append({
-            "shape": f"fp4 gate + up W ({Kd}, {N}) + E8M0, x ({Kd},) bf16",
-            "max_abs_err": max(err, err8), "bound_ms": bms, "bound_by": by,
-            "tolerance": TOL["mx_qgemv_swiglu"], "library": None,
-            "bf16_gemv_ms": None if ref is None else 2 * ref,
-            "plan": swiglu_plan(N, Kd, 4, sms)._asdict(),
-            "plan_fp8": swiglu_plan(N, Kd, 8, sms)._asdict(),
-            **timed(torch, [lambda g=g, u=u: K.mx_qgemv_swiglu(*g, *u, x)
-                            for g, u in zip(gs, us)],
-                    [lambda g=g, u=u: K.PLAIN["mx_qgemv_swiglu"](*g, *u, x)
-                     for g, u in zip(gs, us)])})
-        del gs, us
+        fp8 = (mx_weights(torch, gen, Kd, N, "fp8")[0],
+               mx_weights(torch, gen, Kd, N, "fp8")[0])
+        swi.append(swiglu_row(torch, K, agree, twice, gs, us, x, gemv_ms,
+                              sms, fp8))
+        del gs, us, fp8
     rows["mx_qgemv_swiglu"] = swi
 
     # grouped MX expert GEMV at qwen2-moe-a2.7b's expert shapes: 60 experts,
@@ -1124,8 +1192,100 @@ def kernels_phase(torch, K, dev, rng):
     rows.update(paper_rows(torch, K, F, agree, dev, randn))
     rows.update(int_rows(torch, K, F, agree, dev, gen, rows))
     rows.update(scan_rows(torch, K, F, agree, dev, gen))
+    for name, rs in dense_rows(torch, K, F, agree, twice, dev).items():
+        rows[name].extend(rs)
     torch.cuda.synchronize()
     return rows
+
+
+# the generator of the other dense archs' kernel rows: their own, so that
+# adding them moved no other row's inputs
+DENSE_ROWS_SEED = 30
+
+
+def dense_rows(torch, K, F, agree, twice, dev):
+    """The kernels of the other dense archs' one-row decode paths at their
+    shapes: ``rmsnorm`` at qk-norm's rows (8 slots x qwen3-14b's 40 query
+    and 8 KV heads, d = 128) and at the model widths d = 4096 (glm4-9b) and
+    5120 (qwen3-14b, qwen1.5-32b) at 8 slots and one, with ``F.rms_norm``
+    beside it; the one-row ``gemv`` at every projection of glm4-9b and
+    qwen3-14b (the read-out first; q, k / v, o, gate / up, down) and at
+    qwen1.5-32b's read-out, gate / up and down, with ``F.linear`` beside
+    it; ``mx_qgemv`` (fp4) at every one-row MX projection of the three
+    archs' mx4 paths (the read-out first; q / o, k / v, down) and
+    ``mx_qgemv_swiglu`` at their gate + up, each with the bf16 gemv of its
+    shape beside it.  The plain MX versions dequantize the whole weight in
+    fp32 (up to 3.1 GB a call): each is timed over PLAIN_REPS windows of
+    one call, as the scans' are."""
+    import numpy as np
+
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels.rmsnorm import rmsnorm_plan
+    rng = np.random.default_rng(DENSE_ROWS_SEED)
+    gen = torch.Generator(device=dev).manual_seed(DENSE_ROWS_SEED)
+
+    def t(a, dtype=torch.bfloat16):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+    rms = []
+    for T, d in ((320, 128), (64, 128), (8, 4096), (8, 5120), (1, 5120)):
+        x = t(rng.standard_normal((T, d)))
+        s = t(1 + 0.1 * rng.standard_normal(d), torch.float32)
+        name = f"rmsnorm T={T} d={d}"
+        err = agree(name, twice(name, lambda: K.rmsnorm(x, s)),
+                    K.PLAIN["rmsnorm"](x, s))
+        s16 = s.to(torch.bfloat16)
+        bms, by = bound_ms(2 * T * d * 2 + d * 4, 4 * T * d)
+        plan = rmsnorm_plan(T, d, LaunchConfig().rmsnorm_threads)
+        rms.append({
+            "shape": f"x ({T}, {d}) bf16, scale ({d},) f32"
+                     + (" (qk-norm rows)" if d == 128 else ""),
+            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+            "tolerance": TOL["rmsnorm"],
+            "plan": f"{plan.wpr} warp(s) a row, {plan.vpl} vectors a lane, "
+                    f"{plan.rows} rows a block, {plan.blocks} blocks",
+            **timed(torch, [lambda x=x, s=s: K.rmsnorm(x, s)],
+                    [lambda x=x, s=s: K.PLAIN["rmsnorm"](x, s)],
+                    [lambda x=x, d=d, s16=s16: F.rms_norm(x, (d,), s16,
+                                                          1e-6)])})
+    gem = []
+    for N, Kd in ((151552, 4096), (4096, 4096), (256, 4096), (13696, 4096),
+                  (4096, 13696),                               # glm4-9b
+                  (151936, 5120), (5120, 5120), (1024, 5120), (17408, 5120),
+                  (5120, 17408),                               # qwen3-14b
+                  (152064, 5120), (27392, 5120), (5120, 27392)):  # 32b
+        ws = [(torch.randn((N, Kd), device=dev, generator=gen)
+               * Kd ** -0.5).to(torch.bfloat16)
+              for _ in range(copies_for(N * Kd * 2))]
+        gem.append(gemv_row(torch, K, F, agree, "gemv", ws,
+                            t(rng.standard_normal(Kd))))
+        del ws
+        torch.cuda.empty_cache()
+    gemv_ms = {r["shape"].split(" bf16")[0]: r["ms"] for r in gem}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plain_kw = {"plain_kw": {"reps": PLAIN_REPS, "inner": 1}}
+    mx = []
+    for N, Kd in ((151552, 4096), (4096, 4096), (256, 4096),
+                  (4096, 13696),                               # glm4-9b
+                  (151936, 5120), (5120, 5120), (1024, 5120),
+                  (5120, 17408),                               # qwen3-14b
+                  (152064, 5120), (5120, 27392)):              # 32b
+        ws = mx_weights(torch, gen, Kd, N, "fp4")
+        mx.append(mx_row(torch, K, agree, twice, ws,
+                         t(rng.standard_normal(Kd)), "fp4", gemv_ms, sms,
+                         **plain_kw))
+        del ws
+        torch.cuda.empty_cache()
+    swi = []
+    for N, Kd in ((13696, 4096), (17408, 5120), (27392, 5120)):
+        gs = mx_weights(torch, gen, Kd, N, "fp4")
+        us = mx_weights(torch, gen, Kd, N, "fp4")
+        swi.append(swiglu_row(torch, K, agree, twice, gs, us,
+                              t(rng.standard_normal(Kd)), gemv_ms, sms,
+                              **plain_kw))
+        del gs, us
+        torch.cuda.empty_cache()
+    return {"rmsnorm": rms, "gemv": gem, "mx_qgemv": mx,
+            "mx_qgemv_swiglu": swi}
 
 
 def sdpa_decode(torch, F, q, k, v, mask):
@@ -1837,12 +1997,12 @@ def tune_phase(torch, dev):
 
 
 # ----------------------------------------------------------------- engine
-def make_requests(np, rng, vocab, n, max_new=32, longest=400):
-    """A shared 24-token system prompt + 40..``longest`` seeded tokens
-    each."""
+def make_requests(np, rng, vocab, n, max_new=32, longest=400, shortest=40):
+    """A shared 24-token system prompt + ``shortest``..``longest`` seeded
+    tokens each."""
     sysp = rng.integers(1, vocab, 24)
     return [(np.concatenate([sysp, rng.integers(1, vocab, int(
-        rng.integers(40, longest + 1)))]).astype(np.int32), max_new)
+        rng.integers(shortest, longest + 1)))]).astype(np.int32), max_new)
         for _ in range(n)]
 
 
@@ -1927,13 +2087,17 @@ def eager_path(torch, K, M, model, ecfg, specs, V, graph_reqs,
     return res
 
 
-def profiles(torch, np, M, model_k, ecfg, rng, record, name, cycles=10):
-    """``decode_profile`` of the graph path, then of the eager path."""
-    return {"decode_profile": decode_profile(
-                torch, np, M, model_k, ecfg, rng, record, name, cycles),
-            "decode_profile_eager": decode_profile(
-                torch, np, M, model_k, ecfg, rng, record, name, cycles,
-                capture=False)}
+def profiles(torch, np, M, model_k, ecfg, rng, record, name, cycles=10,
+             eager=True):
+    """``decode_profile`` of the graph path, then (``eager``) of the eager
+    path."""
+    out = {"decode_profile": decode_profile(
+        torch, np, M, model_k, ecfg, rng, record, name, cycles)}
+    if eager:
+        out["decode_profile_eager"] = decode_profile(
+            torch, np, M, model_k, ecfg, rng, record, name, cycles,
+            capture=False)
+    return out
 
 
 def log_graph_vs_eager(res, top=6):
@@ -1948,13 +2112,15 @@ def log_graph_vs_eager(res, top=6):
     for what, path, prof in (
             ("graph", "kernel_path", "decode_profile"),
             ("eager", "eager_path", "decode_profile_eager")):
-        m, p = res[path]["metrics"], res[prof]
+        m, p = res[path]["metrics"], res.get(prof)
         steady = m["tokens_generated"] / (m["prefill_s"] + m["decode_s"]
                                           - m["capture_s"])
-        log(f"    {what}: {p['host_ms_per_cycle']:.2f} ms host per 8-slot "
-            f"cycle, device busy {p['device_busy_share']:.4f} of the window "
-            f"({p['device_events']} device events, "
-            f"{p['empty_windows']} empty windows), "
+        window = ("no profiled window" if p is None else
+                  f"{p['host_ms_per_cycle']:.2f} ms host per 8-slot "
+                  f"cycle, device busy {p['device_busy_share']:.4f} of the "
+                  f"window ({p['device_events']} device events, "
+                  f"{p['empty_windows']} empty windows)")
+        log(f"    {what}: {window}, "
             f"{m['decode_steps_per_s']:.2f} decode steps/s, "
             f"{m['tokens_per_s']:.2f} tok/s ({steady:.2f} without the "
             f"capture; {res[path]['wall_s']:.2f} s wall)")
@@ -2189,8 +2355,10 @@ def logits_phase(torch, np, K, M, model_k, model_p, dev, rng,
 
 
 def decode_profile(torch, np, M, model_k, ecfg, rng, record,
-                   name="decode_trace.json", cycles=10, capture=True):
-    """Steady decode of 8 slots on the kernel path, its steps captured as
+                   name="decode_trace.json", cycles=10, capture=True,
+                   slots=8):
+    """Steady decode of ``slots`` slots on the kernel path, its steps
+    captured as
     CUDA graphs (``capture=False``: launched eagerly): host wall of
     ``cycles`` engine cycles, then as many more under ``torch.profiler`` —
     the device's busy share of that window (union of kernel/copy intervals
@@ -2204,16 +2372,16 @@ def decode_profile(torch, np, M, model_k, ecfg, rng, record,
 
     from repro_torch.serve import Request, build_engine
     V = model_k.cfg.vocab_size
-    eng = build_engine(model_k, dataclasses.replace(ecfg, prefix_cache=False),
-                       capture=capture)
+    eng = build_engine(model_k, dataclasses.replace(
+        ecfg, prefix_cache=False, slots=slots), capture=capture)
     # no slot finishes inside the windows; the requests are left unfinished
-    for i in range(8):
+    for i in range(slots):
         eng.submit(Request(rid=i, prompt=rng.integers(1, V, 32).astype(
             np.int32), max_new_tokens=18 + 3 * cycles))
     with M.kernel_routing():
-        for _ in range(10):          # one slab each: all 8 decode by now
+        for _ in range(slots + 2):   # one slab each: every slot decodes now
             eng.step()
-        if len(eng._decoding) != 8:
+        if len(eng._decoding) != slots:
             raise AssertionError("profile window: not every slot decodes")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2241,7 +2409,8 @@ def decode_profile(torch, np, M, model_k, ecfg, rng, record,
                                      f"event")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"capture": capture, "captures": eng.captures, "cycles": cycles,
-            "wall_s": wall, "host_ms_per_cycle": wall / cycles * 1e3,
+            "slots": slots, "wall_s": wall,
+            "host_ms_per_cycle": wall / cycles * 1e3,
             "profiled_wall_s": wall_prof, "device_events": n,
             "empty_windows": empty,
             "device_busy_s": busy / 1e6,
@@ -2624,14 +2793,78 @@ def decode_step_launches(torch, np, K, M, model, rng):
     return counts
 
 
-def moe_phase(torch, dev, rng, fmt, record=None):
-    """Full-width qwen2-moe-a2.7b (random weights from seed 0) through the
-    chunked, paged engine: ``fmt="bf16"`` (bf16 weights and pages) or
-    ``"mx4"`` (mx4 weights, quantized after the init, and int8 pages).  The
-    kernel path against the plain path on the same requests, then one slot
-    (every one-row MoE takes the routed path: the fp32 router gemv and the
-    expert kernels), the exact launches of one one-slot decode step, the
-    logits of a depth cut against fp32, and a profiled decode window."""
+class ServedRun(NamedTuple):
+    """One run of an arch in one weight format (``FORMATS``): its requests
+    (count, new tokens each, the longest and the shortest prompt after the
+    shared 24 tokens), whether they go through 8 slots (through graphs, then
+    eagerly) before one slot serves the first two, the 8-slot profiled
+    window's cycles (0: none) and whether the eager path is profiled too,
+    and the one-slot profiled window's cycles (0: none)."""
+    fmt: str
+    requests: tuple
+    eight_slots: bool
+    cycles: int
+    eager: bool
+    one_slot_cycles: int
+
+
+class ArchPhase(NamedTuple):
+    """A served arch at its published widths: the seed of its weights,
+    whether its requests come from a generator of its own seeded alike, the
+    layers of its logits cut, and its runs in order."""
+    arch: str
+    seed: int
+    own_rng: bool
+    cut: int
+    runs: tuple
+
+
+# layers of the other dense archs' depth cuts whose logits are held against
+# an fp32 copy (qwen3-14b's 40 layers are 59 GB in fp32 beside its 31 GB
+# bf16 copy)
+DENSE_CUT = 4
+#: ``--phases`` name -> its served arch.  qwen2-moe-a2.7b draws its
+#: requests from the run's shared generator, after the phases before it,
+#: and those draws must not move; each arch added after it draws from a
+#: generator of its own, so the phases before it keep theirs.  Every
+#: 8-slot step of an mx4 run dequantizes the weights in the graph
+#: (qwen2-moe-a2.7b's 72 expert stacks, ~12.5 G codes, ~1 s a step;
+#: qwen1.5-32b's 34 G codes, ~2.5 s), so those runs serve fewer, shorter
+#: requests.  qwen1.5-32b serves mx4 only (its bf16 weights, 70.4 GB,
+#: leave no room for pools), and its 8-slot window is profiled through the
+#: graphs only.
+ARCH_PHASES = {
+    "moe": ArchPhase("qwen2-moe-a2.7b", 0, False, MOE_CUT, (
+        ServedRun("bf16", (8, 16, 200, 40), True, 10, True, 0),
+        ServedRun("mx4", (4, 8, 96, 40), True, 3, True, 0))),
+    **{name: ArchPhase(arch, seed, True, DENSE_CUT, (
+        ServedRun("bf16", (8, 16, 96, 40), True, 10, True, 20),
+        ServedRun("mx4", (2, 8, 8, 8), False, 0, False, 20)))
+       for name, arch, seed in (("glm4", "glm4-9b", 9),
+                                ("qwen3", "qwen3-14b", 14))},
+    "qwen32b": ArchPhase("qwen1.5-32b", 32, True, DENSE_CUT, (
+        ServedRun("mx4", (3, 3, 8, 8), True, 2, False, 20),)),
+}
+#: the runtime settings of each weight format: bf16 weights and pages, or
+#: mx4 weights (quantized layer by layer as the init draws them) over int8
+#: pages
+FORMATS = {"bf16": {},
+           "mx4": dict(quantize_weights="mx4", kv_cache_dtype="int8")}
+DECODE_LAUNCHES = {"qwen2-moe-a2.7b": MOE_DECODE_LAUNCHES,
+                   **DENSE_DECODE_LAUNCHES}
+
+
+def arch_phase(torch, dev, name, run, rng, record=None):
+    """One ``run`` of the ``--phases`` arch ``name`` (``ARCH_PHASES``) at
+    full width, random weights from its seed, through the chunked, paged
+    engine with every kernel on: its requests through 8 slots, through the
+    graphs (a MoE's also through the plain path, whose greedy tokens it
+    compares) and again eagerly (the same tokens and launches); the first
+    two through one slot (every projection a one-row kernel, a MoE's
+    routed path); the exact launches of a one-slot decode step; the logits
+    of a depth cut against the plain path and fp32; the profiled decode
+    windows.  Each engine finishes every request, captures its two steps
+    once and balances its allocator."""
     import dataclasses
 
     import numpy as np
@@ -2643,155 +2876,182 @@ def moe_phase(torch, dev, rng, fmt, record=None):
     from repro_torch.quant import quantized_stats
     from repro_torch.serve import EngineConfig, build_engine
 
-    quant = fmt == "mx4"
-    over = (dict(kv_cache_dtype="int8", quantize_weights="mx4") if quant
-            else {})
+    ph = ARCH_PHASES[name]
+    arch, fmt = ph.arch, run.fmt
+    what = f"{arch} {fmt}"
+    over = FORMATS[fmt]
     ecfg = EngineConfig(slots=8, cache_len=1024, backend="paged",
                         chunked_prefill=True, chunk_size=32,
                         prefix_cache=True, kernel_decode=True, **over)
+    # free what earlier runs left (engines the collector has not reached
+    # yet), so that the build peak is this build's own
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = build_engine("qwen2-moe-a2.7b", ecfg, device=dev, seed=0)
+    eng = build_engine(arch, ecfg, device=dev, seed=ph.seed)
     torch.cuda.synchronize()
     model_k = eng.model
+    del eng
     model_p = model_k.with_runtime(RuntimeConfig(**over))
     cfg = model_k.cfg
     V = cfg.vocab_size
-    res = {"init_s": time.perf_counter() - t0,
+    res = {"arch": arch, "format": fmt, "seed": ph.seed,
+           "qk_norm": cfg.qk_norm, "moe": cfg.moe is not None,
+           "init_s": time.perf_counter() - t0,
+           "init_peak_bytes": torch.cuda.max_memory_allocated(),
            "weight_bytes": sum(p.numel() * p.element_size()
-                               for p in model_k.parameters()),
-           "kv_pool_bytes": kv_bytes(eng.caches),
-           "page_size": eng.backend.spec.page_size}
-    if quant:
+                               for p in model_k.parameters())}
+    if over:
         res["quantized_stats"] = quantized_stats(model_k.params)
-    # every 8-slot decode and chunk step of the mx4 path dequantizes all 72
-    # expert stacks in the graph (~12.5 G codes), ~1 s a step: fewer,
-    # shorter requests there (prompts of 40..96 tokens after the shared 24,
-    # cut from 40..200 to keep the whole run near 600 s with the int runs)
-    n_req, max_new, longest = (4, 8, 96) if quant else (8, 16, 200)
-    specs = make_requests(np, rng, V, n_req, max_new, longest=longest)
+    n, max_new, longest, shortest = run.requests
+    specs = make_requests(np, rng, V, n, max_new, longest, shortest)
+    path8, path1 = SERVED_PATHS[fmt]
+    if res["moe"]:
+        path1 += MOE_ROUTED[fmt]
 
-    # the main path, 8 slots: the experts take the gather path
-    K.reset_launch_counts()
-    with M.kernel_routing():
-        reqs_k, wall = serve(torch, eng, specs, V)
-    res["launches"] = K.launch_counts()
-    res["mx_qgemv_by_shape"] = K.mx_qgemv_launches_by_shape()
-    missing = [k for k in MOE_PATHS_8_SLOTS[fmt] if res["launches"][k] == 0]
-    if missing:
-        raise AssertionError(f"the {fmt} MoE path never launched {missing}")
-    res["kernel_path"] = {"wall_s": wall, "metrics": eng.metrics()}
-    res["captures"] = eng.captures
-    check_captures(eng, f"MoE {fmt} kernel path")
-    check_balanced(eng)
-    del eng
-    torch.cuda.empty_cache()
+    def served(model, slots, reqs, where, want):
+        """``reqs`` through a fresh engine of ``slots`` slots on ``model``:
+        on the kernel path (``want``: the kernels it must launch) or, with
+        ``want`` None, the plain path, which must launch none."""
+        eng = build_engine(model, dataclasses.replace(
+            ecfg, slots=slots, kernel_decode=want is not None))
+        K.reset_launch_counts()
+        with (M.kernel_routing() if want is not None
+              else contextlib.nullcontext()):
+            out, wall = serve(torch, eng, reqs, V)
+        launches = K.launch_counts()
+        missing = [k for k in want or () if not launches[k]]
+        if missing:
+            raise AssertionError(f"{what} {where} never launched "
+                                 f"{missing}: {launches}")
+        if want is None and any(launches.values()):
+            raise AssertionError(f"{what} {where} launched {launches}")
+        stats = {"launches": launches,
+                 "by_shape": K.mx_qgemv_launches_by_shape(),
+                 "run": {"wall_s": wall, "metrics": eng.metrics()},
+                 "captures": eng.captures,
+                 "kv_pool_bytes": kv_bytes(eng.caches),
+                 "page_size": eng.backend.spec.page_size}
+        check_captures(eng, f"{what} {where}")
+        check_balanced(eng)
+        del eng
+        torch.cuda.empty_cache()
+        return out, stats
 
-    eng = build_engine(model_p, dataclasses.replace(ecfg,
-                                                    kernel_decode=False))
-    K.reset_launch_counts()
-    reqs_p, wall = serve(torch, eng, specs, V)
-    if any(K.launch_counts().values()):
-        raise AssertionError(f"plain path launched {K.launch_counts()}")
-    res["plain_path"] = {"wall_s": wall, "metrics": eng.metrics()}
-    check_captures(eng, f"MoE {fmt} plain path")
-    check_balanced(eng)
-    del eng
-    torch.cuda.empty_cache()
-    res["eager_path"] = eager_path(torch, K, M, model_k, ecfg, specs, V,
-                                   reqs_k, res["launches"])
-    torch.cuda.empty_cache()
-    res["token_agreement"] = sum(
-        a == b for rk, rp in zip(reqs_k, reqs_p)
-        for a, b in zip(rk.out, rp.out)) / sum(len(r.out) for r in reqs_k)
-    res["identical_streams"] = sum(rk.out == rp.out
-                                   for rk, rp in zip(reqs_k, reqs_p))
+    if run.eight_slots:
+        reqs_k, st = served(model_k, 8, specs, "kernel path", path8)
+        res.update(launches=st["launches"], mx_qgemv_by_shape=st["by_shape"],
+                   kernel_path=st["run"], captures=st["captures"],
+                   kv_pool_bytes=st["kv_pool_bytes"],
+                   page_size=st["page_size"])
+        if res["moe"]:
+            reqs_p, st = served(model_p, 8, specs, "plain path", None)
+            res["plain_path"] = st["run"]
+            res["token_agreement"] = sum(
+                a == b for rk, rp in zip(reqs_k, reqs_p)
+                for a, b in zip(rk.out, rp.out)) / sum(len(r.out)
+                                                       for r in reqs_k)
+            res["identical_streams"] = sum(rk.out == rp.out
+                                           for rk, rp in zip(reqs_k, reqs_p))
+        res["eager_path"] = eager_path(torch, K, M, model_k, ecfg, specs, V,
+                                       reqs_k, res["launches"])
+        torch.cuda.empty_cache()
+    _, st = served(model_k, 1, specs[:2], "one-slot run", path1)
+    res.update(launches_one_slot=st["launches"],
+               mx_qgemv_by_shape_one_slot=st["by_shape"], one_slot=st["run"])
 
-    # the main path, one slot: the routed MoE, every kernel of the path
-    eng = build_engine(model_k, dataclasses.replace(ecfg, slots=1))
-    K.reset_launch_counts()
-    with M.kernel_routing():
-        _, wall = serve(torch, eng, specs[:2], V)
-    res["launches_one_slot"] = K.launch_counts()
-    res["mx_qgemv_by_shape_one_slot"] = K.mx_qgemv_launches_by_shape()
-    missing = [k for k in MOE_PATHS[fmt] if not res["launches_one_slot"][k]]
-    if missing:
-        raise AssertionError(f"one-slot {fmt} MoE run never launched "
-                             f"{missing}: {res['launches_one_slot']}")
-    res["one_slot"] = {"wall_s": wall, "metrics": eng.metrics()}
-    check_captures(eng, f"MoE {fmt} one-slot run")
-    check_balanced(eng)
-    del eng
-    torch.cuda.empty_cache()
-
-    # one one-slot decode step launches exactly the JAX account's kernels,
-    # eager and replayed
+    # one one-slot decode step launches exactly the JAX account's kernels
+    # (and qk-norm's), eager and replayed
     res["decode_step_launches"] = decode_step_launches(torch, np, K, M,
                                                        model_k, rng)
-    want = {k: MOE_DECODE_LAUNCHES[fmt].get(k, 0) for k in REPLACES}
+    want = {k: DECODE_LAUNCHES[arch][fmt].get(k, 0) for k in REPLACES}
     for how, got in res["decode_step_launches"].items():
         if got != want:
-            raise AssertionError(f"one-slot {fmt} MoE decode step ({how}) "
+            raise AssertionError(f"one-slot {what} decode step ({how}) "
                                  f"launched {got}, not {want}")
 
-    # logits against fp32 on a depth cut: the first MOE_CUT layers, sharing
-    # the weight tensors (an fp32 copy of all 24 does not fit beside them)
-    cut = dataclasses.replace(cfg, num_layers=MOE_CUT)
+    # logits against fp32 on a depth cut: the first ``ph.cut`` layers,
+    # sharing the weight tensors
+    cut = dataclasses.replace(cfg, num_layers=ph.cut)
     params = model_k.params
     shallow = nn.ModuleDict({
         "embed": params["embed"],
-        "layers": nn.ModuleList(list(params["layers"][:MOE_CUT])),
+        "layers": nn.ModuleList(list(params["layers"][:ph.cut])),
         "final_norm": params["final_norm"], "lm_head": params["lm_head"]})
     res.update(logits_phase(
         torch, np, K, M, Model(cut, model_k.rt, shallow),
         Model(cut, model_p.rt, shallow), dev, rng,
-        kv_dtype="int8" if quant else "bfloat16"))
+        kv_dtype=over.get("kv_cache_dtype", "bfloat16")))
     del shallow
     torch.cuda.empty_cache()
-    res.update(profiles(torch, np, M, model_k, ecfg, rng, record,
-                        f"decode_trace_moe_{fmt}.json",
-                        cycles=3 if quant else 10))
+    if run.cycles:
+        res.update(profiles(torch, np, M, model_k, ecfg, rng, record,
+                            f"decode_trace_{name}_{fmt}.json", run.cycles,
+                            run.eager))
+    if run.one_slot_cycles:
+        res["decode_profile_one_slot"] = decode_profile(
+            torch, np, M, model_k, ecfg, rng, record,
+            f"decode_trace_{name}_{fmt}_one_slot.json",
+            cycles=run.one_slot_cycles, slots=1)
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del model_k, model_p
+    log_arch_run(res, ph.cut)
+    return res
 
-    mk, mp = res["kernel_path"]["metrics"], res["plain_path"]["metrics"]
-    what = "mx4 weights + int8 KV" if quant else "bf16"
+
+def log_arch_run(res, cut):
+    """The lines of one ``arch_phase`` run."""
     extra = ""
-    if quant:
+    if "quantized_stats" in res:
         qs = res["quantized_stats"]
         extra = (f" ({qs['quantized_leaves']} quantized leaves, "
                  f"{qs['quantized_bytes']:,} B, was "
                  f"{qs['quantized_fp32_bytes']:,} B fp32; "
                  f"{qs['raw_bytes']:,} B raw)")
-    log(f"  qwen2-moe-a2.7b full width, {what}: "
-        f"{res['weight_bytes'] / 1e9:.3f} GB weights{extra}, "
-        f"{res['kv_pool_bytes'] / 1e9:.3f} GB KV pools, peak "
-        f"{res['max_memory_allocated'] / 1e9:.1f} GB allocated")
-    log(f"  kernel path: {mk['tokens_per_s']:.2f} tok/s, "
-        f"{mk['decode_steps_per_s']:.2f} decode steps/s, "
-        f"{res['kernel_path']['wall_s']:.2f} s wall, launches "
-        f"{res['launches']}")
-    log(f"  plain path:  {mp['tokens_per_s']:.2f} tok/s, "
-        f"{mp['decode_steps_per_s']:.2f} decode steps/s, "
-        f"{res['plain_path']['wall_s']:.2f} s wall")
-    log(f"  greedy token agreement kernel vs plain: "
-        f"{res['token_agreement']:.4f} ({res['identical_streams']}/"
-        f"{len(specs)} identical streams)")
+    log(f"  {res['arch']} full width, "
+        f"{'bf16' if res['format'] == 'bf16' else 'mx4 weights + int8 KV'}: "
+        f"{res['weight_bytes'] / 1e9:.3f} GB weights{extra}, built in "
+        f"{res['init_s']:.1f} s, build peak "
+        f"{res['init_peak_bytes'] / 1e9:.2f} GB, phase peak "
+        f"{res['max_memory_allocated'] / 1e9:.2f} GB allocated")
+    if "kernel_path" in res:
+        mk = res["kernel_path"]["metrics"]
+        log(f"  kernel path, 8 slots: {mk['tokens_per_s']:.2f} tok/s, "
+            f"{mk['decode_steps_per_s']:.2f} decode steps/s, "
+            f"{res['kernel_path']['wall_s']:.2f} s wall, "
+            f"{res['kv_pool_bytes'] / 1e9:.3f} GB KV pools, launches "
+            f"{res['launches']}")
+    if "plain_path" in res:
+        mp = res["plain_path"]
+        log(f"  plain path:  {mp['metrics']['tokens_per_s']:.2f} tok/s, "
+            f"{mp['metrics']['decode_steps_per_s']:.2f} decode steps/s, "
+            f"{mp['wall_s']:.2f} s wall")
+        n = res["eager_path"]["identical_streams"]
+        log(f"  greedy token agreement kernel vs plain: "
+            f"{res['token_agreement']:.4f} ({res['identical_streams']}/{n} "
+            f"identical streams)")
     log(f"  one slot: {one_slot(res)}, launches {res['launches_one_slot']}")
+    p = res.get("decode_profile_one_slot")
+    if p is not None:
+        log(f"  one slot, steady decode through the graphs: "
+            f"{p['host_ms_per_cycle']:.2f} ms host a cycle "
+            f"({1e3 / p['host_ms_per_cycle']:.2f} tok/s), device busy "
+            f"{p['device_busy_share']:.4f} of the window "
+            f"({p['device_events']} device events); top "
+            + ", ".join(f"{n[:40]} {us:.1f} us"
+                        for n, us in p["top_kernels_us"][:4]))
     log(f"  one one-slot decode step: launches "
-        f"{res['decode_step_launches']['graph']}, eager and replayed (as "
-        f"the JAX account)")
-    log(f"  {MOE_CUT}-layer cut, chunk step: logits err "
-        f"{res['chunk_logits']}, rows routed otherwise than the kernel path "
-        f"{res['chunk_route_flips']}")
-    log(f"  {MOE_CUT}-layer cut, decode step: logits err "
-        f"{res['decode_logits']}, rows routed otherwise than the kernel "
-        f"path {res['decode_route_flips']}")
-    log(f"  {MOE_CUT}-layer cut, one-slot decode step (routed MoE): logits "
-        f"err {res['decode_one_slot_logits']}, rows routed otherwise than "
-        f"the kernel path {res['decode_one_slot_route_flips']}, launches "
-        f"{res['decode_one_slot_launches']}")
-    log_graph_vs_eager(res, top=8)
-    return res
+        f"{res['decode_step_launches']['graph']}, eager and replayed (the "
+        f"JAX account" + (" + qk-norm's 2 rmsnorm a layer)" if res["qk_norm"]
+                          else ")"))
+    for step in ("chunk", "decode", "decode_one_slot"):
+        log(f"  {cut}-layer cut, {step} step: logits err "
+            f"{res[step + '_logits']}, launches {res[step + '_launches']}"
+            + (f", rows routed otherwise than the kernel path "
+               f"{res[step + '_route_flips']}" if res["moe"] else ""))
+    if "kernel_path" in res:
+        log_graph_vs_eager(res, top=8)
 
 
 # ------------------------------------------------------------------ train
@@ -3029,9 +3289,11 @@ def train_phase(torch, dev, rng, record=None):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,tune,engine,quant,moe,train",
-                    help="comma list of kernels,tune,engine,quant,moe,train "
-                         "(default: all)")
+    ap.add_argument("--phases",
+                    default="kernels,tune,engine,quant,moe,glm4,qwen3,"
+                            "qwen32b,train",
+                    help="comma list of kernels,tune,engine,quant,moe,glm4,"
+                         "qwen3,qwen32b,train (default: all)")
     ap.add_argument("--record", type=Path, default=None, metavar="DIR",
                     help="also write chip_smoke.json and the gzipped "
                          "decode traces to DIR")
@@ -3171,19 +3433,23 @@ def main():
             record["quant" if fmt == "mx4" else f"quant_{fmt}"] = qeng
             del qeng
             torch.cuda.empty_cache()
-    if "moe" in phases:
-        for fmt in ("bf16", "mx4"):
+    for name, ph in ARCH_PHASES.items():
+        if name not in phases:
+            continue
+        prng = np.random.default_rng(ph.seed) if ph.own_rng else rng
+        for run in ph.runs:
             t1 = time.perf_counter()
-            moe = moe_phase(torch, dev, rng, fmt, args.record)
-            phase_s[f"moe {fmt}"] = time.perf_counter() - t1
-            log(f"MoE {fmt} engine phase: {phase_s[f'moe {fmt}']:.1f} s")
-            runs[f"qwen2-moe {fmt}"] = moe["launches"]
-            runs[f"qwen2-moe {fmt} one slot"] = moe["launches_one_slot"]
-            mx_shapes[f"qwen2-moe {fmt}"] = moe["mx_qgemv_by_shape"]
-            mx_shapes[f"qwen2-moe {fmt} one slot"] = \
-                moe["mx_qgemv_by_shape_one_slot"]
-            record[f"moe_{fmt}"] = moe
-            del moe
+            r = arch_phase(torch, dev, name, run, prng, args.record)
+            what = f"{ph.arch} {run.fmt}"
+            phase_s[what] = time.perf_counter() - t1
+            log(f"{what} engine phase: {phase_s[what]:.1f} s")
+            if "launches" in r:
+                runs[what] = r["launches"]
+                mx_shapes[what] = r["mx_qgemv_by_shape"]
+            runs[f"{what} one slot"] = r["launches_one_slot"]
+            mx_shapes[f"{what} one slot"] = r["mx_qgemv_by_shape_one_slot"]
+            record[f"{name}_{run.fmt}"] = r
+            del r
             torch.cuda.empty_cache()
     if "train" in phases:
         t1 = time.perf_counter()

@@ -57,7 +57,8 @@ the device and eager time, and ``torch.dot``'s device time) (``--lines``
 picks which of these groups of lines to print);
 then it runs serving phases of that tree, each from a fresh seed-0 stream
 (``--engines``: ``bf16``, the default, runs ``engine_phase``, qwen1.5-0.5b
-bf16, and ``moe_phase`` for bf16, qwen2-moe-a2.7b; ``mx4`` runs
+bf16, and qwen2-moe-a2.7b's bf16 run (``arch_phase``, in older trees
+``moe_phase``); ``mx4`` runs
 ``quant_phase`` for mx4, qwen1.5-0.5b with MX fp4 weights and int8 pages,
 whose one-slot run sends every projection through ``mx_qgemv``; ``none``
 runs none), and prints, last, one JSON line of their end-to-end numbers:
@@ -736,8 +737,13 @@ def main():
     if args.engines == "bf16":
         out["qwen1.5 bf16"] = rates(smoke.engine_phase(
             torch, dev, np.random.default_rng(0)))
-        out["qwen2-moe bf16"] = rates(smoke.moe_phase(
-            torch, dev, np.random.default_rng(0), "bf16"))
+        rng = np.random.default_rng(0)
+        if hasattr(smoke, "arch_phase"):      # the served archs' one phase
+            moe = smoke.arch_phase(torch, dev, "moe",
+                                   smoke.ARCH_PHASES["moe"].runs[0], rng)
+        else:
+            moe = smoke.moe_phase(torch, dev, rng, "bf16")
+        out["qwen2-moe bf16"] = rates(moe)
     elif args.engines == "mx4":
         out["qwen1.5 mx4"] = rates(smoke.quant_phase(
             torch, dev, np.random.default_rng(0), None, "mx4"))

@@ -10,7 +10,8 @@ axis — and returns the ``nn.ModuleDict`` the port's model reads:
   ``(out, in)`` (the layout ``F.linear`` and the routed ``gemv`` read, so no
   call transposes) and cast once to the compute dtype — the values JAX gets
   from casting the fp32 master weights on every call;
-* norm scales stay fp32; biases and the embedding keep their stored dtype;
+* norm scales (qk-norm's ``q_norm`` / ``k_norm`` too) stay fp32; biases
+  and the embedding keep their stored dtype;
 * a MoE block: the router stays fp32 (``(E, d)``: the JAX package applies
   it in fp32), raw expert stacks go from ``(E, in, out)`` to ``(E, out,
   in)`` in the compute dtype, the shared expert and its gate are dense
@@ -102,11 +103,20 @@ def _norm(p, device) -> nn.ParameterDict:
         _tensor(p["scale"], device, torch.float32))})
 
 
+def _mixer(p, device, dtype) -> nn.ModuleDict:
+    """The attention projections, and qk-norm's scales where present."""
+    out = nn.ModuleDict({k: _dense(p[k], device, dtype)
+                         for k in ("wq", "wk", "wv", "wo")})
+    for k in ("q_norm", "k_norm"):
+        if k in p:
+            out[k] = _norm(p[k], device)
+    return out
+
+
 def _layer(p, device, dtype) -> nn.ModuleDict:
     return nn.ModuleDict({
         "norm1": _norm(p["norm1"], device),
-        "mixer": nn.ModuleDict({k: _dense(p["mixer"][k], device, dtype)
-                                for k in ("wq", "wk", "wv", "wo")}),
+        "mixer": _mixer(p["mixer"], device, dtype),
         "norm2": _norm(p["norm2"], device),
         "ffn": (_moe(p["ffn"], device, dtype) if "router" in p["ffn"] else
                 nn.ModuleDict({k: _dense(v, device, dtype)

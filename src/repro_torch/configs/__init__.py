@@ -14,14 +14,14 @@ from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
 _ARCH_MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a27b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
 }
 
 # JAX-package arch ids not ported yet -> the ROADMAP queue-1 item that ports
 # the layers they need
 _NOT_PORTED = {
-    "qwen1.5-32b": "queue 1 item 5 (dense archs after qwen1.5-0.5b)",
-    "glm4-9b": "queue 1 item 5 (GQA archs)",
-    "qwen3-14b": "queue 1 item 5 (GQA archs, qk-norm)",
     "deepseek-v2-lite-16b": "queue 1 item 13 (MLA)",
     "rwkv6-3b": "queue 1 item 13 (other mixers)",
     "jamba-v0.1-52b": "queue 1 item 13 (other mixers)",

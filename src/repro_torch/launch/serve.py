@@ -1,6 +1,7 @@
 """Serving launcher of the port.
 
-    python -m repro_torch.launch.serve --arch qwen1.5-0.5b|qwen2-moe-a2.7b \\
+    python -m repro_torch.launch.serve \\
+        --arch qwen1.5-0.5b|qwen2-moe-a2.7b|glm4-9b|qwen3-14b|qwen1.5-32b \\
         --chunked-prefill --prefix-cache --kernel-decode \\
         [--quantize-weights int8|int4|mx4|fp8] [--quantize-group-size G] \\
         [--kv-cache-dtype int8] [--smoke] [--device cpu]
@@ -9,10 +10,11 @@ Serves a seeded trace of requests through the chunked, paged engine and
 prints the engine metrics.  ``--kernel-decode`` routes norms, one-row
 projections and the paged attention through the CUDA kernels (on the CPU
 their plain versions run).  ``--quantize-weights`` quantizes the
-projections after the random init: absmax int8 / int4 in groups of
-``--quantize-group-size`` rows (dequantized in the graph, as the JAX
-package does), or MX (through the MX kernels); ``--kv-cache-dtype int8``
-stores the KV pages in int8 with scale pages (32-row pages by default).
+projections as the random init draws them, layer by layer: absmax int8
+/ int4 in groups of ``--quantize-group-size`` rows (dequantized in the
+graph, as the JAX package does), or MX (through the MX kernels);
+``--kv-cache-dtype int8`` stores the KV pages in int8 with scale pages
+(32-row pages by default).
 ``--smoke`` uses the reduced config.  The default device is the CUDA card;
 without one the launcher exits with an error unless ``--device cpu`` is
 given.

@@ -1,5 +1,5 @@
-"""GQA attention (RoPE, qkv bias): full sequence, and against the paged KV
-cache.
+"""GQA attention (RoPE, qkv bias, qk-norm): full sequence, and against the
+paged KV cache.
 
 The port of the full-sequence and paged paths of
 ``repro.models.attention``.  Training attends with ``attend`` over the
@@ -26,12 +26,17 @@ from repro_torch.serve.kvcache import (NULL_PAGE, ChunkStage, PagedKVCache,
 def attention_init(cfg, *, dtype, generator, device) -> nn.ModuleDict:
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kw = dict(dtype=dtype, generator=generator, device=device)
-    return nn.ModuleDict({
+    p = nn.ModuleDict({
         "wq": M.dense_init(d, H * hd, bias=cfg.qkv_bias, **kw),
         "wk": M.dense_init(d, KV * hd, bias=cfg.qkv_bias, **kw),
         "wv": M.dense_init(d, KV * hd, bias=cfg.qkv_bias, **kw),
         "wo": M.dense_init(H * hd, d, bias=False, **kw),
     })
+    if cfg.qk_norm:
+        # unit scales draw nothing: the other leaves' draws do not move
+        p["q_norm"] = M.norm_init(hd, device=device)
+        p["k_norm"] = M.norm_init(hd, device=device)
+    return p
 
 
 def attend(q, k, v, *, causal: bool, q_offset=0,
@@ -68,6 +73,9 @@ def _project_qkv(p, cfg, x, positions, dtype):
     q = M.apply_dense(p["wq"], x, dtype).reshape(B, T, -1, hd)
     k = M.apply_dense(p["wk"], x, dtype).reshape(B, T, -1, hd)
     v = M.apply_dense(p["wv"], x, dtype).reshape(B, T, -1, hd)
+    if cfg.qk_norm:        # per head over head_dim, before RoPE
+        q = M.apply_norm(p["q_norm"], q, "rmsnorm", cfg.norm_eps)
+        k = M.apply_norm(p["k_norm"], k, "rmsnorm", cfg.norm_eps)
     q = M.apply_rope(q, positions, cfg.rope_theta)   # check_supported: rope
     k = M.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

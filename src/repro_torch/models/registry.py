@@ -63,11 +63,11 @@ class Model(nn.Module):
                              chunk_stage=chunk_stage)
 
 
-def _init(cfg, dev, seed, trainable) -> nn.ModuleDict:
+def _init(cfg, dev, seed, trainable, quantize=None) -> nn.ModuleDict:
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     if not trainable:
-        return T.init_lm(cfg, generator=g, device=dev)
+        return T.init_lm(cfg, generator=g, device=dev, quantize=quantize)
     T.check_trainable(cfg)
     return T.init_lm(cfg, generator=g, device=dev,
                      dtype=cfg.param_dtype).requires_grad_(True)
@@ -76,14 +76,18 @@ def _init(cfg, dev, seed, trainable) -> nn.ModuleDict:
 def build_model(cfg, rt: RuntimeConfig = RuntimeConfig(), *,
                 params: Optional[nn.ModuleDict] = None,
                 device: DeviceLike = None, seed: int = 0,
-                trainable: bool = False) -> Model:
+                trainable: bool = False, quantize=None) -> Model:
     """``params`` (e.g. from ``bridge.params_from_numpy``) or a seeded random
     init made on ``device`` — the CUDA card unless ``device="cpu"``.
     ``trainable``: the init makes fp32 masters that require grad (bridged
-    ``params`` must be made so: ``params_from_numpy(..., trainable=True)``)."""
+    ``params`` must be made so: ``params_from_numpy(..., trainable=True)``).
+    ``quantize`` (a ``quant.quantizer``): the serving init quantized layer
+    by layer as it is drawn (``init_lm``)."""
     dev = resolve_device(device)
     if params is None:
-        params = _init(cfg, dev, seed, trainable)
+        if quantize is not None and trainable:
+            raise ValueError("trainable masters are not quantized")
+        params = _init(cfg, dev, seed, trainable, quantize)
     else:
         T.check_supported(cfg)
     return Model(cfg, rt, params, trainable).to(dev)

@@ -64,10 +64,10 @@ class RuntimeConfig:
 
 
 def check_supported(cfg):
-    """The port runs decoder-only stacks of GQA attention with RoPE, RMSNorm
-    and a SwiGLU MLP or a qwen2-moe MoE (SwiGLU experts and a shared SwiGLU
-    expert behind a sigmoid gate), read out through an untied
-    ``lm_head``."""
+    """The port runs decoder-only stacks of GQA attention with RoPE (and,
+    where the config asks, qk-norm), RMSNorm and a SwiGLU MLP or a
+    qwen2-moe MoE (SwiGLU experts and a shared SwiGLU expert behind a
+    sigmoid gate), read out through an untied ``lm_head``."""
     why = None
     mo = cfg.moe
     if cfg.encoder_decoder:
@@ -84,8 +84,8 @@ def check_supported(cfg):
     elif cfg.norm != "rmsnorm" or cfg.act != "swiglu" \
             or cfg.pos_emb != "rope":
         why = "queue 1 item 13 (other norms, activations, positions)"
-    elif cfg.qk_norm or cfg.tie_embeddings:
-        why = "queue 1 item 5 (qk-norm, tied read-out)"
+    elif cfg.tie_embeddings:
+        why = "queue 1 item 13 (tied read-out: whisper-base)"
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet — ROADMAP {why}")
@@ -95,32 +95,37 @@ def check_supported(cfg):
 # Init
 # --------------------------------------------------------------------------
 def init_lm(cfg, *, generator: torch.Generator, device,
-            dtype=None) -> nn.ModuleDict:
+            dtype=None, quantize=None) -> nn.ModuleDict:
     """Random parameters with the JAX package's scales: truncated normals
     (fan-in scaled projections and expert stacks, unit-scale embedding),
     unit norm scales, zero biases.  Projection weights are stored (out, in)
     and expert stacks (E, out, in), in ``dtype`` (default: the compute
     dtype; fp32 for the training masters); the embedding, norm scales,
-    biases and MoE routers stay fp32."""
+    biases and MoE routers stay fp32.  ``quantize`` (a
+    ``quant.quantizer``) quantizes each layer and the read-out as soon as
+    they are drawn: the same draws and codes as quantizing the whole init
+    afterwards, without the raw weights of more than one of them held at
+    a time."""
     check_supported(cfg)
     dtype = dtype_of(dtype or cfg.dtype)
     kw = dict(dtype=dtype, generator=generator, device=device)
+    post = quantize or (lambda keys, node: node)
     layers = nn.ModuleList()
-    for _, ffn in cfg.layer_kinds():
-        layers.append(nn.ModuleDict({
+    for i, (_, ffn) in enumerate(cfg.layer_kinds()):
+        layers.append(post(("layers", str(i)), nn.ModuleDict({
             "norm1": M.norm_init(cfg.d_model, device=device),
             "mixer": A.attention_init(cfg, **kw),
             "norm2": M.norm_init(cfg.d_model, device=device),
             "ffn": (MOE.moe_init(cfg, **kw) if ffn == "moe"
                     else M.mlp_init(cfg.d_model, cfg.d_ff, **kw)),
-        }))
+        })))
     return nn.ModuleDict({
         "embed": M.embed_init(cfg.vocab_size, cfg.d_model,
                               generator=generator, device=device),
         "layers": layers,
         "final_norm": M.norm_init(cfg.d_model, device=device),
-        "lm_head": M.dense_init(cfg.d_model, cfg.vocab_size, bias=False,
-                                **kw),
+        "lm_head": post(("lm_head",), M.dense_init(
+            cfg.d_model, cfg.vocab_size, bias=False, **kw)),
     })
 
 

@@ -45,18 +45,13 @@ def default_policy(keys: Tuple[str, ...], leaf) -> bool:
             and leaf.is_floating_point())
 
 
-def quantize_params(params: nn.Module, *, bits: int = 8,
-                    group_size: int = 128, fmt: str = "int") -> nn.Module:
-    """The tree ``params`` with each ``default_policy``-selected ``w`` leaf
-    replaced by its ``QuantizedTensor``, for one device (the JAX package's
-    ``tp=1``).  ``fmt="int"``: absmax int8 (``bits=8``) or int4 (``bits=4``,
-    two values a byte along the contraction axis; a leaf whose contraction
-    extent is odd stays int8) in groups of ``group_size`` rows, a multiple
-    of the int8 layout granule, with fp32 scales; MoE expert stacks stay
-    raw.  ``fmt="mx4"`` / ``"fp8"``: fp4 e2m1 / e4m3 codes with E8M0
-    scales per 32-row block (``bits`` and ``group_size`` are not read),
-    expert stacks included.  The raw leaves are shared with ``params``,
-    which is left as it was."""
+def quantizer(*, bits: int = 8, group_size: int = 128, fmt: str = "int"):
+    """``visit(keys, node)``: the subtree ``node`` at module path ``keys``
+    with each ``default_policy``-selected ``w`` leaf replaced by its
+    ``QuantizedTensor`` (see ``quantize_params``).  A model's init applies
+    it to each layer and to the read-out as it makes them (``init_lm``'s
+    ``quantize``), so the whole raw init never sits beside its codes; the
+    result is ``quantize_params`` of the whole init, leaf for leaf."""
     if fmt not in ("int", "mx4", "fp8"):
         raise ValueError(f"fmt must be int|mx4|fp8: {fmt}")
     if bits not in (8, 4):
@@ -94,7 +89,22 @@ def quantize_params(params: nn.Module, *, bits: int = 8,
                                   for i, v in enumerate(node)])
         return node
 
-    return visit((), params)
+    return visit
+
+
+def quantize_params(params: nn.Module, *, bits: int = 8,
+                    group_size: int = 128, fmt: str = "int") -> nn.Module:
+    """The tree ``params`` with each ``default_policy``-selected ``w`` leaf
+    replaced by its ``QuantizedTensor``, for one device (the JAX package's
+    ``tp=1``).  ``fmt="int"``: absmax int8 (``bits=8``) or int4 (``bits=4``,
+    two values a byte along the contraction axis; a leaf whose contraction
+    extent is odd stays int8) in groups of ``group_size`` rows, a multiple
+    of the int8 layout granule, with fp32 scales; MoE expert stacks stay
+    raw.  ``fmt="mx4"`` / ``"fp8"``: fp4 e2m1 / e4m3 codes with E8M0
+    scales per 32-row block (``bits`` and ``group_size`` are not read),
+    expert stacks included.  The raw leaves are shared with ``params``,
+    which is left as it was."""
+    return quantizer(bits=bits, group_size=group_size, fmt=fmt)((), params)
 
 
 def quantized_stats(params: nn.Module) -> Dict[str, Any]:

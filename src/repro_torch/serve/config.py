@@ -127,7 +127,9 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
     parameters and runtime switches then win — e.g. weights bridged from
     the JAX package).  Otherwise the weights are a random init from
     ``seed`` made on ``device`` (the CUDA card unless ``device="cpu"``),
-    quantized after the init as the JAX factory does: MX when
+    quantized with the codes the JAX factory gives by quantizing after
+    the init, but layer by layer as the init draws them, so that the raw
+    weights of the whole model are never held beside the codes: MX when
     ``quantize_weights`` is ``"mx4"`` or ``"fp8"``, absmax int8 or int4 in
     groups of ``quantize_group_size`` rows when it is ``"int8"`` or
     ``"int4"`` (those dequantize in the graph).  The engine's kernels
@@ -139,8 +141,8 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
     not an ``EngineConfig`` field, since that record mirrors the JAX
     one)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import Model, RuntimeConfig, build_model
-    from repro_torch.quant import quantize_params
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.quant import quantizer
     from repro_torch.serve.scheduler import ServingEngine
     from repro_torch.serve.step import tuned_kernel_configs
 
@@ -152,14 +154,15 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
         rt = RuntimeConfig(paged_kernel_decode=engine_cfg.kernel_decode,
                            quantize_weights=engine_cfg.quantize_weights,
                            kv_cache_dtype=engine_cfg.kv_cache_dtype)
-        model = build_model(cfg, rt, device=device, seed=seed)
         q = engine_cfg.quantize_weights
+        quantize = None
         if q in ("mx4", "fp8"):
-            model = Model(cfg, rt, quantize_params(model.params, fmt=q))
+            quantize = quantizer(fmt=q)
         elif q != "none":
-            model = Model(cfg, rt, quantize_params(
-                model.params, bits=8 if q == "int8" else 4,
-                group_size=engine_cfg.quantize_group_size))
+            quantize = quantizer(bits=8 if q == "int8" else 4,
+                                 group_size=engine_cfg.quantize_group_size)
+        model = build_model(cfg, rt, device=device, seed=seed,
+                            quantize=quantize)
     # the decode-path kernels' tuned launch parameters, resolved once here
     # (as the JAX factory does); the engine's steps launch with them
     configs = tuned_kernel_configs(

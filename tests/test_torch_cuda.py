@@ -135,6 +135,21 @@ def test_rmsnorm_every_width_and_block(T, d, threads):
     assert TK.launch_counts()["rmsnorm"] == before + 2
 
 
+@pytest.mark.parametrize("threads", RMS_THREADS)
+@pytest.mark.parametrize("T,d", [(320, 128), (64, 128)])
+def test_rmsnorm_qk_norm_rows(T, d, threads):
+    """qk-norm's rows: one decode token's 40 query heads of 128 at 8 slots
+    (qwen3-14b), and its 8 KV heads, each normalized over head_dim; the
+    same bits twice."""
+    x, s = rms_inputs(7, T, d)
+    cfg = LaunchConfig(rmsnorm_threads=threads)
+    before = TK.launch_counts()["rmsnorm"]
+    got = TK.rmsnorm(x, s, cfg=cfg)
+    matches_plain(got, TK.PLAIN["rmsnorm"](x, s))
+    assert torch.equal(got, TK.rmsnorm(x, s, cfg=cfg))
+    assert TK.launch_counts()["rmsnorm"] == before + 2
+
+
 @pytest.mark.parametrize("producer", ["add", "matmul"])
 @pytest.mark.parametrize("T,d", [(8, 1024), (1, 2048), (4, 4096)])
 def test_rmsnorm_in_a_cuda_graph_reads_its_producer(producer, T, d):
@@ -1562,13 +1577,14 @@ GRAPH_ENGINE = dict(slots=3, cache_len=128, backend="paged",
                     kernel_decode=True)
 
 
-def graph_model(kv):
-    """The reduced qwen1.5-0.5b (2 layers, 4 heads of 32 on 4 KV heads:
-    G = 1) in bf16 on the card, seed 0, its paged attention on the
-    kernels; ``kv`` "int8" for int8 pages."""
+def graph_model(kv, arch="qwen1.5-0.5b", **heads):
+    """The reduced ``arch`` (qwen1.5-0.5b: 2 layers, 4 heads of 32 on 4 KV
+    heads, G = 1; ``heads`` overrides the head counts) in bf16 on the card,
+    seed 0, its paged attention on the kernels; ``kv`` "int8" for int8
+    pages."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import RuntimeConfig, build_model
-    return build_model(reduced(get_config("qwen1.5-0.5b")),
+    return build_model(reduced(get_config(arch), **heads),
                        RuntimeConfig(paged_kernel_decode=True,
                                      kv_cache_dtype=kv),
                        device="cuda", seed=0)
@@ -1624,6 +1640,42 @@ def test_engine_graph_against_eager(kv):
     assert launches["rmsnorm"] and launches[decode] and launches["gemv"]
     assert captures == {"chunk": 1, "decode": 1}
     assert none == {"chunk": 0, "decode": 0}
+
+
+@pytest.mark.parametrize("kv", ["", "int8"], ids=["bf16", "int8"])
+def test_qk_norm_engine_graph_against_eager(kv):
+    """The reduced qwen3-14b at its group size (10 query heads on 2 KV
+    heads: G = 5) with qk-norm: two ``rmsnorm`` launches a layer after the
+    q and k projections, inside the captured steps.  Graph and eager give
+    the same greedy tokens and launch counts, and the norms add their
+    launches."""
+    from repro_torch.models import modules as TM
+    model = graph_model(kv, "qwen3-14b", num_heads=10, num_kv_heads=2)
+    assert model.cfg.qk_norm and "q_norm" in model.params["layers"][0][
+        "mixer"]
+    out = {}
+    for capture in (True, False):
+        eng = graph_engine(model, kv, capture)
+        reqs = graph_requests(eng)
+        TK.reset_launch_counts()
+        with TM.kernel_routing():
+            eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert all(r.done and len(r.out) == 8 for r in reqs)
+        out[capture] = ([r.out for r in reqs], TK.launch_counts(),
+                        eng.metrics())
+    (got, launches, m), (want, eager, _) = out[True], out[False]
+    assert got == want
+    assert launches == eager
+    decode = "paged_decode_attention_int8" if kv else \
+        "paged_decode_attention"
+    assert launches[decode] and launches["gemv"]
+    L = model.cfg.num_layers
+    if not kv:
+        assert launches["prefill_attention_paged"] == m["chunk_calls"] * L
+    # per layer and step: norm1, norm2, q_norm, k_norm; then final_norm
+    steps = m["chunk_calls"] + m["decode_steps"]
+    assert launches["rmsnorm"] == steps * (4 * L + 1)
 
 
 def test_graph_replay_does_not_sync_the_host():
