@@ -19,6 +19,12 @@ parameters) with every kernel on, random weights from seed 0: full-width
 qwen1.5-0.5b with bf16 weights and KV pages, with mx4 weights and int8 KV
 pages, with int8 weights and bf16 pages and with int4 weights and int8
 pages (int weights dequantize in the graph, as in the JAX package), then
+the JAX package's default engine on full-width qwen1.5-0.5b — bucketed
+prefill over dense bf16 caches, dense int8 caches and pages filled at
+admission, and the dense run sampled at T = 0.7 (the first tokens
+greedy), each through graphs (one prefill graph a bucket) and eagerly,
+its prefill and dense decode logits against fp32, one slot, and the
+stateless sampler's chi-square test on the card —, then
 full-width qwen2-moe-a2.7b (60 experts, top-4, a gated shared expert) in
 bf16 and in mx4 + int8 pages, then the other dense archs at their
 published widths: glm4-9b (32 query heads on 2 KV heads) and qwen3-14b (40
@@ -43,7 +49,7 @@ and prints no result.  ``--record DIR`` also writes the full record
 (``chip_smoke.json``: nvcc/ptxas output, every timing and engine metric)
 and the profiler traces of the decode windows and of two training steps
 (``*trace*.json.gz``) to DIR.  ``--phases`` runs a subset (kernels, tune,
-engine, quant, moe, glm4, qwen3, qwen32b, train).
+engine, quant, bucketed, moe, glm4, qwen3, qwen32b, train).
 """
 from __future__ import annotations
 
@@ -1042,28 +1048,11 @@ def kernels_phase(torch, K, dev, rng):
 
     # rmsnorm at the row counts of the paths: decode (slots = 8), chunk slab
     # (32), one slot (1); d = 1024 (qwen1.5-0.5b) and 2048 (qwen2-moe)
-    from repro_torch.core.troop import LaunchConfig
-    from repro_torch.kernels.rmsnorm import rmsnorm_plan
     rms = []
     for T, d in ((8, 1024), (32, 1024), (1, 1024), (8, 2048), (1, 2048)):
         x = t(rng.standard_normal((T, d)))
         s = t(1 + 0.1 * rng.standard_normal(d), torch.float32)
-        name = f"rmsnorm T={T} d={d}"
-        err = agree(name, twice(name, lambda: K.rmsnorm(x, s)),
-                    K.PLAIN["rmsnorm"](x, s))
-        s16 = s.to(torch.bfloat16)
-        bms, by = bound_ms(2 * T * d * 2 + d * 4, 4 * T * d)
-        plan = rmsnorm_plan(T, d, LaunchConfig().rmsnorm_threads)
-        rms.append({
-            "shape": f"x ({T}, {d}) bf16, scale ({d},) f32",
-            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
-            "tolerance": TOL["rmsnorm"],
-            "plan": f"{plan.wpr} warp(s) a row, {plan.vpl} vectors a lane, "
-                    f"{plan.rows} rows a block, {plan.blocks} blocks",
-            **timed(torch, [lambda x=x, s=s: K.rmsnorm(x, s)],
-                    [lambda x=x, s=s: K.PLAIN["rmsnorm"](x, s)],
-                    [lambda x=x, d=d, s16=s16: F.rms_norm(x, (d,), s16,
-                                                          1e-6)])})
+        rms.append(rms_row(torch, K, F, agree, twice, [x], s))
     rows["rmsnorm"] = rms
 
     # gemv at every one-row projection shape of both models: qwen1.5-0.5b
@@ -1194,8 +1183,56 @@ def kernels_phase(torch, K, dev, rng):
     rows.update(scan_rows(torch, K, F, agree, dev, gen))
     for name, rs in dense_rows(torch, K, F, agree, twice, dev).items():
         rows[name].extend(rs)
+    rows["rmsnorm"].extend(prefill_rms_rows(torch, K, F, agree, twice, dev))
     torch.cuda.synchronize()
     return rows
+
+
+def rms_row(torch, K, F, agree, twice, xs, s, note=""):
+    """One ``rmsnorm`` row: the kernel on ``xs[0]`` ((T, d) bf16, scale
+    ``s`` (d,) f32) against its plain version at its ``TOL``, a second
+    launch the same bits, and the kernel, the plain version and
+    ``F.rms_norm`` timed over the input copies ``xs``."""
+    from repro_torch.core.troop import LaunchConfig
+    from repro_torch.kernels.rmsnorm import rmsnorm_plan
+    x = xs[0]
+    T, d = x.shape
+    name = f"rmsnorm T={T} d={d}"
+    err = agree(name, twice(name, lambda: K.rmsnorm(x, s)),
+                K.PLAIN["rmsnorm"](x, s))
+    s16 = s.to(torch.bfloat16)
+    bms, by = bound_ms(2 * T * d * 2 + d * 4, 4 * T * d)
+    plan = rmsnorm_plan(T, d, LaunchConfig().rmsnorm_threads)
+    return {
+        "shape": f"x ({T}, {d}) bf16, scale ({d},) f32" + note,
+        "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+        "tolerance": TOL["rmsnorm"],
+        "plan": f"{plan.wpr} warp(s) a row, {plan.vpl} vectors a lane, "
+                f"{plan.rows} rows a block, {plan.blocks} blocks",
+        **timed(torch, [lambda x=x: K.rmsnorm(x, s) for x in xs],
+                [lambda x=x: K.PLAIN["rmsnorm"](x, s) for x in xs],
+                [lambda x=x: F.rms_norm(x, (d,), s16, 1e-6) for x in xs])}
+
+
+#: the generator of the bucketed prefill's ``rmsnorm`` rows: their own, so
+#: that adding them moved no other row's inputs
+PREFILL_ROWS_SEED = 31
+
+
+def prefill_rms_rows(torch, K, F, agree, twice, dev):
+    """``rmsnorm`` at the bucketed prefill's rows of qwen1.5-0.5b
+    (``prefill_batch`` 4 x buckets 256, 512 and 1,024; d = 1024), each
+    timed over input copies that exceed the L2."""
+    gen = torch.Generator(device=dev).manual_seed(PREFILL_ROWS_SEED)
+    out = []
+    for T in (1024, 2048, 4096):
+        xs = [torch.randn((T, 1024), device=dev, generator=gen).to(
+            torch.bfloat16) for _ in range(copies_for(T * 1024 * 2))]
+        s = 1 + 0.1 * torch.randn(1024, device=dev, generator=gen)
+        out.append(rms_row(torch, K, F, agree, twice, xs, s,
+                           " (bucketed prefill rows)"))
+        del xs
+    return out
 
 
 # the generator of the other dense archs' kernel rows: their own, so that
@@ -1219,8 +1256,6 @@ def dense_rows(torch, K, F, agree, twice, dev):
     one call, as the scans' are."""
     import numpy as np
 
-    from repro_torch.core.troop import LaunchConfig
-    from repro_torch.kernels.rmsnorm import rmsnorm_plan
     rng = np.random.default_rng(DENSE_ROWS_SEED)
     gen = torch.Generator(device=dev).manual_seed(DENSE_ROWS_SEED)
 
@@ -1230,23 +1265,8 @@ def dense_rows(torch, K, F, agree, twice, dev):
     for T, d in ((320, 128), (64, 128), (8, 4096), (8, 5120), (1, 5120)):
         x = t(rng.standard_normal((T, d)))
         s = t(1 + 0.1 * rng.standard_normal(d), torch.float32)
-        name = f"rmsnorm T={T} d={d}"
-        err = agree(name, twice(name, lambda: K.rmsnorm(x, s)),
-                    K.PLAIN["rmsnorm"](x, s))
-        s16 = s.to(torch.bfloat16)
-        bms, by = bound_ms(2 * T * d * 2 + d * 4, 4 * T * d)
-        plan = rmsnorm_plan(T, d, LaunchConfig().rmsnorm_threads)
-        rms.append({
-            "shape": f"x ({T}, {d}) bf16, scale ({d},) f32"
-                     + (" (qk-norm rows)" if d == 128 else ""),
-            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
-            "tolerance": TOL["rmsnorm"],
-            "plan": f"{plan.wpr} warp(s) a row, {plan.vpl} vectors a lane, "
-                    f"{plan.rows} rows a block, {plan.blocks} blocks",
-            **timed(torch, [lambda x=x, s=s: K.rmsnorm(x, s)],
-                    [lambda x=x, s=s: K.PLAIN["rmsnorm"](x, s)],
-                    [lambda x=x, d=d, s16=s16: F.rms_norm(x, (d,), s16,
-                                                          1e-6)])})
+        rms.append(rms_row(torch, K, F, agree, twice, [x], s,
+                           " (qk-norm rows)" if d == 128 else ""))
     gem = []
     for N, Kd in ((151552, 4096), (4096, 4096), (256, 4096), (13696, 4096),
                   (4096, 13696),                               # glm4-9b
@@ -2034,57 +2054,124 @@ def one_slot(res):
 
 
 def check_balanced(engine):
-    """After drain only the prefix index holds pages (one ref each); after
-    clearing it every page is free."""
+    """A paged engine after drain: only the prefix index, where there is
+    one, holds pages (one ref each); after clearing it every page is free.
+    A dense engine holds no pages."""
     be = engine.backend
+    if be.name != "paged":
+        return
     total = be.spec.num_pages - 1
-    held = be.prefix_index.num_pages
+    index = be.prefix_index
+    held = 0 if index is None else index.num_pages
     refs = dict(be.allocator._refs)
     if be.allocator.num_free != total - held or any(
             n != 1 for n in refs.values()):
         raise AssertionError(f"allocator unbalanced: {be.allocator.num_free}"
                              f" free of {total}, index holds {held}")
-    be.prefix_index.clear()
+    if index is not None:
+        index.clear()
     if be.allocator.num_free != total:
         raise AssertionError("pages leaked after clearing the prefix index")
 
 
-#: the bindings of a served engine: its chunk and its decode step, each
+#: the bindings of a chunked engine: its chunk and its decode step, each
 #: captured once as a CUDA graph (``ServingEngine.captures``)
 STEP_CAPTURES = {"chunk": 1, "decode": 1}
 
 
 def check_captures(eng, what):
-    if eng.captures != STEP_CAPTURES:
+    """A chunked engine captured its two steps once each; a bucketed one
+    its decode step once and one prefill graph for each bucket it
+    prefilled."""
+    want = STEP_CAPTURES
+    if "prefill" in eng.captures:
+        want = {"prefill": {b: 1 for b in eng.metrics()["prefill_buckets"]},
+                "decode": 1}
+    if eng.captures != want:
         raise AssertionError(f"{what}: the engine captured {eng.captures}, "
-                             f"not {STEP_CAPTURES}")
+                             f"not {want}")
+
+
+def served(torch, K, M, model, ecfg, specs, V, want, what, capture=True,
+           norms=False):
+    """``specs`` through a fresh engine of ``ecfg`` on ``model``, through
+    its graphs or, ``capture=False``, eagerly: with kernel routing on,
+    where ``want`` names the kernels the run must launch, or on the plain
+    path (``want`` None), which must launch none.  Every request finishes;
+    a graph run captures each step once and one prefill graph a bucket
+    (``check_captures``), an eager run nothing; the pool balances
+    (``check_balanced``); with ``norms``, ``rmsnorm`` launches once for
+    each of a layer's two norms and the final one at every prefill and
+    decode step (a bucketed prefill's (4 x bucket, d) rows included).
+    Returns (requests, stats): wall time, metrics, launches, captures and
+    their seconds, and the device memory of the engine's caches and of
+    what its graphs hold after the run."""
+    from repro_torch.serve import build_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    eng = build_engine(model, ecfg, capture=capture)
+    built = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    with (M.kernel_routing() if want is not None
+          else contextlib.nullcontext()):
+        reqs, wall = serve(torch, eng, specs, V)
+    launches = K.launch_counts()
+    m = eng.metrics()
+    missing = [k for k in want or () if not launches[k]]
+    if missing:
+        raise AssertionError(f"{what} never launched {missing}: {launches}")
+    if want is None and any(launches.values()):
+        raise AssertionError(f"{what} launched {launches}")
+    if norms:
+        steps = m["prefill_calls"] + m["decode_steps"]
+        n = (2 * model.cfg.num_layers + 1) * steps
+        if launches["rmsnorm"] != n:
+            raise AssertionError(f"{what}: rmsnorm launched "
+                                 f"{launches['rmsnorm']} times, not {n} "
+                                 f"(three a layer and step of {steps})")
+    if capture:
+        check_captures(eng, what)
+    elif any(eng.captures.values()):
+        raise AssertionError(f"{what}: the eager engine captured "
+                             f"{eng.captures}")
+    check_balanced(eng)
+    graphs = {"chunk": eng.chunk_graph, "decode": eng.decode_graph,
+              **{f"prefill {b}": g
+                 for b, g in sorted(eng.prefill_graphs.items())}}
+    stats = {"wall_s": wall, "metrics": m, "launches": launches,
+             "mx_qgemv_by_shape": K.mx_qgemv_launches_by_shape(),
+             "captures": eng.captures,
+             "capture_s": {k: g.capture_s for k, g in graphs.items()
+                           if g is not None},
+             "kv_pool_bytes": kv_bytes(eng.caches),
+             "page_size": (eng.backend.spec.page_size
+                           if ecfg.backend == "paged" else None),
+             "cache_bytes": built - base,
+             "graph_bytes": torch.cuda.memory_allocated() - built}
+    del eng
+    torch.cuda.empty_cache()
+    return reqs, stats
 
 
 def eager_path(torch, K, M, model, ecfg, specs, V, graph_reqs,
-               graph_launches):
-    """The kernel path's 8-slot run again, its steps launched eagerly
-    (``capture=False``) on the same requests: the graph run's greedy tokens
-    bit for bit (the same kernels in the same order) and its launch counts
-    (each replay adds what its capture recorded)."""
-    from repro_torch.serve import build_engine
-    eng = build_engine(model, ecfg, capture=False)
-    K.reset_launch_counts()
-    with M.kernel_routing():
-        reqs, wall = serve(torch, eng, specs, V)
-    launches = K.launch_counts()
+               graph_launches, what="kernel path", norms=False):
+    """The graph run's requests again, its steps launched eagerly
+    (``capture=False``) under ``served``'s checks: the graph run's tokens
+    bit for bit (the same kernels in the same order; a sampled run's too,
+    as the sampler keeps no state) and its launch counts (each replay adds
+    what its capture recorded)."""
+    reqs, st = served(torch, K, M, model, ecfg, specs, V, (),
+                      f"{what} eager", capture=False, norms=norms)
     differ = [g.rid for g, e in zip(graph_reqs, reqs) if g.out != e.out]
     if differ:
-        raise AssertionError(f"graph and eager greedy tokens differ in "
+        raise AssertionError(f"{what}: graph and eager tokens differ in "
                              f"requests {differ}")
-    if launches != graph_launches:
-        raise AssertionError(f"the graph run launched {graph_launches}, the "
-                             f"eager run {launches}")
-    if any(eng.captures.values()):
-        raise AssertionError(f"the eager engine captured {eng.captures}")
-    res = {"wall_s": wall, "metrics": eng.metrics(),
-           "identical_streams": len(reqs)}
-    check_balanced(eng)
-    return res
+    if st["launches"] != graph_launches:
+        raise AssertionError(f"{what}: the graph run launched "
+                             f"{graph_launches}, the eager run "
+                             f"{st['launches']}")
+    return {**st, "identical_streams": len(reqs)}
 
 
 def profiles(torch, np, M, model_k, ecfg, rng, record, name, cycles=10,
@@ -2608,11 +2695,10 @@ def embed_us(torch, M, model, dev, slots):
 
 
 def kv_bytes(caches):
-    """Bytes of the KV page pools, scale pages included (the chunk stage
-    apart)."""
+    """Bytes of the KV caches: a dense cache's K, V and scales, or a paged
+    one's pools and scale pages (its chunk stage apart)."""
     return sum(a.numel() * a.element_size() for c in caches
-               for a in (c.k_pool, c.v_pool, c.k_scale_pool, c.v_scale_pool)
-               if a is not None)
+               for a in c[:4] if a is not None)
 
 
 def quant_phase(torch, dev, rng, record=None, fmt="mx4"):
@@ -2910,44 +2996,23 @@ def arch_phase(torch, dev, name, run, rng, record=None):
     if res["moe"]:
         path1 += MOE_ROUTED[fmt]
 
-    def served(model, slots, reqs, where, want):
-        """``reqs`` through a fresh engine of ``slots`` slots on ``model``:
-        on the kernel path (``want``: the kernels it must launch) or, with
-        ``want`` None, the plain path, which must launch none."""
-        eng = build_engine(model, dataclasses.replace(
-            ecfg, slots=slots, kernel_decode=want is not None))
-        K.reset_launch_counts()
-        with (M.kernel_routing() if want is not None
-              else contextlib.nullcontext()):
-            out, wall = serve(torch, eng, reqs, V)
-        launches = K.launch_counts()
-        missing = [k for k in want or () if not launches[k]]
-        if missing:
-            raise AssertionError(f"{what} {where} never launched "
-                                 f"{missing}: {launches}")
-        if want is None and any(launches.values()):
-            raise AssertionError(f"{what} {where} launched {launches}")
-        stats = {"launches": launches,
-                 "by_shape": K.mx_qgemv_launches_by_shape(),
-                 "run": {"wall_s": wall, "metrics": eng.metrics()},
-                 "captures": eng.captures,
-                 "kv_pool_bytes": kv_bytes(eng.caches),
-                 "page_size": eng.backend.spec.page_size}
-        check_captures(eng, f"{what} {where}")
-        check_balanced(eng)
-        del eng
-        torch.cuda.empty_cache()
-        return out, stats
+    def run_on(model, slots, reqs, where, want):
+        """``reqs`` through ``slots`` slots on the kernel path (``want``)
+        or, ``want`` None, the plain path (``served``)."""
+        return served(torch, K, M, model, dataclasses.replace(
+            ecfg, slots=slots, kernel_decode=want is not None), reqs, V,
+            want, f"{what} {where}")
 
     if run.eight_slots:
-        reqs_k, st = served(model_k, 8, specs, "kernel path", path8)
-        res.update(launches=st["launches"], mx_qgemv_by_shape=st["by_shape"],
-                   kernel_path=st["run"], captures=st["captures"],
+        reqs_k, st = run_on(model_k, 8, specs, "kernel path", path8)
+        res.update(launches=st["launches"],
+                   mx_qgemv_by_shape=st["mx_qgemv_by_shape"],
+                   kernel_path=st, captures=st["captures"],
                    kv_pool_bytes=st["kv_pool_bytes"],
                    page_size=st["page_size"])
         if res["moe"]:
-            reqs_p, st = served(model_p, 8, specs, "plain path", None)
-            res["plain_path"] = st["run"]
+            reqs_p, st = run_on(model_p, 8, specs, "plain path", None)
+            res["plain_path"] = st
             res["token_agreement"] = sum(
                 a == b for rk, rp in zip(reqs_k, reqs_p)
                 for a, b in zip(rk.out, rp.out)) / sum(len(r.out)
@@ -2957,9 +3022,10 @@ def arch_phase(torch, dev, name, run, rng, record=None):
         res["eager_path"] = eager_path(torch, K, M, model_k, ecfg, specs, V,
                                        reqs_k, res["launches"])
         torch.cuda.empty_cache()
-    _, st = served(model_k, 1, specs[:2], "one-slot run", path1)
+    _, st = run_on(model_k, 1, specs[:2], "one-slot run", path1)
     res.update(launches_one_slot=st["launches"],
-               mx_qgemv_by_shape_one_slot=st["by_shape"], one_slot=st["run"])
+               mx_qgemv_by_shape_one_slot=st["mx_qgemv_by_shape"],
+               one_slot=st)
 
     # one one-slot decode step launches exactly the JAX account's kernels
     # (and qk-norm's), eager and replayed
@@ -3052,6 +3118,302 @@ def log_arch_run(res, cut):
                f"{res[step + '_route_flips']}" if res["moe"] else ""))
     if "kernel_path" in res:
         log_graph_vs_eager(res, top=8)
+
+
+# --------------------------------------------------------------- bucketed
+#: the bucketed phase draws its requests and its sampler's row from a
+#: generator of its own, so every other phase draws what it drew
+BUCKETED_SEED = 20
+#: the bucketed engine's runs (the JAX package's default engine: bucketed
+#: prefill, ``prefill_batch`` 4): name -> (EngineConfig fields, the model's
+#: KV storage, the kernels its 8-slot run must launch).  Its dense
+#: backend attends with plain torch (the JAX package's dense decode
+#: kernels run only through the tune registry) and refuses
+#: ``kernel_decode``; routing still takes the norms and one-row
+#: projections through the kernels.  The paged run fills its pages from
+#: the prefill (``PagedBackend.admit``) and decodes through the paged
+#: kernel.
+BUCKETED_RUNS = {
+    "dense": (dict(), "", ("rmsnorm",)),
+    "dense int8": (dict(kv_cache_dtype="int8"), "int8", ("rmsnorm",)),
+    "paged": (dict(backend="paged", kernel_decode=True), "",
+              ("rmsnorm", "paged_decode_attention")),
+    "dense T=0.7": (dict(temperature=0.7), "", ("rmsnorm",)),
+}
+#: cycles of each bucketed run's profiled decode windows
+BUCKETED_CYCLES = 5
+#: the sampler's check on the card: draws from one fixed row of this many
+#: logits at T = 0.7, and the least p of its chi-square test
+SAMPLER_DRAWS = 1 << 16
+SAMPLER_VOCAB = 512
+SAMPLER_T = 0.7
+SAMPLER_P_MIN = 1e-3
+
+
+def sampler_check(torch, np, dev):
+    """The stateless sampler on the card: ``SAMPLER_DRAWS`` draws from one
+    fixed row at ``SAMPLER_T`` against ``softmax(row / T)`` (a chi-square
+    test over the bins expected at least 5 times, the rest merged into one
+    bin; p from the regularized upper incomplete gamma); its bits at the
+    engine's width (8 slots, 151,936 tokens) equal to the CPU's; its draws
+    there beside the CPU's, and its device ms."""
+    from repro_torch.serve.step import sample, sample_bits
+    rng = np.random.default_rng(BUCKETED_SEED + 1)
+    row = torch.from_numpy(rng.standard_normal(SAMPLER_VOCAB).astype(
+        np.float32) * 2).to(dev)
+    n = SAMPLER_DRAWS
+    toks = sample(row.expand(n, -1), SAMPLER_T, 0,
+                  torch.zeros(n, dtype=torch.int32, device=dev))
+    counts = torch.bincount(toks, minlength=SAMPLER_VOCAB).cpu().numpy()
+    expected = torch.softmax(row.double() / SAMPLER_T, 0).cpu().numpy() * n
+    keep = expected >= 5
+    obs = np.append(counts[keep], counts[~keep].sum())
+    exp = np.append(expected[keep], expected[~keep].sum())
+    if exp[-1] < 5:
+        obs, exp = obs[:-1], exp[:-1]
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    df = len(obs) - 1
+    p = float(torch.special.gammaincc(
+        torch.tensor(df / 2, dtype=torch.float64),
+        torch.tensor(chi2 / 2, dtype=torch.float64)))
+    if p < SAMPLER_P_MIN:
+        raise AssertionError(f"sampler: chi-square {chi2:.1f} on {df} "
+                             f"degrees of freedom, p {p:.3g} < "
+                             f"{SAMPLER_P_MIN}")
+    B, V = 8, 151936
+    slot = torch.arange(B)
+    pos = torch.from_numpy(rng.integers(0, 1024, B).astype(np.int32))
+    nonce = torch.arange(1, B + 1, dtype=torch.int32)
+    bits = sample_bits(12345, slot.to(dev), pos.to(dev), nonce.to(dev),
+                       V).cpu()
+    if not torch.equal(bits, sample_bits(12345, slot, pos, nonce, V)):
+        raise AssertionError("sampler: the card's bits differ from the "
+                             "CPU's")
+    logits = torch.from_numpy(rng.standard_normal((B, V)).astype(
+        np.float32)).to(torch.bfloat16)
+    on_card = sample(logits.to(dev), SAMPLER_T, 12345, pos.to(dev),
+                     nonce.to(dev))
+    same = int((on_card.cpu() == sample(logits, SAMPLER_T, 12345, pos,
+                                        nonce)).sum())
+    lg, pd, nd = logits.to(dev), pos.to(dev), nonce.to(dev)
+    ms = _event_ms(torch, lambda: sample(lg, SAMPLER_T, 12345, pd, nd), 25)
+    return {"draws": n, "vocab": SAMPLER_VOCAB, "temperature": SAMPLER_T,
+            "bins": len(obs), "chi2": chi2, "df": df, "p": p,
+            "bits_equal_cpu": True, "draws_equal_cpu": f"{same}/{B}",
+            "ms_8x151936": ms}
+
+
+def bucketed_logits(torch, np, K, M, model, specs, dev):
+    """The bucketed prefill of four requests (one (4, bucket)
+    call, right-padded, rows gathered at each prompt's last position) and
+    one dense decode step over its caches, on the kernel path (launches
+    counted), the plain bf16 path and an fp32 copy: the kernel path's
+    logits within twice the plain path's distance from fp32 (as
+    ``logits_phase``); the decode step starts every path from the kernel
+    path's caches."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.models.attention import KVCache
+    from repro_torch.serve import bucket_length
+    plain = model.with_runtime(RuntimeConfig())
+    fp32 = build_model(dataclasses.replace(model.cfg, dtype="float32"),
+                       RuntimeConfig(), params=copy.deepcopy(
+                           model.params).float(), device=dev)
+    prompts = [p for p, _ in specs[:4]]
+    T = max(bucket_length(len(p), 8, 1024) for p in prompts)
+    tokens = np.zeros((4, T), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    length = np.asarray([len(p) for p in prompts], np.int32)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev),
+             "length": torch.as_tensor(length, device=dev)}
+    out = {"bucket": T}
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def three(name, step, batch, caches=None):
+        K.reset_launch_counts()
+        with M.kernel_routing():
+            got = step(model, batch, caches)
+        torch.cuda.synchronize()
+        out[name + "_launches"] = {k: n for k, n in K.launch_counts().items()
+                                   if n}
+        def like(dtype):
+            return None if caches is None else [
+                KVCache(*(a.to(dtype, copy=True) for a in c
+                          if a is not None)) for c in caches]
+        pl = step(plain, batch, like(torch.bfloat16))
+        f32 = step(fp32, batch, like(torch.float32))
+        g, p, f = got[0], pl[0], f32[0]
+        e_kp, e_k32, e_p32 = err(g, p), err(g, f), err(p, f)
+        if not torch.isfinite(g.float()).all() or \
+                e_k32 > max(2 * e_p32, BF16_TOL):
+            raise AssertionError(f"bucketed {name}: kernel path {e_k32} from "
+                                 f"fp32, plain bf16 path {e_p32}")
+        out[name + "_logits"] = {
+            "kernel_vs_plain": e_kp, "kernel_vs_fp32": e_k32,
+            "plain_vs_fp32": e_p32, "max_abs_logit": f.abs().max().item(),
+            "argmax_equal": bool((g.argmax(-1) == p.argmax(-1)).all())}
+        return got
+
+    logits, caches = three("prefill", lambda m, b, c: m.prefill(b), batch)
+    nxt = logits.argmax(-1).to(torch.int32)[:, None]
+    three("dense_decode", lambda m, b, c: m.decode_step(b, c),
+          {"tokens": nxt, "pos": batch["length"]}, caches)
+    del fp32
+    torch.cuda.empty_cache()
+    return out
+
+
+def bucketed_phase(torch, dev, record=None):
+    """The JAX package's default engine, bucketed prefill
+    (``EngineConfig()`` but 8 slots of 1,024 rows), on full-width
+    qwen1.5-0.5b (bf16 weights from seed 0, every routed kernel on), eight
+    requests of 24 + 40..400 tokens, 32 new, from its own generator,
+    shortest first so that they prefill in two buckets: each of
+    ``BUCKETED_RUNS`` through the graphs and again eagerly (the same
+    tokens bit for bit and the same launches, sampled runs included), with
+    a profiled decode window of each; the sampled run's first tokens the
+    greedy run's; one slot (every projection the one-row ``gemv``); the
+    greedy agreement of the dense and paged runs with the chunked paged
+    engine on the same requests (printed: bf16 near-ties may flip); the
+    sampler's check on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import RuntimeConfig, build_model
+    from repro_torch.models import modules as M
+    from repro_torch.serve import EngineConfig
+
+    rng = np.random.default_rng(BUCKETED_SEED)
+    cfg = get_config("qwen1.5-0.5b")
+    V, L = cfg.vocab_size, cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, RuntimeConfig(paged_kernel_decode=True),
+                        device=dev, seed=0)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0, "runs": {}, "launches": {}}
+    # shortest first: the two admission groups of four fall into two
+    # buckets, so one bucket's graph replays on the shared pool after the
+    # other's outputs were spliced
+    specs = sorted(make_requests(np, rng, V, DENSE_REQUESTS),
+                   key=lambda spec: len(spec[0]))
+    base = EngineConfig(slots=8, cache_len=1024)
+    streams = {}
+    for name, (over, kv, want) in BUCKETED_RUNS.items():
+        m = model if not kv else model.with_runtime(RuntimeConfig(
+            paged_kernel_decode=True, kv_cache_dtype=kv))
+        ecfg = dataclasses.replace(base, **over)
+        what = f"bucketed {name}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reqs, graph = served(torch, K, M, m, ecfg, specs, V, want, what,
+                             norms=True)
+        graph["peak_bytes"] = torch.cuda.max_memory_allocated() - before
+        if len(graph["metrics"]["prefill_buckets"]) < 2:
+            raise AssertionError(f"{what}: prefilled in buckets "
+                                 f"{graph['metrics']['prefill_buckets']}, "
+                                 f"not two")
+        run = {"kernel_path": graph, "captures": graph["captures"],
+               "eager_path": eager_path(torch, K, M, m, ecfg, specs, V, reqs,
+                                        graph["launches"], what,
+                                        norms=True)}
+        slug = name.replace(" ", "_").replace("=", "")
+        run.update(profiles(torch, np, M, m, ecfg, rng, record,
+                            f"decode_trace_bucketed_{slug}.json",
+                            BUCKETED_CYCLES))
+        res["runs"][name] = run
+        res["launches"][name] = graph["launches"]
+        streams[name] = reqs
+        del m
+    firsts = [r.out[0] for r in streams["dense"]]
+    if [r.out[0] for r in streams["dense T=0.7"]] != firsts:
+        raise AssertionError("the sampled run's first tokens are not the "
+                             "greedy run's")
+    res["sampled_tokens_off_greedy"] = sum(
+        a != b for g, s in zip(streams["dense"], streams["dense T=0.7"])
+        for a, b in zip(g.out, s.out))
+
+    # one slot: every decode projection and each prefill's read-out a
+    # one-row gemv (7 a layer and the read-out a decode step)
+    _, one = served(torch, K, M, model, dataclasses.replace(base, slots=1),
+                    specs[:2], V, ("rmsnorm", "gemv"),
+                    "bucketed one-slot run", norms=True)
+    mo = one["metrics"]
+    gemvs = (7 * L + 1) * mo["decode_steps"] + mo["prefill_calls"]
+    if one["launches"]["gemv"] != gemvs:
+        raise AssertionError(f"bucketed one-slot run: gemv launched "
+                             f"{one['launches']['gemv']} times, not {gemvs}")
+    res["one_slot"] = one
+    res["launches"]["one slot"] = one["launches"]
+
+    # the chunked paged engine on the same requests: greedy agreement
+    chunked, _ = served(torch, K, M, model, EngineConfig(
+        slots=8, cache_len=1024, backend="paged", chunked_prefill=True,
+        chunk_size=32, prefix_cache=True, kernel_decode=True), specs, V, (),
+        "chunked paged run")
+    total = sum(len(r.out) for r in chunked)
+    res["agreement_with_chunked"] = {
+        name: (sum(a == b for r, c in zip(streams[name], chunked)
+                   for a, b in zip(r.out, c.out)) / total,
+               sum(r.out == c.out for r, c in zip(streams[name], chunked)))
+        for name in ("dense", "paged")}
+    res["logits"] = bucketed_logits(torch, np, K, M, model, specs[4:], dev)
+    res["sampler"] = sampler_check(torch, np, dev)
+    del model
+    log_bucketed(res)
+    return res
+
+
+def log_bucketed(res):
+    """The lines of the bucketed phase."""
+    log(f"  qwen1.5-0.5b full width, bucketed prefill (prefill_batch 4), "
+        f"built in {res['init_s']:.1f} s")
+    for name, run in res["runs"].items():
+        g = run["kernel_path"]
+        m = g["metrics"]
+        log(f"  {name}: {m['tokens_per_s']:.2f} tok/s, "
+            f"{m['decode_steps_per_s']:.2f} decode steps/s, "
+            f"{g['wall_s']:.2f} s wall, {m['prefill_calls']} prefill calls "
+            f"by bucket {m['prefill_buckets']}, captures {g['captures']} "
+            f"(capture s {g['capture_s']}), caches "
+            f"{g['cache_bytes'] / 1e9:.3f} GB, graphs hold "
+            f"{g['graph_bytes'] / 1e9:.3f} GB after the run, peak "
+            f"{g['peak_bytes'] / 1e9:.3f} GB over the model, launches "
+            f"{g['launches']}")
+        log_graph_vs_eager(run, top=4)
+    log(f"  sampled run: first tokens the greedy run's; "
+        f"{res['sampled_tokens_off_greedy']} later tokens off the greedy "
+        f"stream")
+    o = res["one_slot"]
+    log(f"  one slot: {o['metrics']['tokens_per_s']:.2f} tok/s, "
+        f"{o['metrics']['decode_steps_per_s']:.2f} decode steps/s, "
+        f"{o['wall_s']:.2f} s wall, launches {o['launches']}")
+    for name, (share, same) in res["agreement_with_chunked"].items():
+        log(f"  greedy token agreement of the bucketed {name} run with the "
+            f"chunked paged engine: {share:.4f} ({same}/{DENSE_REQUESTS} "
+            f"identical streams)")
+    lg = res["logits"]
+    for step in ("prefill", "dense_decode"):
+        log(f"  {step.replace('_', ' ')} step (4 x {lg['bucket']}): logits "
+            f"err {lg[step + '_logits']}, launches {lg[step + '_launches']}")
+    sm = res["sampler"]
+    log(f"  sampler on the card: {sm['draws']} draws at T = "
+        f"{sm['temperature']} from {sm['vocab']} logits, chi-square "
+        f"{sm['chi2']:.2f} on {sm['df']} degrees of freedom, p "
+        f"{sm['p']:.4f}; bits at 8 x 151936 equal to the CPU's, draws "
+        f"{sm['draws_equal_cpu']} equal; {sm['ms_8x151936'] * 1e3:.1f} us "
+        f"a draw of 8 x 151936")
 
 
 # ------------------------------------------------------------------ train
@@ -3290,10 +3652,10 @@ def train_phase(torch, dev, rng, record=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,tune,engine,quant,moe,glm4,qwen3,"
-                            "qwen32b,train",
-                    help="comma list of kernels,tune,engine,quant,moe,glm4,"
-                         "qwen3,qwen32b,train (default: all)")
+                    default="kernels,tune,engine,quant,bucketed,moe,glm4,"
+                            "qwen3,qwen32b,train",
+                    help="comma list of kernels,tune,engine,quant,bucketed,"
+                         "moe,glm4,qwen3,qwen32b,train (default: all)")
     ap.add_argument("--record", type=Path, default=None, metavar="DIR",
                     help="also write chip_smoke.json and the gzipped "
                          "decode traces to DIR")
@@ -3433,6 +3795,17 @@ def main():
             record["quant" if fmt == "mx4" else f"quant_{fmt}"] = qeng
             del qeng
             torch.cuda.empty_cache()
+    if "bucketed" in phases:
+        t1 = time.perf_counter()
+        bk = bucketed_phase(torch, dev, args.record)
+        phase_s["bucketed"] = time.perf_counter() - t1
+        log(f"bucketed engine phase: {phase_s['bucketed']:.1f} s")
+        for name, counts in bk["launches"].items():
+            runs[f"qwen1.5 bucketed {name}"] = counts
+        mx_shapes["qwen1.5 bucketed"] = bk["one_slot"]["mx_qgemv_by_shape"]
+        record["bucketed"] = bk
+        del bk
+        torch.cuda.empty_cache()
     for name, ph in ARCH_PHASES.items():
         if name not in phases:
             continue

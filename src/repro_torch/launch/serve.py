@@ -2,12 +2,17 @@
 
     python -m repro_torch.launch.serve \\
         --arch qwen1.5-0.5b|qwen2-moe-a2.7b|glm4-9b|qwen3-14b|qwen1.5-32b \\
-        --chunked-prefill --prefix-cache --kernel-decode \\
+        [--backend dense|paged] [--chunked-prefill] [--prefix-cache] \\
+        [--kernel-decode] [--temperature T] \\
         [--quantize-weights int8|int4|mx4|fp8] [--quantize-group-size G] \\
         [--kv-cache-dtype int8] [--smoke] [--device cpu]
 
-Serves a seeded trace of requests through the chunked, paged engine and
-prints the engine metrics.  ``--kernel-decode`` routes norms, one-row
+Serves a seeded trace of requests and prints the engine metrics: through
+the bucketed engine (the default: prompts padded to power-of-2 buckets and
+prefilled together) over the ``--backend`` caches (``paged``, the default,
+or ``dense`` per-slot caches), or with ``--chunked-prefill`` through the
+chunked, paged one.  ``--temperature`` samples the decode tokens (the first
+token stays greedy).  ``--kernel-decode`` routes norms, one-row
 projections and the paged attention through the CUDA kernels (on the CPU
 their plain versions run).  ``--quantize-weights`` quantizes the
 projections as the random init draws them, layer by layer: absmax int8
@@ -33,12 +38,15 @@ def main(argv=None):
                     help="the reduced config (tiny widths, 2 layers)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--backend", choices=("dense", "paged"),
+                    default="paged")
     ap.add_argument("--kernel-decode", action="store_true",
                     help="route rmsnorm, one-row projections and the paged "
-                         "attention through the CUDA kernels")
+                         "attention through the CUDA kernels (requires "
+                         "--backend paged)")
     ap.add_argument("--chunked-prefill", action="store_true",
                     help="prefill as fixed-size token slabs interleaved with "
-                         "decode (the only prefill the port has so far)")
+                         "decode (requires --backend paged)")
     ap.add_argument("--chunk-size", type=int, default=32)
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share prompt-prefix KV pages across requests "
@@ -61,11 +69,14 @@ def main(argv=None):
                          "int8|int4 (multiple of the 32-row layout granule)")
     ap.add_argument("--kv-cache-dtype", choices=("model", "int8"),
                     default="model",
-                    help="int8: int8 page pools + bf16 scale pages")
+                    help="int8: int8 page pools + bf16 scale pages under "
+                         "--backend paged; per-slot int8 caches under "
+                         "--backend dense")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -77,9 +88,12 @@ def main(argv=None):
     from repro_torch.quant import quantized_stats
     from repro_torch.serve import EngineConfig, Request, build_engine
 
-    if not args.chunked_prefill:
-        raise SystemExit("the port serves with --chunked-prefill only so far "
-                         "(bucketed prefill: ROADMAP queue 1 item 6)")
+    if args.kernel_decode and args.backend != "paged":
+        raise SystemExit("--kernel-decode requires --backend paged "
+                         "(the kernel reads the page pool + block table)")
+    if args.chunked_prefill and args.backend != "paged":
+        raise SystemExit("--chunked-prefill requires --backend paged "
+                         "(slabs write through block tables)")
     if args.prefix_cache and not args.chunked_prefill:
         raise SystemExit("--prefix-cache requires --chunked-prefill (a "
                          "prefix hit resumes prefill mid-prompt)")
@@ -91,10 +105,11 @@ def main(argv=None):
     if args.smoke:
         cfg = reduced(cfg)
     engine_cfg = EngineConfig(
-        slots=args.slots, cache_len=args.cache_len, backend="paged",
+        slots=args.slots, cache_len=args.cache_len, backend=args.backend,
         page_size=args.page_size, num_pages=args.num_pages,
-        chunked_prefill=True, chunk_size=args.chunk_size,
-        prefix_cache=args.prefix_cache, seed=args.seed,
+        chunked_prefill=args.chunked_prefill, chunk_size=args.chunk_size,
+        prefix_cache=args.prefix_cache, temperature=args.temperature,
+        seed=args.seed,
         kernel_decode=args.kernel_decode,
         kv_cache_dtype="int8" if args.kv_cache_dtype == "int8" else "",
         quantize_weights=args.quantize_weights,

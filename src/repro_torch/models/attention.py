@@ -1,18 +1,21 @@
 """GQA attention (RoPE, qkv bias, qk-norm): full sequence, and against the
-paged KV cache.
+dense per-slot or the paged KV cache.
 
-The port of the full-sequence and paged paths of
-``repro.models.attention``.  Training attends with ``attend`` over the
-whole sequence, as the JAX package does.  On the paged path the plain
-(gathered dense view) path is the reference, and ``use_kernel`` streams the
-pools through the paged CUDA kernels instead.  The page pools (bf16, or int8
-with scale pages) and the int8 engine's ``ChunkStage`` are updated in place
+The port of ``repro.models.attention`` (one device).  Training and the
+bucketed prefill attend with ``attend`` over the whole sequence, as the JAX
+package does; the prefill also returns the roped K and V as its
+``KVCache``.  Decode over a dense ``KVCache`` attends with plain ``attend``
+(the JAX package's routing: its dense decode kernels run only through the
+tune registry).  On the paged path the plain (gathered dense view) path is
+the reference, and ``use_kernel`` streams the pools through the paged CUDA
+kernels instead.  The caches (dense, or page pools, bf16 or int8 with
+scales) and the int8 engine's ``ChunkStage`` are updated in place
 (``index_put_`` / ``index_copy_``): that is what JAX's buffer donation does
-for the jitted step, without a second copy of the pools.
+for the jitted step, without a second copy of the caches.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -21,6 +24,19 @@ from repro_torch.models import modules as M
 from repro_torch.quant.tensor import dequantize_kv, quantize_kv
 from repro_torch.serve.kvcache import (NULL_PAGE, ChunkStage, PagedKVCache,
                                        PageSpec)
+
+
+class KVCache(NamedTuple):
+    """Dense per-slot KV cache of one attention layer; int8 codes with
+    per-(token, head) bf16 absmax scales when quantized."""
+    k: torch.Tensor                        # (B, S, KV, hd) compute | int8
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None  # (B, S, KV, 1) bf16 when int8
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def attention_init(cfg, *, dtype, generator, device) -> nn.ModuleDict:
@@ -81,12 +97,39 @@ def _project_qkv(p, cfg, x, positions, dtype):
     return q, k, v
 
 
-def apply_attention(p, cfg, x, *, positions, dtype, causal=True):
-    """Full-sequence (training) self-attention over x (B, T, d)."""
+def apply_attention(p, cfg, x, *, positions, dtype, causal=True,
+                    return_kv=False):
+    """Full-sequence (training / prefill) self-attention over x (B, T, d);
+    ``return_kv`` also returns the roped K and V as a ``KVCache`` (the
+    decode cache's rows)."""
     q, k, v = _project_qkv(p, cfg, x, positions, dtype)
     out = attend(q, k, v, causal=causal)
     B, T = x.shape[:2]
-    return M.apply_dense(p["wo"], out.reshape(B, T, -1), dtype)
+    out = M.apply_dense(p["wo"], out.reshape(B, T, -1), dtype)
+    if return_kv:
+        return out, KVCache(k, v)
+    return out
+
+
+def update_cache(cache_arr, new, pos):
+    """Dense cache write, in place: row ``new[b, 0]`` at ``[b, pos[b]]``.
+
+    As in JAX's ``.at[...].set(mode="drop")``, a negative position counts
+    from the end and a write that still falls outside [0, S) is dropped.
+    Torch would raise on it instead; the port drops it without a host
+    sync: that slot writes the row already at a clamped position back
+    onto itself, leaving the cache as it was.
+
+    cache_arr (B, S, ...); new (B, 1, ...); pos (B,)."""
+    B, S = cache_arr.shape[:2]
+    pos = pos.long()
+    pos = torch.where(pos < 0, pos + S, pos)
+    b = torch.arange(B, device=cache_arr.device)
+    idx = torch.clamp(pos, 0, S - 1)
+    ok = ((pos >= 0) & (pos < S)).reshape((B,) + (1,) * (new.ndim - 2))
+    row = torch.where(ok, new[:, 0].to(cache_arr.dtype), cache_arr[b, idx])
+    cache_arr.index_put_((b, idx), row)
+    return cache_arr
 
 
 def _decode_targets(pos, block_tables, page):
@@ -196,6 +239,35 @@ def _write_rows(cache: PagedKVCache, k_new, v_new, write):
         write(cache.v_pool, v_new)
 
 
+def apply_attention_decode(p, cfg, x, cache, pos, dtype, block_tables=None,
+                           use_kernel=False):
+    """Single-token decode; ``pos`` (B,) the current position.  A paged
+    cache goes to ``apply_attention_decode_paged``; a dense ``KVCache``
+    (fixed S) takes the token's K/V row at ``pos`` (quantized to codes and
+    scales when int8) and attends with plain ``attend`` over
+    ``length = pos + 1``, the int8 cache dequantized whole, as the JAX
+    package does."""
+    if isinstance(cache, PagedKVCache):
+        return apply_attention_decode_paged(p, cfg, x, cache, pos, dtype,
+                                            block_tables, use_kernel)
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None], dtype)
+    if cache.quantized:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        for arr, new in ((cache.k, kq), (cache.v, vq),
+                         (cache.k_scale, ks), (cache.v_scale, vs)):
+            update_cache(arr, new, pos)
+        k = dequantize_kv(cache.k, cache.k_scale, dtype)
+        v = dequantize_kv(cache.v, cache.v_scale, dtype)
+    else:
+        k = update_cache(cache.k, k_new, pos)
+        v = update_cache(cache.v, v_new, pos)
+    out = attend(q, k, v, causal=False, length=pos + 1)
+    out = M.apply_dense(p["wo"], out.reshape(B, 1, -1), dtype)
+    return out, cache
+
+
 def apply_attention_decode_paged(p, cfg, x, cache: PagedKVCache, pos,
                                  dtype, block_tables, use_kernel=False):
     """Single-token decode against a paged cache.  ``use_kernel`` attends
@@ -281,6 +353,22 @@ def apply_attention_chunk_paged(p, cfg, x, cache: PagedKVCache, offset,
                      length=length)
     out = M.apply_dense(p["wo"], out.reshape(B, C, -1), dtype)
     return out, cache
+
+
+def init_cache(cfg, B: int, S: int, dtype, quantized: bool = False,
+               device=None) -> KVCache:
+    """Zeroed dense per-slot cache (B, S, KV, hd); ``quantized``: int8
+    codes plus bf16 scales initialized to one."""
+    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    if quantized:
+        sshape = shape[:-1] + (1,)
+        return KVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.ones(sshape, dtype=torch.bfloat16, device=device),
+            torch.ones(sshape, dtype=torch.bfloat16, device=device))
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_paged_cache(cfg, spec: PageSpec, dtype, device) -> PagedKVCache:

@@ -50,16 +50,24 @@ class Model(nn.Module):
     def decode_step(self, batch, caches):
         return T.decode_step(self.params, self.cfg, self.rt, batch, caches)
 
+    def prefill(self, batch):
+        """(logits, dense caches) of a bucket of prompts (see
+        transformer.prefill)."""
+        return T.prefill(self.params, self.cfg, self.rt, batch)
+
     def chunk_step(self, batch, caches):
         """One chunked-prefill slab (see transformer.chunk_prefill_step)."""
         return T.chunk_prefill_step(self.params, self.cfg, self.rt, batch,
                                     caches)
 
     def init_caches(self, B, S, dtype=None, page_spec=None,
-                    chunk_stage: int = 0):
+                    chunk_stage: int = 0, device=None):
+        """The decode caches on the model's device, or on ``device`` (the
+        ``meta`` device builds their shapes only)."""
         dtype = dtype or dtype_of(self.cfg.dtype)
         return T.init_caches(self.cfg, self.rt, B, S, dtype,
-                             page_spec=page_spec, device=self.device,
+                             page_spec=page_spec,
+                             device=device or self.device,
                              chunk_stage=chunk_stage)
 
 

@@ -4,11 +4,13 @@ and the training forward.
 The port of the attention-only part of ``repro.models.transformer``.  The
 JAX package stacks the layers of a group over a leading axis and runs them
 with ``lax.scan``; here every layer is its own entry of an ``nn.ModuleList``
-and a Python loop runs them eagerly.  Three entry points:
-``chunk_prefill_step`` (one prompt slab) and ``decode_step`` (one token per
-slot), both against shared ``PagedKVCache`` pools that they update in
-place, and ``train_logits`` (the full-sequence causal forward, with the
-JAX package's remat modes as activation checkpoints).
+and a Python loop runs them eagerly.  Four entry points: ``prefill`` (a
+bucket of right-padded prompts, returning dense per-slot caches),
+``chunk_prefill_step`` (one prompt slab against shared ``PagedKVCache``
+pools), ``decode_step`` (one token per slot, against dense ``KVCache``s or
+the pools; both updated in place) and ``train_logits`` (the full-sequence
+causal forward, with the JAX package's remat modes as activation
+checkpoints).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.core.device import dtype_of
 from repro_torch.models import attention as A
 from repro_torch.models import modules as M
 from repro_torch.models import moe as MOE
-from repro_torch.serve.kvcache import PagedKVCache
+from repro_torch.quant.tensor import quantize_kv
 
 
 @dataclass(frozen=True)
@@ -156,7 +158,7 @@ def _apply_layer_chunk(p, cfg, rt, x, cache, offset, valid, stage_base,
 
 def _apply_layer_decode(p, cfg, rt, x, cache, pos, pages, dtype):
     h = M.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
-    o, _ = A.apply_attention_decode_paged(
+    o, _ = A.apply_attention_decode(
         p["mixer"], cfg, h, cache, pos, dtype, block_tables=pages,
         use_kernel=_use_kernel(rt))
     return _apply_ffn(p, cfg, rt, x + o, dtype)
@@ -237,18 +239,20 @@ def train_logits(params, cfg, rt, batch):
 # Caches + entry points
 # --------------------------------------------------------------------------
 def init_caches(cfg, rt, B, S, dtype, page_spec=None, device=None,
-                chunk_stage: int = 0) -> List[PagedKVCache]:
-    """One ``PagedKVCache`` (page pools shared by every slot) per layer.
-    ``B`` and ``S`` size the pools through ``page_spec``; int8 pools come
-    with scale pages.  ``chunk_stage`` (the chunked engine's chunk size)
-    adds a one-slot bf16 ``ChunkStage`` to each int8 layer, covering the
-    gathered view plus a full pad chunk so the staging write never runs
-    past its end."""
+                chunk_stage: int = 0) -> List:
+    """One decode cache per layer.  With ``page_spec`` a ``PagedKVCache``
+    (page pools shared by every slot, sized through the spec; int8 pools
+    with scale pages); without it, or when the runtime stores KV in int8
+    but the spec's pools are not int8, a dense per-slot ``KVCache``
+    (B, S), int8 with scales when ``rt.kv_dtype()`` is ``"int8"``.
+    ``chunk_stage`` (the chunked engine's chunk size) adds a one-slot bf16
+    ``ChunkStage`` to each int8 paged layer, covering the gathered view
+    plus a full pad chunk so the staging write never runs past its end."""
     paged_int8 = page_spec is not None and page_spec.kv_dtype == "int8"
-    if page_spec is None or (rt.kv_dtype() == "int8" and not paged_int8):
-        raise NotImplementedError("dense per-slot caches are not ported yet: "
-                                  "ROADMAP queue 1 item 6 (bucketed prefill "
-                                  "and dense backend)")
+    quant = rt.kv_dtype() == "int8"
+    if page_spec is None or (quant and not paged_int8):
+        return [A.init_cache(cfg, B, S, dtype, quantized=quant,
+                             device=device) for _ in range(cfg.num_layers)]
     caches = [A.init_paged_cache(cfg, page_spec, dtype, device)
               for _ in range(cfg.num_layers)]
     if chunk_stage > 0 and paged_int8:
@@ -257,6 +261,38 @@ def init_caches(cfg, rt, B, S, dtype, page_spec=None, device=None,
         caches = [c._replace(stage=A.init_chunk_stage(cfg, S_stage, device))
                   for c in caches]
     return caches
+
+
+@torch.no_grad()
+def prefill(params, cfg, rt, batch):
+    """Full-sequence forward of a bucket of right-padded prompts that also
+    returns their decode caches: batch = {tokens (B, T)[, length (B,)]},
+    positions ``arange(T)``.  The caches are one dense ``KVCache`` (B, T)
+    per layer, the roped K and V in the compute dtype, or their int8 codes
+    and scales when ``rt.kv_dtype()`` is ``"int8"``.  Returns (logits
+    (B, T, V), caches); with ``length``, each row's position
+    ``length - 1`` is gathered before the read-out and the logits are
+    (B, V) — the JAX package reads out every position and gathers after
+    (a full (8, 1024, 151936) bf16 read-out would be 2.5 GB)."""
+    dtype = dtype_of(cfg.dtype)
+    x = embed_inputs(params, cfg, batch, dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    caches = []
+    for p in params["layers"]:
+        h = M.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
+        o, kv = A.apply_attention(p["mixer"], cfg, h, positions=positions,
+                                  dtype=dtype, return_kv=True)
+        if rt.kv_dtype() == "int8":
+            (qk, ks), (qv, vs) = quantize_kv(kv.k), quantize_kv(kv.v)
+            kv = A.KVCache(qk, qv, ks, vs)
+        caches.append(kv)
+        x = _apply_ffn(p, cfg, rt, x + o, dtype)
+    length = batch.get("length")
+    if length is None:
+        return readout(params, cfg, x, dtype), caches
+    idx = (length.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+    last = torch.gather(x, 1, idx)
+    return readout(params, cfg, last, dtype)[:, 0], caches
 
 
 @torch.no_grad()
@@ -287,8 +323,8 @@ def chunk_prefill_step(params, cfg, rt, batch, caches):
 
 @torch.no_grad()
 def decode_step(params, cfg, rt, batch, caches):
-    """batch: tokens (B,1), pos (B,), block_tables (B,nblk).  Returns
-    (logits (B,1,V), caches)."""
+    """batch: tokens (B,1), pos (B,)[, block_tables (B,nblk) over paged
+    caches].  Returns (logits (B,1,V), caches)."""
     dtype = dtype_of(cfg.dtype)
     pos = batch["pos"]
     pages = batch.get("block_tables")

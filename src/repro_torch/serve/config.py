@@ -3,9 +3,11 @@
 ``EngineConfig`` is a copy of the JAX package's frozen record of every
 scalar engine option, with the same fields and the same ``validate()``
 messages, so a config means the same thing in both packages.  The port's
-``build_engine`` serves the chunked, paged, greedy path, with bf16 or int8
-KV pages and raw, absmax int (``int8`` / ``int4``) or MX (``mx4`` /
-``fp8``) weights; an option that needs a part not ported yet raises
+``build_engine`` serves the bucketed engine over dense or paged caches
+(the JAX defaults) and the chunked, paged one, greedy or at a
+temperature, with bf16 or int8 KV and raw, absmax int (``int8`` /
+``int4``) or MX (``mx4`` / ``fp8``) weights; an option that needs a part
+not ported yet (speculation, tensor parallelism) raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -94,10 +96,6 @@ class EngineConfig:
     def check_ported(self) -> "EngineConfig":
         """Raise for the options whose code is not ported yet."""
         not_yet = [
-            (self.backend != "paged" or not self.chunked_prefill,
-             "the dense backend and bucketed prefill: ROADMAP queue 1 item 6"),
-            (self.temperature > 0, "temperature sampling: ROADMAP queue 1 "
-                                   "item 6 (serving engine)"),
             (self.speculate_k > 0, "speculation: ROADMAP queue 1 item 9"),
             (self.tp > 1, "tensor parallelism: ROADMAP queue 1 item 12"),
         ]
@@ -136,10 +134,11 @@ def build_engine(arch, engine_cfg: EngineConfig, *,
     launch with the configs ``serve.step.tuned_kernel_configs`` resolves
     from the tune cache at the engine's shapes
     (``serve_step.troop_configs``); an empty cache gives the defaults.
-    The engine runs its steps as captured CUDA graphs; ``capture=False``
-    steps eagerly (the counterpart of ``jax.disable_jit()``: a keyword,
-    not an ``EngineConfig`` field, since that record mirrors the JAX
-    one)."""
+    The engine's cache backend is the one ``backend`` names (dense
+    per-slot caches, or page pools).  It runs its steps as captured CUDA
+    graphs; ``capture=False`` steps eagerly (the counterpart of
+    ``jax.disable_jit()``: a keyword, not an ``EngineConfig`` field,
+    since that record mirrors the JAX one)."""
     from repro_torch.configs import get_config
     from repro_torch.models import RuntimeConfig, build_model
     from repro_torch.quant import quantizer

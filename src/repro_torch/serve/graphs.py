@@ -5,16 +5,22 @@ the same way).
 
 A ``StepGraph`` binds a step function ``(batch, caches) -> (tokens,
 caches)`` to one static device buffer per batch key, to the caches (which
-the step updates in place: JAX's donation) and to one static output.  The
-first batch fixes the buffers' shapes and dtypes, the engine's fixed
-shapes; a later batch of another shape raises.  ``run(host_arrays)``
-copies each host array into its buffer and runs the step:
+the step updates in place: JAX's donation) and to its static outputs: the
+tokens, and the caches it returns (``caches_out``: the bucketed prefill
+step takes no caches and returns new ones, which the engine then splices
+or scatters into its own, eagerly).  The first batch fixes the buffers'
+shapes and dtypes, the engine's fixed shapes; a later batch of another
+shape raises, so each prefill bucket has a graph of its own.
+``run(host_arrays)`` copies each host array into its buffer and runs the
+step:
 
 * on the card, the first ``run`` binds the graph: one eager warm-up step on
   that batch (it fills the wrappers' cached host queries,
   ``_build.resident`` and ``sm_count``, and loads the kernel libraries
   outside the capture), then one capture with ``torch.cuda.graph`` on a
-  private memory pool, then the replay; every later ``run`` replays.  The
+  private memory pool (or on ``pool``, which the engine's prefill graphs
+  share: each one's outputs are read before another of them replays),
+  then the replay; every later ``run`` replays.  The
   warm-up and the first replay run the same step on the same inputs: a
   serving step writes its KV rows (and its pad and idle rows into the
   NULL page) before it reads them, and accumulates nothing, so running it
@@ -64,12 +70,14 @@ class StepGraph:
     """One serving step bound to static buffers on ``device`` (the
     engine's); see the module docstring."""
 
-    def __init__(self, step, caches, device: torch.device):
+    def __init__(self, step, caches, device: torch.device, pool=None):
         self.step = step
         self.caches = caches
         self.device = device
+        self.pool = pool
         self.inputs = None
         self.out = None
+        self.caches_out = None
         self.captures = 0
         self.capture_s = 0.0
         self._graph = None
@@ -86,7 +94,7 @@ class StepGraph:
         else:
             self._copy_in(host)
         if self.device.type != "cuda":
-            tok, _ = self.step(self.inputs, self.caches)
+            tok, self.caches_out = self.step(self.inputs, self.caches)
             if self.out is None:
                 self.out = tok
                 self.captures += 1
@@ -142,13 +150,13 @@ class StepGraph:
             # cache first: the warm-up's blocks go back to the card before
             # the graph's private pool takes its own, so capture holds no
             # second copy of a step's working set (the dequantized stacks)
-            with torch.cuda.graph(graph):
-                out, _ = self.step(self.inputs, self.caches)
+            with torch.cuda.graph(graph, pool=self.pool):
+                out, caches_out = self.step(self.inputs, self.caches)
             recorded = _growth(warm, ops.launch_snapshot())
         finally:
             ops.add_launches(*_negated(_growth(start,
                                                ops.launch_snapshot())))
-        self._graph, self.out = graph, out
+        self._graph, self.out, self.caches_out = graph, out, caches_out
         self._routed = M.kernel_routed()
         self._replay_launches = recorded
         self.captures += 1

@@ -1,14 +1,18 @@
-"""Paged KV cache: page pools, block tables, refcounted pages, prefix index.
+"""KV cache backends: per-slot dense caches, and paged pools with block
+tables, refcounted pages and a prefix index.
 
-A copy of the paged half of the JAX package's ``serve/kvcache.py`` (which
-imports JAX, so the port keeps its own).  KV lives in fixed-size *pages* of
-a shared pool per layer; per-slot *block tables* map logical block ->
-physical page.  Pages are refcounted: the chunked engine shares common
-prompt prefixes across slots through a radix ``PrefixIndex`` over
-page-granular token runs, and a prompt diverging mid-page copies the
-divergence page once (copy-on-write) before overwriting its tail.  Shared
-pages are read-only by invariant: the engine only writes rows at positions
->= its prefill offset, which land in freshly allocated (or copied) pages.
+A copy of the JAX package's ``serve/kvcache.py`` (which imports JAX, so the
+port keeps its own).  The dense backend keeps one ``(slots, cache_len)``
+cache per layer and splices a bucketed prefill's rows into a slot at
+admission (``splice_row`` along the slot axis ``slot_axes`` finds).  The
+paged backend keeps KV in fixed-size *pages* of a shared pool per layer;
+per-slot *block tables* map logical block -> physical page.  Pages are
+refcounted: the chunked engine shares common prompt prefixes across
+slots through a radix ``PrefixIndex`` over page-granular token runs, and
+a prompt diverging mid-page copies the divergence page once
+(copy-on-write) before overwriting its tail.  Shared pages are read-only
+by invariant: the engine only writes rows at positions >= its prefill
+offset, which land in freshly allocated (or copied) pages.
 
 The host-side parts (``PageSpec``, ``BlockAllocator``, ``PrefixIndex``, the
 block tables) are plain Python and numpy exactly as in the JAX package, so
@@ -16,6 +20,7 @@ a run of both engines on one trace hands out the same pages.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -23,6 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.troop import sublane
+from repro_torch.quant.tensor import quantize_kv
+from repro_torch.serve.config import resolve_page_size
 
 NULL_PAGE = 0          # page 0 is never allocated: idle slots point here
 
@@ -257,6 +264,88 @@ class PrefixIndex:
             pass
 
 
+# --------------------------------------------------------------------------
+# Splicing helpers (shared by both backends)
+# --------------------------------------------------------------------------
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a cache tree (lists and NamedTuples of tensors, their
+    ``None`` fields skipped), in one fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if tree is None:
+        return []
+    return [t for sub in tree for t in _tensors(sub)]
+
+
+def _batch_dim(dst_shape, src_shape, slots):
+    """Batch dim for a B=1 splice: where dst == slots and src == 1 (prefer
+    dim 1: stacked layer caches are (layers, B, ...))."""
+    for d in (1, 0):
+        if len(dst_shape) > d and dst_shape[d] == slots \
+                and src_shape[d] == 1:
+            return d
+    raise ValueError(f"cannot locate batch dim: {tuple(dst_shape)} vs "
+                     f"{tuple(src_shape)}")
+
+
+def splice_row(dst, src, row: int, slot: int, slots: int,
+               axis: Optional[int] = None):
+    """Write row ``row`` of a batched prefill array into slot ``slot`` of a
+    batch-cache array, in place, zero-padding the trailing (sequence) dims
+    up to dst's size; returns ``dst``.
+
+    ``axis`` is the leaf's slot axis (from ``slot_axes``: exact, no shape
+    guessing); without it, the B=1 heuristic ``_batch_dim``.  ``axis`` -1
+    marks a slot-independent leaf (a shared page pool): left alone."""
+    bi = _batch_dim(dst.shape, src.shape, slots) if axis is None else axis
+    if bi < 0:
+        return dst
+    src = src.narrow(bi, row, 1)
+    target = dst.narrow(bi, slot, 1)
+    target.zero_()
+    target[tuple(slice(0, n) for n in src.shape)].copy_(src)
+    return dst
+
+
+def slot_axes(model, slots: int, cache_len: int, page_spec=None,
+              chunk_stage: int = 0) -> List[tuple]:
+    """Per-layer slot axes of the cache tree, derived structurally: the
+    caches ``init_caches`` builds at ``slots`` and at ``slots + 1`` on the
+    ``meta`` device (nothing is allocated; JAX's ``eval_shape``), diffed
+    tensor by tensor — the axis whose extent changes is the slot axis (-1:
+    slot-independent, e.g. a shared page pool).  Entry i holds one axis
+    for each tensor of layer i's cache (``_tensors`` order), so a head or
+    sequence extent that happens to equal ``slots`` is never taken for
+    it."""
+    meta = torch.device("meta")
+    a, b = (model.init_caches(n, cache_len, page_spec=page_spec,
+                              chunk_stage=chunk_stage, device=meta)
+            for n in (slots, slots + 1))
+
+    def axis(x, y):
+        return next((d for d, (p, q) in enumerate(zip(x.shape, y.shape))
+                     if p != q), -1)
+
+    return [tuple(axis(x, y) for x, y in zip(_tensors(la), _tensors(lb)))
+            for la, lb in zip(a, b)]
+
+
+def _pool_scatter(pool, rows, pages: torch.Tensor):
+    """Write prefill KV rows into the pages ``pages`` (a device index
+    tensor) of one pool, in place.  pool: (P, page, KV, hd); rows:
+    (T, KV, hd), zero-padded or truncated to exactly fill the pages."""
+    page = pool.shape[1]
+    need = pages.shape[0] * page
+    T = rows.shape[0]
+    if T < need:
+        rows = torch.cat([rows, rows.new_zeros((need - T,) + rows.shape[1:])])
+    else:
+        rows = rows[:need]
+    buf = rows.reshape((pages.shape[0], page) + rows.shape[1:])
+    pool.index_copy_(0, pages, buf.to(pool.dtype))
+    return pool
+
+
 def copy_page(caches, src: int, dst: int):
     """Copy physical page ``src`` -> ``dst`` in every layer's pools, in
     place (the copy-on-write at a mid-page prefix divergence); the scale
@@ -281,6 +370,47 @@ def kv_row_bytes(cfg, kv_dtype: str) -> int:
             .element_size()
         per_layer = cfg.num_kv_heads * cfg.head_dim * itemsize * 2
     return n_attn * per_layer
+
+
+class DenseBackend:
+    """Per-slot dense caches of capacity ``cache_len`` (the JAX package's
+    default layout): a bucketed prefill's rows are spliced into the
+    admitted slot, and every slot always holds its whole capacity."""
+
+    name = "dense"
+
+    def __init__(self):
+        self.slots = 0
+        self.cache_len = 0
+
+    def init_caches(self, model, slots: int, cache_len: int):
+        self.slots = slots
+        self.cache_len = cache_len
+        self._axes = slot_axes(model, slots, cache_len)
+        return model.init_caches(slots, cache_len)
+
+    def check_admissible(self, tokens: int):
+        pass
+
+    def reserve(self, slot: int, tokens: int) -> bool:
+        return True
+
+    def admit(self, caches, prefill_caches, *, row: int, slot: int,
+              prompt_len: int):
+        """Row ``row`` of the batched prefill caches into slot ``slot``, in
+        place (the rows past the prompt, pad tokens', too: decode's
+        ``length = pos + 1`` masks them)."""
+        for dst, src, axes in zip(caches, prefill_caches, self._axes):
+            for d, s, ax in zip(_tensors(dst), _tensors(src), axes):
+                splice_row(d, s, row, slot, self.slots, axis=ax)
+        return caches
+
+    def release(self, slot: int):
+        pass
+
+    def stats(self) -> Dict[str, Any]:
+        return {"backend": self.name,
+                "cache_tokens": self.slots * self.cache_len}
 
 
 class PagedBackend:
@@ -330,6 +460,8 @@ class PagedBackend:
         if self.prefix_cache:
             self.prefix_index = PrefixIndex(self.spec.page_size,
                                             self.allocator)
+        self._axes = slot_axes(model, slots, cache_len, page_spec=self.spec,
+                               chunk_stage=self.chunk_stage)
         self._row_bytes = kv_row_bytes(model.cfg, dtype)
         return model.init_caches(slots, cache_len, page_spec=self.spec,
                                  chunk_stage=self.chunk_stage)
@@ -417,6 +549,41 @@ class PagedBackend:
         if full:
             self.prefix_index.insert(prompt, self._slot_pages[slot][:full])
 
+    def admit(self, caches, prefill_caches, *, row: int, slot: int,
+              prompt_len: int):
+        """Row ``row`` of the batched (dense) prefill caches into ``slot``'s
+        first ``ceil(prompt_len / page)`` pages, in place.  An int8 pool
+        takes an int8 prefill cache's codes and scales verbatim (so paged
+        and dense int8 engines hold the same rows) and quantizes a bf16
+        prefill cache here; a layer whose cache is not paged takes the
+        dense splice along its slot axis."""
+        n_prefill = -(-prompt_len // self.spec.page_size)
+        pages = None
+        for dst, src, axes in zip(caches, prefill_caches, self._axes):
+            if not isinstance(dst, PagedKVCache):
+                for d, s, ax in zip(_tensors(dst), _tensors(src), axes):
+                    splice_row(d, s, row, slot, self.slots, axis=ax)
+                continue
+            if pages is None:
+                pages = torch.tensor(self._slot_pages[slot][:n_prefill],
+                                     dtype=torch.long,
+                                     device=dst.k_pool.device)
+            k, v = src.k[row], src.v[row]
+            if not dst.quantized:
+                _pool_scatter(dst.k_pool, k, pages)
+                _pool_scatter(dst.v_pool, v, pages)
+                continue
+            if getattr(src, "quantized", False):
+                (k8, ks), (v8, vs) = ((k, src.k_scale[row]),
+                                      (v, src.v_scale[row]))
+            else:
+                (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            for pool, rows in ((dst.k_pool, k8), (dst.v_pool, v8),
+                               (dst.k_scale_pool, ks),
+                               (dst.v_scale_pool, vs)):
+                _pool_scatter(pool, rows, pages)
+        return caches
+
     def release(self, slot: int):
         if slot in self._pending_cow:           # released before the copy
             src, _ = self._pending_cow.pop(slot)
@@ -462,3 +629,26 @@ class PagedBackend:
                 "cow_copies": self.cow_copies,
             })
         return out
+
+
+def make_backend(config):
+    """The cache backend ``config.backend`` names (an ``EngineConfig``),
+    shaped by its page size, pool size, KV dtype and prefix cache."""
+    if config.backend == "dense":
+        return DenseBackend()
+    if config.backend == "paged":
+        return PagedBackend(
+            page_size=resolve_page_size(config), num_pages=config.num_pages,
+            kv_dtype="int8" if config.kv_cache_dtype == "int8" else None,
+            prefix_cache=config.prefix_cache)
+    raise ValueError(f"unknown cache backend {config.backend!r}")
+
+
+def bucket_length(n: int, min_bucket: int = 8,
+                  cap: Optional[int] = None) -> int:
+    """Power-of-2 prefill bucket for a prompt of length ``n``: one captured
+    prefill graph per bucket, ever."""
+    b = max(min_bucket, 1 << max(0, math.ceil(math.log2(max(n, 1)))))
+    if cap is not None:
+        b = min(b, cap)
+    return b

@@ -1,9 +1,19 @@
-"""Serving steps: ``make_chunk_step`` / ``make_serve_step`` (greedy), and
+"""Serving steps: ``make_prefill_step`` (bucketed), ``make_chunk_step``,
+``make_serve_step`` (greedy or sampled), the stateless sampler, and
 ``tuned_kernel_configs``.
 
 Each step function ``(batch, caches) -> (next tokens, caches)`` enqueues
 the step's work on the device and returns without waiting: the tokens are
-a device tensor, read by the engine one cycle later.
+a device tensor, read by the engine later.
+
+Temperature sampling draws ``argmax(row / T + g)`` with Gumbel noise ``g``
+from a counter-based hash of (seed, slot, position, admission nonce,
+vocab index): splitmix64 in int64 torch ops.  It keeps no generator
+state, so a CUDA-graph replay and an eager step draw the same bits, on
+the card as on the CPU.  The JAX package folds the same four numbers into
+a PRNG key and draws ``categorical(row / T)``; its bits cannot be
+reproduced in torch, so the two packages' sampled tokens agree in
+distribution, not bit for bit.
 
 ``tuned_kernel_configs`` resolves the best-known ``LaunchConfig`` of each
 decode-path kernel at the serving shapes (from the persistent tune cache,
@@ -117,6 +127,23 @@ def launch_config(configs: Optional[Dict[str, LaunchConfig]],
     return dataclasses.replace(DEFAULT, **fields)
 
 
+def make_prefill_step(model, launch: LaunchConfig = DEFAULT):
+    """Bucketed batched prefill: batch = {tokens (Bp, L) right-padded,
+    length (Bp,) valid rows} -> (next_tok (Bp,) int32, prefill caches (one
+    dense ``KVCache`` (Bp, L) a layer)).  Each row's last valid position is
+    gathered before the read-out (``transformer.prefill``); the token is
+    its greedy argmax, at any temperature, as in the JAX package.  Takes
+    no caches (``caches`` is ignored: the step's signature is the
+    engine's).  The kernels launch with ``launch``."""
+    from repro_torch.models import modules as M
+
+    def prefill_step(batch, caches=None):
+        with M.kernel_launch(launch):
+            logits, caches = model.prefill(batch)           # (Bp, V)
+        return torch.argmax(logits, dim=-1).to(torch.int32), caches
+    return prefill_step
+
+
 def make_chunk_step(model, launch: LaunchConfig = DEFAULT):
     """Chunked prefill: one fixed-size token slab against the shared paged
     caches.  batch = {tokens (1, C) right-padded, offset (1,), valid (1,),
@@ -132,23 +159,81 @@ def make_chunk_step(model, launch: LaunchConfig = DEFAULT):
     return chunk_step
 
 
-def make_serve_step(model, *, temperature: float = 0.0,
+def _i64(c: int) -> int:
+    """A 64-bit constant as the int64 holding the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GAMMA = _i64(0x9E3779B97F4A7C15)
+_MUL1 = _i64(0xBF58476D1CE4E5B9)
+_MUL2 = _i64(0x94D049BB133111EB)
+
+
+def _shr(z, s: int):
+    """Logical right shift of int64 bits: the arithmetic shift with the
+    sign's copies masked off."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix(z):
+    """splitmix64: the output of the generator whose state is ``z``, one
+    step on (multiplies wrap modulo 2^64, as in the integer hash)."""
+    z = z + _GAMMA
+    z = (z ^ _shr(z, 30)) * _MUL1
+    z = (z ^ _shr(z, 27)) * _MUL2
+    return z ^ _shr(z, 31)
+
+
+def sample_bits(seed: int, slot, pos, nonce, vocab: int):
+    """(B, vocab) int64 random bits of the draw at each row's (slot, pos,
+    nonce) (each (B,)) and vocab index, under ``seed``: the row key is
+    ``seed``, then slot, position and nonce folded in one at a time, each
+    through ``_mix``; the bits of vocab index v are ``_mix(key ^ v)``."""
+    key = _mix(torch.full_like(slot, seed, dtype=torch.int64))
+    for part in (slot, pos, nonce):
+        key = _mix(key ^ part.long())
+    v = torch.arange(vocab, dtype=torch.int64, device=key.device)
+    return _mix(key[:, None] ^ v[None, :])
+
+
+def sample(logits, temperature: float, seed: int, pos, nonce=None):
+    """One token a row of ``logits`` (B, V) from ``softmax(row /
+    temperature)``, by the Gumbel-max trick: ``argmax(row / T -
+    log(-log u))`` with ``u`` in (0, 1) from the top 53 bits of
+    ``sample_bits`` (row b is slot b).  Stateless: the same (seed, slot,
+    pos, nonce) draws the same token."""
+    B, V = logits.shape
+    slot = torch.arange(B, device=logits.device)
+    nonce = torch.zeros_like(pos) if nonce is None else nonce
+    bits = sample_bits(seed, slot, pos, nonce, V)
+    u = (_shr(bits, 11).double() + 0.5) * 2.0 ** -53
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(logits.double() / temperature + g, dim=-1)
+
+
+def make_serve_step(model, *, temperature: float = 0.0, seed: int = 0,
                     troop_configs: Optional[Dict[str, LaunchConfig]] = None,
                     launch: LaunchConfig = DEFAULT):
-    """Greedy single-token decode over every slot: batch = {tokens (B, 1),
-    pos (B,), block_tables (B, nblk)} -> (next_tok (B, 1) int32, caches).
-    The kernels launch with ``launch``; ``troop_configs`` (from
+    """Single-token decode over every slot: batch = {tokens (B, 1), pos
+    (B,)[, block_tables (B, nblk)][, sample_nonce (B,)]} -> (next_tok
+    (B, 1) int32, caches).  Greedy at ``temperature`` 0; above it each
+    slot samples from ``softmax(row / temperature)`` (``sample``, keyed by
+    ``seed``, the slot, its position and its admission's nonce).  The
+    kernels launch with ``launch``; ``troop_configs`` (from
     ``tuned_kernel_configs``) is attached to the returned step, as in the
     JAX package, for introspection."""
-    if temperature > 0:
-        raise NotImplementedError("temperature sampling is not ported yet: "
-                                  "ROADMAP queue 1 item 6 (serving engine)")
     from repro_torch.models import modules as M
 
     def serve_step(batch, caches):
         with M.kernel_launch(launch):
             logits, caches = model.decode_step(batch, caches)
-        return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32), caches
+        row = logits[:, -1, :]
+        if temperature > 0:
+            tok = sample(row, temperature, seed, batch["pos"],
+                         batch.get("sample_nonce"))
+        else:
+            tok = torch.argmax(row, dim=-1)
+        return tok[:, None].to(torch.int32), caches
     serve_step.troop_configs = troop_configs
     serve_step.launch = launch
     return serve_step

@@ -1734,6 +1734,66 @@ def test_a_failed_capture_raises_and_never_steps_eagerly():
     assert torch.equal(x + 1, torch.ones(4, device="cuda"))
 
 
+#: the bucketed engine (the JAX package's default) on the card: dense
+#: caches, or pages filled at admission and read by the paged kernel
+BUCKETED_ENGINES = {"dense": dict(), "paged": dict(backend="paged",
+                                                   kernel_decode=True)}
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7], ids=["greedy", "T0.7"])
+@pytest.mark.parametrize("backend", sorted(BUCKETED_ENGINES))
+def test_bucketed_engine_graph_against_eager(backend, temperature):
+    """The bucketed engine's captured prefill (one graph a bucket, on one
+    shared pool) and decode steps emit the eager steps' tokens bit for
+    bit, greedy and sampled (the sampler keeps no generator state, so a
+    replay draws the eager step's bits), with the same launch counts; one
+    capture a bucket used and one decode capture."""
+    from repro_torch.models import modules as TM
+    from repro_torch.serve import EngineConfig, build_engine
+    model = graph_model("")
+    cfg = EngineConfig(slots=4, cache_len=128, min_bucket=8,
+                       temperature=temperature, seed=3,
+                       **BUCKETED_ENGINES[backend])
+    out = {}
+    for capture in (True, False):
+        eng = build_engine(model, cfg, capture=capture)
+        reqs = graph_requests(eng)
+        TK.reset_launch_counts()
+        with TM.kernel_routing():
+            eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert all(r.done and len(r.out) == 8 for r in reqs)
+        out[capture] = ([r.out for r in reqs], TK.launch_counts(),
+                        eng.captures, eng.metrics())
+    (got, launches, captures, m), (want, eager, none, _) = \
+        out[True], out[False]
+    assert got == want
+    assert launches == eager and launches["rmsnorm"]
+    if backend == "paged":
+        assert launches["paged_decode_attention"]
+    assert captures == {"prefill": {b: 1 for b in m["prefill_buckets"]},
+                        "decode": 1}
+    assert none == {"prefill": {}, "decode": 0}
+
+
+def test_sampler_bits_on_the_card_equal_the_cpu():
+    """The counter-based sampler's int64 hash gives the CPU's bits on the
+    card, and its draws from the same bf16 logits the CPU's tokens."""
+    from repro_torch.serve.step import sample, sample_bits
+    gen = torch.Generator().manual_seed(5)
+    B, V = 8, 151936
+    slot = torch.arange(B)
+    pos = torch.randint(0, 2**31 - 1, (B,), generator=gen,
+                        dtype=torch.int32)
+    nonce = torch.randint(0, 2**31 - 1, (B,), generator=gen,
+                          dtype=torch.int32)
+    bits = sample_bits(77, slot.cuda(), pos.cuda(), nonce.cuda(), V)
+    assert torch.equal(bits.cpu(), sample_bits(77, slot, pos, nonce, V))
+    logits = torch.randn((B, V), generator=gen).to(torch.bfloat16)
+    got = sample(logits.cuda(), 0.7, 77, pos.cuda(), nonce.cuda())
+    assert torch.equal(got.cpu(), sample(logits, 0.7, 77, pos, nonce))
+
+
 def test_duplicate_paged_writes_leave_the_last_row():
     """Rows that target one position of a page pool (the idle slots' and
     pad rows' writes into the NULL page) leave the last such row's values,

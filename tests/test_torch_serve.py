@@ -165,17 +165,31 @@ def test_engine_config_validate_matches_jax(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(),                                              # dense backend
-    dict(backend="paged"),                               # bucketed prefill
-    dict(backend="paged", chunked_prefill=True, temperature=0.7),
     dict(backend="paged", chunked_prefill=True, speculate_k=2),
     dict(backend="paged", chunked_prefill=True, speculate_k=2,
          draft_arch="qwen1.5-0.5b"),
     dict(backend="paged", chunked_prefill=True, tp=2),
-])
+    dict(tp=2),
+    dict(backend="paged", tp=2, temperature=0.7),
+    dict(backend="paged", chunked_prefill=True, speculate_k=2,
+         temperature=0.7),
+], ids=["kw3", "kw4", "kw5", "tp2-default", "tp2-paged-sampled",
+        "sampled-speculation"])
 def test_unported_options_raise_naming_roadmap(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(**kw).validate().check_ported()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),                                              # dense backend
+    dict(backend="paged"),                               # bucketed prefill
+    dict(backend="paged", chunked_prefill=True, temperature=0.7),
+])
+def test_item6_options_are_ported(kw):
+    """The JAX defaults (dense backend, bucketed prefill) and temperature
+    sampling, which ROADMAP queue 1 item 6 brought."""
+    cfg = EngineConfig(**kw)
+    assert cfg.validate().check_ported() is cfg
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4", "mx4", "fp8"])
